@@ -1,0 +1,544 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``evam_tpu_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits nonzero and prints no result line:
+
+1. device   — a CUDA device of compute capability 9.0; prints its name
+              and power limit as ``nvidia-smi`` gives them.
+2. build    — compiles every kernel under ``evam_tpu_torch/csrc`` with
+              nvcc (one process per source, in parallel) into
+              ``build/kernels/``, and prints the seconds it took.
+3. qgemm    — the int8 GEMM kernel against its plain version at the ten
+              shapes one SSD-512 forward gives it (8 images, bf16), the
+              ragged shapes (bf16, and one in float32) and M = 0:
+              identical int8 codes and row scales, outputs within 1e-6
+              relative. Kernel, plain-version and library times — wall:
+              median of CUDA-event timings of 20 back-to-back calls;
+              device: kernel time from torch.profiler — and the bound.
+              The library yardstick is torch's cheapest correct
+              quantize (float32 division by a tensor), ``torch._int_mm``
+              and the dequantize; ``_int_mm`` on its own is timed too.
+              One JSON line per shape, then the sums over one forward.
+4. reference — the INT8 detector at a small size (64×64, width 8) on the
+              card with the kernel against the same weights on the CPU
+              through the plain version: loc/conf within 1e-2 of the
+              reference's max magnitude.
+5. slice    — the port's main path at full width: EVAM_PRECISION=int8,
+              EVAM_QGEMM=pallas, person_vehicle_bike at 512×512, width
+              32, seeded random weights. STREAMS (8) synthetic 512×512
+              streams × FRAMES (32) frames go StreamRunner →
+              DetectStage → EngineHub's shared BatchEngine →
+              metaconvert → publish. Every frame
+              must be published once, in order; the kernel must have
+              launched exactly 10 times per forward; one batch's packed
+              output and loc/conf must agree with the same step run with
+              the plain qgemm on the card. Prints fps, occupancy, p50/p99
+              frame latency and the engine's stage times.
+
+Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
+
+``--phases`` runs a subset (for a quick first check of a new kernel);
+``--profile`` adds a shorter profiled run (device busy share, kernel
+time by name).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("device", "build", "qgemm", "reference", "slice")
+KEY = "object_detection/person_vehicle_bike"
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense int8 ops/s
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+#: (M per image, K, N) of the 10 qgemm calls of one SSD-512 forward
+MAIN_SHAPES = [
+    (16384, 32, 64), (16384, 64, 64), (4096, 64, 128), (4096, 128, 128),
+    (1024, 128, 256), (1024, 256, 256), (256, 256, 512), (256, 512, 512),
+    (256, 512, 256), (64, 512, 256),
+]
+IMAGES = 8
+#: (M, K, N, x dtype) off the main path: ragged edges, float32 x, M = 0
+RAGGED_SHAPES = [(130, 32, 130, "bfloat16"), (130, 32, 130, "float32"),
+                 (1, 32, 64, "bfloat16"), (77, 40, 3, "bfloat16"),
+                 (0, 64, 64, "bfloat16")]
+#: the slice phase's traffic: synthetic 512×512 streams × frames each
+STREAMS = 8
+FRAMES = 32
+
+
+def _print(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _import_port():
+    """The port's modules this script drives (imports nothing of JAX)."""
+    from evam_tpu_torch.engine.hub import EngineHub
+    from evam_tpu_torch.engine.steps import build_detect_step
+    from evam_tpu_torch.media.source import SyntheticSource
+    from evam_tpu_torch.models.registry import ModelRegistry
+    from evam_tpu_torch.ops import kernels, qgemm, qlinear
+    from evam_tpu_torch.ops.preprocess import preprocess_wire
+    from evam_tpu_torch.stages.infer import (
+        ENGINE_SCORE_FLOOR,
+        DetectStage,
+        _wire_frame,
+    )
+    from evam_tpu_torch.stages.meta import MetaconvertStage, PublishStage
+    from evam_tpu_torch.stages.runner import StreamRunner
+
+    return dict(
+        EngineHub=EngineHub, build_detect_step=build_detect_step,
+        SyntheticSource=SyntheticSource, ModelRegistry=ModelRegistry,
+        kernels=kernels, qgemm=qgemm, qlinear=qlinear,
+        DetectStage=DetectStage, wire_frame=_wire_frame,
+        ENGINE_SCORE_FLOOR=ENGINE_SCORE_FLOOR,
+        MetaconvertStage=MetaconvertStage, PublishStage=PublishStage,
+        StreamRunner=StreamRunner, preprocess_wire=preprocess_wire)
+
+
+def _time_ms(torch, fn, calls: int = 20, rounds: int = 7) -> tuple[float, float]:
+    """(wall ms, device ms) per call of ``fn``.
+
+    Wall: the median over ``rounds`` of CUDA-event time around
+    ``calls`` back-to-back calls, divided by ``calls`` — what a caller
+    issuing them in a row gets, host launch cost included. Device: the
+    summed time of the kernels the calls ran (torch.profiler), per call
+    — the card's own work, without the gaps the host leaves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return statistics.median(times), device_us / 1e3 / calls
+
+
+def phase_qgemm(torch, port) -> dict:
+    """Kernel vs plain version at the main-path and ragged shapes."""
+    qg, ql = port["qgemm"], port["qlinear"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+              "device_ms": 0.0, "plain_device_ms": 0.0,
+              "library_device_ms": 0.0, "int_mm_ms": 0.0,
+              "int_mm_device_ms": 0.0}
+    max_err = 0.0
+    shapes = [(m * IMAGES, k, n, True, "bfloat16") for m, k, n in MAIN_SHAPES]
+    shapes += [(m, k, n, False, dt) for m, k, n, dt in RAGGED_SHAPES]
+    for m, k, n, main, dtype in shapes:
+        x = torch.randn((m, k), generator=gen, device="cuda").mul_(2.0)
+        x = x.to(getattr(torch, dtype))
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.2
+        wq, w_scale = ql.quantize_weight(w)
+        wq = wq.T.contiguous()
+        bias = torch.randn((n,), generator=gen, device="cuda") * 0.1
+        out, codes, scales = qg.qgemm(x, wq, w_scale, bias, return_codes=True)
+        ref = qg.qgemm_reference(x, wq, w_scale, bias)
+        torch.cuda.synchronize()
+        if m:
+            ref_codes, ref_scales = qg.quantize_rows(x)
+            if not torch.equal(scales, ref_scales):
+                raise AssertionError(f"qgemm {m}x{k}x{n}: row scales differ")
+            if not torch.equal(codes, ref_codes):
+                bad = (codes != ref_codes).nonzero()[:5].tolist()
+                examples = [{
+                    "x": x[i, j].item(), "scale": scales[i].item(),
+                    "kernel": codes[i, j].item(), "plain": ref_codes[i, j].item(),
+                    "quotient_f64": x[i, j].double().item() / scales[i].double().item(),
+                } for i, j in bad]
+                raise AssertionError(
+                    f"qgemm {m}x{k}x{n}: int8 codes differ in "
+                    f"{(codes != ref_codes).sum().item()} places: {examples}")
+        err = (out - ref).abs().max().item() if m else 0.0
+        scale = ref.abs().max().item() if m else 0.0
+        if err > 1e-6 * max(scale, 1e-30):
+            raise AssertionError(
+                f"qgemm {m}x{k}x{n}: max abs err {err} > 1e-6 x {scale}")
+        max_err = max(max_err, err)
+        row = {"phase": "qgemm", "m": m, "k": k, "n": n, "dtype": dtype,
+               "main_path": main, "max_abs_err": err, "codes_equal": True}
+        if m:
+            row["ms"], row["device_ms"] = _time_ms(
+                torch, lambda: qg.qgemm(x, wq, w_scale, bias))
+            row["plain_ms"], row["plain_device_ms"] = _time_ms(
+                torch, lambda: qg.qgemm_reference(x, wq, w_scale, bias))
+            nbytes = x.numel() * x.element_size() + wq.numel() + 4 * n * 2 + 4 * m * n
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_S
+            ops_ms = 1e3 * 2.0 * m * n * k / INT8_OPS_S
+            row.update(bytes=nbytes, ops=2 * m * n * k,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            row["library_ms"] = None
+            if m > 16 and k % 8 == 0 and n % 8 == 0:
+                wq_t = wq.T  # [K, N] column-major view of the [N, K] codes
+
+                def quantize():
+                    # the row scale rounded exactly (M divisions), then
+                    # x / scale as float32 division by a CUDA tensor
+                    xf = x.float()
+                    sc = torch.clamp(qg.div_rn(
+                        xf.abs().amax(1, keepdim=True), 127.0), min=1e-8)
+                    return torch.round(xf / sc).clamp_(-127, 127).to(torch.int8), sc
+
+                def library():
+                    xc, sc = quantize()
+                    acc = torch._int_mm(xc, wq_t)
+                    return acc.float() * sc * w_scale + bias
+
+                lib_codes, _ = quantize()
+                row["library_codes_equal"] = bool(torch.equal(lib_codes, codes))
+                lib_err = (library() - ref).abs().max().item()
+                if not row["library_codes_equal"] or lib_err > 1e-6 * max(scale, 1e-30):
+                    raise AssertionError(
+                        f"library yardstick disagrees at {m}x{k}x{n}: codes "
+                        f"{(lib_codes != codes).sum().item()} differ, err {lib_err}")
+                row["library_ms"], row["library_device_ms"] = _time_ms(
+                    torch, library)
+                row["int_mm_ms"], row["int_mm_device_ms"] = _time_ms(
+                    torch, lambda: torch._int_mm(lib_codes, wq_t))
+                # torch divides by a CPU scalar as a product with its
+                # reciprocal: the rows whose scale that rounds otherwise
+                amax = x.float().abs().amax(1)
+                row["scalar_div_scale_rows_off"] = int(
+                    (amax / 127.0 != qg.div_rn(amax, 127.0)).sum())
+            if main:
+                totals["ms"] += row["ms"]
+                totals["plain_ms"] += row["plain_ms"]
+                totals["device_ms"] += row["device_ms"]
+                totals["plain_device_ms"] += row["plain_device_ms"]
+                totals["bound_ms"] += row["bound_ms"]
+                totals["bytes_ms"] += bytes_ms
+                totals["ops_ms"] += ops_ms
+                lib_keys = ("library_ms", "library_device_ms", "int_mm_ms",
+                            "int_mm_device_ms")
+                if row["library_ms"] is None:
+                    totals.update(dict.fromkeys(lib_keys))
+                elif totals["library_ms"] is not None:
+                    for key in lib_keys:
+                        totals[key] += row[key]
+        _print(row)
+    totals["max_abs_err"] = max_err
+    totals["bound_by"] = ("bytes" if totals["bytes_ms"] >= totals["ops_ms"]
+                          else "operations")
+    _print({"phase": "qgemm-forward", "images": IMAGES, **totals})
+    return totals
+
+
+def phase_reference(torch, port) -> None:
+    """Small INT8 detector: card (kernel) against CPU (plain version)."""
+    kw = dict(dtype="int8", allow_random_weights=True,
+              input_overrides={KEY: (64, 64)}, width_overrides={KEY: 8})
+    cpu = port["ModelRegistry"](device="cpu", **kw).get(KEY)
+    gpu = port["ModelRegistry"](device="cuda", **kw).get(KEY)
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.rand((4, 64, 64, 3), generator=gen) * 255).to(torch.bfloat16)
+    with torch.inference_mode():
+        ref = cpu.forward(x)
+        got = gpu.forward(x.cuda())
+    for name in ("loc", "conf"):
+        r = ref[name].float()
+        g = got[name].float().cpu()
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"reference phase: bad {name} {tuple(g.shape)}")
+        diff = (g - r).abs().max().item()
+        scale = r.abs().max().item()
+        _print({"phase": "reference", "output": name, "max_abs_diff": diff,
+                "max_abs_ref": scale})
+        if diff > 1e-2 * scale:
+            raise AssertionError(
+                f"reference phase: {name} differs by {diff} > 1e-2 x {scale}")
+
+
+def _match_rate(ref, got, iou_min=0.9) -> float:
+    """Share of ref's valid detections matched by a got detection of the
+    same label with IoU ≥ iou_min (packed rows, one frame)."""
+    import numpy as np
+
+    r = ref[ref[:, 6] > 0.5]
+    g = got[got[:, 6] > 0.5]
+    if len(r) == 0:
+        return 1.0
+    hit = 0
+    for row in r:
+        same = g[g[:, 5] == row[5]]
+        if len(same) == 0:
+            continue
+        lt = np.maximum(row[:2], same[:, :2])
+        rb = np.minimum(row[2:4], same[:, 2:4])
+        inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+        area = lambda b: np.prod(np.clip(b[..., 2:4] - b[..., :2], 0, None), axis=-1)
+        iou = inter / np.maximum(area(row) + area(same) - inter, 1e-9)
+        hit += bool((iou >= iou_min).any())
+    return hit / len(r)
+
+
+def _serve(port, hub, streams: int, frames: int, h: int, w: int):
+    """Serve ``streams`` synthetic streams of ``frames`` frames each,
+    one thread per stream, through the shared detect engine. Returns
+    (runners, published seqs per stream, wall seconds, threads)."""
+    published: dict[str, list[int]] = {}
+    lock = threading.Lock()
+
+    def publish(ctx):
+        with lock:
+            published.setdefault(ctx.stream_id, []).append(ctx.seq)
+
+    runners = []
+    for s in range(streams):
+        uri = f"synthetic://{w}x{h}@30?count={frames}&seed={s}"
+        stages = [
+            port["DetectStage"]("detect", KEY, {"threshold": 0.2}, hub),
+            port["MetaconvertStage"]("meta", source_uri=uri),
+            port["PublishStage"]("publish", publish),
+        ]
+        runners.append((port["StreamRunner"](f"s{s}", stages, uri),
+                        port["SyntheticSource"].from_uri(uri)))
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=r.run, args=(src.frames(),))
+               for r, src in runners]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return [r for r, _ in runners], published, time.perf_counter() - t0, threads
+
+
+def _profile_serve(torch, port, hub, streams, frames, h, w) -> dict:
+    """Device busy share and kernel time by name over a served run
+    (torch.profiler; a second, shorter run — the profiler slows the
+    host that issues the launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, wall, _ = _serve(port, hub, streams, frames, h, w)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    by_name: dict[str, float] = {}
+    for e in kernels:  # names cut to 80 characters can collide: sum them
+        name = e.key[:80]
+        by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"phase": "slice-profile", "wall_s": wall,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels_ms": dict(top)}
+
+
+def phase_slice(torch, port, profile: bool = False) -> dict:
+    """The main path at full width, served to STREAMS streams."""
+    import numpy as np
+
+    qg, ql = port["qgemm"], port["qlinear"]
+    if ql.QGEMM_BACKEND != "pallas":
+        raise AssertionError("EVAM_QGEMM=pallas did not reach ops/qlinear.py")
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    if registry.precision != "INT8":
+        raise AssertionError("EVAM_PRECISION=int8 did not select INT8")
+    hub = port["EngineHub"](registry, device="cuda")
+    try:
+        model = hub.model(KEY)
+        h, w = model.preprocess.height, model.preprocess.width
+        engine = hub.engine("detect", KEY,
+                            score_threshold=port["ENGINE_SCORE_FLOOR"])
+        # warm every bucket the run can use (cuDNN and allocator set-up),
+        # then count from zero
+        wire = port["wire_frame"](
+            next(port["SyntheticSource"](w, h, count=1).frames()).frame,
+            (h, w), "i420")
+        for b in engine.buckets:
+            if b <= STREAMS * 4:
+                engine.step_fn(torch.from_numpy(
+                    wire[None].repeat(b, 0)).cuda()).cpu()
+
+        qg.launches = 0
+        batches0 = engine.stats_row()["batches"]
+        runners, published, wall, threads = _serve(port, hub, STREAMS,
+                                                   FRAMES, h, w)
+        launches = qg.launches
+        stats = engine.stats_row()
+        forwards = stats["batches"] - batches0
+
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("slice phase: a stream did not finish")
+        errors = sum(r.errors for r in runners)
+        if errors:
+            raise AssertionError(f"slice phase: {errors} frame errors")
+        for s in range(STREAMS):
+            seqs = published.get(f"s{s}", [])
+            if seqs != list(range(FRAMES)):
+                raise AssertionError(
+                    f"slice phase: stream s{s} published {len(seqs)} of "
+                    f"{FRAMES} frames (in order: {seqs == sorted(seqs)})")
+        if launches != 10 * forwards or forwards == 0:
+            raise AssertionError(
+                f"slice phase: {launches} qgemm launches for {forwards} "
+                "forwards, expected 10 per forward")
+
+        # one batch again, kernel against plain qgemm on the card
+        batch = torch.from_numpy(np.stack([
+            port["wire_frame"](ev.frame, (h, w), "i420")
+            for s in range(IMAGES)
+            for ev in port["SyntheticSource"](w, h, count=1, seed=s).frames()
+        ])).cuda()
+        step = engine.step_fn
+        with torch.inference_mode():
+            x = port["preprocess_wire"](batch, dataclasses.replace(
+                model.preprocess, wire_format="i420"))
+            packed_k = step(batch).cpu().numpy()
+            raw_k = {k: v.float().cpu() for k, v in model.forward(x).items()}
+            ql.qgemm = qg.qgemm_reference
+            try:
+                packed_p = step(batch).cpu().numpy()
+                raw_p = {k: v.float().cpu() for k, v in model.forward(x).items()}
+            finally:
+                ql.qgemm = qg.qgemm
+        check = {"phase": "slice-check"}
+        for name in ("loc", "conf"):
+            d = (raw_k[name] - raw_p[name]).abs().max().item()
+            scale = raw_p[name].abs().max().item()
+            check[f"{name}_max_abs_diff"] = d
+            check[f"{name}_max_abs_ref"] = scale
+            if not torch.isfinite(raw_k[name]).all() or d > 1e-2 * scale:
+                raise AssertionError(f"slice check: {name} differs by {d}")
+        rates = [_match_rate(packed_p[i], packed_k[i]) for i in range(IMAGES)]
+        check["packed_equal"] = bool((packed_k == packed_p).all())
+        check["detections_matched"] = min(rates)
+        check["valid_per_frame"] = float((packed_p[..., 6] > 0.5).sum(-1).mean())
+        if packed_k.shape != (IMAGES, 32, 7) or min(rates) < 0.95:
+            raise AssertionError(f"slice check failed: {check}")
+        _print(check)
+
+        lat = sorted(x for r in runners for x in r.latencies)
+        q = lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
+        row = {"phase": "slice", "streams": STREAMS, "frames_per_stream": FRAMES,
+               "frames": len(lat), "wall_s": wall, "fps": len(lat) / wall,
+               "forwards": forwards, "qgemm_launches": launches,
+               "mean_occupancy": stats["mean_occupancy"],
+               "bucket_batches": stats["bucket_batches"],
+               "p50_ms": 1e3 * q(0.50), "p99_ms": 1e3 * q(0.99),
+               "stage_ms": stats["stage_ms"],
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        _print(row)
+        if profile:
+            _print(_profile_serve(torch, port, hub, STREAMS, 8, h, w))
+        return {"launches": launches, "input_hw": (h, w),
+                "width": model.spec.width}
+    finally:
+        hub.stop()
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--profile", action="store_true",
+                    help="after the slice run, profile a shorter one")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "evam_tpu_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    # the slice's configuration, set before the port reads its knobs
+    os.environ["EVAM_PRECISION"] = "int8"
+    os.environ["EVAM_QGEMM"] = "pallas"
+    port = _import_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        print(f"chip_smoke: needs a compute capability 9.0 device, got {cap}",
+              file=sys.stderr)
+        return 1
+    smi = _nvidia_smi()
+    _print({"phase": "device", "name": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "torch": torch.__version__,
+            "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    built = port["kernels"].build()
+    _print({"phase": "build", "seconds": time.perf_counter() - t0,
+            "kernels": {k: v["seconds"] for k, v in built.items()}})
+
+    kernel = {"name": "qgemm", "route": "cuda",
+              "source": "evam_tpu_torch/csrc/qgemm.cu",
+              "replaces": "evam_tpu/ops/pallas_qgemm.py:33",
+              "launches": None, "max_abs_err": None, "ms": None,
+              "plain_ms": None, "bound_ms": None, "bound_by": None,
+              "library_ms": None}
+    if "qgemm" in phases:
+        totals = phase_qgemm(torch, port)
+        kernel.update({k: totals[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+    if "reference" in phases:
+        phase_reference(torch, port)
+    if "slice" in phases:
+        res = phase_slice(torch, port, profile=args.profile)
+        if res["input_hw"] != (512, 512) or res["width"] != 32:
+            raise AssertionError(f"slice ran {res['input_hw']} width "
+                                 f"{res['width']}, not the full-width model")
+        kernel["launches"] = res["launches"]
+    torch.cuda.synchronize()
+    _print({"kernels": [kernel]})
+    print(smi, flush=True)
+    _print({"ok": True, "device": {"platform": "gpu",
+                                   "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
