@@ -27,11 +27,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: kernel name → CUDA source under csrc/
 SOURCES = {"qgemm": "qgemm.cu"}
 
-#: no --use_fast_math: the int8 codes match the plain version only with
-#: IEEE division and round-to-nearest-even
+#: no --use_fast_math, and IEEE arithmetic spelled out: the int8 codes
+#: match the plain version only with IEEE division and denormals kept,
+#: the epilogue only without multiply-add contraction
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "--prec-div=true", "--ftz=false", "--fmad=false",
 )
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
 """The port imports nothing of JAX, flax or the reference package.
 
-``evam_tpu_torch`` and ``chip_smoke.py`` must run on a machine that has
+``evam_tpu_torch``, ``chip_smoke.py`` and ``tools/cuda_qgemm_bench.py``
+must run on a machine that has
 neither JAX nor flax. Two checks: every module imports in a subprocess
 where ``jax``, ``flax`` and ``evam_tpu`` are blocked, and an AST scan
 finds no import of them (``evam_tpu_torch`` itself starts with
@@ -20,7 +21,8 @@ BLOCKED = ("jax", "flax", "evam_tpu")
 
 
 def _port_files() -> list[Path]:
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "tools" / "cuda_qgemm_bench.py"]
 
 
 def _module_name(path: Path) -> str:

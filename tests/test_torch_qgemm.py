@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from evam_tpu.ops import qlinear as jql
 from evam_tpu.ops.pallas_qgemm import _qgemm, pallas_quant_dense
+from chip_smoke import IMAGES, MAIN_SHAPES, RAGGED_SHAPES
 from evam_tpu_torch.ops import qgemm as tqg
 from evam_tpu_torch.ops import qlinear as tql
 
@@ -205,7 +206,162 @@ def test_wrapper_checks_operands():
 def test_kernel_source_is_built_without_fast_math():
     from evam_tpu_torch.ops import kernels
 
-    assert "--use_fast_math" not in kernels.NVCC_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+    flags = kernels.NVCC_FLAGS
+    assert not any("fast_math" in f or "fast-math" in f for f in flags)
+    # IEEE division, denormals kept, no multiply-add contraction
+    assert {"--prec-div=true", "--ftz=false", "--fmad=false"} <= set(flags)
+    assert not {"--prec-div=false", "--ftz=true", "--fmad=true",
+                "-prec-div=false", "-ftz=true", "-fmad=true"} & set(flags)
+    # every flag is one of these: target, language, optimisation, shared
+    # library, and the three above
+    assert set(flags) <= {
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "--prec-div=true", "--ftz=false",
+        "--fmad=false"}
     assert kernels.library_path("qgemm").parent == kernels.BUILD_DIR
     assert (kernels.CSRC / kernels.SOURCES["qgemm"]).is_file()
+
+
+# --- the launch plan (ops/qgemm.py::plan), which the CUDA entry takes as is
+
+MAIN = [(m * IMAGES, k, n) for m, k, n in MAIN_SHAPES]
+RAGGED = [(m, k, n, dt) for m, k, n, dt in RAGGED_SHAPES if m]
+PLAN_CASES = ([(m, k, n, "bfloat16") for m, k, n in MAIN] + RAGGED)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", PLAN_CASES)
+def test_plan_covers_every_output_once(m, k, n, dtype):
+    p = tqg.plan(m, n, k, getattr(torch, dtype))
+    assert (p.bm, p.bn) in tqg.TILES
+    # row block bx takes row tiles bx, bx + grid[0], ... (csrc/qgemm.cu)
+    # and column block by the column tiles by * nsub, ... (at most nsub)
+    mtiles, ntiles = -(-m // p.bm), -(-n // p.bn)
+    assert 1 <= p.grid[0] <= mtiles
+    assert p.grid[1] == -(-ntiles // p.nsub)
+    hits = np.zeros((mtiles * p.bm, ntiles * p.bn), np.int8)
+    for bx in range(p.grid[0]):
+        for mt in range(bx, mtiles, p.grid[0]):
+            for by in range(p.grid[1]):
+                for nt in range(by * p.nsub, min((by + 1) * p.nsub, ntiles)):
+                    hits[mt * p.bm:(mt + 1) * p.bm,
+                         nt * p.bn:(nt + 1) * p.bn] += 1
+    assert (hits == 1).all()
+    assert (mtiles - 1) * p.bm < m and (ntiles - 1) * p.bn < n
+    # K chunks of whole k-steps cover K
+    assert p.kc % 32 == 0 and p.kc >= 32
+    assert -(-k // p.kc) * p.kc >= k
+
+
+@pytest.mark.parametrize("m,k,n,dtype", PLAN_CASES)
+def test_plan_fits_and_fills_the_card(m, k, n, dtype):
+    p = tqg.plan(m, n, k, getattr(torch, dtype))
+    esize = 2 if dtype == "bfloat16" else 4
+    kp = -(-k // 32) * 32
+    # x buffers: two where K is in chunks or a block has several row
+    # tiles; weight buffers: two where K is in chunks or a block has
+    # several column tiles (csrc/qgemm.cu)
+    chunked = p.kc < kp
+    bufs = (2 if chunked or p.grid[0] < -(-m // p.bm) else 1,
+            2 if chunked or p.nsub > 1 else 1)
+    assert not chunked or p.nsub == 1
+    assert p.smem == tqg.smem_bytes(p.bm, p.bn, p.kc, esize, *bufs)
+    assert p.smem <= 232448
+    if m * n / (16 * 8) >= 132:
+        assert p.blocks >= 132, p
+
+
+@pytest.mark.parametrize("m,k,n", MAIN)
+def test_main_shapes_take_the_aligned_variant(m, k, n):
+    p = tqg.plan(m, n, k, torch.bfloat16)
+    assert p.variant == "aligned" and not p.masked
+    # K whole in shared memory: each row quantized once per block
+    assert p.kc >= k
+    # large M: all of N (<= 128) in one block
+    if m >= 32768:
+        assert p.bn * p.nsub >= n and p.grid[1] == 1
+
+
+def test_ragged_shapes_reach_every_edge_of_the_tiling():
+    """chip_smoke.py's ragged shapes: K off 32, K = 2048 held whole and
+    in chunks (bf16 and float32), N > 512, N off 8, M < 16, M off the
+    row tile — the masked and aligned variants both, and a masked plan
+    whose blocks walk several row tiles."""
+    plans = {(m, k, n, dt): tqg.plan(m, n, k, getattr(torch, dt))
+             for m, k, n, dt in RAGGED}
+    assert any(k % 32 for m, k, n, dt in plans)
+    assert any(n > 512 for m, k, n, dt in plans)
+    assert any(n % 8 for m, k, n, dt in plans)
+    assert any(m < 16 for m, k, n, dt in plans)
+    assert any(m % p.bm for (m, k, n, dt), p in plans.items())
+    assert any(k == 2048 and p.kc < k and dt == "bfloat16"
+               for (m, k, n, dt), p in plans.items())
+    assert any(k == 2048 and p.kc < k and dt == "float32"
+               for (m, k, n, dt), p in plans.items())
+    assert any(k == 2048 and p.kc >= k for (m, k, n, dt), p in plans.items())
+    assert {p.variant for p in plans.values()} == {"aligned", "masked"}
+    assert any(p.masked and p.grid[0] < -(-m // p.bm)
+               for (m, k, n, dt), p in plans.items())
+    assert any(dt == "float32" and p.masked for (m, k, n, dt), p in plans.items())
+
+
+def test_unaligned_pointers_take_the_masked_variant():
+    assert tqg.plan(1024, 64, 64, torch.bfloat16).variant == "aligned"
+    p = tqg.plan(1024, 64, 64, torch.bfloat16, pointers_aligned=False)
+    assert p.variant == "masked"
+
+
+def test_plan_chunks_k_only_where_it_does_not_fit():
+    for m, k, n, dt in PLAN_CASES:
+        p = tqg.plan(m, n, k, getattr(torch, dt))
+        esize = 2 if dt == "bfloat16" else 4
+        kp = -(-k // 32) * 32
+        if p.kc < kp:
+            assert tqg.smem_bytes(p.bm, p.bn, kp, esize, 1, 1) > tqg.SMEM_SOFT
+            assert p.smem <= tqg.SMEM_SOFT
+
+
+def _fast_codes(x: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """The kernel's quantization rule (csrc/qgemm.cu ``quantize``) in
+    numpy float32: round x * (1 / scale) through the float adder, and
+    divide where that product lies within 1e-4 of a half-integer."""
+    f32 = np.float32
+    inv = (f32(1) / scale).astype(f32)[:, None]
+    y = (x * inv).astype(f32)
+    t = (y + f32(12582912.0)).astype(f32)
+    d = (y - (t - f32(12582912.0))).astype(f32)
+    q = t.view(np.int32) - 0x4B400000
+    slow = ~(np.abs(d) <= f32(0.4999))
+    exact = np.rint((x.astype(np.float64) / scale[:, None]).astype(f32))
+    q = np.where(slow, np.clip(exact, -127, 127), q)
+    return q.astype(np.int32), slow
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernels_quantization_rule_equals_division(seed):
+    """The product with the reciprocal, rounded through the adder, gives
+    the IEEE quotient's codes; near half-integers it divides."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(64, 4096)) * 10.0 ** rng.uniform(-6, 3, (64, 1)))
+    x = x.astype(np.float32)
+    x[0] = 0.0                                   # scale floor 1e-8
+    x[1, :8] = [127, -127, 0.5, -0.5, 1.5, 2.5, 126.5, -126.5]  # ties
+    x[2] = np.float32(1e-9) * np.arange(4096, dtype=np.float32)  # tiny
+    codes, scale = tqg.quantize_rows(torch.from_numpy(x))
+    got, slow = _fast_codes(x, scale.numpy())
+    np.testing.assert_array_equal(got, codes.numpy().astype(np.int32))
+    assert np.abs(got).max() <= 127
+    assert slow.mean() < 1e-3   # the division is rare
+
+
+def test_plain_matches_pallas_interpret_at_k_2048():
+    """The zoo's largest K, in the Pallas kernel's interpret mode."""
+    x, w, b = _operands(16, 2048, 16, seed=11)
+    ref = pallas_quant_dense(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                             interpret=True)
+    got = _port(x, w, b)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    codes, _ = tqg.quantize_rows(torch.from_numpy(x))
+    pallas = _pallas_codes(x)
+    np.testing.assert_array_equal(
+        np.rint(pallas / tqg.quantize_rows(torch.from_numpy(x))[1].numpy()[:, None]),
+        codes.numpy())
