@@ -43,6 +43,24 @@ Phases, in order; any failure exits nonzero and prints no result line:
               output and loc/conf must agree with the same step run with
               the plain qgemm on the card. Prints fps, occupancy, p50/p99
               frame latency and the engine's stage times.
+6. rest     — the same path through the port's REST server
+              (``evam_tpu_torch.server.app``) on a free 127.0.0.1 port, in
+              a thread: STREAMS POSTs to
+              /pipelines/object_detection/person_vehicle_bike, each a
+              synthetic 512×512 stream of FRAMES frames into a file
+              destination, polled on /pipelines/status until COMPLETED.
+              Every file must hold FRAMES lines in timestamp order, each
+              of the shape of tests/golden/message_eva_metadata.json;
+              /engines must show one shared detect engine; the kernel
+              must have launched 10 times per forward, all aligned; stream
+              0's objects must match the slice phase's (≥ 95 % at IoU ≥
+              0.9); DELETE on a long ninth stream must give ABORTED; an
+              unknown pipeline, a body without a source and a pipeline of
+              a later slice must answer 404, 400 and 501.
+7. serve    — the real entry point, ``python3 -m
+              evam_tpu_torch.cli.main serve``, as a subprocess on a free
+              REST_PORT: /healthz answers 200, one 8-frame stream
+              completes, and SIGTERM ends the process with 0 in 30 s.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -57,16 +75,23 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
+import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "qgemm", "reference", "slice")
+PHASES = ("device", "build", "qgemm", "reference", "slice", "rest", "serve")
 KEY = "object_detection/person_vehicle_bike"
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense int8 ops/s
 HBM_BYTES_S = 3.35e12
@@ -121,10 +146,15 @@ def _import_port():
         DetectStage,
         _wire_frame,
     )
+    from evam_tpu_torch.config.settings import Settings
+    from evam_tpu_torch.server.app import App, make_server
+    from evam_tpu_torch.server.registry import PipelineRegistry
     from evam_tpu_torch.stages.meta import MetaconvertStage, PublishStage
     from evam_tpu_torch.stages.runner import StreamRunner
 
     return dict(
+        Settings=Settings, App=App, make_server=make_server,
+        PipelineRegistry=PipelineRegistry,
         EngineHub=EngineHub, build_detect_step=build_detect_step,
         SyntheticSource=SyntheticSource, ModelRegistry=ModelRegistry,
         kernels=kernels, qgemm=qgemm, qlinear=qlinear,
@@ -377,16 +407,20 @@ def _match_rate(ref, got, iou_min=0.9) -> float:
     return hit / len(r)
 
 
-def _serve(port, hub, streams: int, frames: int, h: int, w: int):
+def _serve(port, hub, streams: int, frames: int, h: int, w: int,
+           objects: dict | None = None):
     """Serve ``streams`` synthetic streams of ``frames`` frames each,
     one thread per stream, through the shared detect engine. Returns
-    (runners, published seqs per stream, wall seconds, threads)."""
+    (runners, published seqs per stream, wall seconds, threads); stream
+    s0's published objects land in ``objects`` (seq → list), if given."""
     published: dict[str, list[int]] = {}
     lock = threading.Lock()
 
     def publish(ctx):
         with lock:
             published.setdefault(ctx.stream_id, []).append(ctx.seq)
+            if objects is not None and ctx.stream_id == "s0":
+                objects[ctx.seq] = ctx.metadata["objects"]
 
     runners = []
     for s in range(streams):
@@ -462,8 +496,9 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
         qg.launches = 0
         qg.variant_launches.update(aligned=0, masked=0)
         batches0 = engine.stats_row()["batches"]
+        s0_objects: dict[int, list] = {}
         runners, published, wall, threads = _serve(port, hub, STREAMS,
-                                                   FRAMES, h, w)
+                                                   FRAMES, h, w, s0_objects)
         launches = qg.launches
         masked = qg.variant_launches["masked"]
         stats = engine.stats_row()
@@ -536,9 +571,314 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
         if profile:
             _print(_profile_serve(torch, port, hub, STREAMS, 8, h, w))
         return {"launches": launches, "input_hw": (h, w),
-                "width": model.spec.width}
+                "width": model.spec.width, "s0_objects": s0_objects}
     finally:
         hub.stop()
+
+
+#: published-metadata golden (read only) and the routes the rest phase
+#: drives
+GOLDEN = ROOT / "tests" / "golden" / "message_eva_metadata.json"
+PIPELINE = "/pipelines/" + KEY
+_UUID_RE = re.compile(
+    r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}$")
+_ENUM_RE = re.compile(r"^[A-Za-z0-9_\-/. :=,]{1,64}$")
+
+
+def canonical(obj):
+    """The golden files' canonical form (a copy of
+    ``tests/test_golden.py::canonical``): keys and enum strings
+    literal, volatile values as typed placeholders, a list as its first
+    element."""
+    if isinstance(obj, dict):
+        return {k: canonical(obj[k]) for k in sorted(obj)}
+    if isinstance(obj, list):
+        return [canonical(obj[0])] if obj else []
+    if isinstance(obj, bool):
+        return "<bool>"
+    if isinstance(obj, (int, float)):
+        return "<num>"
+    if isinstance(obj, str):
+        if _UUID_RE.match(obj):
+            return "<uuid>"
+        if _ENUM_RE.match(obj):
+            return obj
+        return "<str>"
+    if obj is None:
+        return None
+    return f"<{type(obj).__name__}>"
+
+
+def _shape_errors(got, want, path="$") -> list[str]:
+    """Where a canonical message ``got`` leaves the golden's shape
+    ``want``: the same keys, ``<num>`` where it has one, and a string
+    where it has a string — a label is data, so any label passes."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [f"{path}: {got}"]
+        return [e for k in want for e in _shape_errors(got[k], want[k],
+                                                       f"{path}.{k}")]
+    if isinstance(want, list):
+        if not isinstance(got, list):
+            return [f"{path}: not a list"]
+        return [e for g in got for e in _shape_errors(g, want[0], path + "[]")]
+    if want == "<num>":
+        return [] if got == "<num>" else [f"{path}: {got!r}"]
+    return [] if isinstance(got, str) and not got.startswith("<") or \
+        got == "<str>" else [f"{path}: {got!r}"]
+
+
+def _line_errors(msg: dict, golden: dict) -> list[str]:
+    """A published line against the golden, object by object (the
+    canonical form keeps only a list's first element), with finite
+    numbers."""
+    errors = _shape_errors(canonical(msg), golden)
+    for obj in msg.get("objects", []):
+        errors += _shape_errors(canonical(obj), golden["objects"][0],
+                                "$.objects[]")
+        numbers = [obj["detection"]["confidence"],
+                   *obj["detection"]["bounding_box"].values()]
+        if not all(math.isfinite(x) for x in numbers):
+            errors.append(f"not finite: {numbers}")
+    return errors
+
+
+def _http(base: str, method: str, path: str, body=None):
+    """(status, JSON body) of one request to the port's server."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def _wait_states(base: str, ids, states, timeout: float) -> dict:
+    """Poll /pipelines/status until every id is in one of ``states``."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        _, rows = _http(base, "GET", "/pipelines/status")
+        by_id = {r["id"]: r for r in rows if r["id"] in ids}
+        if len(by_id) == len(ids) and all(
+                r["state"] in states for r in by_id.values()):
+            return by_id
+        if time.perf_counter() > deadline:
+            raise AssertionError(
+                f"instances not {states} after {timeout} s: "
+                f"{[(r['id'][:8], r['state'], r.get('message')) for r in by_id.values()]}")
+        time.sleep(0.05)
+
+
+def _stream_body(out: Path, count: int | None, seed: int) -> dict:
+    query = f"seed={seed}" if count is None else f"count={count}&seed={seed}"
+    return {"source": {"uri": f"synthetic://512x512@30?{query}",
+                       "type": "uri"},
+            "destination": {"metadata": {"type": "file", "path": str(out)}},
+            "parameters": {"threshold": 0.2}}
+
+
+def _rows(objects: list[dict]):
+    """Published objects → packed detect rows (x0, y0, x1, y1, score,
+    label_id, valid) for ``_match_rate``."""
+    import numpy as np
+
+    return np.asarray([[o["detection"]["bounding_box"][k] for k in
+                        ("x_min", "y_min", "x_max", "y_max")]
+                       + [o["detection"]["confidence"],
+                          o["detection"]["label_id"], 1.0]
+                       for o in objects], np.float64).reshape(-1, 7)
+
+
+def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
+    """The main path through the port's REST server, in this process."""
+    qg = port["qgemm"]
+    golden = json.loads(GOLDEN.read_text())  # canonical already
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        settings = port["Settings"].from_env(env={
+            "EVAM_PRECISION": "int8", "EVAM_ALLOW_RANDOM_WEIGHTS": "1",
+            "PIPELINES_DIR": str(ROOT / "pipelines"),
+            "MODELS_DIR": str(tmp / "models")})
+        registry = port["PipelineRegistry"](settings)
+        server = port["make_server"](port["App"](registry), "127.0.0.1", 0)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            qg.launches = 0
+            qg.variant_launches.update(aligned=0, masked=0)
+            t0 = time.perf_counter()
+            ids = []
+            for s in range(STREAMS):
+                status, iid = _http(base, "POST", PIPELINE, _stream_body(
+                    tmp / f"s{s}.jsonl", FRAMES, s))
+                if status != 200:
+                    raise AssertionError(f"rest: POST {s} gave {status} {iid}")
+                ids.append(iid)
+            done = _wait_states(base, ids, ("COMPLETED", "ERROR", "ABORTED"),
+                                timeout=600)
+            wall = time.perf_counter() - t0
+            launches = qg.launches
+            masked = qg.variant_launches["masked"]
+            bad = {i[:8]: (r["state"], r.get("message"))
+                   for i, r in done.items() if r["state"] != "COMPLETED"}
+            if bad:
+                raise AssertionError(f"rest: instances did not complete: {bad}")
+            _, engines = _http(base, "GET", "/engines")
+            _, health = _http(base, "GET", "/healthz")
+            if list(engines) != [f"detect:{KEY}"]:
+                raise AssertionError(f"rest: engines {list(engines)}, "
+                                     "expected one shared detect engine")
+            row = engines[f"detect:{KEY}"]
+            forwards = row["batches"]
+            if forwards == 0 or launches != 10 * forwards or masked:
+                raise AssertionError(
+                    f"rest: {launches} qgemm launches ({masked} masked) for "
+                    f"{forwards} forwards, expected 10 aligned per forward")
+
+            frames = 0
+            n_objects = 0
+            for s in range(STREAMS):
+                lines = [json.loads(x) for x in
+                         (tmp / f"s{s}.jsonl").read_text().splitlines()]
+                stamps = [m["timestamp"] for m in lines]
+                if len(lines) != FRAMES or stamps != sorted(stamps):
+                    raise AssertionError(
+                        f"rest: stream {s} published {len(lines)} lines, "
+                        f"in timestamp order: {stamps == sorted(stamps)}")
+                for m in lines:
+                    errors = _line_errors(m, golden)
+                    if errors:
+                        raise AssertionError(f"rest: stream {s} line off the "
+                                             f"golden's shape: {errors[:3]}")
+                    n_objects += len(m["objects"])
+                frames += len(lines)
+                if s == 0:
+                    rates = [_match_rate(_rows(slice_objects[i]),
+                                         _rows(m["objects"]))
+                             for i, m in enumerate(lines)]
+            if not any(slice_objects.values()) or min(rates) < 0.95:
+                raise AssertionError(
+                    f"rest: stream 0 matches the slice run at {min(rates)} "
+                    f"({sum(map(len, slice_objects.values()))} objects)")
+
+            # a long ninth stream, deleted while it runs
+            status, long_id = _http(base, "POST", PIPELINE, _stream_body(
+                tmp / "long.jsonl", None, 9))
+            if status != 200:
+                raise AssertionError(f"rest: long POST gave {status} {long_id}")
+            deadline = time.perf_counter() + 120
+            while not (tmp / "long.jsonl").exists() or \
+                    not (tmp / "long.jsonl").read_text():
+                if time.perf_counter() > deadline:
+                    raise AssertionError("rest: the long stream published nothing")
+                time.sleep(0.05)
+            status, _ = _http(base, "DELETE", f"{PIPELINE}/{long_id}")
+            final = _wait_states(base, [long_id],
+                                 ("COMPLETED", "ERROR", "ABORTED"), 60)
+            if status != 200 or final[long_id]["state"] != "ABORTED":
+                raise AssertionError(f"rest: DELETE gave {status}, state "
+                                     f"{final[long_id]['state']}")
+
+            errors = {
+                "404": _http(base, "GET", "/pipelines/object_detection/nope"),
+                "400": _http(base, "POST", PIPELINE, {"destination": {}}),
+                "501": _http(base, "POST",
+                             "/pipelines/object_classification/"
+                             "vehicle_attributes",
+                             {"source": {"uri": "synthetic://512x512@30?count=4",
+                                         "type": "uri"}}),
+            }
+            for want, (status, body) in errors.items():
+                if str(status) != want or "error" not in body:
+                    raise AssertionError(f"rest: expected {want}, got "
+                                         f"{status} {body}")
+            _, engines_after = _http(base, "GET", "/engines")
+            if list(engines_after) != [f"detect:{KEY}"]:
+                raise AssertionError(f"rest: engines {list(engines_after)} "
+                                     "after the error requests")
+            result = {
+                "phase": "rest", "streams": STREAMS, "frames": frames,
+                "objects": n_objects, "wall_s": wall, "fps": frames / wall,
+                "avg_fps": [done[i]["avg_fps"] for i in ids],
+                "forwards": forwards, "qgemm_launches": launches,
+                "mean_occupancy": row["mean_occupancy"],
+                "bucket_batches": row["bucket_batches"],
+                "host_stages_ms": health["host_stages_ms"],
+                "match_rate_s0": min(rates),
+                "errors": {k: v[1]["error"] for k, v in errors.items()}}
+            _print(result)
+            return launches
+        finally:
+            server.shutdown()
+            server.server_close()
+            registry.stop_all()
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_serve() -> None:
+    """``python3 -m evam_tpu_torch.cli.main serve`` as a user starts it."""
+    rest_port = _free_port()
+    base = f"http://127.0.0.1:{rest_port}"
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, REST_PORT=str(rest_port),
+                   EVAM_PRECISION="int8", EVAM_QGEMM="pallas",
+                   EVAM_ALLOW_RANDOM_WEIGHTS="1",
+                   MODELS_DIR=str(Path(tmp) / "models"))
+        log_path = Path(tmp) / "serve.log"
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        try:
+            while True:
+                try:
+                    status, _ = _http(base, "GET", "/healthz")
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                if proc.poll() is not None or time.perf_counter() - t0 > 120:
+                    raise AssertionError(
+                        f"serve: no /healthz (exit {proc.poll()}): "
+                        f"{log_path.read_text()[-2000:]}")
+                time.sleep(0.2)
+            up_s = time.perf_counter() - t0
+            out = Path(tmp) / "serve.jsonl"
+            status, iid = _http(base, "POST", PIPELINE,
+                                _stream_body(out, 8, 0))
+            if status != 200:
+                raise AssertionError(f"serve: POST gave {status} {iid}")
+            state = _wait_states(base, [iid], ("COMPLETED", "ERROR",
+                                               "ABORTED"), 300)[iid]
+            lines = out.read_text().splitlines() if out.exists() else []
+            if state["state"] != "COMPLETED" or len(lines) != 8:
+                raise AssertionError(f"serve: {state}, {len(lines)} lines")
+            # the child's kernel launches are its own; its forwards show
+            # on /engines
+            _, engines = _http(base, "GET", "/engines")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=30)
+            if code != 0:
+                raise AssertionError(f"serve: exit {code} on SIGTERM: "
+                                     f"{log_path.read_text()[-2000:]}")
+            _print({"phase": "serve", "up_s": up_s,
+                    "stream_s": t1 - t0 - up_s, "frames": len(lines),
+                    "forwards": {k: v["batches"] for k, v in engines.items()},
+                    "avg_fps": state["avg_fps"],
+                    "exit_code": code, "stop_s": time.perf_counter() - t1})
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -551,6 +891,8 @@ def main(argv: list[str] | None = None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "rest" in phases and "slice" not in phases:
+        ap.error("the rest phase checks its objects against the slice phase")
 
     import torch
 
@@ -603,6 +945,10 @@ def main(argv: list[str] | None = None) -> int:
             raise AssertionError(f"slice ran {res['input_hw']} width "
                                  f"{res['width']}, not the full-width model")
         kernel["launches"] = res["launches"]
+    if "rest" in phases:
+        kernel["launches"] += phase_rest(torch, port, res["s0_objects"])
+    if "serve" in phases:
+        phase_serve()
     torch.cuda.synchronize()
     _print({"kernels": [kernel]})
     print(smi, flush=True)

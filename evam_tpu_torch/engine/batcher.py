@@ -38,6 +38,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from evam_tpu_torch.obs.metrics import metrics
+
 log = logging.getLogger("evam_tpu_torch.engine.batcher")
 
 #: per-batch host stages, in pipeline order
@@ -152,6 +154,15 @@ class BatchEngine:
 
     def queue_depth(self) -> int:
         return self._queue.qsize()
+
+    def queue_age_s(self) -> float:
+        """Age (s) of the oldest undispatched item; 0 when idle."""
+        now = time.perf_counter()
+        with self._queue.mutex:
+            head = self._queue.queue[0] if self._queue.queue else None
+        if isinstance(head, _WorkItem):
+            return max(0.0, now - head.t_submit)
+        return 0.0
 
     def stats_row(self) -> dict:
         """Consistent snapshot of the engine's counters."""
@@ -287,3 +298,8 @@ class BatchEngine:
                 _safe_set_result(it.future, host[i])
             with self._stats_lock:
                 self.stats.add_stage("resolve", time.perf_counter() - t1)
+            metrics.observe("evam_batch_occupancy", n / b,
+                            {"engine": self.name})
+            for stage, dt in clock.items():
+                metrics.observe("evam_engine_stage_seconds", dt,
+                                {"engine": self.name, "stage": stage})

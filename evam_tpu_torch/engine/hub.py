@@ -13,12 +13,21 @@ import threading
 
 import torch
 
+from evam_tpu_torch import slices
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.engine import steps as step_builders
 from evam_tpu_torch.engine.batcher import BatchEngine
 from evam_tpu_torch.models.registry import LoadedModel, ModelRegistry
+from evam_tpu_torch.obs.metrics import metrics
 
 log = logging.getLogger("evam_tpu_torch.engine.hub")
+
+#: the reference's per-batch host stages (``engine/ringbuf.py``
+#: ``STAGES``), the keys of /healthz ``host_stages_ms``
+HEALTH_STAGES = ("submit_wait", "slot_write", "seal", "h2d_issue",
+                 "h2d_wait", "launch", "readback", "resolve")
+#: the reference's scheduling classes (``sched/classes.py``)
+PRIORITIES = ("realtime", "standard", "batch")
 
 #: kind → (builder, input names, takes a wire format)
 _BUILDERS = {
@@ -27,10 +36,10 @@ _BUILDERS = {
 
 #: kinds the reference serves that come with later port slices
 _LATER_KINDS = {
-    "classify": "slice 3 (detect+classify)",
-    "action_encode": "slice 5 (action and audio)",
-    "action_decode": "slice 5 (action and audio)",
-    "audio": "slice 5 (action and audio)",
+    "classify": slices.DETECT_CLASSIFY,
+    "action_encode": slices.ACTION_AUDIO,
+    "action_decode": slices.ACTION_AUDIO,
+    "audio": slices.ACTION_AUDIO,
 }
 
 
@@ -72,7 +81,7 @@ class EngineHub:
         """Get or create the shared engine for (kind, model, instance)."""
         if kind in _LATER_KINDS:
             raise NotImplementedError(
-                f"{kind} engines come with port {_LATER_KINDS[kind]}")
+                f"{kind} engines come with {_LATER_KINDS[kind]}")
         if kind not in _BUILDERS:
             raise ValueError(f"no step builder for stage kind '{kind}'")
         key = f"{kind}:{instance_id or model_key}"
@@ -97,6 +106,77 @@ class EngineHub:
         with self._lock:
             engines = dict(self._engines)
         return {k: e.stats_row() for k, e in engines.items()}
+
+    # ------------------------------------------- /healthz summaries
+    # Same keys as the reference's (engine/hub.py stage_summary,
+    # queue_summary, shed_totals, readiness) — the route golden pins
+    # them. The port's engine runs the reference's legacy assembly with
+    # the inline transfer, so ``seal`` and ``h2d_wait`` read 0 there as
+    # they do in the reference on that path; no warmup, supervisor,
+    # scheduler or ragged packing (later slices) means nothing is ever
+    # warming, stalled or restarting, nothing is shed, and each frame
+    # is one unit.
+
+    def _rows(self) -> list[dict]:
+        with self._lock:
+            engines = list(self._engines.values())
+        return [e.stats_row() for e in engines]
+
+    def stage_summary(self) -> dict[str, float]:
+        """Batch-weighted mean per-batch host-stage cost across all
+        engines (ms), fixed keys from boot."""
+        rows = self._rows()
+        batches = sum(r["batches"] for r in rows)
+        return {
+            s: (round(sum(r["stage_ms"].get(s, 0.0) * r["batches"]
+                          for r in rows) / batches, 3)
+                if batches else 0.0)
+            for s in HEALTH_STAGES
+        }
+
+    def queue_summary(self) -> dict[str, float]:
+        """Total undispatched items and the oldest one's age across
+        every engine; refreshes the per-engine queue gauges."""
+        with self._lock:
+            engines = dict(self._engines)
+        depth = 0
+        oldest = 0.0
+        for k, e in engines.items():
+            d = e.queue_depth()
+            age = e.queue_age_s()
+            depth += d
+            oldest = max(oldest, age)
+            metrics.set("evam_engine_queue_depth", d, {"engine": k})
+            metrics.set("evam_engine_queue_age_s", age, {"engine": k})
+        return {"depth": depth, "oldest_age_s": round(oldest, 3)}
+
+    def shed_totals(self) -> dict[str, int]:
+        """Per-class shed counts: zeros (no scheduler, nothing is shed)."""
+        return {c: 0 for c in PRIORITIES}
+
+    def readiness(self) -> dict[str, int | float]:
+        """Engine state for /healthz."""
+        rows = self._rows()
+        batches = sum(r["batches"] for r in rows)
+        padded = sum(int(b) * c for r in rows
+                     for b, c in r["bucket_batches"].items())
+        return {
+            "engines": len(rows),
+            "warmed": len(rows),
+            "warming": 0,
+            "occupancy": round(
+                sum(r["mean_occupancy"] * r["batches"] for r in rows)
+                / batches if batches else 0.0, 4),
+            "unit_occupancy": round(
+                sum(r["items"] for r in rows) / padded
+                if batches else 0.0, 4),
+            # eager steps: nothing is compiled ahead
+            "compiled_programs": 0,
+            "stalled": 0,
+            "restarting": 0,
+            "degraded": 0,
+            "restarts": 0,
+        }
 
     def stop(self) -> None:
         with self._lock:

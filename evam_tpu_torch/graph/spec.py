@@ -1,0 +1,109 @@
+"""Pipeline specification model.
+
+Counterpart of ``evam_tpu/graph/spec.py`` (a copy).
+
+A pipeline is a linear chain of typed stages — the TPU-native
+restatement of the reference's GStreamer launch templates
+(e.g. reference pipelines/object_tracking/person_vehicle_bike/
+pipeline.json:3-8: ``{auto_source} ! decodebin ! gvadetect ! gvatrack
+! gvaclassify ! gvametaconvert ! gvametapublish ! appsink``).
+
+Two on-disk formats load into this model:
+
+* native (``"type": "tpu"``): an explicit ``stages`` list;
+* compat (``"type": "GStreamer"``): the reference's template strings,
+  parsed by :mod:`evam_tpu_torch.graph.gst_compat` so reference pipeline
+  directories work unmodified.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Any
+
+
+class StageKind(str, enum.Enum):
+    SOURCE = "source"        # {auto_source} — uri/file/webcam/appsrc
+    DECODE = "decode"        # decodebin / uridecodebin
+    CONVERT = "convert"      # videoconvert / audioconvert / caps filters
+    DETECT = "detect"        # gvadetect
+    CLASSIFY = "classify"    # gvaclassify
+    TRACK = "track"          # gvatrack
+    ACTION = "action"        # gvaactionrecognitionbin (enc+dec composite)
+    AUDIO_DETECT = "audio_detect"  # gvaaudiodetect
+    AUDIO_MIX = "audio_mix"  # audiomixer (windowing)
+    LEVEL = "level"          # level (RMS messages)
+    UDF = "udf"              # gvapython user extension
+    METACONVERT = "metaconvert"  # gvametaconvert → JSON meta
+    PUBLISH = "publish"      # gvametapublish → destination
+    SINK = "sink"            # appsink
+
+
+#: Stage kinds that run a model on the TPU batch engine.
+INFER_KINDS = frozenset(
+    {StageKind.DETECT, StageKind.CLASSIFY, StageKind.ACTION, StageKind.AUDIO_DETECT}
+)
+
+
+@dataclass
+class StageSpec:
+    """One stage in a pipeline chain."""
+
+    kind: StageKind
+    name: str
+    #: Static properties from the definition (device, threshold, ...).
+    properties: dict[str, Any] = field(default_factory=dict)
+    #: ``alias/version`` model reference for inference stages; the
+    #: action stage stores encoder/decoder refs in properties
+    #: ("enc-model"/"dec-model") like the reference element does.
+    model: str | None = None
+
+    def with_properties(self, extra: dict[str, Any]) -> "StageSpec":
+        merged = dict(self.properties)
+        merged.update(extra)
+        return StageSpec(self.kind, self.name, merged, self.model)
+
+
+@dataclass
+class PipelineSpec:
+    """A named, versioned pipeline definition."""
+
+    name: str
+    version: str
+    description: str = ""
+    stages: list[StageSpec] = field(default_factory=list)
+    #: JSON-Schema-like parameter declarations with element bindings
+    #: (same schema as the reference, SURVEY.md §2b "Parameter binding").
+    parameters: dict[str, Any] = field(default_factory=dict)
+    raw: dict[str, Any] = field(default_factory=dict)
+
+    def stage(self, name: str) -> StageSpec | None:
+        for s in self.stages:
+            if s.name == name:
+                return s
+        return None
+
+    @property
+    def infer_stages(self) -> list[StageSpec]:
+        return [s for s in self.stages if s.kind in INFER_KINDS]
+
+    def validate(self) -> list[str]:
+        """Structural checks; returns a list of problems (empty = ok)."""
+        problems: list[str] = []
+        if not self.stages:
+            problems.append("pipeline has no stages")
+            return problems
+        if self.stages[0].kind != StageKind.SOURCE:
+            problems.append("first stage must be a source")
+        names = [s.name for s in self.stages]
+        dupes = {n for n in names if names.count(n) > 1}
+        if dupes:
+            problems.append(f"duplicate stage names: {sorted(dupes)}")
+        for s in self.infer_stages:
+            if s.kind == StageKind.ACTION:
+                if "enc-model" not in s.properties or "dec-model" not in s.properties:
+                    problems.append(f"action stage '{s.name}' missing enc/dec model")
+            elif not s.model:
+                problems.append(f"inference stage '{s.name}' has no model reference")
+        return problems

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from evam_tpu_torch import slices
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.models import labels as L
 from evam_tpu_torch.models.convert import params_from_msgpack
@@ -47,11 +48,11 @@ WINDOW_SAMPLES = 16000
 
 #: model families and the port slice that brings each (ROADMAP.md)
 _LATER_FAMILIES = {
-    "classifier": "slice 3 (detect+classify)",
-    "action_encoder": "slice 5 (action and audio)",
-    "action_decoder": "slice 5 (action and audio)",
-    "action": "slice 5 (action and audio)",
-    "aclnet": "slice 5 (action and audio)",
+    "classifier": slices.DETECT_CLASSIFY,
+    "action_encoder": slices.ACTION_AUDIO,
+    "action_decoder": slices.ACTION_AUDIO,
+    "action": slices.ACTION_AUDIO,
+    "aclnet": slices.ACTION_AUDIO,
 }
 
 _INT8_ALIASES = ("int8", "fp32-int8", "fp16-int8", "bf16-int8")
@@ -179,7 +180,7 @@ def build_module(spec: ModelSpec, overrides: dict[str, Any] | None = None):
                            quant=quant)
     if spec.family in _LATER_FAMILIES:
         raise NotImplementedError(
-            f"model family {spec.family!r} ({spec.key}) comes with port "
+            f"model family {spec.family!r} ({spec.key}) comes with "
             f"{_LATER_FAMILIES[spec.family]}")
     raise ValueError(f"unknown model family {spec.family!r}")
 
@@ -242,9 +243,62 @@ class ModelRegistry:
         return self._cache[key]
 
     def keys(self) -> list[str]:
-        return sorted(ZOO_SPECS)
+        """Model keys, as the reference lists them: the built-in zoo plus
+        any on-disk OpenVINO IR dirs (``{alias}/{version}/{precision}/
+        *.xml``; loading one raises until the import slice)."""
+        keys = set(ZOO_SPECS)
+        if self.models_dir and self.models_dir.exists():
+            for xml in self.models_dir.glob("*/*/*/*.xml"):
+                keys.add(f"{xml.parts[-4]}/{xml.parts[-3]}")
+        return sorted(keys)
+
+    def describe(self) -> list[dict[str, Any]]:
+        """Per-model weight provenance WITHOUT loading anything — served
+        by ``GET /models`` with the reference's rows and strings:
+        "msgpack" (weights on disk), "ir-bin" / "ir-bin+override" (an
+        OpenVINO IR on disk), "random" (seeded init, only when random
+        weights are allowed) or "absent"."""
+        out = []
+        for key in self.keys():
+            alias, _, version = key.rpartition("/")
+            if key in self._cache:
+                weights = self._cache[key].weight_source
+            elif (xml := self._ir_xml_path(key)) is not None:
+                weights = (
+                    "ir-bin+override"
+                    if (xml.parent / "weights.msgpack").exists()
+                    else "ir-bin"
+                )
+            elif (spec := ZOO_SPECS.get(key)) is not None \
+                    and self._weights_path(spec) is not None:
+                weights = "msgpack"
+            elif self.allow_random_weights:
+                weights = "random"
+            else:
+                weights = "absent"
+            out.append({"name": alias, "version": version,
+                        "weights": weights,
+                        "allow_random_weights": self.allow_random_weights})
+        return out
+
+    def _ir_xml_path(self, key: str) -> Path | None:
+        """An OpenVINO IR under ``models/{alias}/{version}/{precision}/
+        *.xml`` (the reference's layout)."""
+        if not self.models_dir:
+            return None
+        base = self.models_dir / key
+        for precision in (self.precision, "BF16", "FP32", "FP16"):
+            hits = sorted((base / precision).glob("*.xml"))
+            if hits:
+                return hits[0]
+        return None
 
     def _load(self, key: str) -> LoadedModel:
+        if self._ir_xml_path(key) is not None:
+            # the reference would serve the IR's weights: serving the
+            # zoo module instead would be a silent divergence
+            raise NotImplementedError(
+                f"{key}: OpenVINO IR models come with {slices.MODEL_IMPORT}")
         spec = ZOO_SPECS.get(key)
         if spec is None:
             raise KeyError(
@@ -258,7 +312,7 @@ class ModelRegistry:
                                 "width": self.width_overrides[key]})
         if self._model_proc_files(spec):
             raise NotImplementedError(
-                f"{key}: model-proc files come with a later port slice")
+                f"{key}: model-proc files come with {slices.DETECT_CLASSIFY}")
         module = build_module(
             spec, {"quant": "INT8" in self.precision.upper()})
         weight_source = self._init_or_load_params(spec, module)

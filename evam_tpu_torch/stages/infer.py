@@ -7,18 +7,22 @@ Thresholds are applied here, on the host, so one engine (whose NMS uses
 the permissive ``ENGINE_SCORE_FLOOR``) serves pipelines with different
 ``threshold`` parameters.
 
-The motion gate (``inference-interval=adaptive`` / ``EVAM_GATE``) and
-the region coaster come with a later slice: a skipped frame reuses the
-last inferred regions.
+The motion gate and the region coaster come with a later slice: where
+the reference would gate a detect stage (``inference-interval=adaptive``
+or ``EVAM_GATE=on``, ``evam_tpu/stages/gate.py`` ``GateConfig``), the
+port's stage raises instead of serving ungated frames. A frame skipped
+by a static interval reuses the last inferred regions.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from concurrent.futures import Future
 
 import numpy as np
 
+from evam_tpu_torch import slices
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.ops.color import bgr_to_i420_host
 from evam_tpu_torch.stages.base import AsyncStage
@@ -68,15 +72,28 @@ def _wire_frame(frame: np.ndarray, size: tuple[int, int],
     return np.ascontiguousarray(frame)
 
 
-def _parse_interval(properties: dict) -> int:
-    """``inference-interval``: a positive int (``adaptive`` needs the
-    motion gate, which comes with a later slice)."""
+def _is_adaptive(properties: dict) -> bool:
     iv = properties.get("inference-interval", 1)
-    if isinstance(iv, str) and iv.strip().lower() == "adaptive":
-        raise NotImplementedError(
-            "inference-interval=adaptive needs the motion gate, which "
-            "comes with port slice 4 (tracking and gating)")
-    return max(1, int(iv))
+    return isinstance(iv, str) and iv.strip().lower() == "adaptive"
+
+
+def _gate_enabled(properties: dict) -> bool:
+    """The reference's rule for gating a detect stage
+    (``GateConfig.from_properties``): ``EVAM_GATE=off`` beats
+    everything; ``inference-interval=adaptive`` or ``EVAM_GATE=on``
+    turns the gate on."""
+    env_gate = os.environ.get("EVAM_GATE", "").strip().lower()
+    if env_gate in ("off", "0", "false"):
+        return False
+    return _is_adaptive(properties) or env_gate in ("on", "1", "true")
+
+
+def _parse_interval(properties: dict) -> int:
+    """``inference-interval``: a positive int, or ``"adaptive"`` — the
+    gate's schedule, under which the static interval collapses to 1."""
+    if _is_adaptive(properties):
+        return 1
+    return max(1, int(properties.get("inference-interval", 1)))
 
 
 class DetectStage(AsyncStage):
@@ -85,6 +102,11 @@ class DetectStage(AsyncStage):
 
     def __init__(self, name: str, model_key: str, properties: dict,
                  hub: EngineHub):
+        if _gate_enabled(properties):
+            raise NotImplementedError(
+                f"detect stage {name}: the motion gate "
+                "(inference-interval=adaptive or EVAM_GATE=on) comes with "
+                f"{slices.TRACK_GATE_RAGGED}")
         self.name = name
         self.model_key = model_key
         self.threshold = float(properties.get("threshold", 0.5))

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 from typing import Callable, Iterator
 
 from evam_tpu_torch.media.source import FrameEvent
+from evam_tpu_torch.obs.metrics import metrics
 from evam_tpu_torch.stages.base import AsyncStage, Stage
 from evam_tpu_torch.stages.context import FrameContext
 
@@ -143,11 +144,13 @@ class StreamRunner:
                 self._advance(out)
             return
         self.frames_out += 1
+        metrics.inc("evam_frames_processed", labels={"stream": self.stream_id})
         if ctx.ingest_t is not None:
             self.latencies.append(time.perf_counter() - ctx.ingest_t)
 
     def _handle_error(self, exc: Exception, ctx: FrameContext) -> None:
         self.errors += 1
+        metrics.inc("evam_frame_errors", labels={"stream": self.stream_id})
         log.warning("stream %s frame %d error: %s", self.stream_id, ctx.seq,
                     exc)
         if self.on_error is not None:
