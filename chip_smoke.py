@@ -57,12 +57,16 @@ Phases, in order; any failure exits nonzero and prints no result line:
               0.9); DELETE on a long ninth stream must give ABORTED; an
               unknown pipeline, a body without a source and a pipeline of
               a later slice must answer 404, 400 and 501.
+              The engine is built and warmed before the clock starts.
 7. serve    — the real entry point, ``python3 -m
               evam_tpu_torch.cli.main serve``, as a subprocess on a free
               REST_PORT: /healthz answers 200, one 8-frame stream
-              completes, and SIGTERM ends the process with 0 in 30 s.
+              completes, the kernel launched 10 times per forward, all
+              aligned (the child's counts, read from its /metrics), and
+              SIGTERM ends the process with 0 in 30 s.
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+Then the ``{"kernels": [...]}`` line (``launches`` sums the slice, rest
+and serve phases), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for a quick first check of a new kernel);
@@ -467,6 +471,26 @@ def _profile_serve(torch, port, hub, streams, frames, h, w) -> dict:
             "top_kernels_ms": dict(top)}
 
 
+def _warm_engine(torch, port, hub):
+    """Build the hub's shared detect engine (the one a detect stage
+    takes) and run every bucket a run of STREAMS streams can use once,
+    through its step alone (cuDNN and allocator set-up; the engine's
+    batch counts do not move)."""
+    model = hub.model(KEY)
+    h, w = model.preprocess.height, model.preprocess.width
+    engine = hub.engine("detect", KEY,
+                        score_threshold=port["ENGINE_SCORE_FLOOR"])
+    wire = port["wire_frame"](
+        next(port["SyntheticSource"](w, h, count=1).frames()).frame,
+        (h, w), "i420")
+    for b in engine.buckets:
+        if b <= STREAMS * 4:
+            engine.step_fn(torch.from_numpy(
+                wire[None].repeat(b, 0)).cuda()).cpu()
+    torch.cuda.synchronize()
+    return engine
+
+
 def phase_slice(torch, port, profile: bool = False) -> dict:
     """The main path at full width, served to STREAMS streams."""
     import numpy as np
@@ -481,17 +505,8 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
     try:
         model = hub.model(KEY)
         h, w = model.preprocess.height, model.preprocess.width
-        engine = hub.engine("detect", KEY,
-                            score_threshold=port["ENGINE_SCORE_FLOOR"])
-        # warm every bucket the run can use (cuDNN and allocator set-up),
-        # then count from zero
-        wire = port["wire_frame"](
-            next(port["SyntheticSource"](w, h, count=1).frames()).frame,
-            (h, w), "i420")
-        for b in engine.buckets:
-            if b <= STREAMS * 4:
-                engine.step_fn(torch.from_numpy(
-                    wire[None].repeat(b, 0)).cuda()).cpu()
+        # warm every bucket the run can use, then count from zero
+        engine = _warm_engine(torch, port, hub)
 
         qg.launches = 0
         qg.variant_launches.update(aligned=0, masked=0)
@@ -706,6 +721,12 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
         try:
+            # the model and engine are built and warmed before the clock
+            # starts, as in the slice phase
+            t_warm = time.perf_counter()
+            engine = _warm_engine(torch, port, registry.hub)
+            warm_s = time.perf_counter() - t_warm
+            batches0 = engine.stats_row()["batches"]
             qg.launches = 0
             qg.variant_launches.update(aligned=0, masked=0)
             t0 = time.perf_counter()
@@ -731,7 +752,7 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
                 raise AssertionError(f"rest: engines {list(engines)}, "
                                      "expected one shared detect engine")
             row = engines[f"detect:{KEY}"]
-            forwards = row["batches"]
+            forwards = row["batches"] - batches0
             if forwards == 0 or launches != 10 * forwards or masked:
                 raise AssertionError(
                     f"rest: {launches} qgemm launches ({masked} masked) for "
@@ -800,7 +821,8 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
                                      "after the error requests")
             result = {
                 "phase": "rest", "streams": STREAMS, "frames": frames,
-                "objects": n_objects, "wall_s": wall, "fps": frames / wall,
+                "objects": n_objects, "warm_s": warm_s, "wall_s": wall,
+                "fps": frames / wall,
                 "avg_fps": [done[i]["avg_fps"] for i in ids],
                 "forwards": forwards, "qgemm_launches": launches,
                 "mean_occupancy": row["mean_occupancy"],
@@ -822,7 +844,19 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_serve() -> None:
+def _kernel_launches(base: str) -> dict[str, int]:
+    """The server's qgemm launches by variant, read from /metrics."""
+    with urllib.request.urlopen(base + "/metrics", timeout=120) as resp:
+        text = resp.read().decode()
+    found = dict(re.findall(
+        r'^evam_kernel_launches\{kernel="qgemm",variant="(\w+)"\} (\S+)$',
+        text, re.M))
+    if set(found) != {"aligned", "masked"}:
+        raise AssertionError(f"/metrics has no qgemm launch counts: {found}")
+    return {k: int(float(v)) for k, v in found.items()}
+
+
+def phase_serve() -> int:
     """``python3 -m evam_tpu_torch.cli.main serve`` as a user starts it."""
     rest_port = _free_port()
     base = f"http://127.0.0.1:{rest_port}"
@@ -861,9 +895,16 @@ def phase_serve() -> None:
             lines = out.read_text().splitlines() if out.exists() else []
             if state["state"] != "COMPLETED" or len(lines) != 8:
                 raise AssertionError(f"serve: {state}, {len(lines)} lines")
-            # the child's kernel launches are its own; its forwards show
-            # on /engines
+            # the child's forwards show on /engines, its kernel
+            # launches (as its wrapper counts them) on /metrics
             _, engines = _http(base, "GET", "/engines")
+            forwards = sum(v["batches"] for v in engines.values())
+            launches = _kernel_launches(base)
+            if forwards == 0 or launches["aligned"] != 10 * forwards \
+                    or launches["masked"]:
+                raise AssertionError(
+                    f"serve: qgemm launches {launches} for {forwards} "
+                    "forwards, expected 10 aligned per forward")
             t1 = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
             code = proc.wait(timeout=30)
@@ -873,8 +914,10 @@ def phase_serve() -> None:
             _print({"phase": "serve", "up_s": up_s,
                     "stream_s": t1 - t0 - up_s, "frames": len(lines),
                     "forwards": {k: v["batches"] for k, v in engines.items()},
+                    "qgemm_launches": launches["aligned"],
                     "avg_fps": state["avg_fps"],
                     "exit_code": code, "stop_s": time.perf_counter() - t1})
+            return launches["aligned"]
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -948,7 +991,7 @@ def main(argv: list[str] | None = None) -> int:
     if "rest" in phases:
         kernel["launches"] += phase_rest(torch, port, res["s0_objects"])
     if "serve" in phases:
-        phase_serve()
+        kernel["launches"] = (kernel["launches"] or 0) + phase_serve()
     torch.cuda.synchronize()
     _print({"kernels": [kernel]})
     print(smi, flush=True)

@@ -26,8 +26,6 @@ log = logging.getLogger("evam_tpu_torch.engine.hub")
 #: ``STAGES``), the keys of /healthz ``host_stages_ms``
 HEALTH_STAGES = ("submit_wait", "slot_write", "seal", "h2d_issue",
                  "h2d_wait", "launch", "readback", "resolve")
-#: the reference's scheduling classes (``sched/classes.py``)
-PRIORITIES = ("realtime", "standard", "batch")
 
 #: kind → (builder, input names, takes a wire format)
 _BUILDERS = {
@@ -109,10 +107,12 @@ class EngineHub:
 
     # ------------------------------------------- /healthz summaries
     # Same keys as the reference's (engine/hub.py stage_summary,
-    # queue_summary, shed_totals, readiness) — the route golden pins
-    # them. The port's engine runs the reference's legacy assembly with
-    # the inline transfer, so ``seal`` and ``h2d_wait`` read 0 there as
-    # they do in the reference on that path; no warmup, supervisor,
+    # queue_summary, readiness) — the route golden pins them; the
+    # reference's ``shed_totals`` reads zeros with its scheduler off,
+    # and /healthz (server/app.py) states them. The port's engine runs
+    # the reference's legacy assembly with the inline transfer, so
+    # ``seal`` and ``h2d_wait`` read 0 there as they do in the
+    # reference on that path; no warmup, supervisor,
     # scheduler or ragged packing (later slices) means nothing is ever
     # warming, stalled or restarting, nothing is shed, and each frame
     # is one unit.
@@ -149,10 +149,6 @@ class EngineHub:
             metrics.set("evam_engine_queue_depth", d, {"engine": k})
             metrics.set("evam_engine_queue_age_s", age, {"engine": k})
         return {"depth": depth, "oldest_age_s": round(oldest, 3)}
-
-    def shed_totals(self) -> dict[str, int]:
-        """Per-class shed counts: zeros (no scheduler, nothing is shed)."""
-        return {c: 0 for c in PRIORITIES}
 
     def readiness(self) -> dict[str, int | float]:
         """Engine state for /healthz."""

@@ -91,6 +91,9 @@ METRIC_SPECS: dict[str, tuple[str, tuple[str, ...]]] = {
     "evam_tune_ticks": ("counter", ()),
     "evam_tune_actions": ("counter", ("knob",)),
     "evam_tune_setpoint": ("gauge", ("knob",)),
+    # the port's hand kernels (not in the reference's table): launches
+    # since the process started, as each kernel's wrapper counts them
+    "evam_kernel_launches": ("gauge", ("kernel", "variant")),
 }
 
 

@@ -9,6 +9,9 @@
     DELETE /pipelines/{name}/{version}/{id}
     GET    /models, /engines, /metrics, /healthz
 
+``/metrics`` also carries ``evam_kernel_launches{kernel, variant}``,
+the hand kernels' launch counts since the process started.
+
 The card's machine has no aiohttp, so the front end is the standard
 library's ``ThreadingHTTPServer``: one daemon thread per request, so a
 POST that builds an engine (and, on a cold cache, its kernel) holds
@@ -34,10 +37,14 @@ from urllib.parse import unquote, urlsplit
 
 from evam_tpu_torch import slices
 from evam_tpu_torch.config.settings import Settings
-from evam_tpu_torch.engine.hub import PRIORITIES
 from evam_tpu_torch.models.registry import MissingWeightsError
 from evam_tpu_torch.obs.metrics import metrics
-from evam_tpu_torch.server.registry import PipelineRegistry, RequestError
+from evam_tpu_torch.ops import qgemm
+from evam_tpu_torch.server.registry import (
+    PRIORITIES,
+    PipelineRegistry,
+    RequestError,
+)
 
 log = logging.getLogger("evam_tpu_torch.server.app")
 
@@ -189,6 +196,11 @@ class App:
         return Response(200, self.registry.hub.stats())
 
     def metrics_endpoint(self, params, body) -> Response:
+        # the hand kernel's launches so far, as its wrapper counts them
+        # where it launches (the plain version on the CPU counts none)
+        for variant, n in qgemm.variant_launches.items():
+            metrics.set("evam_kernel_launches", n,
+                        labels={"kernel": "qgemm", "variant": variant})
         return Response(200, text=metrics.render())
 
     @staticmethod
@@ -209,7 +221,7 @@ class App:
             "enabled": False,
             "admitted": dict(self.registry.admitted),
             "rejected": dict.fromkeys(PRIORITIES, 0),
-            "shed": hub.shed_totals(),
+            "shed": dict.fromkeys(PRIORITIES, 0),
         }
         ready["gate"] = {"streams": 0, "ran": 0, "skipped": 0,
                          "skip_rate": 0.0, "skipped_fps": 0.0}

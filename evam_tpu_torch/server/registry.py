@@ -20,7 +20,7 @@ from typing import Any
 
 from evam_tpu_torch import slices
 from evam_tpu_torch.config.settings import Settings
-from evam_tpu_torch.engine.hub import PRIORITIES, EngineHub
+from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.graph import PipelineLoader, resolve_parameters
 from evam_tpu_torch.media.source import check_source
 from evam_tpu_torch.models.registry import ModelRegistry
@@ -31,7 +31,9 @@ from evam_tpu_torch.stages.build import build_stages
 
 log = logging.getLogger("evam_tpu_torch.server.registry")
 
-#: the reference's default class (``evam_tpu/sched/classes.py``)
+#: the reference's scheduling classes, highest priority first, and its
+#: default class (``evam_tpu/sched/classes.py``)
+PRIORITIES = ("realtime", "standard", "batch")
 DEFAULT_PRIORITY = "standard"
 #: assumed per-stream fps when a start request declares none (the
 #: reference's ``SchedSettings.default_fps``)

@@ -42,34 +42,70 @@ def _wire_safe_size(size: tuple[int, int]) -> tuple[int, int]:
 
 
 def resize_bgr_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bilinear BGR uint8 resize on the host (half-pixel centers, edge
-    clamped — cv2 ``INTER_LINEAR``'s sampling), so frames from streams of
-    other sizes stack into one batch."""
+    """Bilinear BGR uint8 resize on the host, in the float32 arithmetic
+    of the reference's native ``resize_bgr`` (``native/evam_media.cpp``:
+    half-pixel centers, edge clamped, truncation after adding 0.5), so
+    frames from streams of other sizes stack into one batch."""
     sh, sw = frame.shape[:2]
     if (sh, sw) == (h, w):
         return frame
+    f32 = np.float32
 
     def taps(n_out, n_in):
-        src = np.clip((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5,
-                      0, n_in - 1)
-        i0 = np.floor(src).astype(np.int64)
-        return i0, np.minimum(i0 + 1, n_in - 1), (src - i0).astype(np.float32)
+        pos = (np.arange(n_out, dtype=f32) + f32(0.5)) * (f32(n_in) / f32(n_out)) \
+            - f32(0.5)
+        i0 = np.maximum(pos.astype(np.int64), 0)  # C's truncation, then the clamp
+        wt = np.maximum(pos - i0.astype(f32), f32(0))
+        return i0, np.minimum(i0 + 1, n_in - 1), wt
 
     y0, y1, wy = taps(h, sh)
     x0, x1, wx = taps(w, sw)
-    f = frame.astype(np.float32)
-    rows = f[y0] * (1 - wy)[:, None, None] + f[y1] * wy[:, None, None]
-    out = rows[:, x0] * (1 - wx)[None, :, None] + rows[:, x1] * wx[None, :, None]
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    wy, wx = wy[:, None, None], wx[None, :, None]
+    one = f32(1)
+    r0, r1 = frame[y0], frame[y1]  # gather the rows before widening
+    out = ((one - wy) * (one - wx) * r0[:, x0].astype(f32)
+           + (one - wy) * wx * r0[:, x1].astype(f32)
+           + wy * (one - wx) * r1[:, x0].astype(f32)
+           + wy * wx * r1[:, x1].astype(f32) + f32(0.5))
+    return out.astype(np.uint8)
+
+
+def resize_bgr_to_i420_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear resize and I420 encode on the host, in the 8-bit fixed
+    point of the reference's native fused ``resize_bgr_to_i420``
+    (``native/evam_media.cpp``), so the port's wire bytes equal the
+    reference's on its default path (a host of 4 or more cores with the
+    native library; its cv2 fallback rounds differently)."""
+    sh, sw = frame.shape[:2]
+    if (sh, sw) == (h, w):
+        return bgr_to_i420_host(frame)  # the kernel's taps are the identity
+
+    def taps(n_out, n_in):
+        step = (n_in << 16) // n_out
+        pos = np.maximum(np.arange(n_out, dtype=np.int64) * step
+                         + (step >> 1) - (1 << 15), 0)
+        i0 = pos >> 16
+        return i0, np.minimum(i0 + 1, n_in - 1), (pos >> 8) & 0xFF
+
+    def lerp(a, b, wt):
+        return a + (((b - a) * wt) >> 8)
+
+    y0, y1, wy = taps(h, sh)
+    x0, x1, wx = taps(w, sw)
+    wx = wx[None, :, None]
+    i32 = np.int32
+    r0, r1 = frame[y0], frame[y1]  # gather the rows before widening
+    top = lerp(r0[:, x0].astype(i32), r0[:, x1].astype(i32), wx)
+    bottom = lerp(r1[:, x0].astype(i32), r1[:, x1].astype(i32), wx)
+    return bgr_to_i420_host(lerp(top, bottom, wy[:, None, None]))
 
 
 def _wire_frame(frame: np.ndarray, size: tuple[int, int],
                 wire_format: str) -> np.ndarray:
     """Resize to the engine's ingest size and encode to its wire format."""
-    frame = resize_bgr_host(frame, size[0], size[1])
     if wire_format == "i420":
-        return bgr_to_i420_host(frame)
-    return np.ascontiguousarray(frame)
+        return resize_bgr_to_i420_host(frame, size[0], size[1])
+    return np.ascontiguousarray(resize_bgr_host(frame, size[0], size[1]))
 
 
 def _is_adaptive(properties: dict) -> bool:

@@ -8,6 +8,8 @@ Same inputs, made with seeded numpy, through both. Tolerances:
 * i420 → model input: atol 1e-3 — both sides round the same float32
   values to bf16;
 * the numpy I420 encoder: at most 2 levels from cv2;
+* the host resize + wire encode of a detect stage: equal, byte for
+  byte, to the reference's native kernels (its default host path);
 * anchors equal; ``decode_boxes`` rtol 1e-6 (``exp`` may differ in the
   last bit);
 * NMS: equal outputs.
@@ -21,6 +23,7 @@ import torch
 
 import jax.numpy as jnp
 
+from evam_tpu import native
 from evam_tpu.ops import boxes as jboxes
 from evam_tpu.ops import color as jcolor
 from evam_tpu.ops import nms as jnms
@@ -31,7 +34,7 @@ from evam_tpu_torch.ops import color as tcolor
 from evam_tpu_torch.ops import nms as tnms
 from evam_tpu_torch.ops import preprocess as tprep
 from evam_tpu_torch.ops import resize as tresize
-from evam_tpu_torch.stages.infer import resize_bgr_host
+from evam_tpu_torch.stages.infer import _wire_frame, resize_bgr_host
 
 torch.set_num_threads(1)
 
@@ -108,6 +111,26 @@ def test_host_resize_matches_cv2():
         ref = cv2.resize(bgr, (w, h), interpolation=cv2.INTER_LINEAR)
         got = resize_bgr_host(bgr, h, w)
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("src_hw", [(80, 128), (96, 96), (33, 47), (480, 640)])
+def test_host_wire_frames_equal_the_references_native_kernels(src_hw, monkeypatch):
+    """The stage's host resize + encode equals the reference's
+    ``native.resize_bgr_to_i420`` (i420 wire) and ``native.resize_bgr``
+    (bgr wire) byte for byte, at square and non-square ingest sizes."""
+    if not native.available():
+        assert native.build(quiet=True), "native build failed"
+    monkeypatch.setenv("EVAM_NATIVE", "1")  # the native path on any host
+    bgr = np.random.default_rng(src_hw[0]).integers(
+        0, 256, (*src_hw, 3), np.uint8)
+    same = (src_hw[0] - src_hw[0] % 4, src_hw[1] - src_hw[1] % 2)  # I420-legal
+    for h, w in [(64, 96), (64, 64), (320, 544), (12, 10), same]:
+        np.testing.assert_array_equal(
+            _wire_frame(bgr, (h, w), "i420"),
+            native.resize_bgr_to_i420(bgr, h, w))
+        if (h, w) != src_hw:  # the reference resizes only a frame that differs
+            np.testing.assert_array_equal(
+                _wire_frame(bgr, (h, w), "bgr"), native.resize_bgr(bgr, h, w))
 
 
 def test_anchors_equal():

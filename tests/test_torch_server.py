@@ -4,8 +4,11 @@
   answers in canonical form (the goldens are read, never written).
 * The same request, with the same weights (the reference's registry
   saves its parameters into a models dir that both registries read),
-  goes through the reference's server and the port's; the published
-  JSON lines agree:
+  goes through the reference's server and the port's, for each SSD
+  pipeline the port serves (person-vehicle-bike, vehicle, and person,
+  whose 320×544 input is cut to a non-square 64×96 in both registries
+  so the anchor grid, resize and box scaling at H ≠ W are compared);
+  the published JSON lines agree:
 
   - same count, timestamps and resolutions;
   - float32: equal labels, boxes and confidences within 1e-4;
@@ -14,6 +17,10 @@
     0.9 (the tolerance of ``tests/test_torch_slice.py``: bf16 rounding
     at another place can reorder near-ties in top-k and NMS).
 
+* The EII pipelines (detect → sink, no publish stage) complete in both
+  servers with the same engine and frame count and publish nothing;
+  their detect stage is the one compared above (same model key, and
+  the same resolved stage specs, ``tests/test_torch_graph.py``).
 * DELETE reaches ABORTED; a pipeline of a later slice answers 501;
   ``EVAM_GATE=on`` raises in ``DetectStage``; ``python -m
   evam_tpu_torch.cli.main list`` prints the reference's JSON, and
@@ -43,6 +50,7 @@ import torch
 from aiohttp.test_utils import TestClient, TestServer
 from test_golden import canonical  # read-only use: never check_golden
 
+from evam_tpu import native
 from evam_tpu.cli import main as ref_cli
 from evam_tpu.config import settings as ref_settings
 from evam_tpu.engine import EngineHub as JaxHub
@@ -56,6 +64,7 @@ from evam_tpu_torch.config.settings import Settings
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.graph import PipelineLoader
 from evam_tpu_torch.models.registry import ModelRegistry
+from evam_tpu_torch.ops import qgemm as tqg
 from evam_tpu_torch.ops import qlinear as tql
 from evam_tpu_torch.server.app import App, make_server
 from evam_tpu_torch.server.instance import StreamInstance, _retry_delay
@@ -67,8 +76,12 @@ REPO = Path(__file__).resolve().parent.parent
 GOLDEN_DIR = REPO / "tests" / "golden"
 KEY = "object_detection/person_vehicle_bike"
 PIPE = "/pipelines/" + KEY
-SMALL = {KEY: (64, 64)}
-NARROW = {KEY: 8}
+#: every SSD the port serves, at a small input (the person model's
+#: 320×544 cut to 64×96 stays non-square, H < W) and width 8; each key
+#: is also the name of the pipeline that serves it
+SMALL = {KEY: (64, 64), "object_detection/person": (64, 96),
+         "object_detection/vehicle": (64, 64)}
+NARROW = {k: 8 for k in SMALL}
 
 
 def _golden(name: str):
@@ -107,10 +120,10 @@ class PortServer:
         except json.JSONDecodeError:
             return status, payload.decode()
 
-    def wait(self, iid: str, timeout: float = 60) -> dict:
+    def wait(self, iid: str, timeout: float = 60, path: str = PIPE) -> dict:
         deadline = time.time() + timeout
         while time.time() < deadline:
-            _, st = self.request("GET", f"{PIPE}/{iid}/status")
+            _, st = self.request("GET", f"{path}/{iid}/status")
             if st["state"] in ("COMPLETED", "ERROR", "ABORTED"):
                 return st
             time.sleep(0.05)
@@ -122,12 +135,13 @@ class PortServer:
         self.registry.stop_all()
 
 
-def _port_registry(models_dir=None, dtype="float32") -> PipelineRegistry:
+def _port_registry(models_dir=None, dtype="float32",
+                   pipelines="pipelines") -> PipelineRegistry:
     registry = ModelRegistry(models_dir=models_dir, dtype=dtype, device="cpu",
                              input_overrides=SMALL, width_overrides=NARROW,
                              allow_random_weights=True)
     hub = EngineHub(registry, device="cpu", max_batch=16, deadline_ms=4.0)
-    settings = Settings(pipelines_dir=str(REPO / "pipelines"), device="cpu",
+    settings = Settings(pipelines_dir=str(REPO / pipelines), device="cpu",
                         drain_timeout_s=10.0)
     return PipelineRegistry(settings, hub=hub)
 
@@ -209,6 +223,11 @@ def test_completed_instance_routes_and_health(server, tmp_path):
     assert len(lines) == 6
     status, text = server.request("GET", "/metrics")
     assert status == 200 and "evam_frames_processed_total" in text
+    # the float model on the CPU launches no kernel; the lines read the
+    # wrapper's own counts
+    for variant, n in tqg.variant_launches.items():
+        assert (f'evam_kernel_launches{{kernel="qgemm",variant="{variant}"}} '
+                f"{n}\n") in text
 
 
 def test_error_routes_hold_their_goldens(server, tmp_path):
@@ -344,17 +363,18 @@ def test_gate_on_raises_in_detect_stage(monkeypatch):
 # --------------------------------------------- parity with the reference
 
 
-def _reference_lines(jreg, out: Path, body: dict) -> list[dict]:
+def _reference_run(jreg, path: str, body: dict,
+                   pipelines: str = "pipelines") -> dict:
     """The request through the reference's server (aiohttp TestClient,
-    as ``tests/test_golden.py`` drives it)."""
+    as ``tests/test_golden.py`` drives it); returns its engine rows."""
     # one batch of the stream's 4 frames: one compile of the step
     hub = JaxHub(jreg, plan=build_mesh(), max_batch=4, deadline_ms=500.0)
     registry = JaxPipelineRegistry(
-        ref_settings.Settings(pipelines_dir=str(REPO / "pipelines")), hub=hub)
+        ref_settings.Settings(pipelines_dir=str(REPO / pipelines)), hub=hub)
 
     async def go():
         async with TestClient(TestServer(build_app(registry))) as client:
-            resp = await client.post(PIPE, json=body)
+            resp = await client.post(path, json=body)
             return resp.status, await resp.json()
 
     try:
@@ -366,36 +386,49 @@ def _reference_lines(jreg, out: Path, body: dict) -> list[dict]:
             assert time.time() < deadline
             time.sleep(0.05)
         assert registry.get_instance(iid).status()["state"] == "COMPLETED"
+        return hub.stats()
     finally:
         registry.stop_all()
-    return [json.loads(x) for x in out.read_text().splitlines()]
 
 
-def _port_lines(models_dir, dtype, out: Path, body: dict) -> list[dict]:
-    srv = PortServer(_port_registry(models_dir, dtype))
+def _port_run(models_dir, dtype, path: str, key: str, body: dict,
+              pipelines: str = "pipelines") -> dict:
+    """The same request through the port's server; returns its engine
+    rows."""
+    srv = PortServer(_port_registry(models_dir, dtype, pipelines))
     try:
-        status, iid = srv.request("POST", PIPE, body)
+        status, iid = srv.request("POST", path, body)
         assert status == 200, iid
-        st = srv.wait(iid, timeout=120)
+        st = srv.wait(iid, timeout=120, path=path)
         assert st["state"] == "COMPLETED"
-        model_weights = st["weights"]["detection"]["weights"][KEY]
+        model_weights = st["weights"]["detection"]["weights"][key]
         assert model_weights == "msgpack"
+        return srv.registry.hub.stats()
     finally:
         srv.close()
-    return [json.loads(x) for x in out.read_text().splitlines()]
 
 
-def _both(tmp_path, dtype):
-    models = tmp_path / "models"
+def _saved_reference_registry(models: Path, dtype: str, key: str):
     jreg = JaxRegistry(models_dir=models, dtype=dtype, input_overrides=SMALL,
                        width_overrides=NARROW, allow_random_weights=True)
-    jreg.get(KEY)
-    jreg.save_weights(KEY)
-    params = {"detection-properties": {"threshold": 0.0}}
-    ref = _reference_lines(jreg, tmp_path / "ref.jsonl", _body(
-        tmp_path / "ref.jsonl", "synthetic://96x96@30?count=4", parameters=params))
-    got = _port_lines(models, dtype, tmp_path / "port.jsonl", _body(
-        tmp_path / "port.jsonl", "synthetic://96x96@30?count=4", parameters=params))
+    jreg.get(key)
+    jreg.save_weights(key)
+    return jreg
+
+
+_PARAMS = {"detection-properties": {"threshold": 0.0}}
+
+
+def _both(tmp_path, dtype, key=KEY, uri="synthetic://96x96@30?count=4"):
+    models = tmp_path / "models"
+    jreg = _saved_reference_registry(models, dtype, key)
+    path = "/pipelines/" + key
+    _reference_run(jreg, path, _body(tmp_path / "ref.jsonl", uri,
+                                     parameters=_PARAMS))
+    _port_run(models, dtype, path, key, _body(tmp_path / "port.jsonl", uri,
+                                              parameters=_PARAMS))
+    ref, got = ([json.loads(x) for x in (tmp_path / f).read_text().splitlines()]
+                for f in ("ref.jsonl", "port.jsonl"))
     assert len(got) == len(ref) == 4
     for g, r in zip(got, ref):
         assert g["timestamp"] == r["timestamp"]
@@ -404,16 +437,23 @@ def _both(tmp_path, dtype):
     return ref, got
 
 
+@pytest.fixture
+def native_reference(monkeypatch):
+    """The reference's host resize + wire encode on its native path (its
+    default on a host of 4 or more cores), whose arithmetic the port's
+    detect stage copies; its cv2 fallback rounds differently."""
+    if not native.available():
+        assert native.build(quiet=True), "native build failed"
+    monkeypatch.setenv("EVAM_NATIVE", "1")
+
+
 def _box(obj) -> np.ndarray:
     bb = obj["detection"]["bounding_box"]
     return np.asarray([bb["x_min"], bb["y_min"], bb["x_max"], bb["y_max"]])
 
 
-def test_float32_metadata_matches_the_reference(tmp_path):
-    ref, got = _both(tmp_path, "float32")
-    with_objects = [m for m in got if m["objects"]]
-    assert with_objects, "threshold 0 must yield detections"
-    _assert_golden("message_eva_metadata", with_objects[0])
+def _assert_float32_agrees(ref, got) -> None:
+    """Equal labels, boxes and confidences within 1e-4."""
     for g, r in zip(got, ref):
         assert [o["detection"]["label"] for o in g["objects"]] == \
             [o["detection"]["label"] for o in r["objects"]]
@@ -425,10 +465,9 @@ def test_float32_metadata_matches_the_reference(tmp_path):
                 ro["roi_type"], ro["detection"]["label_id"])
 
 
-def test_int8_pallas_metadata_matches_the_reference(tmp_path, monkeypatch):
-    monkeypatch.setattr(jql, "QGEMM_BACKEND", "pallas")
-    monkeypatch.setattr(tql, "QGEMM_BACKEND", "pallas")
-    ref, got = _both(tmp_path, "int8")
+def _assert_int8_matches(ref, got) -> None:
+    """At least 95 % of the reference's objects matched by a port object
+    of the same label at IoU ≥ 0.9."""
     matched = total = 0
     for g, r in zip(got, ref):
         for ro in r["objects"]:
@@ -445,6 +484,70 @@ def test_int8_pallas_metadata_matches_the_reference(tmp_path, monkeypatch):
             matched += bool((iou >= 0.9).any())
     assert total > 0
     assert matched / total >= 0.95, (matched, total)
+
+
+@pytest.mark.usefixtures("native_reference")
+def test_float32_metadata_matches_the_reference(tmp_path):
+    ref, got = _both(tmp_path, "float32")
+    with_objects = [m for m in got if m["objects"]]
+    assert with_objects, "threshold 0 must yield detections"
+    _assert_golden("message_eva_metadata", with_objects[0])
+    _assert_float32_agrees(ref, got)
+
+
+@pytest.mark.usefixtures("native_reference")
+def test_int8_pallas_metadata_matches_the_reference(tmp_path, monkeypatch):
+    monkeypatch.setattr(jql, "QGEMM_BACKEND", "pallas")
+    monkeypatch.setattr(tql, "QGEMM_BACKEND", "pallas")
+    ref, got = _both(tmp_path, "int8")
+    _assert_int8_matches(ref, got)
+
+
+#: the other SSD pipelines, each on a frame whose aspect differs from
+#: its model's input
+_OTHER_SSD = [("object_detection/person", "synthetic://128x80@30?count=4"),
+              ("object_detection/vehicle", "synthetic://96x128@30?count=4")]
+
+
+@pytest.mark.usefixtures("native_reference")
+@pytest.mark.parametrize("key,uri", _OTHER_SSD, ids=[k for k, _ in _OTHER_SSD])
+def test_float32_metadata_matches_the_reference_on_each_ssd(tmp_path, key, uri):
+    ref, got = _both(tmp_path, "float32", key, uri)
+    assert any(m["objects"] for m in got), "threshold 0 must yield detections"
+    assert {o["detection"]["label"] for m in got for o in m["objects"]} <= \
+        {"person", "vehicle"}
+    _assert_float32_agrees(ref, got)
+
+
+@pytest.mark.usefixtures("native_reference")
+@pytest.mark.parametrize("key,uri", _OTHER_SSD, ids=[k for k, _ in _OTHER_SSD])
+def test_int8_pallas_metadata_matches_the_reference_on_each_ssd(
+        tmp_path, monkeypatch, key, uri):
+    monkeypatch.setattr(jql, "QGEMM_BACKEND", "pallas")
+    monkeypatch.setattr(tql, "QGEMM_BACKEND", "pallas")
+    ref, got = _both(tmp_path, "int8", key, uri)
+    _assert_int8_matches(ref, got)
+
+
+@pytest.mark.usefixtures("native_reference")
+def test_eii_person_detection_serves_as_the_reference(tmp_path):
+    """The EII pipeline (detect → sink) in EVA mode: both servers run
+    every frame through one person engine and publish nothing."""
+    key = "object_detection/person"
+    path = "/pipelines/object_detection/person_detection"
+    models = tmp_path / "models"
+    jreg = _saved_reference_registry(models, "float32", key)
+    uri = "synthetic://128x80@30?count=4"
+    ref = _reference_run(jreg, path, _body(tmp_path / "ref.jsonl", uri,
+                                           parameters=_PARAMS),
+                         pipelines="eii/pipelines")
+    got = _port_run(models, "float32", path, key,
+                    _body(tmp_path / "port.jsonl", uri, parameters=_PARAMS),
+                    pipelines="eii/pipelines")
+    assert list(got) == list(ref) == [f"detect:{key}"]
+    assert got[f"detect:{key}"]["items"] == ref[f"detect:{key}"]["items"] == 4
+    assert not (tmp_path / "ref.jsonl").exists()
+    assert not (tmp_path / "port.jsonl").exists()
 
 
 # ------------------------------------------------------------------ CLI
