@@ -14,10 +14,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
               ``build/kernels/``, and prints the seconds it took.
 3. qgemm    — the int8 GEMM kernel against its plain version at the ten
               shapes one SSD-512 forward gives it (8 images, bf16), the
-              ragged shapes (bf16 and float32: every edge of the tiling,
-              K = 2048 whole and in chunks) and M = 0: identical int8
-              codes and row scales, identical outputs; the ten main
-              shapes must take the aligned variant. Kernel,
+              three of one classifier forward on 8 × 8 and on 8 crops
+              (72², width 32: the largest and smallest engine bucket,
+              aligned and masked), the ragged shapes (bf16 and float32:
+              every edge of the tiling, K = 2048 whole and in chunks)
+              and M = 0: identical int8 codes and row scales, identical
+              outputs; the ten SSD shapes must take the aligned variant. Kernel,
               plain-version and library times — wall: median of
               CUDA-event timings of 20 back-to-back calls; device:
               kernel time from torch.profiler, back to back and with
@@ -26,11 +28,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
               The library yardstick is torch's cheapest correct
               quantize (float32 division by a tensor), ``torch._int_mm``
               and the dequantize; ``_int_mm`` on its own is timed too.
-              One JSON line per shape, then the sums over one forward.
-4. reference — the INT8 detector at a small size (64×64, width 8) on the
-              card with the kernel against the same weights on the CPU
-              through the plain version: loc/conf within 1e-2 of the
-              reference's max magnitude.
+              One JSON line per shape, then the sums over one SSD
+              forward, one classifier forward (each bucket) and one
+              fused forward (SSD + classifier at 8 × 8 crops).
+4. reference — the INT8 detector at a small size (64×64, width 8) and
+              the INT8 classifier (width 8) on the card with the kernel
+              against the same weights on the CPU through the plain
+              version: outputs within 1e-2 of the reference's max
+              magnitude.
 5. slice    — the port's main path at full width: EVAM_PRECISION=int8,
               EVAM_QGEMM=pallas, person_vehicle_bike at 512×512, width
               32, seeded random weights. STREAMS (8) synthetic 512×512
@@ -43,7 +48,21 @@ Phases, in order; any failure exits nonzero and prints no result line:
               output and loc/conf must agree with the same step run with
               the plain qgemm on the card. Prints fps, occupancy, p50/p99
               frame latency and the engine's stage times.
-6. rest     — the same path through the port's REST server
+6. classify — the detect+classify pipeline (pipelines/
+              object_classification/vehicle_attributes, built as the
+              server builds it) at full width: SSD 512² width 32, the
+              classifier 72² width 32 with heads color 7 and type 4,
+              INT8, pallas. First one batch of 8 frames through the fused
+              step with the kernel and with the plain qgemm on the card:
+              detections matched (≥ 95 % at IoU ≥ 0.9), the same rows
+              unclassified, probabilities within 1e-2. Then STREAMS ×
+              FRAMES frames fused (13 launches per forward: the SSD's 10
+              and the classifier's 3) and unfused (reclassify-interval
+              3: 10 per detect and 3 per classify forward); every frame
+              published in order, stream 0's objects carrying color and
+              type; masked launches only where the classifier's M is
+              ragged. Prints fps, p50/p99, occupancy and unit occupancy.
+7. rest     — the same path through the port's REST server
               (``evam_tpu_torch.server.app``) on a free 127.0.0.1 port, in
               a thread: STREAMS POSTs to
               /pipelines/object_detection/person_vehicle_bike, each a
@@ -54,20 +73,26 @@ Phases, in order; any failure exits nonzero and prints no result line:
               /engines must show one shared detect engine; the kernel
               must have launched 10 times per forward, all aligned; stream
               0's objects must match the slice phase's (≥ 95 % at IoU ≥
-              0.9); DELETE on a long ninth stream must give ABORTED; an
-              unknown pipeline, a body without a source and a pipeline of
-              a later slice must answer 404, 400 and 501.
+              0.9); one vehicle_attributes stream of FRAMES frames must
+              complete on a fused engine with 13 launches per forward and
+              objects carrying color and type; DELETE on a long stream
+              must give ABORTED; an unknown pipeline, a body without a
+              source and a pipeline of a later slice (object tracking)
+              must answer 404, 400 and 501.
               The engine is built and warmed before the clock starts.
-7. serve    — the real entry point, ``python3 -m
+8. serve    — the real entry point, ``python3 -m
               evam_tpu_torch.cli.main serve``, as a subprocess on a free
-              REST_PORT: /healthz answers 200, one 8-frame stream
-              completes, the kernel launched 10 times per forward, all
-              aligned (the child's counts, read from its /metrics), and
-              SIGTERM ends the process with 0 in 30 s.
+              REST_PORT: /healthz answers 200, one 8-frame
+              person_vehicle_bike stream completes with 10 aligned
+              launches per forward (the child's counts, read from its
+              /metrics), then one 8-frame vehicle_attributes stream with
+              13 per fused forward and objects carrying color and type,
+              and SIGTERM ends the process with 0 in 30 s.
 
-Then the ``{"kernels": [...]}`` line (``launches`` sums the slice, rest
-and serve phases), the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
+calls; ``launches`` sums the slice, classify, rest and serve phases,
+split by variant in ``launches_by_variant``), the nvidia-smi line, and
+last ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for a quick first check of a new kernel);
 ``--profile`` adds a shorter profiled run (device busy share, kernel
@@ -95,8 +120,12 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "qgemm", "reference", "slice", "rest", "serve")
+PHASES = ("device", "build", "qgemm", "reference", "slice", "classify", "rest",
+          "serve")
 KEY = "object_detection/person_vehicle_bike"
+CLS_KEY = "object_classification/vehicle_attributes"
+#: the detect+classify pipeline (pipelines/<name>/<version>)
+CLS_PIPELINE = ("object_classification", "vehicle_attributes")
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense int8 ops/s
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
@@ -107,6 +136,15 @@ MAIN_SHAPES = [
     (256, 512, 256), (64, 512, 256),
 ]
 IMAGES = 8
+#: ROIs a frame's classifier forward takes (the classify stages' budget)
+ROI_BUDGET = 8
+#: (M per ROI, K, N) of the 3 qgemm calls of one classifier forward
+#: (72×72 crops, width 32: the three pointwise convs at 18², 9², 5²)
+CLS_SHAPES = [(324, 32, 64), (81, 64, 128), (25, 128, 256)]
+#: per-forward sums the qgemm phase prints: the SSD's 10 calls on IMAGES
+#: frames, the classifier's 3 on IMAGES × ROI_BUDGET and on ROI_BUDGET
+#: crops (the largest and the smallest engine bucket)
+FORWARD_GROUPS = ("ssd", f"classifier_b{IMAGES}", "classifier_b1")
 #: (M, K, N, x dtype) off the main path: ragged edges, float32 x, M = 0,
 #: K = 2048 (the zoo's largest) held whole and in chunks, and a ragged M
 #: large enough that each block walks several row tiles
@@ -151,14 +189,17 @@ def _import_port():
         _wire_frame,
     )
     from evam_tpu_torch.config.settings import Settings
+    from evam_tpu_torch.graph import PipelineLoader, resolve_parameters
     from evam_tpu_torch.server.app import App, make_server
     from evam_tpu_torch.server.registry import PipelineRegistry
+    from evam_tpu_torch.stages.build import build_stages
     from evam_tpu_torch.stages.meta import MetaconvertStage, PublishStage
     from evam_tpu_torch.stages.runner import StreamRunner
 
     return dict(
         Settings=Settings, App=App, make_server=make_server,
-        PipelineRegistry=PipelineRegistry,
+        PipelineRegistry=PipelineRegistry, PipelineLoader=PipelineLoader,
+        resolve_parameters=resolve_parameters, build_stages=build_stages,
         EngineHub=EngineHub, build_detect_step=build_detect_step,
         SyntheticSource=SyntheticSource, ModelRegistry=ModelRegistry,
         kernels=kernels, qgemm=qgemm, qlinear=qlinear,
@@ -232,18 +273,22 @@ def phase_qgemm(torch, port) -> dict:
     """Kernel vs plain version at the main-path and ragged shapes."""
     qg, ql = port["qgemm"], port["qlinear"]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-              "device_ms": 0.0, "device_ms_flushed": 0.0,
-              "plain_device_ms": 0.0,
-              "library_device_ms": 0.0, "int_mm_ms": 0.0,
-              "int_mm_device_ms": 0.0}
+    sums = {g: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                "device_ms": 0.0, "device_ms_flushed": 0.0,
+                "plain_device_ms": 0.0, "library_device_ms": 0.0,
+                "int_mm_ms": 0.0, "int_mm_device_ms": 0.0, "calls": 0,
+                "variants": {"aligned": 0, "masked": 0}}
+            for g in FORWARD_GROUPS}
     max_err = 0.0
     scratch = torch.ones(FLUSH_BYTES // 4, device="cuda")
     flush = lambda: scratch.sum()
-    shapes = [(m * IMAGES, k, n, True, "bfloat16") for m, k, n in MAIN_SHAPES]
-    shapes += [(m, k, n, False, dt) for m, k, n, dt in RAGGED_SHAPES]
-    for m, k, n, main, dtype in shapes:
+    shapes = [(m * IMAGES, k, n, "ssd", "bfloat16") for m, k, n in MAIN_SHAPES]
+    shapes += [(m * b * ROI_BUDGET, k, n, f"classifier_b{b}", "bfloat16")
+               for b in (IMAGES, 1) for m, k, n in CLS_SHAPES]
+    shapes += [(m, k, n, None, dt) for m, k, n, dt in RAGGED_SHAPES]
+    for m, k, n, group, dtype in shapes:
+        main = group == "ssd"
         x = torch.randn((m, k), generator=gen, device="cuda").mul_(2.0)
         x = x.to(getattr(torch, dtype))
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.2
@@ -283,7 +328,7 @@ def phase_qgemm(torch, port) -> dict:
                 f"(max |ref| {scale})")
         max_err = max(max_err, err)
         row = {"phase": "qgemm", "m": m, "k": k, "n": n, "dtype": dtype,
-               "main_path": main, "max_abs_err": err, "codes_equal": True,
+               "group": group, "max_abs_err": err, "codes_equal": True,
                "variant": variant[0] if variant else None}
         if m:
             p = qg.plan(m, n, k, x.dtype)
@@ -337,30 +382,38 @@ def phase_qgemm(torch, port) -> dict:
                 amax = x.float().abs().amax(1)
                 row["scalar_div_scale_rows_off"] = int(
                     (amax / 127.0 != qg.div_rn(amax, 127.0)).sum())
-            if main:
-                totals["ms"] += row["ms"]
-                totals["plain_ms"] += row["plain_ms"]
-                totals["device_ms"] += row["device_ms"]
-                totals["device_ms_flushed"] += row["device_ms_flushed"]
-                totals["plain_device_ms"] += row["plain_device_ms"]
-                totals["bound_ms"] += row["bound_ms"]
-                totals["bytes_ms"] += bytes_ms
-                totals["ops_ms"] += ops_ms
+            if group is not None:
+                tot = sums[group]
+                for key in ("ms", "plain_ms", "device_ms", "device_ms_flushed",
+                            "plain_device_ms", "bound_ms"):
+                    tot[key] += row[key]
+                tot["bytes_ms"] += bytes_ms
+                tot["ops_ms"] += ops_ms
+                tot["calls"] += 1
+                tot["variants"][row["variant"]] += 1
                 lib_keys = ("library_ms", "library_device_ms", "int_mm_ms",
                             "int_mm_device_ms")
                 if row["library_ms"] is None:
-                    totals.update(dict.fromkeys(lib_keys))
-                elif totals["library_ms"] is not None:
+                    tot.update(dict.fromkeys(lib_keys))
+                elif tot["library_ms"] is not None:
                     for key in lib_keys:
-                        totals[key] += row[key]
+                        tot[key] += row[key]
         _print(row)
     del scratch
-    totals["max_abs_err"] = max_err
-    totals["bound_share"] = totals["bound_ms"] / totals["device_ms_flushed"]
-    totals["bound_by"] = ("bytes" if totals["bytes_ms"] >= totals["ops_ms"]
-                          else "operations")
-    _print({"phase": "qgemm-forward", "images": IMAGES, **totals})
-    return totals
+    # one fused detect+classify forward of IMAGES frames: the SSD's
+    # calls and the classifier's on IMAGES × ROI_BUDGET crops
+    sums["fused"] = {
+        key: (None if sums["ssd"][key] is None
+              or sums[f"classifier_b{IMAGES}"][key] is None
+              else sums["ssd"][key] + sums[f"classifier_b{IMAGES}"][key])
+        for key in sums["ssd"] if key != "variants"}
+    for group, tot in sums.items():
+        tot["max_abs_err"] = max_err
+        tot["bound_share"] = tot["bound_ms"] / tot["device_ms_flushed"]
+        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                           else "operations")
+        _print({"phase": "qgemm-forward", "forward": group, **tot})
+    return sums
 
 
 def phase_reference(torch, port) -> None:
@@ -384,6 +437,24 @@ def phase_reference(torch, port) -> None:
         _print({"phase": "reference", "output": name, "max_abs_diff": diff,
                 "max_abs_ref": scale})
         if diff > 1e-2 * scale:
+            raise AssertionError(
+                f"reference phase: {name} differs by {diff} > 1e-2 x {scale}")
+    # the INT8 classifier (width 8) on 72×72 crops, the same way
+    kw["width_overrides"] = {CLS_KEY: 8}
+    cpu = port["ModelRegistry"](device="cpu", **kw).get(CLS_KEY)
+    gpu = port["ModelRegistry"](device="cuda", **kw).get(CLS_KEY)
+    x = (torch.rand((16, 72, 72, 3), generator=gen) * 255).to(torch.bfloat16)
+    with torch.inference_mode():
+        ref = cpu.forward(x)
+        got = gpu.forward(x.cuda())
+    for name in ("color", "type"):
+        r, g = ref[name].float(), got[name].float().cpu()
+        diff = (g - r).abs().max().item()
+        scale = r.abs().max().item()
+        _print({"phase": "reference", "output": name, "max_abs_diff": diff,
+                "max_abs_ref": scale})
+        if g.shape != r.shape or not torch.isfinite(g).all() \
+                or diff > 1e-2 * scale:
             raise AssertionError(
                 f"reference phase: {name} differs by {diff} > 1e-2 x {scale}")
 
@@ -411,10 +482,20 @@ def _match_rate(ref, got, iou_min=0.9) -> float:
     return hit / len(r)
 
 
-def _serve(port, hub, streams: int, frames: int, h: int, w: int,
+def _detect_stages(port, hub):
+    """Stage factory of the slice phase: detect → metaconvert → publish."""
+    def make(uri, publish):
+        return [port["DetectStage"]("detect", KEY, {"threshold": 0.2}, hub),
+                port["MetaconvertStage"]("meta", source_uri=uri),
+                port["PublishStage"]("publish", publish)]
+    return make
+
+
+def _serve(port, make_stages, streams: int, frames: int, h: int, w: int,
            objects: dict | None = None):
     """Serve ``streams`` synthetic streams of ``frames`` frames each,
-    one thread per stream, through the shared detect engine. Returns
+    one thread per stream, through the stages ``make_stages(uri,
+    publish)`` builds for each (their engines shared). Returns
     (runners, published seqs per stream, wall seconds, threads); stream
     s0's published objects land in ``objects`` (seq → list), if given."""
     published: dict[str, list[int]] = {}
@@ -429,11 +510,7 @@ def _serve(port, hub, streams: int, frames: int, h: int, w: int,
     runners = []
     for s in range(streams):
         uri = f"synthetic://{w}x{h}@30?count={frames}&seed={s}"
-        stages = [
-            port["DetectStage"]("detect", KEY, {"threshold": 0.2}, hub),
-            port["MetaconvertStage"]("meta", source_uri=uri),
-            port["PublishStage"]("publish", publish),
-        ]
+        stages = make_stages(uri, publish)
         runners.append((port["StreamRunner"](f"s{s}", stages, uri),
                         port["SyntheticSource"].from_uri(uri)))
     t0 = time.perf_counter()
@@ -454,7 +531,8 @@ def _profile_serve(torch, port, hub, streams, frames, h, w) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall, _ = _serve(port, hub, streams, frames, h, w)
+        _, _, wall, _ = _serve(port, _detect_stages(port, hub), streams,
+                               frames, h, w)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -512,8 +590,8 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
         qg.variant_launches.update(aligned=0, masked=0)
         batches0 = engine.stats_row()["batches"]
         s0_objects: dict[int, list] = {}
-        runners, published, wall, threads = _serve(port, hub, STREAMS,
-                                                   FRAMES, h, w, s0_objects)
+        runners, published, wall, threads = _serve(
+            port, _detect_stages(port, hub), STREAMS, FRAMES, h, w, s0_objects)
         launches = qg.launches
         masked = qg.variant_launches["masked"]
         stats = engine.stats_row()
@@ -591,6 +669,197 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
         hub.stop()
 
 
+def _pipeline_stages(port, hub, params: dict):
+    """Stage factory of the classify phase: the vehicle_attributes
+    pipeline, its parameters bound and its stages built as the REST
+    server builds them (``stages/build.py``, fusion pass included)."""
+    spec = port["PipelineLoader"](ROOT / "pipelines").get(*CLS_PIPELINE)
+    stage_specs, _ = port["resolve_parameters"](spec, params)
+
+    def make(uri, publish):
+        return port["build_stages"](stage_specs, hub, source_uri=uri,
+                                    publish_fn=publish)
+    return make
+
+
+def _crop_boxes(torch, gen, b: int):
+    """[b, ROI_BUDGET, 4] valid normalized boxes on the card."""
+    p = torch.rand((b, ROI_BUDGET, 2, 2), generator=gen, device="cuda")
+    return torch.cat([p.amin(2), p.amax(2)], -1)
+
+
+def _warm_stage_engines(torch, port, stages) -> None:
+    """Run every bucket a run of STREAMS streams can use once through
+    the step of each engine the stages hold (cuDNN and allocator
+    set-up; the engines' batch counts do not move)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for stage in stages:
+        engine = getattr(stage, "engine", None)
+        if engine is None:
+            continue
+        h, w = stage.ingest_size
+        wire = torch.from_numpy(port["wire_frame"](
+            next(port["SyntheticSource"](w, h, count=1).frames()).frame,
+            (h, w), "i420")).cuda()
+        for b in engine.buckets:
+            if b > STREAMS * 4:
+                break
+            frames = wire[None].repeat(b, 1, 1)
+            args = ((frames,) if engine.input_names == ("frames",)
+                    else (frames, _crop_boxes(torch, gen, b)))
+            engine.step_fn(*args).cpu()
+    torch.cuda.synchronize()
+
+
+def _attributed(objects: list[dict]) -> int:
+    """Objects that carry both vehicle attributes, each with a finite
+    confidence and a label."""
+    n = 0
+    for obj in objects:
+        if all(isinstance(obj.get(a), dict) for a in ("color", "type")):
+            for a in ("color", "type"):
+                if not (math.isfinite(obj[a]["confidence"])
+                        and isinstance(obj[a]["label"], str)):
+                    raise AssertionError(f"bad attribute {a}: {obj[a]}")
+            n += 1
+    return n
+
+
+def _check_fused_kernel_path(torch, port, stage) -> None:
+    """One batch of IMAGES frames through the fused step, with the
+    kernel and with the plain qgemm on the card: the same detections
+    (≥ 95 % matched at IoU ≥ 0.9), the same rows left unclassified, and
+    probability blocks within 1e-2 (bf16 activations; cuDNN may take
+    another algorithm between the two calls)."""
+    import numpy as np
+
+    qg, ql = port["qgemm"], port["qlinear"]
+    h, w = stage.ingest_size
+    batch = torch.from_numpy(np.stack([
+        port["wire_frame"](ev.frame, (h, w), "i420")
+        for s in range(IMAGES)
+        for ev in port["SyntheticSource"](w, h, count=1, seed=s).frames()
+    ])).cuda()
+    step = stage.engine.step_fn
+    before = qg.launches
+    packed_k = step(batch).cpu().numpy()
+    if qg.launches - before != 13:
+        raise AssertionError(f"classify check: {qg.launches - before} qgemm "
+                             "launches in one fused forward, expected 13")
+    ql.qgemm = qg.qgemm_reference
+    try:
+        packed_p = step(batch).cpu().numpy()
+    finally:
+        ql.qgemm = qg.qgemm
+    if packed_k.shape != (IMAGES, 32, 18) or not np.isfinite(packed_k).all():
+        raise AssertionError(f"classify check: output {packed_k.shape}")
+    rates = [_match_rate(packed_p[i, :, :7], packed_k[i, :, :7])
+             for i in range(IMAGES)]
+    same = ((packed_k[..., 6] == packed_p[..., 6])
+            & (packed_k[..., 5] == packed_p[..., 5])
+            & (np.abs(packed_k[..., :4] - packed_p[..., :4]).max(-1) <= 1e-3))
+    cls_k = packed_k[..., 7:].sum(-1) > 0.5
+    cls_p = packed_p[..., 7:].sum(-1) > 0.5
+    diff = float(np.abs(packed_k[..., 7:] - packed_p[..., 7:])[same].max())
+    check = {"phase": "classify-check", "packed_equal":
+             bool((packed_k == packed_p).all()),
+             "detections_matched": min(rates),
+             "rows_same": float(same.mean()),
+             "classified_per_frame": float(cls_p.sum(-1).mean()),
+             "unclassified_rows_equal": bool((cls_k[same] == cls_p[same]).all()),
+             "prob_max_abs_diff": diff}
+    unclassified_zero = bool((packed_k[~cls_k][:, 7:] == 0).all())
+    if (min(rates) < 0.95 or not check["unclassified_rows_equal"]
+            or diff > 1e-2 or not cls_p.any() or not unclassified_zero):
+        raise AssertionError(f"classify check failed: {check}")
+    _print(check)
+
+
+def phase_classify(torch, port) -> dict:
+    """The detect+classify pipeline at full width, served to STREAMS
+    streams in this process: fused, then unfused."""
+    qg = port["qgemm"]
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hub = port["EngineHub"](registry, device="cuda")
+    total = {"aligned": 0, "masked": 0}
+    try:
+        det, cls = hub.model(KEY), hub.model(CLS_KEY)
+        for mode, extra in (("fused", {}),
+                            ("unfused", {"reclassify-interval": 3})):
+            make = _pipeline_stages(port, hub, {"detection-threshold": 0.2,
+                                                **extra})
+            stages = make("warm", None)
+            kinds = [type(st).__name__ for st in stages]
+            engines = {e.name.split(":")[0]: e for e in
+                       (getattr(st, "engine", None) for st in stages) if e}
+            want = (["detect_classify"] if mode == "fused"
+                    else ["detect", "classify"])
+            if list(engines) != want:
+                raise AssertionError(f"classify {mode}: stages {kinds}")
+            _warm_stage_engines(torch, port, stages)
+            if mode == "fused":
+                _check_fused_kernel_path(torch, port, stages[0])
+            batches0 = {k: e.stats_row()["batches"] for k, e in engines.items()}
+            qg.launches = 0
+            qg.variant_launches.update(aligned=0, masked=0)
+            s0_objects: dict[int, list] = {}
+            runners, published, wall, threads = _serve(
+                port, make, STREAMS, FRAMES, 512, 512, s0_objects)
+            launches = qg.launches
+            variants = dict(qg.variant_launches)
+            rows = {k: e.stats_row() for k, e in engines.items()}
+            fwd = {k: rows[k]["batches"] - batches0[k] for k in engines}
+
+            if any(t.is_alive() for t in threads):
+                raise AssertionError(f"classify {mode}: a stream did not finish")
+            errors = sum(r.errors for r in runners)
+            if errors:
+                raise AssertionError(f"classify {mode}: {errors} frame errors")
+            for s in range(STREAMS):
+                if published.get(f"s{s}", []) != list(range(FRAMES)):
+                    raise AssertionError(
+                        f"classify {mode}: stream s{s} published "
+                        f"{len(published.get(f's{s}', []))} of {FRAMES}")
+            per = ({"detect_classify": 13} if mode == "fused"
+                   else {"detect": 10, "classify": 3})
+            want_launches = sum(per[k] * fwd[k] for k in per)
+            # only the classifier's calls can be ragged: at small buckets
+            # its M (bucket × 8 × {324, 81, 25}) leaves the tiling
+            cls_fwd = fwd.get("detect_classify", 0) + fwd.get("classify", 0)
+            if (not all(fwd.values()) or launches != want_launches
+                    or variants["masked"] > 3 * cls_fwd):
+                raise AssertionError(
+                    f"classify {mode}: {launches} qgemm launches {variants} "
+                    f"for forwards {fwd}, expected {per} per forward")
+            objects = [o for objs in s0_objects.values() for o in objs]
+            attributed = _attributed(objects)
+            if not attributed:
+                raise AssertionError(f"classify {mode}: no object of stream 0 "
+                                     f"carries color and type ({len(objects)})")
+            lat = sorted(x for r in runners for x in r.latencies)
+            q = lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
+            _print({"phase": "classify", "mode": mode, "streams": STREAMS,
+                    "frames": len(lat), "wall_s": wall, "fps": len(lat) / wall,
+                    "p50_ms": 1e3 * q(0.50), "p99_ms": 1e3 * q(0.99),
+                    "forwards": fwd, "qgemm_launches": launches,
+                    "variants": variants,
+                    "s0_objects": len(objects), "s0_attributed": attributed,
+                    "occupancy": {k: r["mean_occupancy"] for k, r in rows.items()},
+                    "unit_occupancy": {k: r["unit_occupancy"]
+                                       for k, r in rows.items()},
+                    "bucket_batches": {k: r["bucket_batches"]
+                                       for k, r in rows.items()},
+                    "stage_ms": {k: r["stage_ms"] for k, r in rows.items()}})
+            for v in total:
+                total[v] += variants[v]
+        return {"variants": total, "models": (
+            det.preprocess.height, det.preprocess.width, det.spec.width,
+            cls.preprocess.height, cls.preprocess.width, cls.spec.width,
+            cls.spec.heads)}
+    finally:
+        hub.stop()
+
+
 #: published-metadata golden (read only) and the routes the rest phase
 #: drives
 GOLDEN = ROOT / "tests" / "golden" / "message_eva_metadata.json"
@@ -643,12 +912,18 @@ def _shape_errors(got, want, path="$") -> list[str]:
         got == "<str>" else [f"{path}: {got!r}"]
 
 
+#: the attribute keys a classified object adds to the golden's shape
+ATTRIBUTES = ("color", "type")
+
+
 def _line_errors(msg: dict, golden: dict) -> list[str]:
     """A published line against the golden, object by object (the
     canonical form keeps only a list's first element), with finite
-    numbers."""
+    numbers; vehicle attributes are checked apart (``_attributed``)."""
+    msg = dict(msg, objects=[{k: v for k, v in o.items() if k not in ATTRIBUTES}
+                             for o in msg.get("objects", [])])
     errors = _shape_errors(canonical(msg), golden)
-    for obj in msg.get("objects", []):
+    for obj in msg["objects"]:
         errors += _shape_errors(canonical(obj), golden["objects"][0],
                                 "$.objects[]")
         numbers = [obj["detection"]["confidence"],
@@ -685,12 +960,50 @@ def _wait_states(base: str, ids, states, timeout: float) -> dict:
         time.sleep(0.05)
 
 
-def _stream_body(out: Path, count: int | None, seed: int) -> dict:
+def _stream_body(out: Path, count: int | None, seed: int,
+                 threshold: str = "threshold") -> dict:
+    """A synthetic 512² stream into a file; ``threshold`` names the
+    pipeline's detection-threshold parameter."""
     query = f"seed={seed}" if count is None else f"count={count}&seed={seed}"
     return {"source": {"uri": f"synthetic://512x512@30?{query}",
                        "type": "uri"},
             "destination": {"metadata": {"type": "file", "path": str(out)}},
-            "parameters": {"threshold": 0.2}}
+            "parameters": {threshold: 0.2}}
+
+
+CLS_PATH = "/pipelines/{}/{}".format(*CLS_PIPELINE)
+
+
+def _classify_stream(base: str, out: Path, count: int, golden: dict,
+                     where: str) -> tuple[str, int]:
+    """POST one vehicle_attributes stream and wait for it: ``count``
+    lines of the golden's shape, in order, some objects classified.
+    Returns (its fused engine's name, its objects with attributes)."""
+    status, iid = _http(base, "POST", CLS_PATH, _stream_body(
+        out, count, 0, "detection-threshold"))
+    if status != 200:
+        raise AssertionError(f"{where}: vehicle_attributes POST gave {status} "
+                             f"{iid}")
+    state = _wait_states(base, [iid], ("COMPLETED", "ERROR", "ABORTED"),
+                         300)[iid]
+    lines = ([json.loads(x) for x in out.read_text().splitlines()]
+             if out.exists() else [])
+    stamps = [m["timestamp"] for m in lines]
+    if state["state"] != "COMPLETED" or len(lines) != count \
+            or stamps != sorted(stamps):
+        raise AssertionError(f"{where}: vehicle_attributes {state['state']}, "
+                             f"{len(lines)} lines")
+    for m in lines:
+        errors = _line_errors(m, golden)
+        if errors:
+            raise AssertionError(f"{where}: vehicle_attributes line off the "
+                                 f"golden's shape: {errors[:3]}")
+    attributed = sum(_attributed(m["objects"]) for m in lines)
+    if not attributed:
+        raise AssertionError(f"{where}: no vehicle_attributes object carries "
+                             "color and type")
+    engine = state["weights"]["detection+classification"]["engine"]
+    return engine, attributed
 
 
 def _rows(objects: list[dict]):
@@ -705,8 +1018,10 @@ def _rows(objects: list[dict]):
                        for o in objects], np.float64).reshape(-1, 7)
 
 
-def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
-    """The main path through the port's REST server, in this process."""
+def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
+    """The main path through the port's REST server, in this process,
+    then one vehicle_attributes stream. Returns the qgemm launches by
+    variant."""
     qg = port["qgemm"]
     golden = json.loads(GOLDEN.read_text())  # canonical already
     with tempfile.TemporaryDirectory() as tmp:
@@ -784,6 +1099,21 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
                     f"rest: stream 0 matches the slice run at {min(rates)} "
                     f"({sum(map(len, slice_objects.values()))} objects)")
 
+            # one detect+classify stream: the fused engine, 13 launches
+            # per forward, some of them masked at small buckets
+            qg.launches = 0
+            qg.variant_launches.update(aligned=0, masked=0)
+            fused, attributed = _classify_stream(
+                base, tmp / "cls.jsonl", FRAMES, golden, "rest")
+            _, engines = _http(base, "GET", "/engines")
+            cls_fwd = engines[fused]["batches"]
+            cls_variants = dict(qg.variant_launches)
+            if (cls_fwd == 0 or qg.launches != 13 * cls_fwd
+                    or cls_variants["masked"] > 3 * cls_fwd):
+                raise AssertionError(
+                    f"rest: {qg.launches} qgemm launches {cls_variants} for "
+                    f"{cls_fwd} fused forwards, expected 13 per forward")
+
             # a long ninth stream, deleted while it runs
             status, long_id = _http(base, "POST", PIPELINE, _stream_body(
                 tmp / "long.jsonl", None, 9))
@@ -806,8 +1136,7 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
                 "404": _http(base, "GET", "/pipelines/object_detection/nope"),
                 "400": _http(base, "POST", PIPELINE, {"destination": {}}),
                 "501": _http(base, "POST",
-                             "/pipelines/object_classification/"
-                             "vehicle_attributes",
+                             "/pipelines/object_tracking/person_vehicle_bike",
                              {"source": {"uri": "synthetic://512x512@30?count=4",
                                          "type": "uri"}}),
             }
@@ -816,7 +1145,7 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
                     raise AssertionError(f"rest: expected {want}, got "
                                          f"{status} {body}")
             _, engines_after = _http(base, "GET", "/engines")
-            if list(engines_after) != [f"detect:{KEY}"]:
+            if sorted(engines_after) != sorted([f"detect:{KEY}", fused]):
                 raise AssertionError(f"rest: engines {list(engines_after)} "
                                      "after the error requests")
             result = {
@@ -829,9 +1158,15 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> int:
                 "bucket_batches": row["bucket_batches"],
                 "host_stages_ms": health["host_stages_ms"],
                 "match_rate_s0": min(rates),
+                "vehicle_attributes": {
+                    "engine": fused, "forwards": cls_fwd,
+                    "qgemm_launches": sum(cls_variants.values()),
+                    "variants": cls_variants, "attributed_objects": attributed,
+                    "occupancy": engines[fused]["mean_occupancy"]},
                 "errors": {k: v[1]["error"] for k, v in errors.items()}}
             _print(result)
-            return launches
+            return {"aligned": launches + cls_variants["aligned"],
+                    "masked": cls_variants["masked"]}
         finally:
             server.shutdown()
             server.server_close()
@@ -856,8 +1191,11 @@ def _kernel_launches(base: str) -> dict[str, int]:
     return {k: int(float(v)) for k, v in found.items()}
 
 
-def phase_serve() -> int:
-    """``python3 -m evam_tpu_torch.cli.main serve`` as a user starts it."""
+def phase_serve() -> dict[str, int]:
+    """``python3 -m evam_tpu_torch.cli.main serve`` as a user starts it:
+    a person_vehicle_bike stream, then a vehicle_attributes stream.
+    Returns the child's qgemm launches by variant."""
+    golden = json.loads(GOLDEN.read_text())
     rest_port = _free_port()
     base = f"http://127.0.0.1:{rest_port}"
     with tempfile.TemporaryDirectory() as tmp:
@@ -905,6 +1243,19 @@ def phase_serve() -> int:
                 raise AssertionError(
                     f"serve: qgemm launches {launches} for {forwards} "
                     "forwards, expected 10 aligned per forward")
+            # then the detect+classify pipeline through the same server
+            fused, attributed = _classify_stream(
+                base, Path(tmp) / "cls.jsonl", 8, golden, "serve")
+            _, engines = _http(base, "GET", "/engines")
+            total = _kernel_launches(base)
+            cls_fwd = engines[fused]["batches"]
+            det_fwd = engines[f"detect:{KEY}"]["batches"]
+            if (cls_fwd == 0 or det_fwd != forwards
+                    or sum(total.values()) != 10 * det_fwd + 13 * cls_fwd
+                    or total["masked"] > 3 * cls_fwd):
+                raise AssertionError(
+                    f"serve: qgemm launches {total} for {det_fwd} detect and "
+                    f"{cls_fwd} fused forwards, expected 10 and 13 per forward")
             t1 = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
             code = proc.wait(timeout=30)
@@ -912,12 +1263,12 @@ def phase_serve() -> int:
                 raise AssertionError(f"serve: exit {code} on SIGTERM: "
                                      f"{log_path.read_text()[-2000:]}")
             _print({"phase": "serve", "up_s": up_s,
-                    "stream_s": t1 - t0 - up_s, "frames": len(lines),
+                    "streams_s": t1 - t0 - up_s, "frames": len(lines),
                     "forwards": {k: v["batches"] for k, v in engines.items()},
-                    "qgemm_launches": launches["aligned"],
-                    "avg_fps": state["avg_fps"],
+                    "qgemm_launches": total, "avg_fps": state["avg_fps"],
+                    "attributed_objects": attributed,
                     "exit_code": code, "stop_s": time.perf_counter() - t1})
-            return launches["aligned"]
+            return total
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -974,12 +1325,18 @@ def main(argv: list[str] | None = None) -> int:
               "replaces": "evam_tpu/ops/pallas_qgemm.py:33",
               "launches": None, "max_abs_err": None, "ms": None,
               "plain_ms": None, "bound_ms": None, "bound_by": None,
-              "library_ms": None, "device_ms": None, "bound_share": None}
+              "library_ms": None, "device_ms": None, "bound_share": None,
+              "launches_by_variant": None, "forward": None}
     if "qgemm" in phases:
-        totals = phase_qgemm(torch, port)
-        kernel.update({k: totals[k] for k in (
+        fused = phase_qgemm(torch, port)["fused"]
+        kernel.update({k: fused[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "bound_share")})
+        kernel["forward"] = (f"one fused detect+classify forward of {IMAGES} "
+                             f"frames: {len(MAIN_SHAPES)} SSD calls and "
+                             f"{len(CLS_SHAPES)} classifier calls on "
+                             f"{IMAGES * ROI_BUDGET} crops")
+    served = []  # qgemm launches by variant, one entry per serving phase
     if "reference" in phases:
         phase_reference(torch, port)
     if "slice" in phases:
@@ -987,11 +1344,22 @@ def main(argv: list[str] | None = None) -> int:
         if res["input_hw"] != (512, 512) or res["width"] != 32:
             raise AssertionError(f"slice ran {res['input_hw']} width "
                                  f"{res['width']}, not the full-width model")
-        kernel["launches"] = res["launches"]
+        served.append({"aligned": res["launches"], "masked": 0})
+    if "classify" in phases:
+        res_cls = phase_classify(torch, port)
+        if res_cls["models"] != (512, 512, 32, 72, 72, 32,
+                                 (("color", 7), ("type", 4))):
+            raise AssertionError(f"classify ran {res_cls['models']}, not the "
+                                 "full-width models")
+        served.append(res_cls["variants"])
     if "rest" in phases:
-        kernel["launches"] += phase_rest(torch, port, res["s0_objects"])
+        served.append(phase_rest(torch, port, res["s0_objects"]))
     if "serve" in phases:
-        kernel["launches"] = (kernel["launches"] or 0) + phase_serve()
+        served.append(phase_serve())
+    if served:
+        kernel["launches_by_variant"] = {
+            v: sum(d[v] for d in served) for v in ("aligned", "masked")}
+        kernel["launches"] = sum(kernel["launches_by_variant"].values())
     torch.cuda.synchronize()
     _print({"kernels": [kernel]})
     print(smi, flush=True)

@@ -6,8 +6,9 @@ it. This is the reference's core engine on its legacy assembly path
 
   submit() ──queue──► dispatcher ──done queue──► completer
 
-* ``submit(**inputs)`` (stream threads) enqueues one item and returns a
-  ``Future``;
+* ``submit(units=None, **inputs)`` (stream threads) enqueues one item
+  — one array per input name, e.g. ``frames`` and ``boxes`` for a
+  classify engine — and returns a ``Future``;
 * the **dispatcher** thread waits for a first item, gathers more until
   the batch deadline or ``max_batch``, stacks and zero-pads them to a
   power-of-two bucket, copies the batch to the device and launches the
@@ -18,7 +19,11 @@ it. This is the reference's core engine on its legacy assembly path
 * a semaphore bounds the batches in flight (backpressure).
 
 Every batch's host stage clock — submit_wait, slot_write, h2d_issue,
-launch, readback, resolve — is folded into :class:`EngineStats`.
+launch, readback, resolve — is folded into :class:`EngineStats`, with
+the reference's unit accounting: an engine whose items each carry up
+to ``max_units`` unit rows (a classify engine's ROI budget) computes
+``bucket × max_units`` rows a batch, of which each item's ``units``
+(its real region count) are real.
 
 The reference's staging ring (``SlotRing``), pipelined transfer,
 scheduling classes, ragged packing, AOT cache, control plane,
@@ -52,6 +57,8 @@ class _WorkItem:
     inputs: dict[str, np.ndarray]
     future: Future
     t_submit: float
+    #: real unit rows the item carries (None: the whole budget)
+    units: int | None = None
 
 
 def _safe_set_result(fut: Future, value) -> None:
@@ -74,6 +81,9 @@ class EngineStats:
     n_batches: int = 0
     n_items: int = 0
     occupancy_sum: float = 0.0
+    #: real unit rows vs the unit rows the batches computed
+    units: int = 0
+    unit_slots: int = 0
     #: per-bucket dispatched-batch counts
     bucket_batches: dict[int, int] = dataclasses.field(default_factory=dict)
     #: cumulative per-stage host clock (seconds), keyed by STAGES
@@ -82,6 +92,12 @@ class EngineStats:
     @property
     def mean_occupancy(self) -> float:
         return self.occupancy_sum / self.n_batches if self.n_batches else 0.0
+
+    @property
+    def unit_occupancy(self) -> float:
+        """Real unit rows / computed unit rows (the pad tax that the
+        per-item occupancy hides on a classify engine)."""
+        return self.units / self.unit_slots if self.unit_slots else 0.0
 
     def add_stage(self, stage: str, dt: float) -> None:
         self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + dt
@@ -99,7 +115,9 @@ class BatchEngine:
 
     ``step_fn(*tensors) -> packed`` takes one stacked device tensor per
     input name (leading batch axis) and returns one tensor whose leading
-    axis matches. Batches are padded to power-of-two buckets."""
+    axis matches. Batches are padded to power-of-two buckets.
+    ``max_units`` is the unit rows each item is padded to inside the
+    step (None: one row per item)."""
 
     def __init__(
         self,
@@ -110,6 +128,7 @@ class BatchEngine:
         deadline_ms: float = 8.0,
         max_in_flight: int = 3,
         input_names: tuple[str, ...] = ("frames",),
+        max_units: int | None = None,
     ):
         self.name = name
         self.step_fn = step_fn
@@ -117,6 +136,7 @@ class BatchEngine:
         self.max_batch = max_batch
         self.deadline_s = deadline_ms / 1000.0
         self.input_names = input_names
+        self.max_units = max_units
         self.stats = EngineStats()
         self._stats_lock = threading.Lock()
         self.buckets = []
@@ -140,8 +160,9 @@ class BatchEngine:
 
     # ------------------------------------------------------------- API
 
-    def submit(self, **inputs: np.ndarray) -> Future:
-        """Enqueue one item (no batch dim); resolves to its packed row."""
+    def submit(self, units: int | None = None, **inputs: np.ndarray) -> Future:
+        """Enqueue one item (no batch dim); resolves to its packed row.
+        ``units`` is the item's real unit rows, for the accounting only."""
         if self._stop.is_set():
             raise RuntimeError(f"engine {self.name} is stopped")
         if set(inputs) != set(self.input_names):
@@ -149,7 +170,7 @@ class BatchEngine:
                 f"engine {self.name} expects inputs {self.input_names}, "
                 f"got {tuple(inputs)}")
         fut: Future = Future()
-        self._queue.put(_WorkItem(inputs, fut, time.perf_counter()))
+        self._queue.put(_WorkItem(inputs, fut, time.perf_counter(), units))
         return fut
 
     def queue_depth(self) -> int:
@@ -172,6 +193,9 @@ class BatchEngine:
                 "batches": st.n_batches,
                 "items": st.n_items,
                 "mean_occupancy": st.mean_occupancy,
+                "units": st.units,
+                "unit_slots": st.unit_slots,
+                "unit_occupancy": round(st.unit_occupancy, 4),
                 "bucket_batches": {str(b): c for b, c in sorted(
                     st.bucket_batches.items())},
                 "stage_ms": st.stage_ms_per_batch(),
@@ -291,15 +315,27 @@ class BatchEngine:
                 st.n_batches += 1
                 st.n_items += n
                 st.occupancy_sum += n / b
+                if self.max_units is None:
+                    st.unit_slots += b
+                    st.units += n
+                else:
+                    st.unit_slots += b * self.max_units
+                    st.units += sum(self.max_units if it.units is None
+                                    else it.units for it in items)
                 st.bucket_batches[b] = st.bucket_batches.get(b, 0) + 1
                 for stage, dt in clock.items():
                     st.add_stage(stage, dt)
+                mean_occ, unit_occ = st.mean_occupancy, st.unit_occupancy
             for i, it in enumerate(items):
                 _safe_set_result(it.future, host[i])
             with self._stats_lock:
                 self.stats.add_stage("resolve", time.perf_counter() - t1)
             metrics.observe("evam_batch_occupancy", n / b,
                             {"engine": self.name})
+            metrics.set("evam_engine_occupancy", mean_occ,
+                        {"engine": self.name})
+            metrics.set("evam_engine_unit_occupancy", unit_occ,
+                        {"engine": self.name})
             for stage, dt in clock.items():
                 metrics.observe("evam_engine_stage_seconds", dt,
                                 {"engine": self.name, "stage": stage})

@@ -3,7 +3,9 @@
 Counterpart of ``evam_tpu/engine/hub.py``. Pipelines that pass the same
 ``model-instance-id`` share one engine and its batch queue; pipelines
 that omit it share per-model-key engines — cross-stream batching by
-default. This slice builds detect engines.
+default. The hub builds detect and classify engines and the fused
+detect+classify engine (:meth:`EngineHub.fused_engine`); action and
+audio engines raise until their slice.
 """
 
 from __future__ import annotations
@@ -30,11 +32,11 @@ HEALTH_STAGES = ("submit_wait", "slot_write", "seal", "h2d_issue",
 #: kind → (builder, input names, takes a wire format)
 _BUILDERS = {
     "detect": (step_builders.build_detect_step, ("frames",), True),
+    "classify": (step_builders.build_classify_step, ("frames", "boxes"), True),
 }
 
 #: kinds the reference serves that come with later port slices
 _LATER_KINDS = {
-    "classify": slices.DETECT_CLASSIFY,
     "action_encode": slices.ACTION_AUDIO,
     "action_decode": slices.ACTION_AUDIO,
     "audio": slices.ACTION_AUDIO,
@@ -89,16 +91,48 @@ class EngineHub:
                 builder, input_names, wired = _BUILDERS[kind]
                 if wired:
                     builder_kwargs.setdefault("wire_format", self.wire_format)
-                self._engines[key] = BatchEngine(
-                    name=key,
-                    step_fn=builder(model, **builder_kwargs),
-                    device=self.device,
-                    max_batch=self.max_batch,
-                    deadline_ms=self.deadline_ms,
-                    input_names=input_names,
-                )
+                # a classify item is padded to the ROI budget in the
+                # step: the unit accounting counts its real boxes
+                max_units = (int(builder_kwargs.get("roi_budget", 8))
+                             if kind == "classify" else None)
+                self._engines[key] = self._build(
+                    key, builder(model, **builder_kwargs), input_names,
+                    max_units)
                 log.info("created engine %s (model %s)", key, model_key)
             return self._engines[key]
+
+    def fused_engine(self, det_key: str, cls_key: str,
+                     instance_id: str | None = None,
+                     **builder_kwargs) -> BatchEngine:
+        """The fused detect+classify engine: one upload, one readback
+        a frame (``steps.build_detect_classify_step``). The builder's
+        arguments (the object-class filter among them) are part of the
+        key: pipelines share a fused engine only where it computes the
+        same thing."""
+        kw_sig = ",".join(f"{k}={v}" for k, v in sorted(builder_kwargs.items()))
+        key = f"detect_classify:{instance_id or det_key + '+' + cls_key}:{kw_sig}"
+        with self._lock:
+            if key not in self._engines:
+                det = self.model(det_key)
+                cls = self.model(cls_key)
+                builder_kwargs.setdefault("wire_format", self.wire_format)
+                self._engines[key] = self._build(
+                    key, step_builders.build_detect_classify_step(
+                        det, cls, **builder_kwargs), ("frames",))
+                log.info("created fused engine %s", key)
+            return self._engines[key]
+
+    def _build(self, key: str, step_fn, input_names: tuple[str, ...],
+               max_units: int | None = None) -> BatchEngine:
+        return BatchEngine(
+            name=key,
+            step_fn=step_fn,
+            device=self.device,
+            max_batch=self.max_batch,
+            deadline_ms=self.deadline_ms,
+            input_names=input_names,
+            max_units=max_units,
+        )
 
     def stats(self) -> dict[str, dict]:
         with self._lock:
@@ -114,8 +148,8 @@ class EngineHub:
     # ``seal`` and ``h2d_wait`` read 0 there as they do in the
     # reference on that path; no warmup, supervisor,
     # scheduler or ragged packing (later slices) means nothing is ever
-    # warming, stalled or restarting, nothing is shed, and each frame
-    # is one unit.
+    # warming, stalled or restarting and nothing is shed; a classify
+    # item counts its real boxes against the ROI budget it computes.
 
     def _rows(self) -> list[dict]:
         with self._lock:
@@ -154,8 +188,6 @@ class EngineHub:
         """Engine state for /healthz."""
         rows = self._rows()
         batches = sum(r["batches"] for r in rows)
-        padded = sum(int(b) * c for r in rows
-                     for b, c in r["bucket_batches"].items())
         return {
             "engines": len(rows),
             "warmed": len(rows),
@@ -164,7 +196,8 @@ class EngineHub:
                 sum(r["mean_occupancy"] * r["batches"] for r in rows)
                 / batches if batches else 0.0, 4),
             "unit_occupancy": round(
-                sum(r["items"] for r in rows) / padded
+                sum(r["units"] for r in rows)
+                / max(1, sum(r["unit_slots"] for r in rows))
                 if batches else 0.0, 4),
             # eager steps: nothing is compiled ahead
             "compiled_programs": 0,

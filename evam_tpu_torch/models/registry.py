@@ -15,8 +15,10 @@ module variants computing over bf16 tensors between layers, float
 weights on disk. Weights are cast to the serving dtype, moved to the
 device in channels_last layout, and then quantized once.
 
-This slice builds the SSD family. Other families, OpenVINO IR imports
-and model-proc files come with later slices and raise until then.
+The port builds the SSD and classifier families and reads model-proc
+files (labels, input preprocessing) as the reference does. The action
+and audio families and OpenVINO IR imports come with later slices and
+raise until then.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ import torch.nn as nn
 from evam_tpu_torch import slices
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.models import labels as L
+from evam_tpu_torch.modelproc import ModelProc, load_model_proc
 from evam_tpu_torch.models.convert import params_from_msgpack
+from evam_tpu_torch.models.zoo.classifier import MultiHeadClassifier
 from evam_tpu_torch.models.zoo.layers import Conv, quantize_model
 from evam_tpu_torch.models.zoo.ssd import SSDDetector
 from evam_tpu_torch.ops.preprocess import PreprocessSpec
@@ -48,7 +52,6 @@ WINDOW_SAMPLES = 16000
 
 #: model families and the port slice that brings each (ROADMAP.md)
 _LATER_FAMILIES = {
-    "classifier": slices.DETECT_CLASSIFY,
     "action_encoder": slices.ACTION_AUDIO,
     "action_decoder": slices.ACTION_AUDIO,
     "action": slices.ACTION_AUDIO,
@@ -152,13 +155,19 @@ class LoadedModel:
     module: nn.Module
     preprocess: PreprocessSpec
     device: torch.device
+    model_proc: ModelProc | None = None
     labels: list[str] = field(default_factory=list)
+    #: classifier head → its labels (the spec's ``head_labels``)
+    head_labels: dict[str, list[str]] = field(default_factory=dict)
     anchors: np.ndarray | None = None
     #: SSD box-decode variances
     variances: tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
     #: True when the model emits probabilities (engine steps must not
     #: re-softmax); zoo modules emit logits
     conf_is_prob: bool = False
+    #: the same per classifier head (IR imports only; zoo heads emit
+    #: logits, so it stays empty)
+    head_is_prob: dict[str, bool] = field(default_factory=dict)
     detector_kind: str = "ssd"
     #: weight provenance — "msgpack" (loaded from disk) or "random"
     #: (seeded init, opt-in only)
@@ -178,6 +187,8 @@ def build_module(spec: ModelSpec, overrides: dict[str, Any] | None = None):
     if spec.family == "ssd":
         return SSDDetector(num_classes=spec.num_classes, width=width,
                            quant=quant)
+    if spec.family == "classifier":
+        return MultiHeadClassifier(heads=spec.heads, width=width, quant=quant)
     if spec.family in _LATER_FAMILIES:
         raise NotImplementedError(
             f"model family {spec.family!r} ({spec.key}) comes with "
@@ -192,9 +203,10 @@ def _seed_for(key: str) -> int:
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """flax's defaults: lecun-normal kernels (truncated normal, variance
-    1/fan_in), zero biases — drawn from ``generator``."""
+    1/fan_in) for convs and dense layers, zero biases — drawn from
+    ``generator``."""
     for m in module.modules():
-        if isinstance(m, Conv):
+        if isinstance(m, (Conv, nn.Linear)):
             fan_in = m.weight[0].numel()
             # flax's truncated-normal stddev correction for the ±2σ cut
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -310,9 +322,6 @@ class ModelRegistry:
         if key in self.width_overrides:
             spec = ModelSpec(**{**spec.__dict__,
                                 "width": self.width_overrides[key]})
-        if self._model_proc_files(spec):
-            raise NotImplementedError(
-                f"{key}: model-proc files come with {slices.DETECT_CLASSIFY}")
         module = build_module(
             spec, {"quant": "INT8" in self.precision.upper()})
         weight_source = self._init_or_load_params(spec, module)
@@ -321,24 +330,41 @@ class ModelRegistry:
                            memory_format=torch.channels_last)
         quantize_model(module)
         module.eval().requires_grad_(False)
+        proc = self._find_model_proc(spec)
+        model_labels = list(spec.labels)
+        if proc and proc.labels_for(0):
+            model_labels = proc.labels_for(0)
+        if proc:
+            preproc = proc.preprocess_spec(*spec.input_size, dtype=self.dtype)
+        else:
+            preproc = PreprocessSpec(
+                height=spec.input_size[0], width=spec.input_size[1],
+                color_space="BGR",  # OMZ-era nets are BGR-native
+                dtype=self.dtype)
         return LoadedModel(
             spec=spec,
             module=module,
-            preprocess=PreprocessSpec(
-                height=spec.input_size[0], width=spec.input_size[1],
-                color_space="BGR",  # OMZ-era nets are BGR-native
-                dtype=self.dtype),
+            preprocess=preproc,
             device=self.device,
-            labels=list(spec.labels),
+            model_proc=proc,
+            labels=model_labels,
+            head_labels={k: list(v) for k, v in spec.head_labels},
             anchors=(module.anchors(spec.input_size)
                      if spec.family == "ssd" else None),
             weight_source=weight_source,
         )
 
-    def _model_proc_files(self, spec: ModelSpec) -> list[Path]:
+    def _find_model_proc(self, spec: ModelSpec) -> ModelProc | None:
+        """The first readable model-proc JSON under the model's dir, as
+        the reference picks it (a bad one is logged and skipped)."""
         if not self.models_dir:
-            return []
-        return sorted((self.models_dir / spec.key).glob("**/*.json"))
+            return None
+        for candidate in sorted((self.models_dir / spec.key).glob("**/*.json")):
+            try:
+                return load_model_proc(candidate)
+            except (OSError, ValueError, TypeError, AttributeError) as exc:
+                log.warning("bad model-proc %s: %s", candidate, exc)
+        return None
 
     def _weights_path(self, spec: ModelSpec) -> Path | None:
         if not self.models_dir:

@@ -101,3 +101,26 @@ def i420_resize_to_bgr(
     y, u, v = _split_planes(i420)
     return _bt601(resize_planes(y, out_hw), resize_planes(u, out_hw),
                   resize_planes(v, out_hw))
+
+
+def crop_rois_i420(
+    i420: torch.Tensor,
+    boxes: torch.Tensor,
+    out_size: tuple[int, int],
+) -> torch.Tensor:
+    """ROI crop + nearest resize straight from the i420 wire batch.
+
+    ``i420`` [B, H*3/2, W] uint8; ``boxes`` [B, R, 4] normalized
+    corners. Returns [B, R, oh, ow, 3] float32 BGR — the contract of
+    ``ops/preprocess.py::crop_rois`` on a decoded frame, without
+    decoding the full frame. Y is sampled at the grid; U and V at
+    ``(yi // 2, xi // 2)`` of their half-resolution planes.
+    """
+    from evam_tpu_torch.ops.preprocess import gather_grid, roi_grid_indices
+
+    y, u, v = _split_planes(i420)
+    yi, xi = roi_grid_indices(boxes, y.shape[1:3], out_size)
+    yc = gather_grid(y, yi, xi).float()
+    uc = gather_grid(u, yi // 2, xi // 2).float()
+    vc = gather_grid(v, yi // 2, xi // 2).float()
+    return _bt601(yc, uc, vc)

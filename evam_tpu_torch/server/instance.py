@@ -226,12 +226,16 @@ class StreamInstance:
         ("msgpack") or are a seeded random init ("random")."""
         out: dict[str, Any] = {}
         for stage in self.stages:
-            m = getattr(stage, "model", None)
-            if m is not None and hasattr(m, "weight_source"):
+            models = {}
+            for attr in ("model", "det_model", "cls_model"):
+                m = getattr(stage, attr, None)
+                if m is not None and hasattr(m, "weight_source"):
+                    models[m.spec.key] = m.weight_source
+            if models:
                 eng = getattr(stage, "engine", None)
                 out[stage.name] = {
                     "engine": getattr(eng, "name", None),
-                    "weights": {m.spec.key: m.weight_source},
+                    "weights": models,
                 }
         return out
 

@@ -5,7 +5,6 @@ that comes with a later slice raises ``NotImplementedError`` naming
 its slice from this table, never a silent fallback.
 """
 
-DETECT_CLASSIFY = "port slice 3 (detect+classify)"
 TRACK_GATE_RAGGED = "port slice 4 (tracking, gating, UDFs, ragged)"
 ACTION_AUDIO = "port slice 5 (action and audio)"
 MODEL_IMPORT = "port slice 6 (real-model import)"

@@ -3,15 +3,20 @@
 ``DetectStage`` is the gvadetect counterpart: it encodes each frame to
 the engine's wire format on the stream's thread, submits it to the
 shared detect engine, and turns the packed result rows into regions.
+``ClassifyStage`` (gvaclassify) submits the frame with the boxes of its
+eligible regions and appends one attribute tensor per head to each;
+``FusedDetectClassifyStage`` does both in one engine round trip.
 Thresholds are applied here, on the host, so one engine (whose NMS uses
 the permissive ``ENGINE_SCORE_FLOOR``) serves pipelines with different
 ``threshold`` parameters.
 
-The motion gate and the region coaster come with a later slice: where
-the reference would gate a detect stage (``inference-interval=adaptive``
-or ``EVAM_GATE=on``, ``evam_tpu/stages/gate.py`` ``GateConfig``), the
-port's stage raises instead of serving ungated frames. A frame skipped
-by a static interval reuses the last inferred regions.
+A frame skipped by a static ``inference-interval`` gets fresh copies of
+the last inferred regions (``stages/track.py`` ``RegionCoaster``), so a
+later stage that appends to a region touches only that frame's. The
+motion gate comes with a later slice: where the reference would gate a
+detect stage (``inference-interval=adaptive`` or ``EVAM_GATE=on``,
+``evam_tpu/stages/gate.py`` ``GateConfig``), the port's stages raise
+instead of serving ungated frames.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.ops.color import bgr_to_i420_host
 from evam_tpu_torch.stages.base import AsyncStage
 from evam_tpu_torch.stages.context import FrameContext, Region, Tensor
+from evam_tpu_torch.stages.track import RegionCoaster
 
 log = logging.getLogger("evam_tpu_torch.stages.infer")
 
@@ -124,6 +130,14 @@ def _gate_enabled(properties: dict) -> bool:
     return _is_adaptive(properties) or env_gate in ("on", "1", "true")
 
 
+def _refuse_gate(name: str, properties: dict) -> None:
+    if _gate_enabled(properties):
+        raise NotImplementedError(
+            f"detect stage {name}: the motion gate "
+            "(inference-interval=adaptive or EVAM_GATE=on) comes with "
+            f"{slices.TRACK_GATE_RAGGED}")
+
+
 def _parse_interval(properties: dict) -> int:
     """``inference-interval``: a positive int, or ``"adaptive"`` — the
     gate's schedule, under which the static interval collapses to 1."""
@@ -138,11 +152,7 @@ class DetectStage(AsyncStage):
 
     def __init__(self, name: str, model_key: str, properties: dict,
                  hub: EngineHub):
-        if _gate_enabled(properties):
-            raise NotImplementedError(
-                f"detect stage {name}: the motion gate "
-                "(inference-interval=adaptive or EVAM_GATE=on) comes with "
-                f"{slices.TRACK_GATE_RAGGED}")
+        _refuse_gate(name, properties)
         self.name = name
         self.model_key = model_key
         self.threshold = float(properties.get("threshold", 0.5))
@@ -159,8 +169,8 @@ class DetectStage(AsyncStage):
         self.engine = hub.engine(
             "detect", model_key, properties.get("model-instance-id"),
             score_threshold=ENGINE_SCORE_FLOOR)
+        self._coaster = RegionCoaster()
         self._count = 0
-        self._last_regions: list[Region] = []
 
     def submit(self, ctx: FrameContext) -> Future | None:
         self._count += 1
@@ -172,24 +182,175 @@ class DetectStage(AsyncStage):
     def complete(self, ctx: FrameContext,
                  result: np.ndarray | None) -> list[FrameContext]:
         if result is None:
-            ctx.regions.extend(self._last_regions)
+            # interval skip: fresh copies of the last detections
+            ctx.regions.extend(self._coaster.reuse())
             return [ctx]
-        labels = self.model.labels
+        regions = [_region(row, self.model.labels) for row in result
+                   if row[6] >= 0.5 and row[4] >= self.threshold]
+        self._coaster.observe(regions)
+        ctx.regions.extend(regions)
+        return [ctx]
+
+
+def _region(row: np.ndarray, labels: list[str]) -> Region:
+    """A packed detection row [x0, y0, x1, y1, score, label, valid, ...]
+    → a Region carrying its detection tensor."""
+    x0, y0, x1, y1, score, label_id = row[:6]
+    lid = int(label_id)
+    label = labels[lid] if 0 <= lid < len(labels) else str(lid)
+    region = Region(
+        x0=float(x0), y0=float(y0), x1=float(x1), y1=float(y1),
+        confidence=float(score), label_id=lid, label=label,
+    )
+    region.tensors.append(Tensor(
+        name="detection", confidence=float(score), label_id=lid,
+        label=label, is_detection=True))
+    return region
+
+
+def _head_slices(model, offset: int = 0) -> list[tuple[str, int, int]]:
+    """(head, start, end) of each head's block in a packed result row
+    whose probability blocks start at ``offset``."""
+    out = []
+    for head_name, n in model.spec.heads:
+        out.append((head_name, offset, offset + n))
+        offset += n
+    return out
+
+
+def _append_attributes(region: Region, row: np.ndarray, heads, model,
+                       threshold: float) -> None:
+    """One tensor per head (argmax label, its probability) onto the
+    region, where that probability reaches ``threshold``."""
+    for head_name, a, b in heads:
+        probs = row[a:b]
+        hid = int(np.argmax(probs))
+        conf = float(probs[hid])
+        if conf < threshold:
+            continue
+        label_list = model.head_labels.get(head_name, [])
+        region.tensors.append(Tensor(
+            name=head_name, confidence=conf, label_id=hid,
+            label=label_list[hid] if hid < len(label_list) else str(hid)))
+
+
+class ClassifyStage(AsyncStage):
+    """gvaclassify counterpart. Properties: object-class,
+    reclassify-interval, threshold, model-instance-id, ingest-size."""
+
+    ROI_BUDGET = 8
+
+    def __init__(self, name: str, model_key: str, properties: dict,
+                 hub: EngineHub):
+        self.name = name
+        self.model_key = model_key
+        self.object_class = properties.get("object-class")
+        self.interval = max(1, int(properties.get("reclassify-interval", 1)))
+        self.threshold = float(properties.get("threshold", 0.0))
+        self.wire = hub.wire_format
+        self.model = hub.model(model_key)
+        # crops are taken on the device from the submitted frame: one
+        # ingest size keeps cross-stream batches stackable while
+        # keeping enough pixels for small ROIs
+        self.ingest_size = _wire_safe_size(
+            tuple(properties.get("ingest-size", (432, 768))))
+        self.engine = hub.engine(
+            "classify", model_key, properties.get("model-instance-id"),
+            roi_budget=self.ROI_BUDGET)
+        self._heads = _head_slices(self.model)
+        self._count = 0
+
+    def _eligible(self, ctx: FrameContext) -> list[Region]:
+        return [r for r in ctx.regions
+                if self.object_class in (None, "", r.label)][:self.ROI_BUDGET]
+
+    def submit(self, ctx: FrameContext) -> Future | None:
+        self._count += 1
+        if (self._count - 1) % self.interval:
+            return None
+        regions = self._eligible(ctx)
+        if not regions:
+            return None
+        boxes = np.zeros((self.ROI_BUDGET, 4), np.float32)
+        for i, r in enumerate(regions):
+            boxes[i] = [r.x0, r.y0, r.x1, r.y1]
+        return self.engine.submit(
+            units=len(regions),
+            frames=_wire_frame(ctx.frame, self.ingest_size, self.wire),
+            boxes=boxes)
+
+    def complete(self, ctx: FrameContext,
+                 result: np.ndarray | None) -> list[FrameContext]:
+        if result is None:
+            return [ctx]
+        for i, region in enumerate(self._eligible(ctx)):
+            _append_attributes(region, result[i], self._heads, self.model,
+                               self.threshold)
+        return [ctx]
+
+
+class FusedDetectClassifyStage(AsyncStage):
+    """Detect + classify in one engine round trip: one frame upload and
+    one packed readback replace two of each. Built by the stage
+    builder's fusion pass (``stages/build.py`` ``_fusable``) for a
+    classify stage that follows detect; ``reclassify-interval`` > 1
+    disables fusion. The ``object-class`` filter runs inside the step
+    (rows of other classes are not eligible for the ROI budget); a row
+    whose probability block is all zero was not classified. ROI crops
+    come from the frame at the detector's ingest size, not the classify
+    stage's."""
+
+    ROI_BUDGET = 8
+
+    def __init__(self, name: str, det_key: str, cls_key: str,
+                 det_props: dict, cls_props: dict, hub: EngineHub):
+        _refuse_gate(name, det_props)
+        self.name = name
+        self.det_threshold = float(det_props.get("threshold", 0.5))
+        self.cls_threshold = float(cls_props.get("threshold", 0.0))
+        self.object_class = cls_props.get("object-class")
+        self.interval = _parse_interval(det_props)
+        self.det_model = hub.model(det_key)
+        allowed = None
+        if self.object_class:
+            allowed = tuple(i for i, lbl in enumerate(self.det_model.labels)
+                            if lbl == self.object_class)
+        self.wire = hub.wire_format
+        self.ingest_size = _wire_safe_size(
+            (self.det_model.preprocess.height, self.det_model.preprocess.width))
+        self.engine = hub.fused_engine(
+            det_key, cls_key, det_props.get("model-instance-id"),
+            roi_budget=self.ROI_BUDGET,
+            score_threshold=ENGINE_SCORE_FLOOR,
+            allowed_label_ids=allowed)
+        self.cls_model = hub.model(cls_key)
+        self._heads = _head_slices(self.cls_model, offset=7)
+        self._coaster = RegionCoaster()
+        self._count = 0
+
+    def submit(self, ctx: FrameContext) -> Future | None:
+        self._count += 1
+        if (self._count - 1) % self.interval:
+            return None
+        return self.engine.submit(
+            frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
+
+    def complete(self, ctx: FrameContext,
+                 result: np.ndarray | None) -> list[FrameContext]:
+        if result is None:
+            ctx.regions.extend(self._coaster.reuse())
+            return [ctx]
         regions = []
         for row in result:
-            x0, y0, x1, y1, score, label_id, valid = row
-            if valid < 0.5 or score < self.threshold:
+            if row[6] < 0.5 or row[4] < self.det_threshold:
                 continue
-            lid = int(label_id)
-            label = labels[lid] if 0 <= lid < len(labels) else str(lid)
-            region = Region(
-                x0=float(x0), y0=float(y0), x1=float(x1), y1=float(y1),
-                confidence=float(score), label_id=lid, label=label,
-            )
-            region.tensors.append(Tensor(
-                name="detection", confidence=float(score), label_id=lid,
-                label=label, is_detection=True))
+            region = _region(row, self.det_model.labels)
+            # an all-zero block marks an unclassified row (a classified
+            # block sums to the number of heads)
+            if row[7:].sum() > 0.5:
+                _append_attributes(region, row, self._heads, self.cls_model,
+                                   self.cls_threshold)
             regions.append(region)
-        self._last_regions = regions
+        self._coaster.observe(regions)
         ctx.regions.extend(regions)
         return [ctx]

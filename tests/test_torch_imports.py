@@ -114,3 +114,12 @@ def test_no_module_imports_a_missing_package_at_top_level():
 def test_scan_matches_names_exactly():
     assert _blocked("evam_tpu.ops") and _blocked("jax.numpy")
     assert not _blocked("evam_tpu_torch.ops") and not _blocked("jaxlib_free")
+
+
+def test_the_scan_covers_every_module_of_the_port():
+    """The checks above walk the package, so a new module is covered by
+    being in it: the slice modules among them."""
+    names = {_module_name(p) for p in _port_files()}
+    assert {"evam_tpu_torch.modelproc", "evam_tpu_torch.modelproc.proc",
+            "evam_tpu_torch.stages.track",
+            "evam_tpu_torch.models.zoo.classifier", "chip_smoke"} <= names

@@ -168,8 +168,8 @@ def test_precision_reads_evam_precision(monkeypatch):
 
 def test_later_families_raise():
     reg = ModelRegistry(device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError, match="slice"):
-        reg.get("object_classification/vehicle_attributes")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        reg.get("action_recognition/encoder")
     with pytest.raises(KeyError):
         reg.get("no/such_model")
 

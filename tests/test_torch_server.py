@@ -255,8 +255,9 @@ def test_error_routes_hold_their_goldens(server, tmp_path):
 
 
 @pytest.mark.parametrize("path,body_extra,needle", [
-    ("/pipelines/object_classification/vehicle_attributes", {}, "slice 3"),
-    ("/pipelines/object_tracking/person_vehicle_bike", {}, "slice 3"),
+    ("/pipelines/object_classification/vehicle_attributes",
+     {"parameters": {"inference-interval": "adaptive"}}, "slice 4"),
+    ("/pipelines/object_tracking/person_vehicle_bike", {}, "slice 4"),
     ("/pipelines/object_detection/object_zone_count", {}, "slice 4"),
     ("/pipelines/action_recognition/general", {}, "slice 4"),
     (PIPE, {"parameters": {"inference-interval": "adaptive"}}, "slice 4"),
@@ -281,7 +282,8 @@ def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
 
 #: pipelines the port serves in this slice; every other one of
 #: pipelines/ and eii/pipelines/ answers 501
-_SERVED = {"pipelines": {("object_detection", "app_src_dst"),
+_SERVED = {"pipelines": {("object_classification", "vehicle_attributes"),
+                         ("object_detection", "app_src_dst"),
                          ("object_detection", "person"),
                          ("object_detection", "person_vehicle_bike"),
                          ("object_detection", "vehicle"),
@@ -301,7 +303,8 @@ def test_every_pipeline_serves_or_names_its_slice(d, name, version, tmp_path):
     registry = ModelRegistry(
         dtype="float32", device="cpu", allow_random_weights=True,
         input_overrides={k: (64, 64) for k in keys},
-        width_overrides={k: 8 for k in keys})
+        width_overrides={k: 8 for k in keys + (
+            "object_classification/vehicle_attributes",)})
     srv = PortServer(PipelineRegistry(
         Settings(pipelines_dir=str(REPO / d), device="cpu"),
         hub=EngineHub(registry, device="cpu", max_batch=4, deadline_ms=4.0)))
