@@ -62,7 +62,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
               published in order, stream 0's objects carrying color and
               type; masked launches only where the classifier's M is
               ragged. Prints fps, p50/p99, occupancy and unit occupancy.
-7. rest     — the same path through the port's REST server
+7. track    — the tracking pipeline (pipelines/object_tracking/
+              person_vehicle_bike: detect+classify fused into one
+              engine, then the IoU tracker) at the same full width, INT8,
+              pallas: STREAMS × FRAMES frames served; 13 launches per
+              fused forward; every published object carries an id, some
+              id persists across frames, some objects carry color and
+              type. Then the same traffic one frame at a time (every
+              forward a batch of one), with the kernel and with the
+              plain qgemm on the card: the same objects, labels, ids and
+              attribute labels on every frame, boxes within 1e-3 and
+              confidences within 1e-2. Prints fps and p50/p99.
+8. gate     — pipelines/object_detection/person_vehicle_bike with
+              ``inference-interval: "adaptive"``, the same traffic: per
+              stream ran + skipped = FRAMES, the run/skip sequence equal
+              to a host-only replay of the port's MotionGate over the
+              same frames, the detect engine's forwards carrying exactly
+              the ran frames (10 launches per forward), and the gate
+              registry's totals (the /healthz ``gate`` block) equal to
+              the stages'. Prints the skip rate and fps beside the
+              slice phase's ungated fps.
+9. rest     — the same path through the port's REST server
               (``evam_tpu_torch.server.app``) on a free 127.0.0.1 port, in
               a thread: STREAMS POSTs to
               /pipelines/object_detection/person_vehicle_bike, each a
@@ -75,12 +95,18 @@ Phases, in order; any failure exits nonzero and prints no result line:
               0's objects must match the slice phase's (≥ 95 % at IoU ≥
               0.9); one vehicle_attributes stream of FRAMES frames must
               complete on a fused engine with 13 launches per forward and
-              objects carrying color and type; DELETE on a long stream
-              must give ABORTED; an unknown pipeline, a body without a
-              source and a pipeline of a later slice (object tracking)
-              must answer 404, 400 and 501.
+              objects carrying color and type; one object_zone_count
+              stream (a whole-frame zone) must publish, on every frame
+              with objects, one zone-count event counting them all, and
+              one object_line_crossing stream (two lines) objects that
+              all carry an id, its line-crossing UDF holding their
+              anchors, both on the shared detect engine at 10 launches
+              per forward; DELETE on a long stream must give ABORTED;
+              an unknown pipeline, a body without a source and a
+              pipeline of a later slice (action recognition) must answer
+              404, 400 and 501.
               The engine is built and warmed before the clock starts.
-8. serve    — the real entry point, ``python3 -m
+10. serve   — the real entry point, ``python3 -m
               evam_tpu_torch.cli.main serve``, as a subprocess on a free
               REST_PORT: /healthz answers 200, one 8-frame
               person_vehicle_bike stream completes with 10 aligned
@@ -90,9 +116,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
               and SIGTERM ends the process with 0 in 30 s.
 
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
-calls; ``launches`` sums the slice, classify, rest and serve phases,
-split by variant in ``launches_by_variant``), the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``.
+calls; ``launches`` sums the slice, classify, track, gate, rest and
+serve phases' served runs, split by variant in ``launches_by_variant``;
+the track phase's kernel-against-plain runs are not counted), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for a quick first check of a new kernel);
 ``--profile`` adds a shorter profiled run (device busy share, kernel
@@ -120,8 +147,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "qgemm", "reference", "slice", "classify", "rest",
-          "serve")
+PHASES = ("device", "build", "qgemm", "reference", "slice", "classify", "track",
+          "gate", "rest", "serve")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -193,6 +220,7 @@ def _import_port():
     from evam_tpu_torch.server.app import App, make_server
     from evam_tpu_torch.server.registry import PipelineRegistry
     from evam_tpu_torch.stages.build import build_stages
+    from evam_tpu_torch.stages import gate
     from evam_tpu_torch.stages.meta import MetaconvertStage, PublishStage
     from evam_tpu_torch.stages.runner import StreamRunner
 
@@ -206,7 +234,8 @@ def _import_port():
         DetectStage=DetectStage, wire_frame=_wire_frame,
         ENGINE_SCORE_FLOOR=ENGINE_SCORE_FLOOR,
         MetaconvertStage=MetaconvertStage, PublishStage=PublishStage,
-        StreamRunner=StreamRunner, preprocess_wire=preprocess_wire)
+        StreamRunner=StreamRunner, preprocess_wire=preprocess_wire,
+        gate=gate, MotionGate=gate.MotionGate, GateConfig=gate.GateConfig)
 
 
 def _time_ms(torch, fn, calls: int = 20, rounds: int = 7) -> tuple[float, float]:
@@ -496,16 +525,18 @@ def _serve(port, make_stages, streams: int, frames: int, h: int, w: int,
     """Serve ``streams`` synthetic streams of ``frames`` frames each,
     one thread per stream, through the stages ``make_stages(uri,
     publish)`` builds for each (their engines shared). Returns
-    (runners, published seqs per stream, wall seconds, threads); stream
-    s0's published objects land in ``objects`` (seq → list), if given."""
+    (runners, published seqs per stream, wall seconds, threads); each
+    stream's published objects land in ``objects`` (stream id → seq →
+    list), if given."""
     published: dict[str, list[int]] = {}
     lock = threading.Lock()
 
     def publish(ctx):
         with lock:
             published.setdefault(ctx.stream_id, []).append(ctx.seq)
-            if objects is not None and ctx.stream_id == "s0":
-                objects[ctx.seq] = ctx.metadata["objects"]
+            if objects is not None:
+                objects.setdefault(ctx.stream_id, {})[ctx.seq] = \
+                    ctx.metadata["objects"]
 
     runners = []
     for s in range(streams):
@@ -521,6 +552,33 @@ def _serve(port, make_stages, streams: int, frames: int, h: int, w: int,
     for t in threads:
         t.join(timeout=600)
     return [r for r, _ in runners], published, time.perf_counter() - t0, threads
+
+
+def _reset_launches(qg) -> None:
+    qg.launches = 0
+    qg.variant_launches.update(aligned=0, masked=0)
+
+
+def _latency_row(runners, wall: float) -> dict:
+    lat = sorted(x for r in runners for x in r.latencies)
+    q = lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
+    return {"frames": len(lat), "wall_s": wall, "fps": len(lat) / wall,
+            "p50_ms": 1e3 * q(0.50), "p99_ms": 1e3 * q(0.99)}
+
+
+def _check_served(where: str, runners, published, threads) -> None:
+    """Every stream finished without frame errors and published each of
+    its FRAMES frames once, in order."""
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{where}: a stream did not finish")
+    errors = sum(r.errors for r in runners)
+    if errors:
+        raise AssertionError(f"{where}: {errors} frame errors")
+    for s in range(len(runners)):
+        seqs = published.get(f"s{s}", [])
+        if seqs != list(range(FRAMES)):
+            raise AssertionError(f"{where}: stream s{s} published "
+                                 f"{len(seqs)} of {FRAMES} frames")
 
 
 def _profile_serve(torch, port, hub, streams, frames, h, w) -> dict:
@@ -586,28 +644,17 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
         # warm every bucket the run can use, then count from zero
         engine = _warm_engine(torch, port, hub)
 
-        qg.launches = 0
-        qg.variant_launches.update(aligned=0, masked=0)
+        _reset_launches(qg)
         batches0 = engine.stats_row()["batches"]
-        s0_objects: dict[int, list] = {}
+        objects: dict[str, dict[int, list]] = {}
         runners, published, wall, threads = _serve(
-            port, _detect_stages(port, hub), STREAMS, FRAMES, h, w, s0_objects)
+            port, _detect_stages(port, hub), STREAMS, FRAMES, h, w, objects)
         launches = qg.launches
         masked = qg.variant_launches["masked"]
         stats = engine.stats_row()
         forwards = stats["batches"] - batches0
 
-        if any(t.is_alive() for t in threads):
-            raise AssertionError("slice phase: a stream did not finish")
-        errors = sum(r.errors for r in runners)
-        if errors:
-            raise AssertionError(f"slice phase: {errors} frame errors")
-        for s in range(STREAMS):
-            seqs = published.get(f"s{s}", [])
-            if seqs != list(range(FRAMES)):
-                raise AssertionError(
-                    f"slice phase: stream s{s} published {len(seqs)} of "
-                    f"{FRAMES} frames (in order: {seqs == sorted(seqs)})")
+        _check_served("slice phase", runners, published, threads)
         if launches != 10 * forwards or forwards == 0:
             raise AssertionError(
                 f"slice phase: {launches} qgemm launches for {forwards} "
@@ -650,30 +697,29 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
             raise AssertionError(f"slice check failed: {check}")
         _print(check)
 
-        lat = sorted(x for r in runners for x in r.latencies)
-        q = lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
         row = {"phase": "slice", "streams": STREAMS, "frames_per_stream": FRAMES,
-               "frames": len(lat), "wall_s": wall, "fps": len(lat) / wall,
+               **_latency_row(runners, wall),
                "forwards": forwards, "qgemm_launches": launches,
                "mean_occupancy": stats["mean_occupancy"],
                "bucket_batches": stats["bucket_batches"],
-               "p50_ms": 1e3 * q(0.50), "p99_ms": 1e3 * q(0.99),
                "stage_ms": stats["stage_ms"],
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
         _print(row)
         if profile:
             _print(_profile_serve(torch, port, hub, STREAMS, 8, h, w))
         return {"launches": launches, "input_hw": (h, w),
-                "width": model.spec.width, "s0_objects": s0_objects}
+                "width": model.spec.width, "s0_objects": objects["s0"],
+                "fps": row["fps"]}
     finally:
         hub.stop()
 
 
-def _pipeline_stages(port, hub, params: dict):
-    """Stage factory of the classify phase: the vehicle_attributes
-    pipeline, its parameters bound and its stages built as the REST
-    server builds them (``stages/build.py``, fusion pass included)."""
-    spec = port["PipelineLoader"](ROOT / "pipelines").get(*CLS_PIPELINE)
+def _pipeline_stages(port, hub, params: dict, pipeline=CLS_PIPELINE):
+    """Stage factory of the classify, track and gate phases: a pipeline
+    of ``pipelines/`` (vehicle_attributes by default), its parameters
+    bound and its stages built as the REST server builds them
+    (``stages/build.py``, fusion pass included)."""
+    spec = port["PipelineLoader"](ROOT / "pipelines").get(*pipeline)
     stage_specs, _ = port["resolve_parameters"](spec, params)
 
     def make(uri, publish):
@@ -800,26 +846,16 @@ def phase_classify(torch, port) -> dict:
             if mode == "fused":
                 _check_fused_kernel_path(torch, port, stages[0])
             batches0 = {k: e.stats_row()["batches"] for k, e in engines.items()}
-            qg.launches = 0
-            qg.variant_launches.update(aligned=0, masked=0)
-            s0_objects: dict[int, list] = {}
+            _reset_launches(qg)
+            objects: dict[str, dict[int, list]] = {}
             runners, published, wall, threads = _serve(
-                port, make, STREAMS, FRAMES, 512, 512, s0_objects)
+                port, make, STREAMS, FRAMES, 512, 512, objects)
             launches = qg.launches
             variants = dict(qg.variant_launches)
             rows = {k: e.stats_row() for k, e in engines.items()}
             fwd = {k: rows[k]["batches"] - batches0[k] for k in engines}
 
-            if any(t.is_alive() for t in threads):
-                raise AssertionError(f"classify {mode}: a stream did not finish")
-            errors = sum(r.errors for r in runners)
-            if errors:
-                raise AssertionError(f"classify {mode}: {errors} frame errors")
-            for s in range(STREAMS):
-                if published.get(f"s{s}", []) != list(range(FRAMES)):
-                    raise AssertionError(
-                        f"classify {mode}: stream s{s} published "
-                        f"{len(published.get(f's{s}', []))} of {FRAMES}")
+            _check_served(f"classify {mode}", runners, published, threads)
             per = ({"detect_classify": 13} if mode == "fused"
                    else {"detect": 10, "classify": 3})
             want_launches = sum(per[k] * fwd[k] for k in per)
@@ -831,17 +867,13 @@ def phase_classify(torch, port) -> dict:
                 raise AssertionError(
                     f"classify {mode}: {launches} qgemm launches {variants} "
                     f"for forwards {fwd}, expected {per} per forward")
-            objects = [o for objs in s0_objects.values() for o in objs]
+            objects = [o for objs in objects["s0"].values() for o in objs]
             attributed = _attributed(objects)
             if not attributed:
                 raise AssertionError(f"classify {mode}: no object of stream 0 "
                                      f"carries color and type ({len(objects)})")
-            lat = sorted(x for r in runners for x in r.latencies)
-            q = lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
             _print({"phase": "classify", "mode": mode, "streams": STREAMS,
-                    "frames": len(lat), "wall_s": wall, "fps": len(lat) / wall,
-                    "p50_ms": 1e3 * q(0.50), "p99_ms": 1e3 * q(0.99),
-                    "forwards": fwd, "qgemm_launches": launches,
+                    **_latency_row(runners, wall), "forwards": fwd, "qgemm_launches": launches,
                     "variants": variants,
                     "s0_objects": len(objects), "s0_attributed": attributed,
                     "occupancy": {k: r["mean_occupancy"] for k, r in rows.items()},
@@ -856,6 +888,223 @@ def phase_classify(torch, port) -> dict:
             det.preprocess.height, det.preprocess.width, det.spec.width,
             cls.preprocess.height, cls.preprocess.width, cls.spec.width,
             cls.spec.heads)}
+    finally:
+        hub.stop()
+
+
+#: the tracking pipeline (detect+classify fused, then track) and the
+#: detect pipeline the gate phase serves with inference-interval adaptive
+TRACK_PIPELINE = ("object_tracking", "person_vehicle_bike")
+DETECT_PIPELINE = ("object_detection", "person_vehicle_bike")
+GATED = {"inference-interval": "adaptive"}
+
+
+def _sequential(port, make, streams: int, frames: int) -> dict:
+    """The streams one after another, one frame in flight: every forward
+    is a batch of one frame, whichever qgemm runs. Returns (stream id,
+    seq) → published objects."""
+    out: dict[tuple[str, int], list] = {}
+
+    def publish(ctx):
+        out[(ctx.stream_id, ctx.seq)] = ctx.metadata["objects"]
+
+    for s in range(streams):
+        uri = f"synthetic://512x512@30?count={frames}&seed={s}"
+        runner = port["StreamRunner"](f"s{s}", make(uri, publish), uri,
+                                      window=1)
+        runner.run(port["SyntheticSource"].from_uri(uri).frames())
+        if runner.errors:
+            raise AssertionError(f"sequential s{s}: {runner.errors} errors")
+    return out
+
+
+def _objects_agree(kernel: dict, plain: dict) -> dict:
+    """Kernel-path against plain-path objects, frame by frame: the same
+    count, labels, ids and attribute labels, boxes within 1e-3 and
+    confidences within 1e-2. Returns counts; raises on the first
+    frame that differs."""
+    objects = exact = 0
+    for key in sorted(plain):
+        k, p = kernel.get(key), plain[key]
+        ok = k is not None and len(k) == len(p)
+        for ko, po in zip(k or [], p):
+            kb, pb = ko["detection"]["bounding_box"], po["detection"]["bounding_box"]
+            ok = ok and (ko.get("id"), ko["detection"]["label"]) == (
+                po.get("id"), po["detection"]["label"])
+            ok = ok and max(abs(kb[c] - pb[c]) for c in pb) <= 1e-3
+            ok = ok and abs(ko["detection"]["confidence"]
+                            - po["detection"]["confidence"]) <= 1e-2
+            for a in ATTRIBUTES:
+                ok = ok and (a in ko) == (a in po)
+                if a in po:
+                    ok = ok and ko[a]["label"] == po[a]["label"] and abs(
+                        ko[a]["confidence"] - po[a]["confidence"]) <= 1e-2
+            objects += 1
+            exact += ko == po
+        if not ok:
+            raise AssertionError(
+                f"track check: frame {key} differs between the kernel and "
+                f"the plain qgemm: {json.dumps(k)[:600]} vs "
+                f"{json.dumps(p)[:600]}")
+    return {"frames": len(plain), "objects": objects, "exact_objects": exact}
+
+
+def phase_track(torch, port) -> dict:
+    """The tracking pipeline (object_tracking/person_vehicle_bike: detect
+    and classify fused in one engine, then the tracker) at full width,
+    served to STREAMS streams; then the same traffic one frame at a
+    time with the kernel and with the plain qgemm on the card."""
+    qg, ql = port["qgemm"], port["qlinear"]
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hub = port["EngineHub"](registry, device="cuda")
+    try:
+        make = _pipeline_stages(port, hub, {"detection-threshold": 0.2},
+                                TRACK_PIPELINE)
+        stages = make("warm", None)
+        kinds = [type(st).__name__ for st in stages]
+        if kinds[:2] != ["FusedDetectClassifyStage", "TrackStage"]:
+            raise AssertionError(f"track: stages {kinds}")
+        engine = stages[0].engine
+        _warm_stage_engines(torch, port, stages)
+        batches0 = engine.stats_row()["batches"]
+        _reset_launches(qg)
+        objects: dict[str, dict[int, list]] = {}
+        runners, published, wall, threads = _serve(
+            port, make, STREAMS, FRAMES, 512, 512, objects)
+        variants = dict(qg.variant_launches)
+        launches = qg.launches
+        stats = engine.stats_row()
+        forwards = stats["batches"] - batches0
+        _check_served("track", runners, published, threads)
+        if (forwards == 0 or launches != 13 * forwards
+                or variants["masked"] > 3 * forwards):
+            raise AssertionError(
+                f"track: {launches} qgemm launches {variants} for {forwards} "
+                "fused forwards, expected 13 per forward")
+        served = [o for per in objects.values() for objs in per.values()
+                  for o in objs]
+        if not served or any("id" not in o for o in served):
+            raise AssertionError(f"track: {len(served)} objects, some "
+                                 "without an id")
+        ids = [o["id"] for o in served]
+        if len(set(ids)) >= len(ids):
+            raise AssertionError("track: no id persists across frames")
+        attributed = _attributed(served)
+        if not attributed:
+            raise AssertionError("track: no object carries color and type")
+
+        kernel = _sequential(port, make, STREAMS, FRAMES)
+        ql.qgemm = qg.qgemm_reference
+        try:
+            plain = _sequential(port, make, STREAMS, FRAMES)
+        finally:
+            ql.qgemm = qg.qgemm
+        check = {"phase": "track-check", **_objects_agree(kernel, plain),
+                 "ids": len({o["id"] for objs in plain.values() for o in objs})}
+        _print(check)
+        _print({"phase": "track", "streams": STREAMS,
+                **_latency_row(runners, wall), "forwards": forwards,
+                "qgemm_launches": launches, "variants": variants,
+                "objects": len(served), "distinct_ids": len(set(ids)),
+                "attributed_objects": attributed,
+                "occupancy": stats["mean_occupancy"],
+                "bucket_batches": stats["bucket_batches"],
+                "stage_ms": stats["stage_ms"]})
+        return variants
+    finally:
+        hub.stop()
+
+
+def _replay_gate(port, stream: int) -> list[bool]:
+    """The port's MotionGate alone over one stream's frames, on the host:
+    the run/skip sequence the served stage must give."""
+    gate = port["MotionGate"](port["GateConfig"].from_properties(GATED))
+    return [gate.decide(ev.frame) for ev in port["SyntheticSource"](
+        512, 512, count=FRAMES, seed=stream).frames()]
+
+
+def phase_gate(torch, port, slice_fps: float | None) -> dict:
+    """person_vehicle_bike with inference-interval adaptive, served to
+    STREAMS streams: the motion gate decides per frame, skipped frames
+    never reach the engine and coast the last detections."""
+    qg, gate_mod = port["qgemm"], port["gate"]
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hub = port["EngineHub"](registry, device="cuda")
+    try:
+        base = _pipeline_stages(port, hub, {"threshold": 0.2, **GATED},
+                                DETECT_PIPELINE)
+        engine = _warm_engine(torch, port, hub)
+        decisions: dict[str, list[bool]] = {}
+        gates = {}
+
+        def make(uri, publish):
+            stages = base(uri, publish)
+            gate = stages[0].gate
+            if gate is None or stages[0].engine is not engine:
+                raise AssertionError("gate: the detect stage built no gate, "
+                                     "or another engine than the warmed one")
+            record = decisions.setdefault(uri, [])
+            decide = gate.decide
+
+            def recording(frame):
+                run = decide(frame)
+                record.append(run)
+                return run
+            gate.decide = recording
+            gates[uri] = gate
+            return stages
+
+        gate_mod.registry.reset()
+        row0 = engine.stats_row()
+        _reset_launches(qg)
+        runners, published, wall, threads = _serve(
+            port, make, STREAMS, FRAMES, 512, 512)
+        variants = dict(qg.variant_launches)
+        launches = qg.launches
+        summary = gate_mod.registry.summary()
+        row = engine.stats_row()
+        forwards = row["batches"] - row0["batches"]
+        items = row["items"] - row0["items"]
+        _check_served("gate", runners, published, threads)
+        ran = sum(g.ran for g in gates.values())
+        skipped = sum(g.skipped for g in gates.values())
+        for uri, gate in gates.items():
+            if gate.ran + gate.skipped != FRAMES:
+                raise AssertionError(f"gate {uri}: ran {gate.ran} + skipped "
+                                     f"{gate.skipped} != {FRAMES}")
+        replay = {f"synthetic://512x512@30?count={FRAMES}&seed={s}":
+                  _replay_gate(port, s) for s in range(STREAMS)}
+        if decisions != replay:
+            bad = [u for u in replay if decisions.get(u) != replay[u]]
+            raise AssertionError(f"gate: decisions differ from the host "
+                                 f"replay on {bad}")
+        if (summary["ran"], summary["skipped"], summary["streams"]) != (
+                ran, skipped, STREAMS):
+            raise AssertionError(f"gate: registry {summary} against ran "
+                                 f"{ran}, skipped {skipped}")
+        if items != ran or forwards == 0 or launches != 10 * forwards \
+                or variants["masked"]:
+            raise AssertionError(
+                f"gate: the engine took {items} frames in {forwards} forwards "
+                f"({launches} qgemm launches {variants}) for {ran} ran frames")
+        if skipped == 0:
+            raise AssertionError("gate: no frame was skipped")
+        lat = _latency_row(runners, wall)
+        _print({"phase": "gate", "streams": STREAMS, **lat,
+                "slice_fps": slice_fps,
+                "fps_over_slice": (lat["fps"] / slice_fps
+                                   if slice_fps else None),
+                "ran": ran, "skipped": skipped,
+                "skip_rate": skipped / (ran + skipped),
+                "max_consecutive_skips": max(
+                    g.max_consecutive_skips for g in gates.values()),
+                "registry": summary, "forwards": forwards, "items": items,
+                "qgemm_launches": launches,
+                "occupancy": row["mean_occupancy"],
+                "bucket_batches": row["bucket_batches"],
+                "stage_ms": row["stage_ms"]})
+        gate_mod.registry.reset()
+        return variants
     finally:
         hub.stop()
 
@@ -919,8 +1168,10 @@ ATTRIBUTES = ("color", "type")
 def _line_errors(msg: dict, golden: dict) -> list[str]:
     """A published line against the golden, object by object (the
     canonical form keeps only a list's first element), with finite
-    numbers; vehicle attributes are checked apart (``_attributed``)."""
-    msg = dict(msg, objects=[{k: v for k, v in o.items() if k not in ATTRIBUTES}
+    numbers; vehicle attributes (``_attributed``) and a tracked object's
+    ``id`` are checked apart."""
+    msg = dict(msg, objects=[{k: v for k, v in o.items()
+                              if k not in ATTRIBUTES + ("id",)}
                              for o in msg.get("objects", [])])
     errors = _shape_errors(canonical(msg), golden)
     for obj in msg["objects"]:
@@ -1006,6 +1257,86 @@ def _classify_stream(base: str, out: Path, count: int, golden: dict,
     return engine, attributed
 
 
+#: the rest phase's UDF requests: a whole-frame zone, and two lines
+#: across the frame
+WHOLE_FRAME = {"zones": [{"name": "whole", "polygon": [[0, 0], [1, 0],
+                                                       [1, 1], [0, 1]]}]}
+TWO_LINES = {"lines": [
+    {"name": "vertical", "line": [[0.5, 0.0], [0.5, 1.0]]},
+    {"name": "horizontal", "line": [[0.0, 0.5], [1.0, 0.5]]}]}
+
+
+def _udf_streams(base: str, registry, tmp: Path, golden: dict) -> dict:
+    """POST one object_zone_count and one object_line_crossing stream of
+    FRAMES frames and wait for both: every line of the golden's shape;
+    every frame with objects carries one zone-count event that counts
+    them all; every line-crossing object carries an id, and both UDF
+    stages ran (the line-crossing UDF holds the anchors of the tracked
+    objects)."""
+    zone = "/pipelines/object_detection/object_zone_count"
+    line = "/pipelines/object_tracking/object_line_crossing"
+    ids = {}
+    for path, cfg in ((zone, {"object-zone-count-config": WHOLE_FRAME}),
+                      (line, {"object-line-crossing-config": TWO_LINES})):
+        body = _stream_body(tmp / f"{path.rsplit('/', 1)[1]}.jsonl", FRAMES, 3)
+        body["parameters"].update(cfg)
+        status, iid = _http(base, "POST", path, body)
+        if status != 200:
+            raise AssertionError(f"rest: POST {path} gave {status} {iid}")
+        ids[path] = iid
+    done = _wait_states(base, list(ids.values()),
+                        ("COMPLETED", "ERROR", "ABORTED"), 300)
+    out = {}
+    for path, iid in ids.items():
+        lines = [json.loads(x) for x in (
+            tmp / f"{path.rsplit('/', 1)[1]}.jsonl").read_text().splitlines()]
+        if done[iid]["state"] != "COMPLETED" or len(lines) != FRAMES:
+            raise AssertionError(f"rest: {path} {done[iid]['state']}, "
+                                 f"{len(lines)} lines")
+        for m in lines:
+            errors = _line_errors({k: v for k, v in m.items()
+                                   if k != "events"}, golden)
+            if errors:
+                raise AssertionError(f"rest: {path} line off the golden's "
+                                     f"shape: {errors[:3]}")
+        objects = [o for m in lines for o in m["objects"]]
+        events = [e for m in lines for e in m.get("events", [])]
+        stages = registry.get_instance(iid).stages
+        kinds = [type(st).__name__ for st in stages]
+        if kinds.count("UdfStage") != 2:
+            raise AssertionError(f"rest: {path} stages {kinds}")
+        if path == zone:
+            for m in lines:
+                want = ([{"event-type": "zone-count", "zone-name": "whole",
+                          "zone-count": len(m["objects"])}]
+                        if m["objects"] else [])
+                got = [{k: e[k] for k in ("event-type", "zone-name",
+                                          "zone-count")}
+                       for e in m.get("events", [])]
+                if got != want:
+                    raise AssertionError(f"rest: zone count events {got}, "
+                                         f"expected {want}")
+            if not events:
+                raise AssertionError("rest: no zone-count event")
+            out["zone_count"] = {"objects": len(objects),
+                                 "events": len(events)}
+        else:
+            history = next(st._impl._history for st in stages
+                           if type(st).__name__ == "UdfStage"
+                           and st._impl is not None)
+            if not objects or any("id" not in o for o in objects) \
+                    or not history:
+                raise AssertionError(
+                    f"rest: line crossing: {len(objects)} objects, ids on "
+                    f"{sum('id' in o for o in objects)}, {len(history)} "
+                    "anchors in the UDF")
+            out["line_crossing"] = {
+                "objects": len(objects), "events": len(events),
+                "distinct_ids": len({o["id"] for o in objects}),
+                "udf_anchors": len(history)}
+    return out
+
+
 def _rows(objects: list[dict]):
     """Published objects → packed detect rows (x0, y0, x1, y1, score,
     label_id, valid) for ``_match_rate``."""
@@ -1042,8 +1373,7 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
             engine = _warm_engine(torch, port, registry.hub)
             warm_s = time.perf_counter() - t_warm
             batches0 = engine.stats_row()["batches"]
-            qg.launches = 0
-            qg.variant_launches.update(aligned=0, masked=0)
+            _reset_launches(qg)
             t0 = time.perf_counter()
             ids = []
             for s in range(STREAMS):
@@ -1101,8 +1431,7 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
 
             # one detect+classify stream: the fused engine, 13 launches
             # per forward, some of them masked at small buckets
-            qg.launches = 0
-            qg.variant_launches.update(aligned=0, masked=0)
+            _reset_launches(qg)
             fused, attributed = _classify_stream(
                 base, tmp / "cls.jsonl", FRAMES, golden, "rest")
             _, engines = _http(base, "GET", "/engines")
@@ -1113,6 +1442,21 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
                 raise AssertionError(
                     f"rest: {qg.launches} qgemm launches {cls_variants} for "
                     f"{cls_fwd} fused forwards, expected 13 per forward")
+
+            # the UDF pipelines on the same detect engine: zone count
+            # with a whole-frame zone, line crossing with two lines
+            _reset_launches(qg)
+            det_fwd0 = engines[f"detect:{KEY}"]["batches"]
+            udf = _udf_streams(base, registry, tmp, golden)
+            _, engines = _http(base, "GET", "/engines")
+            udf_fwd = engines[f"detect:{KEY}"]["batches"] - det_fwd0
+            udf_variants = dict(qg.variant_launches)
+            if udf_fwd == 0 or qg.launches != 10 * udf_fwd \
+                    or udf_variants["masked"]:
+                raise AssertionError(
+                    f"rest: {qg.launches} qgemm launches {udf_variants} for "
+                    f"{udf_fwd} detect forwards of the UDF pipelines, "
+                    "expected 10 aligned per forward")
 
             # a long ninth stream, deleted while it runs
             status, long_id = _http(base, "POST", PIPELINE, _stream_body(
@@ -1136,7 +1480,7 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
                 "404": _http(base, "GET", "/pipelines/object_detection/nope"),
                 "400": _http(base, "POST", PIPELINE, {"destination": {}}),
                 "501": _http(base, "POST",
-                             "/pipelines/object_tracking/person_vehicle_bike",
+                             "/pipelines/action_recognition/general",
                              {"source": {"uri": "synthetic://512x512@30?count=4",
                                          "type": "uri"}}),
             }
@@ -1163,9 +1507,11 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
                     "qgemm_launches": sum(cls_variants.values()),
                     "variants": cls_variants, "attributed_objects": attributed,
                     "occupancy": engines[fused]["mean_occupancy"]},
+                "udf": {**udf, "forwards": udf_fwd, "variants": udf_variants},
                 "errors": {k: v[1]["error"] for k, v in errors.items()}}
             _print(result)
-            return {"aligned": launches + cls_variants["aligned"],
+            return {"aligned": launches + cls_variants["aligned"]
+                    + udf_variants["aligned"],
                     "masked": cls_variants["masked"]}
         finally:
             server.shutdown()
@@ -1352,6 +1698,11 @@ def main(argv: list[str] | None = None) -> int:
             raise AssertionError(f"classify ran {res_cls['models']}, not the "
                                  "full-width models")
         served.append(res_cls["variants"])
+    if "track" in phases:
+        served.append(phase_track(torch, port))
+    if "gate" in phases:
+        served.append(phase_gate(torch, port, res["fps"] if "slice" in phases
+                                 else None))
     if "rest" in phases:
         served.append(phase_rest(torch, port, res["s0_objects"]))
     if "serve" in phases:

@@ -156,9 +156,9 @@ _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
     ("EVAM_FIRST_BATCH_GRACE", "tpu", "first_batch_grace", float, 10.0, _S7),
     ("EVAM_TRANSFER", "tpu", "transfer", str, "inline", _S7),
     ("EVAM_TRANSFER_DEPTH", "tpu", "transfer_depth", int, 2, _S7),
-    ("EVAM_RAGGED", "tpu", "ragged", str, "off", slices.TRACK_GATE_RAGGED),
-    ("EVAM_RAGGED_UNIT_BUDGET", "tpu", "ragged_unit_budget",
-     int, 4, slices.TRACK_GATE_RAGGED),
+    # packing needs the SlotRing (the reference packs only there)
+    ("EVAM_RAGGED", "tpu", "ragged", str, "off", _S7),
+    ("EVAM_RAGGED_UNIT_BUDGET", "tpu", "ragged_unit_budget", int, 4, _S7),
     ("EVAM_FLEET", "tpu", "fleet", str, "off", _S7),
     ("EVAM_FLEET_SHARDS", "tpu", "fleet_shards", int, 0, _S7),
     ("EVAM_FLEET_SHARD_MAX_BATCH", "tpu", "fleet_shard_max_batch",

@@ -45,6 +45,7 @@ from evam_tpu_torch.server.registry import (
     PipelineRegistry,
     RequestError,
 )
+from evam_tpu_torch.stages.gate import registry as gate_registry
 
 log = logging.getLogger("evam_tpu_torch.server.app")
 
@@ -215,16 +216,17 @@ class App:
         ready["host_stages_ms"] = hub.stage_summary()
         ready["queue"] = hub.queue_summary()
         # the reference's off-path blocks: no scheduler (every start is
-        # admitted and counted, none rejected or shed), no gate, no AOT
-        # cache in this slice
+        # admitted and counted, none rejected or shed) and no AOT cache
+        # in this slice
         ready["scheduler"] = {
             "enabled": False,
             "admitted": dict(self.registry.admitted),
             "rejected": dict.fromkeys(PRIORITIES, 0),
             "shed": dict.fromkeys(PRIORITIES, 0),
         }
-        ready["gate"] = {"streams": 0, "ran": 0, "skipped": 0,
-                         "skip_rate": 0.0, "skipped_fps": 0.0}
+        # the motion gates' run/skip totals and live skipped-frames/s
+        # (fixed keys, all zero while nothing gates)
+        ready["gate"] = gate_registry.summary()
         ready["aot"] = {"enabled": False, "entries": 0, "bytes": 0,
                         "max_bytes": 0, "hits": 0,
                         "misses": dict.fromkeys(_AOT_MISS_REASONS, 0),

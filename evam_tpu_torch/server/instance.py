@@ -1,8 +1,8 @@
 """StreamInstance: one running pipeline instance.
 
 Counterpart of ``evam_tpu/server/instance.py`` (a copy, less the
-decode-pool, RTSP-demux, checkpoint and gate blocks, whose knobs raise
-until their slices). The instance owns only light host work: a thread
+decode-pool, RTSP-demux and checkpoint blocks, whose knobs raise until
+their slices). The instance owns only light host work: a thread
 walking its frames through the stage chain via StreamRunner; all
 inference rides the shared EngineHub batch queues. A dying stream
 never takes the engine down.
@@ -201,7 +201,7 @@ class StreamInstance:
     def status(self) -> dict[str, Any]:
         """Reference status payload shape: id, state, avg_fps,
         start_time, elapsed_time, priority (+ error message when failed,
-        + weight provenance)."""
+        + weight provenance, + gate state where a stage gates)."""
         elapsed = 0.0
         if self.start_time is not None:
             elapsed = (self.end_time or time.time()) - self.start_time
@@ -218,6 +218,11 @@ class StreamInstance:
         weights = self._weight_provenance()
         if weights:
             out["weights"] = weights
+        # per-stream motion-gate state, present only when a stage gates
+        gates = {stage.name: stage.gate.snapshot() for stage in self.stages
+                 if getattr(stage, "gate", None) is not None}
+        if gates:
+            out["gate"] = gates
         return out
 
     def _weight_provenance(self) -> dict[str, Any]:

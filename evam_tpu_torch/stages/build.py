@@ -6,11 +6,13 @@ this module instantiates the runtime stages, wiring engine-backed
 stages to the shared EngineHub. Source/decode specs are handled by the
 StreamInstance (they define IO, not per-frame transforms).
 
-The port builds source, decode, detect, classify, metaconvert, publish
-and sink, and — as the reference does — fuses a detect stage and the
-classify stage after it into one ``FusedDetectClassifyStage`` (one
-engine round trip) unless ``reclassify-interval`` > 1. Every other kind
-raises ``NotImplementedError`` naming the slice that brings it.
+The port builds source, decode, detect, classify, track, udf, convert,
+metaconvert, publish and sink, and — as the reference does — fuses a
+detect stage and the classify stage after it (with only track or
+convert stages between) into one ``FusedDetectClassifyStage`` (one
+engine round trip) unless ``reclassify-interval`` > 1. The action and
+audio kinds raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -28,12 +30,12 @@ from evam_tpu_torch.stages.infer import (
     FusedDetectClassifyStage,
 )
 from evam_tpu_torch.stages.meta import MetaconvertStage, PublishStage, SinkStage
+from evam_tpu_torch.stages.misc import ConvertStage
+from evam_tpu_torch.stages.track import TrackStage
+from evam_tpu_torch.stages.udf import UdfStage
 
 #: stage kinds the reference builds that come with later slices
 _LATER_KINDS = {
-    StageKind.TRACK: slices.TRACK_GATE_RAGGED,
-    StageKind.UDF: slices.TRACK_GATE_RAGGED,
-    StageKind.CONVERT: slices.TRACK_GATE_RAGGED,
     StageKind.ACTION: slices.ACTION_AUDIO,
     StageKind.AUDIO_DETECT: slices.ACTION_AUDIO,
     StageKind.AUDIO_MIX: slices.ACTION_AUDIO,
@@ -104,6 +106,10 @@ def build_stages(
         elif kind == StageKind.CLASSIFY:
             stages.append(
                 ClassifyStage(spec.name, spec.model, spec.properties, hub))
+        elif kind == StageKind.TRACK:
+            stages.append(TrackStage(spec.name, spec.properties))
+        elif kind == StageKind.UDF:
+            stages.append(UdfStage(spec.name, spec.properties))
         elif kind == StageKind.METACONVERT:
             stages.append(
                 MetaconvertStage(spec.name, spec.properties,
@@ -112,6 +118,8 @@ def build_stages(
             stages.append(PublishStage(spec.name, publish_fn))
         elif kind == StageKind.SINK:
             stages.append(SinkStage(spec.name, sink_fn))
+        elif kind == StageKind.CONVERT:
+            stages.append(ConvertStage(spec.name, spec.properties))
         else:
             raise ValueError(f"no runtime stage for kind {kind}")
     return stages

@@ -12,26 +12,28 @@ the permissive ``ENGINE_SCORE_FLOOR``) serves pipelines with different
 
 A frame skipped by a static ``inference-interval`` gets fresh copies of
 the last inferred regions (``stages/track.py`` ``RegionCoaster``), so a
-later stage that appends to a region touches only that frame's. The
-motion gate comes with a later slice: where the reference would gate a
-detect stage (``inference-interval=adaptive`` or ``EVAM_GATE=on``,
-``evam_tpu/stages/gate.py`` ``GateConfig``), the port's stages raise
-instead of serving ungated frames.
+later stage that appends to a region touches only that frame's. With
+``inference-interval=adaptive`` or ``EVAM_GATE=on`` a detect stage (or
+a fused one) owns a motion gate (``stages/gate.py``) in place of the
+static interval: the gate scores the host frame at submit time, a
+skipped frame never reaches the engine, and its ``complete`` coasts the
+last detections forward by the number of skips the gate had counted at
+that frame's submit (kept in ``ctx.scratch["gate_coast"]``: frames in
+flight would read a later count off the gate).
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from concurrent.futures import Future
 
 import numpy as np
 
-from evam_tpu_torch import slices
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.ops.color import bgr_to_i420_host
 from evam_tpu_torch.stages.base import AsyncStage
 from evam_tpu_torch.stages.context import FrameContext, Region, Tensor
+from evam_tpu_torch.stages.gate import maybe_gate
 from evam_tpu_torch.stages.track import RegionCoaster
 
 log = logging.getLogger("evam_tpu_torch.stages.infer")
@@ -114,45 +116,42 @@ def _wire_frame(frame: np.ndarray, size: tuple[int, int],
     return np.ascontiguousarray(resize_bgr_host(frame, size[0], size[1]))
 
 
-def _is_adaptive(properties: dict) -> bool:
-    iv = properties.get("inference-interval", 1)
-    return isinstance(iv, str) and iv.strip().lower() == "adaptive"
-
-
-def _gate_enabled(properties: dict) -> bool:
-    """The reference's rule for gating a detect stage
-    (``GateConfig.from_properties``): ``EVAM_GATE=off`` beats
-    everything; ``inference-interval=adaptive`` or ``EVAM_GATE=on``
-    turns the gate on."""
-    env_gate = os.environ.get("EVAM_GATE", "").strip().lower()
-    if env_gate in ("off", "0", "false"):
-        return False
-    return _is_adaptive(properties) or env_gate in ("on", "1", "true")
-
-
-def _refuse_gate(name: str, properties: dict) -> None:
-    if _gate_enabled(properties):
-        raise NotImplementedError(
-            f"detect stage {name}: the motion gate "
-            "(inference-interval=adaptive or EVAM_GATE=on) comes with "
-            f"{slices.TRACK_GATE_RAGGED}")
-
-
 def _parse_interval(properties: dict) -> int:
     """``inference-interval``: a positive int, or ``"adaptive"`` — the
     gate's schedule, under which the static interval collapses to 1."""
-    if _is_adaptive(properties):
+    iv = properties.get("inference-interval", 1)
+    if isinstance(iv, str) and iv.strip().lower() == "adaptive":
         return 1
-    return max(1, int(properties.get("inference-interval", 1)))
+    return max(1, int(iv))
+
+
+def _skip(stage, ctx: FrameContext) -> bool:
+    """The detect stages' skip rule at submit: the motion gate where
+    the stage has one (recording how far a skipped frame coasts), else
+    the static interval."""
+    stage._count += 1
+    if stage.gate is not None:
+        if ctx.frame is not None and not stage.gate.decide(ctx.frame):
+            ctx.scratch["gate_coast"] = stage.gate.consecutive_skips
+            return True
+        return False
+    return bool((stage._count - 1) % stage.interval)
+
+
+def _skipped_regions(stage, ctx: FrameContext) -> list[FrameContext]:
+    """Complete a skipped frame: copies of the last detections, coasted
+    by the gate's count at this frame's submit (0 for an interval
+    skip)."""
+    ctx.regions.extend(stage._coaster.coast(ctx.scratch.pop("gate_coast", 0)))
+    return [ctx]
 
 
 class DetectStage(AsyncStage):
     """gvadetect counterpart. Properties: threshold, inference-interval,
-    model-instance-id."""
+    model-instance-id, and the gate's (``stages/gate.py``)."""
 
     def __init__(self, name: str, model_key: str, properties: dict,
                  hub: EngineHub):
-        _refuse_gate(name, properties)
         self.name = name
         self.model_key = model_key
         self.threshold = float(properties.get("threshold", 0.5))
@@ -169,22 +168,21 @@ class DetectStage(AsyncStage):
         self.engine = hub.engine(
             "detect", model_key, properties.get("model-instance-id"),
             score_threshold=ENGINE_SCORE_FLOOR)
+        #: None unless inference-interval=adaptive or EVAM_GATE=on
+        self.gate = maybe_gate(properties, engine_name=self.engine.name)
         self._coaster = RegionCoaster()
         self._count = 0
 
     def submit(self, ctx: FrameContext) -> Future | None:
-        self._count += 1
-        if (self._count - 1) % self.interval:
-            return None  # inference-interval skip: reuse last regions
+        if _skip(self, ctx):
+            return None
         return self.engine.submit(
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
 
     def complete(self, ctx: FrameContext,
                  result: np.ndarray | None) -> list[FrameContext]:
         if result is None:
-            # interval skip: fresh copies of the last detections
-            ctx.regions.extend(self._coaster.reuse())
-            return [ctx]
+            return _skipped_regions(self, ctx)
         regions = [_region(row, self.model.labels) for row in result
                    if row[6] >= 0.5 and row[4] >= self.threshold]
         self._coaster.observe(regions)
@@ -304,7 +302,6 @@ class FusedDetectClassifyStage(AsyncStage):
 
     def __init__(self, name: str, det_key: str, cls_key: str,
                  det_props: dict, cls_props: dict, hub: EngineHub):
-        _refuse_gate(name, det_props)
         self.name = name
         self.det_threshold = float(det_props.get("threshold", 0.5))
         self.cls_threshold = float(cls_props.get("threshold", 0.0))
@@ -325,12 +322,14 @@ class FusedDetectClassifyStage(AsyncStage):
             allowed_label_ids=allowed)
         self.cls_model = hub.model(cls_key)
         self._heads = _head_slices(self.cls_model, offset=7)
+        #: the detect properties drive the gate, as in DetectStage; a
+        #: coasted region keeps its attribute tensors (shared payloads)
+        self.gate = maybe_gate(det_props, engine_name=self.engine.name)
         self._coaster = RegionCoaster()
         self._count = 0
 
     def submit(self, ctx: FrameContext) -> Future | None:
-        self._count += 1
-        if (self._count - 1) % self.interval:
+        if _skip(self, ctx):
             return None
         return self.engine.submit(
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
@@ -338,8 +337,7 @@ class FusedDetectClassifyStage(AsyncStage):
     def complete(self, ctx: FrameContext,
                  result: np.ndarray | None) -> list[FrameContext]:
         if result is None:
-            ctx.regions.extend(self._coaster.reuse())
-            return [ctx]
+            return _skipped_regions(self, ctx)
         regions = []
         for row in result:
             if row[6] < 0.5 or row[4] < self.det_threshold:

@@ -122,4 +122,10 @@ def test_the_scan_covers_every_module_of_the_port():
     names = {_module_name(p) for p in _port_files()}
     assert {"evam_tpu_torch.modelproc", "evam_tpu_torch.modelproc.proc",
             "evam_tpu_torch.stages.track",
-            "evam_tpu_torch.models.zoo.classifier", "chip_smoke"} <= names
+            "evam_tpu_torch.models.zoo.classifier", "chip_smoke",
+            "evam_tpu_torch.media.luma", "evam_tpu_torch.stages.gate",
+            "evam_tpu_torch.stages.misc", "evam_tpu_torch.stages.udf",
+            "evam_tpu_torch.extensions",
+            "evam_tpu_torch.extensions.event_convert",
+            "evam_tpu_torch.extensions.object_line_crossing",
+            "evam_tpu_torch.extensions.object_zone_count"} <= names

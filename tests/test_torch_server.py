@@ -21,11 +21,13 @@
   servers with the same engine and frame count and publish nothing;
   their detect stage is the one compared above (same model key, and
   the same resolved stage specs, ``tests/test_torch_graph.py``).
-* DELETE reaches ABORTED; a pipeline of a later slice answers 501;
-  ``EVAM_GATE=on`` raises in ``DetectStage``; ``python -m
+* DELETE reaches ABORTED; a pipeline of a later slice answers 501, and
+  the requests slice 4 brought (tracking, zone count, the motion gate)
+  serve; ``EVAM_GATE=on`` builds a gate in ``DetectStage`` and
+  ``EVAM_GATE=off`` beats ``adaptive``; ``python -m
   evam_tpu_torch.cli.main list`` prints the reference's JSON, and
   ``serve`` answers on the CPU with ``EVAM_PLATFORM=cpu`` (and refuses
-  to start without a card otherwise).
+  to start without a card, or with ``EVAM_RAGGED=packed``, otherwise).
 """
 
 from __future__ import annotations
@@ -255,12 +257,7 @@ def test_error_routes_hold_their_goldens(server, tmp_path):
 
 
 @pytest.mark.parametrize("path,body_extra,needle", [
-    ("/pipelines/object_classification/vehicle_attributes",
-     {"parameters": {"inference-interval": "adaptive"}}, "slice 4"),
-    ("/pipelines/object_tracking/person_vehicle_bike", {}, "slice 4"),
-    ("/pipelines/object_detection/object_zone_count", {}, "slice 4"),
-    ("/pipelines/action_recognition/general", {}, "slice 4"),
-    (PIPE, {"parameters": {"inference-interval": "adaptive"}}, "slice 4"),
+    ("/pipelines/action_recognition/general", {}, "slice 5"),
     (PIPE, {"source": {"type": "webcam", "device": 0}}, "slice 11"),
     (PIPE, {"destination": {"metadata": {"type": "zmq"}}}, "slice 11"),
     (PIPE, {"destination": {"metadata": {"type": "null"},
@@ -280,13 +277,39 @@ def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
     assert server.registry.hub.stats() == {}
 
 
+@pytest.mark.parametrize("path,body_extra", [
+    ("/pipelines/object_classification/vehicle_attributes",
+     {"parameters": {"inference-interval": "adaptive"}}),
+    ("/pipelines/object_tracking/person_vehicle_bike", {}),
+    ("/pipelines/object_detection/object_zone_count", {}),
+    (PIPE, {"parameters": {"inference-interval": "adaptive"}}),
+])
+def test_slice_4_requests_serve(server, tmp_path, path, body_extra):
+    """The requests that answered 501 before slice 4 complete; a gated
+    stage reports its gate on the instance status."""
+    status, iid = server.request("POST", path,
+                                 {**_body(tmp_path / "o.jsonl"), **body_extra})
+    assert status == 200, iid
+    st = server.wait(iid, path=path)
+    assert st["state"] == "COMPLETED"
+    assert len((tmp_path / "o.jsonl").read_text().splitlines()) == 6
+    gated = "inference-interval" in json.dumps(body_extra)
+    assert ("gate" in st) == gated
+    if gated:
+        (gate,) = st["gate"].values()
+        assert gate["enabled"] and gate["ran"] + gate["skipped"] == 6
+
+
 #: pipelines the port serves in this slice; every other one of
 #: pipelines/ and eii/pipelines/ answers 501
 _SERVED = {"pipelines": {("object_classification", "vehicle_attributes"),
                          ("object_detection", "app_src_dst"),
+                         ("object_detection", "object_zone_count"),
                          ("object_detection", "person"),
                          ("object_detection", "person_vehicle_bike"),
                          ("object_detection", "vehicle"),
+                         ("object_tracking", "object_line_crossing"),
+                         ("object_tracking", "person_vehicle_bike"),
                          ("video_decode", "app_dst")},
            "eii/pipelines": {("object_detection", "person_detection"),
                              ("object_detection", "person_vehicle_bike")}}
@@ -352,14 +375,17 @@ def test_retry_delay_is_the_references():
 
 
 def test_gate_on_raises_in_detect_stage(monkeypatch):
+    """Slice 4 serves the gate: ``EVAM_GATE=on`` builds one in the detect
+    stage, ``EVAM_GATE=off`` beats ``adaptive``, as in the reference."""
     registry = _port_registry()
     monkeypatch.setenv("EVAM_GATE", "on")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        DetectStage("detection", KEY, {}, registry.hub)
-    monkeypatch.setenv("EVAM_GATE", "off")  # beats adaptive, as in the reference
+    stage = DetectStage("detection", KEY, {}, registry.hub)
+    assert stage.gate is not None and stage.gate.cfg.enabled
+    assert stage.gate.engine_name == stage.engine.name
+    monkeypatch.setenv("EVAM_GATE", "off")
     stage = DetectStage("detection", KEY, {"inference-interval": "adaptive"},
                         registry.hub)
-    assert stage.interval == 1
+    assert stage.gate is None and stage.interval == 1
     registry.stop_all()
 
 
@@ -620,6 +646,18 @@ def test_cli_serve_without_a_card_refuses_to_start():
         text=True, timeout=120)
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
+
+
+def test_cli_serve_with_ragged_packing_names_slice_7():
+    """Ragged packing needs the SlotRing, which comes with slice 7:
+    ``serve`` refuses to start rather than serve dense batches."""
+    res = subprocess.run(
+        [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve"], cwd=REPO,
+        env=_port_env(EVAM_PLATFORM="cpu", EVAM_RAGGED="packed",
+                      REST_PORT=str(_free_port())),
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "EVAM_RAGGED" in res.stderr and "slice 7" in res.stderr
 
 
 def test_cli_eii_mode_and_fetch_models_name_their_slices():
