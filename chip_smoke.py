@@ -36,7 +36,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
               against the same weights on the CPU through the plain
               version: outputs within 1e-2 of the reference's max
               magnitude.
-5. slice    — the port's main path at full width: EVAM_PRECISION=int8,
+5. weights  — the models-dir layout on the card: the INT8 SSD (512²,
+              width 32) and the action decoder saved with the port's
+              ``save_weights``, then loaded through
+              ``ModelRegistry(models_dir=..., allow_random_weights=False)``
+              with the ``msgpack`` package blocked (the port's
+              standard-library codec); every tensor and the forward
+              outputs on one input equal.
+6. slice    — the port's main path at full width: EVAM_PRECISION=int8,
               EVAM_QGEMM=pallas, person_vehicle_bike at 512×512, width
               32, seeded random weights. STREAMS (8) synthetic 512×512
               streams × FRAMES (32) frames go StreamRunner →
@@ -48,7 +55,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
               output and loc/conf must agree with the same step run with
               the plain qgemm on the card. Prints fps, occupancy, p50/p99
               frame latency and the engine's stage times.
-6. classify — the detect+classify pipeline (pipelines/
+7. classify — the detect+classify pipeline (pipelines/
               object_classification/vehicle_attributes, built as the
               server builds it) at full width: SSD 512² width 32, the
               classifier 72² width 32 with heads color 7 and type 4,
@@ -62,7 +69,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
               published in order, stream 0's objects carrying color and
               type; masked launches only where the classifier's M is
               ragged. Prints fps, p50/p99, occupancy and unit occupancy.
-7. track    — the tracking pipeline (pipelines/object_tracking/
+8. track    — the tracking pipeline (pipelines/object_tracking/
               person_vehicle_bike: detect+classify fused into one
               engine, then the IoU tracker) at the same full width, INT8,
               pallas: STREAMS × FRAMES frames served; 13 launches per
@@ -73,7 +80,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
               plain qgemm on the card: the same objects, labels, ids and
               attribute labels on every frame, boxes within 1e-3 and
               confidences within 1e-2. Prints fps and p50/p99.
-8. gate     — pipelines/object_detection/person_vehicle_bike with
+9. gate     — pipelines/object_detection/person_vehicle_bike with
               ``inference-interval: "adaptive"``, the same traffic: per
               stream ran + skipped = FRAMES, the run/skip sequence equal
               to a host-only replay of the port's MotionGate over the
@@ -82,7 +89,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
               registry's totals (the /healthz ``gate`` block) equal to
               the stages'. Prints the skip rate and fps beside the
               slice phase's ungated fps.
-9. rest     — the same path through the port's REST server
+10. action  — action_recognition/general at full width (encoder 224²,
+              width 32, embed 512; decoder dim 512, depth 4, 8 heads,
+              400 classes). First the card against the CPU on the same
+              seeded float32 weights (TF32 off): embeddings, logits and
+              probabilities within 1e-4 × the CPU's max magnitude, top-1
+              equal wherever the CPU's top-2 margin exceeds twice that.
+              Then 4 synthetic 512² streams × 48 frames served INT8
+              (the float modules in bfloat16, as the reference runs
+              them) through the pipeline's stages → StreamRunner: no
+              tensors before frame 16 of a stream, then one 400-long
+              ``action`` tensor a frame; zero qgemm launches. Prints
+              fps, p50/p99 and both engines' occupancy, launch and
+              readback ms.
+11. audio   — audio_detection/environment: AclNet at 16000 samples,
+              width 32, 53 classes, card against CPU the same way; then
+              4 ``synthetic-audio://seconds=5`` streams served INT8 at
+              sliding-window 0.2, threshold 0: a ``detection`` tensor on
+              exactly the chunks a host replay of the stride rule gives,
+              the engine's items equal to the windows; zero qgemm
+              launches. Prints windows/s and the windows' p50/p99.
+12. rest    — the same path through the port's REST server
               (``evam_tpu_torch.server.app``) on a free 127.0.0.1 port, in
               a thread: STREAMS POSTs to
               /pipelines/object_detection/person_vehicle_bike, each a
@@ -101,12 +128,16 @@ Phases, in order; any failure exits nonzero and prints no result line:
               one object_line_crossing stream (two lines) objects that
               all carry an id, its line-crossing UDF holding their
               anchors, both on the shared detect engine at 10 launches
-              per forward; DELETE on a long stream must give ABORTED;
-              an unknown pipeline, a body without a source and a
-              pipeline of a later slice (action recognition) must answer
-              404, 400 and 501.
+              per forward; one action_recognition/general stream (24
+              frames) and one audio_detection/environment stream (3 s)
+              must complete with lines of the golden's shape, action
+              tensors from frame 16 and detections on the replayed
+              windows, and no qgemm launch; DELETE on a long stream
+              must give ABORTED; an unknown pipeline, a body without a
+              source and a request of a later slice (a webcam source)
+              must answer 404, 400 and 501.
               The engine is built and warmed before the clock starts.
-10. serve   — the real entry point, ``python3 -m
+13. serve   — the real entry point, ``python3 -m
               evam_tpu_torch.cli.main serve``, as a subprocess on a free
               REST_PORT: /healthz answers 200, one 8-frame
               person_vehicle_bike stream completes with 10 aligned
@@ -118,8 +149,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
 calls; ``launches`` sums the slice, classify, track, gate, rest and
 serve phases' served runs, split by variant in ``launches_by_variant``;
-the track phase's kernel-against-plain runs are not counted), the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+the track phase's kernel-against-plain runs are not counted; the action
+and audio phases launch it zero times), the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for a quick first check of a new kernel);
 ``--profile`` adds a shorter profiled run (device busy share, kernel
@@ -147,8 +179,8 @@ import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "qgemm", "reference", "slice", "classify", "track",
-          "gate", "rest", "serve")
+PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
+          "classify", "track", "gate", "action", "audio", "rest", "serve")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -205,7 +237,13 @@ def _nvidia_smi() -> str:
 def _import_port():
     """The port's modules this script drives (imports nothing of JAX)."""
     from evam_tpu_torch.engine.hub import EngineHub
-    from evam_tpu_torch.engine.steps import build_detect_step
+    from evam_tpu_torch.engine.steps import (
+        build_action_decode_step,
+        build_action_encode_step,
+        build_audio_step,
+        build_detect_step,
+    )
+    from evam_tpu_torch.media.audio import SyntheticAudioSource
     from evam_tpu_torch.media.source import SyntheticSource
     from evam_tpu_torch.models.registry import ModelRegistry
     from evam_tpu_torch.ops import kernels, qgemm, qlinear
@@ -230,6 +268,10 @@ def _import_port():
         resolve_parameters=resolve_parameters, build_stages=build_stages,
         EngineHub=EngineHub, build_detect_step=build_detect_step,
         SyntheticSource=SyntheticSource, ModelRegistry=ModelRegistry,
+        SyntheticAudioSource=SyntheticAudioSource,
+        build_action_encode_step=build_action_encode_step,
+        build_action_decode_step=build_action_decode_step,
+        build_audio_step=build_audio_step,
         kernels=kernels, qgemm=qgemm, qlinear=qlinear,
         DetectStage=DetectStage, wire_frame=_wire_frame,
         ENGINE_SCORE_FLOOR=ENGINE_SCORE_FLOOR,
@@ -521,29 +563,40 @@ def _detect_stages(port, hub):
 
 
 def _serve(port, make_stages, streams: int, frames: int, h: int, w: int,
-           objects: dict | None = None):
+           objects: dict | None = None, metas: dict | None = None,
+           source=None):
     """Serve ``streams`` synthetic streams of ``frames`` frames each,
     one thread per stream, through the stages ``make_stages(uri,
     publish)`` builds for each (their engines shared). Returns
     (runners, published seqs per stream, wall seconds, threads); each
     stream's published objects land in ``objects`` (stream id → seq →
-    list), if given."""
+    list), and its whole metadata with the frame's ingest-to-publish
+    seconds in ``metas`` (stream id → seq → (metadata, seconds)), if
+    given. ``source(s)`` gives stream ``s``'s (uri, source) in place of
+    the synthetic ``w``×``h`` video."""
     published: dict[str, list[int]] = {}
     lock = threading.Lock()
 
     def publish(ctx):
+        latency = time.perf_counter() - ctx.ingest_t
         with lock:
             published.setdefault(ctx.stream_id, []).append(ctx.seq)
             if objects is not None:
                 objects.setdefault(ctx.stream_id, {})[ctx.seq] = \
                     ctx.metadata["objects"]
+            if metas is not None:
+                metas.setdefault(ctx.stream_id, {})[ctx.seq] = (
+                    ctx.metadata, latency)
 
     runners = []
     for s in range(streams):
-        uri = f"synthetic://{w}x{h}@30?count={frames}&seed={s}"
+        if source is None:
+            uri = f"synthetic://{w}x{h}@30?count={frames}&seed={s}"
+            src = port["SyntheticSource"].from_uri(uri)
+        else:
+            uri, src = source(s)
         stages = make_stages(uri, publish)
-        runners.append((port["StreamRunner"](f"s{s}", stages, uri),
-                        port["SyntheticSource"].from_uri(uri)))
+        runners.append((port["StreamRunner"](f"s{s}", stages, uri), src))
     t0 = time.perf_counter()
     threads = [threading.Thread(target=r.run, args=(src.frames(),))
                for r, src in runners]
@@ -566,9 +619,10 @@ def _latency_row(runners, wall: float) -> dict:
             "p50_ms": 1e3 * q(0.50), "p99_ms": 1e3 * q(0.99)}
 
 
-def _check_served(where: str, runners, published, threads) -> None:
+def _check_served(where: str, runners, published, threads,
+                  frames: int = FRAMES) -> None:
     """Every stream finished without frame errors and published each of
-    its FRAMES frames once, in order."""
+    its ``frames`` frames once, in order."""
     if any(t.is_alive() for t in threads):
         raise AssertionError(f"{where}: a stream did not finish")
     errors = sum(r.errors for r in runners)
@@ -576,9 +630,9 @@ def _check_served(where: str, runners, published, threads) -> None:
         raise AssertionError(f"{where}: {errors} frame errors")
     for s in range(len(runners)):
         seqs = published.get(f"s{s}", [])
-        if seqs != list(range(FRAMES)):
+        if seqs != list(range(frames)):
             raise AssertionError(f"{where}: stream s{s} published "
-                                 f"{len(seqs)} of {FRAMES} frames")
+                                 f"{len(seqs)} of {frames} frames")
 
 
 def _profile_serve(torch, port, hub, streams, frames, h, w) -> dict:
@@ -1458,6 +1512,14 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
                     f"{udf_fwd} detect forwards of the UDF pipelines, "
                     "expected 10 aligned per forward")
 
+            # the frame-level pipelines on their own engines: no
+            # kernel launch
+            _reset_launches(qg)
+            frame_level = _frame_level_streams(base, tmp, golden)
+            if qg.launches:
+                raise AssertionError(f"rest: {qg.launches} qgemm launches "
+                                     "in the action and audio pipelines")
+
             # a long ninth stream, deleted while it runs
             status, long_id = _http(base, "POST", PIPELINE, _stream_body(
                 tmp / "long.jsonl", None, 9))
@@ -1479,17 +1541,23 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
             errors = {
                 "404": _http(base, "GET", "/pipelines/object_detection/nope"),
                 "400": _http(base, "POST", PIPELINE, {"destination": {}}),
-                "501": _http(base, "POST",
-                             "/pipelines/action_recognition/general",
-                             {"source": {"uri": "synthetic://512x512@30?count=4",
-                                         "type": "uri"}}),
+                # a webcam source comes with a later slice
+                "501": _http(base, "POST", PIPELINE,
+                             {"source": {"type": "webcam", "device": 0},
+                              "destination": {"metadata": {
+                                  "type": "file",
+                                  "path": str(tmp / "webcam.jsonl")}}}),
             }
             for want, (status, body) in errors.items():
                 if str(status) != want or "error" not in body:
                     raise AssertionError(f"rest: expected {want}, got "
                                          f"{status} {body}")
+            if "slice 11" not in errors["501"][1]["error"]:
+                raise AssertionError(f"rest: 501 {errors['501'][1]}")
             _, engines_after = _http(base, "GET", "/engines")
-            if sorted(engines_after) != sorted([f"detect:{KEY}", fused]):
+            if sorted(engines_after) != sorted([
+                    f"detect:{KEY}", fused, f"action_encode:{ENC_KEY}",
+                    f"action_decode:{DEC_KEY}", f"audio:{AUDIO_KEY}"]):
                 raise AssertionError(f"rest: engines {list(engines_after)} "
                                      "after the error requests")
             result = {
@@ -1508,6 +1576,7 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
                     "variants": cls_variants, "attributed_objects": attributed,
                     "occupancy": engines[fused]["mean_occupancy"]},
                 "udf": {**udf, "forwards": udf_fwd, "variants": udf_variants},
+                "frame_level": frame_level,
                 "errors": {k: v[1]["error"] for k, v in errors.items()}}
             _print(result)
             return {"aligned": launches + cls_variants["aligned"]
@@ -1517,6 +1586,396 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
             server.shutdown()
             server.server_close()
             registry.stop_all()
+
+
+# ------------------------------------------- action recognition, audio
+
+ENC_KEY = "action_recognition/encoder"
+DEC_KEY = "action_recognition/decoder"
+AUDIO_KEY = "audio_detection/environment"
+ACTION_PIPELINE = ("action_recognition", "general")
+AUDIO_PIPELINE = ("audio_detection", "environment")
+#: the action phase's traffic: synthetic 512×512 streams × frames each
+ACTION_STREAMS, ACTION_FRAMES = 4, 48
+#: the audio phase's traffic: synthetic tone streams × seconds each
+AUDIO_STREAMS, AUDIO_SECONDS = 4, 5
+#: the audio pipeline's 100 ms chunks (audiomixer) and its window
+CHUNK_SAMPLES, WINDOW_SAMPLES = 1600, 16000
+#: card against CPU at float32 (TF32 off, set in main): an output
+#: within FP32_RTOL × its largest CPU magnitude; top-1 equal wherever
+#: the CPU's top-2 margin exceeds twice that
+FP32_RTOL = 1e-4
+
+
+def phase_weights(torch, port) -> dict:
+    """The models-dir layout written and read on the card: the INT8 SSD
+    and the action decoder saved with the port's ``save_weights``, then
+    loaded through a registry that refuses random weights, with the
+    ``msgpack`` package blocked (the port's standard-library codec, on a
+    machine with or without it): every tensor and the forward outputs
+    on one input equal."""
+    import importlib.util
+
+    keys = (KEY, DEC_KEY)
+    saver = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    if saver.precision != "INT8":
+        raise AssertionError("weights: EVAM_PRECISION=int8 did not select INT8")
+    row = {"phase": "weights", "precision": saver.precision,
+           "msgpack_installed": importlib.util.find_spec("msgpack") is not None}
+    blocked = sys.modules.get("msgpack", False)
+    sys.modules["msgpack"] = None  # an import of it now raises
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            models = Path(tmp) / "models"
+            t0 = time.perf_counter()
+            row["file_bytes"] = {
+                k: saver.save_weights(k, models).stat().st_size for k in keys}
+            row["save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loader = port["ModelRegistry"](models_dir=models, device="cuda",
+                                           allow_random_weights=False)
+            loaded = {k: loader.get(k) for k in keys}
+            row["load_s"] = time.perf_counter() - t0
+    finally:
+        if blocked is False:
+            del sys.modules["msgpack"]
+        else:
+            sys.modules["msgpack"] = blocked
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    inputs = {
+        KEY: (torch.rand((2, 512, 512, 3), generator=gen, device="cuda")
+              * 255).to(torch.bfloat16),
+        DEC_KEY: torch.randn((2, 16, 512), generator=gen, device="cuda")}
+    row["tensors"] = 0
+    for key, back in loaded.items():
+        if back.weight_source != "msgpack":
+            raise AssertionError(f"weights: {key} loaded {back.weight_source}")
+        want = saver.get(key).module.state_dict()
+        got = back.module.state_dict()
+        if list(got) != list(want) or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"weights: {key} state_dict differs")
+        row["tensors"] += len(got)
+        with torch.inference_mode():
+            a = saver.get(key).forward(inputs[key])
+            b = back.forward(inputs[key])
+        a, b = ((a, b) if isinstance(a, dict) else ({"out": a}, {"out": b}))
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"weights: {key} forward outputs differ")
+    row["forward_equal"] = True
+    _print(row)
+    return row
+
+
+def _fp32_pair(torch, port, key: str):
+    """The same seeded float32 model (full width) on the CPU and on the
+    card."""
+    kw = dict(dtype="float32", allow_random_weights=True)
+    cpu = port["ModelRegistry"](device="cpu", **kw).get(key)
+    gpu = port["ModelRegistry"](device="cuda", **kw).get(key)
+    want, got = cpu.module.state_dict(), gpu.module.state_dict()
+    if not all(torch.equal(want[k], got[k].cpu()) for k in want):
+        raise AssertionError(f"{key}: card and CPU weights differ")
+    return cpu, gpu
+
+
+def _card_vs_cpu(torch, where: str, name: str, cpu_out, gpu_out,
+                 top1: bool = True) -> dict:
+    """``gpu_out`` within FP32_RTOL × max |cpu_out|, finite, of the same
+    shape; with ``top1``, the same argmax on every row whose CPU top-2
+    margin exceeds twice the tolerance."""
+    r, g = cpu_out.float(), gpu_out.float().cpu()
+    if g.shape != r.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"{where}: bad {name} {tuple(g.shape)}")
+    diff = (g - r).abs().max().item()
+    scale = r.abs().max().item()
+    tol = FP32_RTOL * scale
+    row = {"phase": where, "output": name, "shape": list(r.shape),
+           "max_abs_diff": diff, "max_abs_cpu": scale, "tolerance": tol}
+    if diff > tol:
+        raise AssertionError(f"{where}: {name} differs by {diff} > {tol}")
+    if top1:
+        top = r.topk(2, dim=-1).values
+        decided = (top[:, 0] - top[:, 1]) > 2 * tol
+        same = r.argmax(-1) == g.argmax(-1)
+        row["top1_decided"] = int(decided.sum())
+        row["top1_equal"] = int(same.sum())
+        if not bool(same[decided].all()):
+            raise AssertionError(f"{where}: {name} top-1 differs")
+    _print(row)
+    return row
+
+
+def _frame_line_errors(msg: dict, golden: dict, name: str,
+                       data_len: int | None = None) -> list[str]:
+    """A line of a frame-level pipeline against the golden: the golden's
+    keys, no objects, and each frame-level tensor with name, label,
+    label_id and confidence (and ``data_len`` numbers of data), finite."""
+    base = {k: v for k, v in msg.items() if k not in ("tensors", "level")}
+    errors = _shape_errors(canonical(base), golden)
+    if msg["objects"]:
+        errors.append("objects on a frame-level line")
+    keys = {"name", "label", "label_id", "confidence"} | (
+        {"data"} if data_len else set())
+    for t in msg.get("tensors", []):
+        if set(t) != keys or t["name"] != name or not isinstance(
+                t["label"], str):
+            errors.append(f"tensor off shape: {sorted(t)}")
+            continue
+        numbers = [t["confidence"], *t.get("data", [])]
+        if not all(math.isfinite(x) for x in numbers):
+            errors.append("tensor not finite")
+        if data_len and len(t["data"]) != data_len:
+            errors.append(f"tensor data of {len(t['data'])}")
+    return errors
+
+
+def _engine_rows(hub, names) -> dict:
+    """Batches, items, occupancy and the launch and readback ms a batch
+    of each named engine."""
+    stats = hub.stats()
+    return {n: {"batches": stats[n]["batches"], "items": stats[n]["items"],
+                "mean_occupancy": stats[n]["mean_occupancy"],
+                "launch_ms": stats[n]["stage_ms"].get("launch"),
+                "readback_ms": stats[n]["stage_ms"].get("readback")}
+            for n in names}
+
+
+def _check_actions(where: str, lines: list[dict], golden: dict) -> int:
+    """No tensor before frame 16; then one 400-long ``action`` tensor a
+    frame whose probabilities sum to 1. Returns the tensors."""
+    clip = 16
+    for seq, m in enumerate(lines):
+        errors = _frame_line_errors(m, golden, "action", 400)
+        if seq < clip - 1 and "tensors" in m:
+            errors.append(f"a tensor at frame {seq}, before the clip filled")
+        if seq >= clip - 1:
+            ts = m.get("tensors", [])
+            if len(ts) != 1 or abs(sum(ts[0]["data"]) - 1.0) > 1e-3:
+                errors.append(f"frame {seq}: {len(ts)} action tensors")
+        if errors:
+            raise AssertionError(f"{where}: {errors[:3]}")
+    return max(0, len(lines) - (clip - 1))
+
+
+def phase_action(torch, port) -> dict:
+    """action_recognition/general: the full-width encoder and decoder on
+    the card against the CPU at float32, then served INT8 (the float
+    modules in bfloat16; no kernel of this repo on this path)."""
+    import numpy as np
+
+    qg = port["qgemm"]
+    enc_cpu, enc_gpu = _fp32_pair(torch, port, ENC_KEY)
+    dec_cpu, dec_gpu = _fp32_pair(torch, port, DEC_KEY)
+    attn = dec_gpu.module.TransformerBlock_0.MultiHeadDotProductAttention_0
+    shape = (enc_gpu.preprocess.height, enc_gpu.preprocess.width,
+             enc_gpu.spec.width, enc_gpu.module.embed_dim,
+             dec_gpu.module.pos_embed.shape[-1], dec_gpu.module.depth,
+             tuple(attn.query.weight.shape[1:]),
+             dec_gpu.module.Dense_1.out_features)
+    if shape != (224, 224, 32, 512, 512, 4, (8, 64), 400):
+        raise AssertionError(f"action: not the full-width models: {shape}")
+    gen = torch.Generator().manual_seed(3)
+    frames = torch.randint(0, 256, (16, 224, 224, 3), generator=gen,
+                           dtype=torch.uint8).numpy()
+    wire = torch.from_numpy(np.stack([port["wire_frame"](f, (224, 224), "i420")
+                                      for f in frames]))
+    emb = {}
+    for dev, model in (("cpu", enc_cpu), ("cuda", enc_gpu)):
+        step = port["build_action_encode_step"](model, "i420")
+        emb[dev] = step(wire.to(dev))
+    _card_vs_cpu(torch, "action-check", "embeddings", emb["cpu"], emb["cuda"],
+                 top1=False)
+    clips = torch.stack([emb["cpu"].roll(i, 0) for i in range(4)])
+    with torch.inference_mode():
+        logits = {"cpu": dec_cpu.forward(clips),
+                  "cuda": dec_gpu.forward(clips.cuda())}
+    _card_vs_cpu(torch, "action-check", "logits", logits["cpu"],
+                 logits["cuda"])
+    probs = {dev: port["build_action_decode_step"](m)(clips.to(dev))
+             for dev, m in (("cpu", dec_cpu), ("cuda", dec_gpu))}
+    _card_vs_cpu(torch, "action-check", "probabilities", probs["cpu"],
+                 probs["cuda"], top1=False)
+
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hub = port["EngineHub"](registry, device="cuda")
+    try:
+        make = _pipeline_stages(port, hub, {}, ACTION_PIPELINE)
+        (stage,) = [st for st in make("warm", None) if hasattr(st, "clip")]
+        h, w = stage.ingest_size
+        one = torch.from_numpy(port["wire_frame"](frames[0], (h, w), "i420"))
+        for b in stage.enc_engine.buckets:  # cuDNN and allocator set-up
+            if b <= ACTION_STREAMS * 4:
+                stage.enc_engine.step_fn(one[None].repeat(b, 1, 1).cuda()).cpu()
+                stage.dec_engine.step_fn(
+                    torch.zeros((b, 16, 512), device="cuda")).cpu()
+        torch.cuda.synchronize()
+        _reset_launches(qg)
+        metas: dict = {}
+        runners, published, wall, threads = _serve(
+            port, make, ACTION_STREAMS, ACTION_FRAMES, 512, 512, metas=metas)
+        launches = qg.launches
+        _check_served("action phase", runners, published, threads,
+                      ACTION_FRAMES)
+        if launches:
+            raise AssertionError(f"action phase: {launches} qgemm launches")
+        golden = json.loads(GOLDEN.read_text())
+        tensors = sum(_check_actions(
+            f"action phase s{s}",
+            [metas[f"s{s}"][i][0] for i in range(ACTION_FRAMES)], golden)
+            for s in range(ACTION_STREAMS))
+        names = [f"action_encode:{ENC_KEY}", f"action_decode:{DEC_KEY}"]
+        row = {"phase": "action", "streams": ACTION_STREAMS,
+               "frames_per_stream": ACTION_FRAMES, "precision":
+               registry.precision, **_latency_row(runners, wall),
+               "action_tensors": tensors, "qgemm_launches": launches,
+               "engines": _engine_rows(hub, names)}
+        _print(row)
+        return row
+    finally:
+        hub.stop()
+
+
+def _replay_windows(chunks: list[int], stride: int) -> list[int]:
+    """The chunks that carry a window, by the audio stage's rule
+    replayed on the host: the first once a whole window has arrived,
+    then each time ``stride`` more samples have."""
+    have = since = 0
+    out = []
+    for i, n in enumerate(chunks):
+        have = min(WINDOW_SAMPLES, have + n)
+        since += n
+        if have >= WINDOW_SAMPLES and since >= stride:
+            since = 0
+            out.append(i)
+    return out
+
+
+def _check_windows(where: str, lines: list[dict], golden: dict,
+                   window: float = 0.2) -> int:
+    """A ``detection`` tensor on exactly the chunks the host replay of
+    the stride rule gives, and lines of the golden's shape. Returns the
+    windows."""
+    want = _replay_windows([CHUNK_SAMPLES] * len(lines),
+                           int(WINDOW_SAMPLES * window))
+    got = [i for i, m in enumerate(lines) if "tensors" in m]
+    errors = [e for m in lines
+              for e in _frame_line_errors(m, golden, "detection")]
+    if got != want or errors:
+        raise AssertionError(f"{where}: windows at {got}, replay {want}; "
+                             f"{errors[:3]}")
+    return len(got)
+
+
+def phase_audio(torch, port) -> dict:
+    """audio_detection/environment: the full-width AclNet on the card
+    against the CPU at float32, then served INT8 (bfloat16 weights,
+    float32 arithmetic; no kernel of this repo on this path)."""
+    qg = port["qgemm"]
+    cpu, gpu = _fp32_pair(torch, port, AUDIO_KEY)
+    shape = (gpu.spec.input_size, gpu.spec.width, gpu.spec.num_classes)
+    if shape != ((1, WINDOW_SAMPLES), 32, 53):
+        raise AssertionError(f"audio: not the full-width model: {shape}")
+    gen = torch.Generator().manual_seed(4)
+    windows = torch.randint(-32768, 32768, (8, WINDOW_SAMPLES), generator=gen,
+                            dtype=torch.int16)
+    x = windows.float() / 32768.0
+    with torch.inference_mode():
+        logits = {"cpu": cpu.forward(x), "cuda": gpu.forward(x.cuda())}
+    _card_vs_cpu(torch, "audio-check", "logits", logits["cpu"], logits["cuda"])
+    probs = {dev: port["build_audio_step"](m)(windows.to(dev))
+             for dev, m in (("cpu", cpu), ("cuda", gpu))}
+    _card_vs_cpu(torch, "audio-check", "probabilities", probs["cpu"],
+                 probs["cuda"], top1=False)
+
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hub = port["EngineHub"](registry, device="cuda")
+    try:
+        make = _pipeline_stages(port, hub, {"threshold": 0.0,
+                                            "sliding-window": 0.2},
+                                AUDIO_PIPELINE)
+        make("warm", None)
+        engine = hub.engine("audio", AUDIO_KEY)
+        for b in engine.buckets:  # cuDNN and allocator set-up
+            if b <= AUDIO_STREAMS * 4:
+                engine.step_fn(windows[:1].repeat(b, 1).cuda()).cpu()
+        torch.cuda.synchronize()
+
+        def source(s):
+            uri = f"synthetic-audio://seconds={AUDIO_SECONDS}&seed={s}"
+            return uri, port["SyntheticAudioSource"].from_uri(uri)
+
+        chunks = AUDIO_SECONDS * 16000 // CHUNK_SAMPLES
+        _reset_launches(qg)
+        metas: dict = {}
+        runners, published, wall, threads = _serve(
+            port, make, AUDIO_STREAMS, chunks, 0, 0, metas=metas,
+            source=source)
+        launches = qg.launches
+        _check_served("audio phase", runners, published, threads, chunks)
+        if launches:
+            raise AssertionError(f"audio phase: {launches} qgemm launches")
+        golden = json.loads(GOLDEN.read_text())
+        n_windows = 0
+        lat = []
+        for s in range(AUDIO_STREAMS):
+            rows = [metas[f"s{s}"][i] for i in range(chunks)]
+            n_windows += _check_windows(f"audio phase s{s}",
+                                        [m for m, _ in rows], golden)
+            lat += [t for m, t in rows if "tensors" in m]
+        lat.sort()
+        q = lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
+        names = [f"audio:{AUDIO_KEY}"]
+        rows = _engine_rows(hub, names)
+        if rows[names[0]]["items"] != n_windows:
+            raise AssertionError(f"audio phase: {rows} for {n_windows} windows")
+        row = {"phase": "audio", "streams": AUDIO_STREAMS,
+               "seconds_per_stream": AUDIO_SECONDS,
+               "precision": registry.precision, "windows": n_windows,
+               "wall_s": wall, "windows_per_s": n_windows / wall,
+               "window_p50_ms": 1e3 * q(0.50), "window_p99_ms": 1e3 * q(0.99),
+               "chunks": sum(len(r.latencies) for r in runners),
+               "qgemm_launches": launches, "engines": rows}
+        _print(row)
+        return row
+    finally:
+        hub.stop()
+
+
+def _frame_level_streams(base: str, tmp: Path, golden: dict) -> dict:
+    """POST one action_recognition/general stream (24 frames at 512²)
+    and one audio_detection/environment stream (3 s), and wait for both:
+    COMPLETED, lines of the golden's shape, action tensors from frame
+    16 on, detection tensors on the replayed windows."""
+    bodies = {
+        "/pipelines/{}/{}".format(*ACTION_PIPELINE): (
+            "synthetic://512x512@30?count=24&seed=0", {}, tmp / "action.jsonl"),
+        "/pipelines/{}/{}".format(*AUDIO_PIPELINE): (
+            "synthetic-audio://seconds=3&seed=1", {"threshold": 0.0},
+            tmp / "audio.jsonl")}
+    ids = {}
+    for path, (uri, params, out) in bodies.items():
+        status, iid = _http(base, "POST", path, {
+            "source": {"uri": uri, "type": "uri"},
+            "destination": {"metadata": {"type": "file", "path": str(out)}},
+            "parameters": params})
+        if status != 200:
+            raise AssertionError(f"rest: POST {path} gave {status} {iid}")
+        ids[iid] = path
+    done = _wait_states(base, list(ids), ("COMPLETED", "ERROR", "ABORTED"),
+                        300)
+    bad = {ids[i]: (r["state"], r.get("message")) for i, r in done.items()
+           if r["state"] != "COMPLETED"}
+    if bad:
+        raise AssertionError(f"rest: frame-level instances: {bad}")
+    lines = {path: [json.loads(x) for x in out.read_text().splitlines()]
+             for path, (_, _, out) in bodies.items()}
+    action, audio = lines.values()
+    if len(action) != 24 or len(audio) != 30:
+        raise AssertionError(f"rest: {len(action)} action lines, "
+                             f"{len(audio)} audio lines")
+    return {"action_tensors": _check_actions("rest: action", action, golden),
+            "audio_windows": _check_windows("rest: audio", audio, golden)}
 
 
 def _free_port() -> int:
@@ -1685,6 +2144,8 @@ def main(argv: list[str] | None = None) -> int:
     served = []  # qgemm launches by variant, one entry per serving phase
     if "reference" in phases:
         phase_reference(torch, port)
+    if "weights" in phases:
+        phase_weights(torch, port)
     if "slice" in phases:
         res = phase_slice(torch, port, profile=args.profile)
         if res["input_hw"] != (512, 512) or res["width"] != 32:
@@ -1703,6 +2164,12 @@ def main(argv: list[str] | None = None) -> int:
     if "gate" in phases:
         served.append(phase_gate(torch, port, res["fps"] if "slice" in phases
                                  else None))
+    # the action and audio pipelines launch no kernel of this repo
+    # (asserted inside): they add nothing to the kernels line
+    if "action" in phases:
+        phase_action(torch, port)
+    if "audio" in phases:
+        phase_audio(torch, port)
     if "rest" in phases:
         served.append(phase_rest(torch, port, res["s0_objects"]))
     if "serve" in phases:

@@ -18,7 +18,11 @@ runs with — the reference's default, or "off" where the reference's
 default turns on a subsystem the port lacks (scheduler, tracing,
 warmup, supervision, pipelined transfer) — it raises
 ``NotImplementedError`` at :meth:`Settings.from_env`, naming the slice.
-None is silently ignored.
+So do the knobs the reference reads from ``os.environ`` in its own
+modules, outside its settings table (``_MODULE_KNOBS``): the batch
+assembly and staging ring, the depthwise-conv variant, compile
+serialization, fault injection and the native host library. None is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -125,6 +129,7 @@ _ENGINE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
 _TOP_KEYS = {key for key, _ in _TOP_ENV.values()} - {"allow_random_weights"}
 _ENGINE_KEYS = {key for key, _ in _ENGINE_ENV.values()}
 
+_S6 = slices.MODEL_IMPORT
 _S7 = slices.ENGINE_DEPTH
 _S10 = slices.TRACE_STATE
 _S11 = slices.INGEST_EGRESS
@@ -211,6 +216,36 @@ _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
     (None, "tpu", "donate_buffers", None, True, _S7),
 ]
 
+def _unset(value: str) -> bool:
+    return not value.strip()
+
+
+#: knobs the reference reads from ``os.environ`` in its modules: env
+#: var → (does the reference, given this value, run what the port
+#: runs?, the port's value, the slice that brings the rest). Each test
+#: follows the reference's own parse at the line named.
+_MODULE_KNOBS: dict[str, tuple[Callable[[str], bool], str, str]] = {
+    # engine/batcher.py:277 — the port has no staging ring, so only
+    # the legacy stack-and-pad assembly (or the knob unset)
+    "EVAM_BATCH_ASSEMBLY": (lambda v: v == "legacy", "legacy", _S7),
+    # engine/batcher.py:427 — "0" or unset means the default depth
+    "EVAM_STAGING_DEPTH": (lambda v: v.strip() in ("", "0"), "unset", _S7),
+    # ops/depthwise.py:144 — any value but "shift" runs the grouped conv
+    "EVAM_DWCONV": (lambda v: v.lower() != "shift", "lax", _S6),
+    # engine/devlock.py:41
+    "EVAM_SERIALIZE_COMPILE": (
+        lambda v: v.lower() not in ("1", "true", "yes"), "0", _S7),
+    # obs/faults.py:275-276 — no fault is injected
+    "EVAM_FAULT_INJECT": (_unset, "unset", _S10),
+    "EVAM_FAULT_SEED": (_unset, "unset", _S10),
+    # native.py:42 — any non-empty value, "0" included, turns the
+    # native arithmetic off, which the port always runs
+    "EVAM_NO_NATIVE": (lambda v: v == "", "unset", _S7),
+    # native.py:28,105 — the host encode as native code
+    "EVAM_NATIVE": (lambda v: v == "", "unset", _S7),
+    "EVAM_NATIVE_LIB": (lambda v: v == "", "unset", _S7),
+}
+
 #: reference settings blocks the config file may carry
 _BLOCKS = ("tpu", "sched", "trace", "ckpt", "tune", "aot")
 
@@ -229,6 +264,11 @@ def _refuse_unported(data: dict[str, Any], env: Mapping[str, str]) -> None:
             raise NotImplementedError(
                 f"{var}={env[var]!r}: comes with {slice_}; the port runs "
                 f"with {port_value!r}")
+    for var, (runs_the_port, port_value, slice_) in _MODULE_KNOBS.items():
+        if var in env and not runs_the_port(env[var]):
+            raise NotImplementedError(
+                f"{var}={env[var]!r}: comes with {slice_}; the port runs "
+                f"with {port_value}")
     known = _TOP_KEYS | set(_BLOCKS) | {
         key for _, block, key, *_ in _UNPORTED if not block}
     unknown = set(data) - known

@@ -3,9 +3,9 @@
 Counterpart of ``evam_tpu/engine/hub.py``. Pipelines that pass the same
 ``model-instance-id`` share one engine and its batch queue; pipelines
 that omit it share per-model-key engines — cross-stream batching by
-default. The hub builds detect and classify engines and the fused
-detect+classify engine (:meth:`EngineHub.fused_engine`); action and
-audio engines raise until their slice.
+default. The hub builds detect, classify, action encode and decode and
+audio engines, and the fused detect+classify engine
+(:meth:`EngineHub.fused_engine`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,6 @@ import threading
 
 import torch
 
-from evam_tpu_torch import slices
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.engine import steps as step_builders
 from evam_tpu_torch.engine.batcher import BatchEngine
@@ -33,13 +32,11 @@ HEALTH_STAGES = ("submit_wait", "slot_write", "seal", "h2d_issue",
 _BUILDERS = {
     "detect": (step_builders.build_detect_step, ("frames",), True),
     "classify": (step_builders.build_classify_step, ("frames", "boxes"), True),
-}
-
-#: kinds the reference serves that come with later port slices
-_LATER_KINDS = {
-    "action_encode": slices.ACTION_AUDIO,
-    "action_decode": slices.ACTION_AUDIO,
-    "audio": slices.ACTION_AUDIO,
+    "action_encode": (step_builders.build_action_encode_step, ("frames",),
+                      True),
+    "action_decode": (step_builders.build_action_decode_step, ("clips",),
+                      False),
+    "audio": (step_builders.build_audio_step, ("windows",), False),
 }
 
 
@@ -79,9 +76,6 @@ class EngineHub:
                instance_id: str | None = None,
                **builder_kwargs) -> BatchEngine:
         """Get or create the shared engine for (kind, model, instance)."""
-        if kind in _LATER_KINDS:
-            raise NotImplementedError(
-                f"{kind} engines come with {_LATER_KINDS[kind]}")
         if kind not in _BUILDERS:
             raise ValueError(f"no step builder for stage kind '{kind}'")
         key = f"{kind}:{instance_id or model_key}"

@@ -8,9 +8,9 @@ under ``torch.inference_mode()``: the whole chain — preprocess, net,
 decode, NMS, ROI crop, classifier — stays on the device and never syncs
 with the host.
 
-Ported: the detect step (SSD branch), the classify step and the fused
-detect+classify step. The packed-ragged classify step comes with a
-later slice.
+Ported: the detect step (SSD branch), the classify step, the fused
+detect+classify step, the action encode and decode steps and the audio
+step. The packed-ragged classify step comes with a later slice.
 """
 
 from __future__ import annotations
@@ -180,5 +180,48 @@ def build_detect_classify_step(
                                dtype=torch.float32, device=packed.device)
             full.scatter_(1, roi_idx[..., None].expand_as(probs), probs)
             return torch.cat([packed, full], dim=-1)
+
+    return step
+
+
+def build_action_encode_step(
+    model: LoadedModel, wire_format: str = "bgr"
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Wire-encoded uint8 frames → embeddings [B, D] float32."""
+    spec = _wire_spec(model, wire_format)
+
+    def step(frames: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return model.forward(preprocess_wire(frames, spec)).float()
+
+    return step
+
+
+def build_action_decode_step(
+        model: LoadedModel) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Embedding clips [B, T, D] float32 → class probabilities [B, C]
+    (the registry serves the decoder in float32 arithmetic, as flax
+    promotes its params against float32 clips)."""
+
+    def step(clips: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return torch.softmax(model.forward(clips.float()), dim=-1)
+
+    return step
+
+
+def build_audio_step(
+        model: LoadedModel) -> Callable[[torch.Tensor], torch.Tensor]:
+    """int16 audio windows [B, S] → class probabilities [B, C].
+
+    S16LE is normalized to [-1, 1] on the device (the reference's
+    gvaaudiodetect consumes S16LE directly,
+    pipelines/audio_detection/environment/pipeline.json:5); AclNet runs
+    in float32 arithmetic, as the decoder does."""
+
+    def step(windows: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            x = windows.float() / 32768.0
+            return torch.softmax(model.forward(x), dim=-1)
 
     return step

@@ -4,9 +4,10 @@
 Ported: the deterministic ``synthetic://`` source (with its real-time
 pacing), ``FileSource`` (file / RTSP / HTTP URIs through OpenCV, which
 is imported only when a stream opens — a machine without ``cv2``, such
-as the card's, fails that instance with an error naming ``cv2``), and
-:func:`create_source`. Webcam, GigE, application and audio sources
-raise naming the slice that brings them.
+as the card's, fails that instance with an error naming ``cv2``), the
+audio sources of ``media/audio.py`` (``synthetic-audio://`` and
+``*.wav``), and :func:`create_source`. Webcam, GigE and application
+sources raise naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ NS = 1_000_000_000
 
 @dataclass
 class FrameEvent:
-    """One decoded frame entering the pipeline."""
+    """One decoded frame (or audio chunk) entering the pipeline."""
 
-    frame: np.ndarray | None  # BGR uint8 [H, W, 3]
+    frame: np.ndarray | None  # BGR uint8 [H, W, 3]; None for audio
     pts_ns: int        # presentation timestamp, ns
     seq: int
+    audio: np.ndarray | None = None  # S16LE mono 16 kHz chunk
 
 
 class VideoSource(Protocol):
@@ -170,11 +172,6 @@ def check_source(source_cfg: dict) -> None:
     if stype in _LATER_TYPES:
         raise NotImplementedError(
             f"source type '{stype}' comes with {_LATER_TYPES[stype]}")
-    uri = str(source_cfg.get("uri", ""))
-    if stype in ("uri", "file") and (uri.startswith("synthetic-audio://")
-                                     or uri.endswith(".wav")):
-        raise NotImplementedError(
-            f"audio sources come with {slices.ACTION_AUDIO}")
 
 
 def create_source(source_cfg: dict, realtime: bool = False) -> VideoSource:
@@ -190,6 +187,18 @@ def create_source(source_cfg: dict, realtime: bool = False) -> VideoSource:
         uri = source_cfg["uri"]
         if uri.startswith("synthetic://"):
             return SyntheticSource.from_uri(uri, realtime=realtime)
+        if uri.startswith("synthetic-audio://"):
+            from evam_tpu_torch.media.audio import SyntheticAudioSource
+
+            return SyntheticAudioSource.from_uri(uri)
+        if uri.endswith(".wav"):
+            from evam_tpu_torch.media.audio import WavSource
+
+            return WavSource(
+                uri,
+                loop=bool(source_cfg.get("loop", False)),
+                realtime=realtime,
+            )
         return FileSource(
             uri,
             loop=bool(source_cfg.get("loop", False)),

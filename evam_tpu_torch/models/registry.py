@@ -15,10 +15,18 @@ module variants computing over bf16 tensors between layers, float
 weights on disk. Weights are cast to the serving dtype, moved to the
 device in channels_last layout, and then quantized once.
 
-The port builds the SSD and classifier families and reads model-proc
-files (labels, input preprocessing) as the reference does. The action
-and audio families and OpenVINO IR imports come with later slices and
-raise until then.
+The port builds every zoo family — SSD, classifier, the action encoder
+and decoder (and the fused recognizer) and AclNet — and reads
+model-proc files (labels, input preprocessing) as the reference does.
+The reference builds no quantized variant of the action and audio
+families: under ``INT8`` they run the float module in bfloat16, here
+too. Its decoder and AclNet take float32 input from their engine
+steps, against which flax promotes the bfloat16 params: their weights
+are rounded to the serving dtype and their arithmetic is float32 — the
+port keeps such a module in float32 after the rounding.
+:meth:`ModelRegistry.save_weights` writes a model's weights into the
+same layout, as flax's ``to_bytes`` would. OpenVINO IR imports come
+with a later slice and raise until then.
 """
 
 from __future__ import annotations
@@ -39,7 +47,17 @@ from evam_tpu_torch import slices
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.models import labels as L
 from evam_tpu_torch.modelproc import ModelProc, load_model_proc
-from evam_tpu_torch.models.convert import params_from_msgpack
+from evam_tpu_torch.models.convert import (
+    params_from_msgpack,
+    params_to_msgpack,
+)
+from evam_tpu_torch.models.zoo.aclnet import WINDOW_SAMPLES, AclNet
+from evam_tpu_torch.models.zoo.action import (
+    ActionDecoder,
+    ActionEncoder,
+    ActionRecognizer,
+    _DenseGeneral,
+)
 from evam_tpu_torch.models.zoo.classifier import MultiHeadClassifier
 from evam_tpu_torch.models.zoo.layers import Conv, quantize_model
 from evam_tpu_torch.models.zoo.ssd import SSDDetector
@@ -47,16 +65,9 @@ from evam_tpu_torch.ops.preprocess import PreprocessSpec
 
 log = logging.getLogger("evam_tpu_torch.models.registry")
 
-#: the reference's AclNet window (evam_tpu/models/zoo/aclnet.py)
-WINDOW_SAMPLES = 16000
-
-#: model families and the port slice that brings each (ROADMAP.md)
-_LATER_FAMILIES = {
-    "action_encoder": slices.ACTION_AUDIO,
-    "action_decoder": slices.ACTION_AUDIO,
-    "action": slices.ACTION_AUDIO,
-    "aclnet": slices.ACTION_AUDIO,
-}
+#: families whose engine step feeds float32 (clips, audio windows):
+#: flax computes them in float32 whatever the params' dtype
+_FLOAT32_INPUT = ("action_decoder", "aclnet")
 
 _INT8_ALIASES = ("int8", "fp32-int8", "fp16-int8", "bf16-int8")
 
@@ -189,10 +200,18 @@ def build_module(spec: ModelSpec, overrides: dict[str, Any] | None = None):
                            quant=quant)
     if spec.family == "classifier":
         return MultiHeadClassifier(heads=spec.heads, width=width, quant=quant)
-    if spec.family in _LATER_FAMILIES:
-        raise NotImplementedError(
-            f"model family {spec.family!r} ({spec.key}) comes with "
-            f"{_LATER_FAMILIES[spec.family]}")
+    # no quantized variant of the action and audio families, as in the
+    # reference: INT8 serves their float modules in bfloat16
+    if spec.family == "action_encoder":
+        return ActionEncoder(width=width)
+    if spec.family == "action_decoder":
+        # width scales the transformer dim (default width 32 → the
+        # reference-shaped dim 512); heads=8 needs dim % 8 == 0
+        return ActionDecoder(num_classes=spec.num_classes, dim=width * 16)
+    if spec.family == "action":
+        return ActionRecognizer(num_classes=spec.num_classes)
+    if spec.family == "aclnet":
+        return AclNet(num_classes=spec.num_classes, width=width)
     raise ValueError(f"unknown model family {spec.family!r}")
 
 
@@ -203,16 +222,27 @@ def _seed_for(key: str) -> int:
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """flax's defaults: lecun-normal kernels (truncated normal, variance
-    1/fan_in) for convs and dense layers, zero biases — drawn from
-    ``generator``."""
+    1/fan_in) for convs, dense layers and attention projections, zero
+    biases, unit LayerNorm scales, a normal(0.02) ``pos_embed`` — drawn
+    from ``generator``."""
     for m in module.modules():
-        if isinstance(m, (Conv, nn.Linear)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (Conv, nn.Linear, _DenseGeneral)):
+            if isinstance(m, _DenseGeneral):
+                # fan-in: the kernel's dims before the output's
+                fan_in = math.prod(m.weight.shape[:m.weight.dim()
+                                                  - m.bias.dim()])
+            else:
+                fan_in = m.weight[0].numel()
             # flax's truncated-normal stddev correction for the ±2σ cut
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        if isinstance(m, ActionDecoder):
+            m.pos_embed.normal_(0.0, 0.02, generator=generator)
 
 
 class ModelRegistry:
@@ -248,6 +278,11 @@ class ModelRegistry:
         self.input_overrides = input_overrides or {}
         self.width_overrides = width_overrides or {}
         self._cache: dict[str, LoadedModel] = {}
+
+    @property
+    def serve_dtype(self) -> torch.dtype:
+        """The dtype weights are served (and saved) in."""
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
     def get(self, key: str) -> LoadedModel:
         if key not in self._cache:
@@ -325,9 +360,10 @@ class ModelRegistry:
         module = build_module(
             spec, {"quant": "INT8" in self.precision.upper()})
         weight_source = self._init_or_load_params(spec, module)
-        serve_dtype = torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
-        module = module.to(device=self.device, dtype=serve_dtype,
+        module = module.to(device=self.device, dtype=self.serve_dtype,
                            memory_format=torch.channels_last)
+        if spec.family in _FLOAT32_INPUT:
+            module = module.float()  # bf16-rounded weights, float32 math
         quantize_model(module)
         module.eval().requires_grad_(False)
         proc = self._find_model_proc(spec)
@@ -399,3 +435,19 @@ class ModelRegistry:
                     "(EVAM_ALLOW_RANDOM_WEIGHTS is set)", spec.key)
         init_params(module, torch.Generator().manual_seed(_seed_for(spec.key)))
         return "random"
+
+    def save_weights(self, key: str, out_dir: str | Path | None = None) -> Path:
+        """Write the model's current weights into the models-dir layout,
+        ``<root>/<key>/<precision>/weights.msgpack``, as the reference's
+        ``save_weights`` does: the bytes flax's ``to_bytes`` writes for
+        the same params tree (``models/convert.py``)."""
+        model = self.get(key)
+        root = Path(out_dir) if out_dir else self.models_dir
+        if root is None:
+            raise ValueError("no models_dir to save into")
+        path = root / key / self.precision / "weights.msgpack"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        state = {k: v.to(self.serve_dtype) if v.is_floating_point() else v
+                 for k, v in model.module.state_dict().items()}
+        path.write_bytes(params_to_msgpack(state))
+        return path

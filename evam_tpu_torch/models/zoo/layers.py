@@ -33,15 +33,18 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
 
 class Conv(nn.Module):
     """flax ``nn.Conv(features, kernel, strides, padding="SAME",
-    feature_group_count=groups)``: weight OIHW, bias [O]."""
+    feature_group_count=groups)``: weight OIHW, bias [O]. ``kernel``
+    and ``stride`` are one size for both axes or (height, width)."""
 
-    def __init__(self, in_ch: int, features: int, kernel: int = 3,
-                 stride: int = 1, groups: int = 1):
+    def __init__(self, in_ch: int, features: int,
+                 kernel: int | tuple[int, int] = 3,
+                 stride: int | tuple[int, int] = 1, groups: int = 1):
         super().__init__()
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         self.stride = stride
         self.groups = groups
         self.weight = nn.Parameter(
-            torch.empty(features, in_ch // groups, kernel, kernel))
+            torch.empty(features, in_ch // groups, kh, kw))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

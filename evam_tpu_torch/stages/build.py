@@ -6,42 +6,33 @@ this module instantiates the runtime stages, wiring engine-backed
 stages to the shared EngineHub. Source/decode specs are handled by the
 StreamInstance (they define IO, not per-frame transforms).
 
-The port builds source, decode, detect, classify, track, udf, convert,
-metaconvert, publish and sink, and — as the reference does — fuses a
-detect stage and the classify stage after it (with only track or
-convert stages between) into one ``FusedDetectClassifyStage`` (one
-engine round trip) unless ``reclassify-interval`` > 1. The action and
-audio kinds raise ``NotImplementedError`` naming the slice that brings
-them.
+The port builds every stage kind of the reference: source, decode,
+detect, classify, action, audio_detect, audio_mix, level, track, udf,
+convert, metaconvert, publish and sink, and — as the reference does —
+fuses a detect stage and the classify stage after it (with only track
+or convert stages between) into one ``FusedDetectClassifyStage`` (one
+engine round trip) unless ``reclassify-interval`` > 1.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
-from evam_tpu_torch import slices
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.graph.spec import StageKind, StageSpec
 from evam_tpu_torch.stages.base import Stage
 from evam_tpu_torch.stages.context import FrameContext
 from evam_tpu_torch.stages.infer import (
+    ActionStage,
+    AudioDetectStage,
     ClassifyStage,
     DetectStage,
     FusedDetectClassifyStage,
 )
 from evam_tpu_torch.stages.meta import MetaconvertStage, PublishStage, SinkStage
-from evam_tpu_torch.stages.misc import ConvertStage
+from evam_tpu_torch.stages.misc import AudioMixStage, ConvertStage, LevelStage
 from evam_tpu_torch.stages.track import TrackStage
 from evam_tpu_torch.stages.udf import UdfStage
-
-#: stage kinds the reference builds that come with later slices
-_LATER_KINDS = {
-    StageKind.ACTION: slices.ACTION_AUDIO,
-    StageKind.AUDIO_DETECT: slices.ACTION_AUDIO,
-    StageKind.AUDIO_MIX: slices.ACTION_AUDIO,
-    StageKind.LEVEL: slices.ACTION_AUDIO,
-}
-
 
 def _fusable(specs: list[StageSpec]) -> tuple[int, int] | None:
     """(detect index, classify index) of a detect stage whose following
@@ -71,14 +62,6 @@ def build_stages(
     publish_fn: Callable[[FrameContext], None] | None = None,
     sink_fn: Callable[[FrameContext], None] | None = None,
 ) -> list[Stage]:
-    # refuse before building anything (a half-built chain would have
-    # created engines for a pipeline that cannot run), naming every
-    # stage that waits and its slice
-    later = [f"stage '{spec.name}' ({spec.kind.value}) comes with "
-             f"{_LATER_KINDS[spec.kind]}"
-             for spec in specs if spec.kind in _LATER_KINDS]
-    if later:
-        raise NotImplementedError("; ".join(later))
     specs = list(specs)
     fused: FusedDetectClassifyStage | None = None
     fused_det_idx = -1
@@ -106,6 +89,15 @@ def build_stages(
         elif kind == StageKind.CLASSIFY:
             stages.append(
                 ClassifyStage(spec.name, spec.model, spec.properties, hub))
+        elif kind == StageKind.ACTION:
+            stages.append(ActionStage(spec.name, spec.properties, hub))
+        elif kind == StageKind.AUDIO_DETECT:
+            stages.append(
+                AudioDetectStage(spec.name, spec.model, spec.properties, hub))
+        elif kind == StageKind.AUDIO_MIX:
+            stages.append(AudioMixStage(spec.name, spec.properties))
+        elif kind == StageKind.LEVEL:
+            stages.append(LevelStage(spec.name, spec.properties))
         elif kind == StageKind.TRACK:
             stages.append(TrackStage(spec.name, spec.properties))
         elif kind == StageKind.UDF:

@@ -56,11 +56,13 @@ class Region:
 class FrameContext:
     """State of one frame walking the stage chain."""
 
-    frame: np.ndarray | None  # BGR uint8 [H,W,3]
+    frame: np.ndarray | None  # BGR uint8 [H,W,3]; None for audio
     pts_ns: int
     seq: int
     stream_id: str
     source_uri: str = ""
+    #: S16LE mono 16 kHz chunk (audio pipelines)
+    audio: np.ndarray | None = None
     regions: list[Region] = field(default_factory=list)
     #: frame-level tensors (action recognition, audio events)
     tensors: list[Tensor] = field(default_factory=list)

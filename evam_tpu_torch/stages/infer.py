@@ -6,6 +6,9 @@ shared detect engine, and turns the packed result rows into regions.
 ``ClassifyStage`` (gvaclassify) submits the frame with the boxes of its
 eligible regions and appends one attribute tensor per head to each;
 ``FusedDetectClassifyStage`` does both in one engine round trip.
+``ActionStage`` (gvaactionrecognitionbin) chains a per-frame encoder
+engine and a 16-frame-clip decoder engine; ``AudioDetectStage``
+(gvaaudiodetect) classifies one-second windows of the audio stream.
 Thresholds are applied here, on the host, so one engine (whose NMS uses
 the permissive ``ENGINE_SCORE_FLOOR``) serves pipelines with different
 ``threshold`` parameters.
@@ -25,11 +28,13 @@ flight would read a later count off the gate).
 from __future__ import annotations
 
 import logging
+from collections import deque
 from concurrent.futures import Future
 
 import numpy as np
 
 from evam_tpu_torch.engine.hub import EngineHub
+from evam_tpu_torch.models.zoo.action import CLIP_LEN
 from evam_tpu_torch.ops.color import bgr_to_i420_host
 from evam_tpu_torch.stages.base import AsyncStage
 from evam_tpu_torch.stages.context import FrameContext, Region, Tensor
@@ -351,4 +356,132 @@ class FusedDetectClassifyStage(AsyncStage):
             regions.append(region)
         self._coaster.observe(regions)
         ctx.regions.extend(regions)
+        return [ctx]
+
+
+def _frame_tensor(name: str, probs: np.ndarray, labels: list[str],
+                  threshold: float, data: bool = False) -> Tensor | None:
+    """The argmax of a frame-level probability vector as a Tensor, or
+    None below ``threshold``; ``data`` inlines the whole vector."""
+    lid = int(np.argmax(probs))
+    conf = float(probs[lid])
+    if conf < threshold:
+        return None
+    return Tensor(name=name, confidence=conf, label_id=lid,
+                  label=labels[lid] if lid < len(labels) else str(lid),
+                  data=[float(x) for x in probs] if data else None)
+
+
+class ActionStage(AsyncStage):
+    """gvaactionrecognitionbin counterpart: per-frame encoder + 16-frame
+    sliding-clip decoder (pipelines/action_recognition/general/
+    pipeline.json). Properties: enc-model, dec-model, threshold,
+    model-instance-id (the encoder's)."""
+
+    def __init__(self, name: str, properties: dict, hub: EngineHub):
+        self.name = name
+        enc_key = properties.get("enc-model", "action_recognition/encoder")
+        dec_key = properties.get("dec-model", "action_recognition/decoder")
+        self.dec_model = hub.model(dec_key)
+        self.enc_model = hub.model(enc_key)
+        self.ingest_size = _wire_safe_size(
+            (self.enc_model.preprocess.height, self.enc_model.preprocess.width))
+        # two engines: the decoder submit runs on the encoder engine's
+        # completer thread, never on the engine it waits for
+        self.enc_engine = hub.engine("action_encode", enc_key,
+                                     properties.get("model-instance-id"))
+        self.dec_engine = hub.engine("action_decode", dec_key)
+        self.clip: deque[np.ndarray] = deque(maxlen=CLIP_LEN)
+        self.threshold = float(properties.get("threshold", 0.0))
+        self.wire = hub.wire_format
+
+    def submit(self, ctx: FrameContext) -> Future | None:
+        """Chain encoder → decoder without ever blocking the runner.
+
+        The returned future resolves to the decoder's class
+        probabilities, or None while the clip fills. The decoder submit
+        happens inside the encoder future's callback (on the encoder
+        engine's completer thread), so frames keep flowing while a
+        decoder batch is pending."""
+        enc_fut = self.enc_engine.submit(
+            frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
+        outer: Future = Future()
+
+        def _on_encoded(f: Future) -> None:
+            # an exception raised inside a done-callback is swallowed:
+            # every failure must land on `outer`, or the runner would
+            # wait on it forever
+            try:
+                # encoder futures resolve in submission order (FIFO
+                # batches), so the clip keeps frame order
+                self.clip.append(f.result())
+                if len(self.clip) < CLIP_LEN:
+                    outer.set_result(None)  # the clip is still filling
+                    return
+                # raises RuntimeError when the engine is stopping
+                dec_fut = self.dec_engine.submit(clips=np.stack(self.clip))
+            except Exception as exc:  # noqa: BLE001 — propagate to the runner
+                outer.set_exception(exc)
+                return
+
+            def _on_decoded(g: Future) -> None:
+                try:
+                    outer.set_result(g.result())
+                except Exception as exc:  # noqa: BLE001
+                    outer.set_exception(exc)
+
+            dec_fut.add_done_callback(_on_decoded)
+
+        enc_fut.add_done_callback(_on_encoded)
+        return outer
+
+    def complete(self, ctx: FrameContext,
+                 result: np.ndarray | None) -> list[FrameContext]:
+        if result is None:
+            return [ctx]  # the clip is still filling
+        tensor = _frame_tensor("action", result, self.dec_model.labels,
+                               self.threshold, data=True)
+        if tensor is not None:
+            ctx.tensors.append(tensor)
+        return [ctx]
+
+
+class AudioDetectStage(AsyncStage):
+    """gvaaudiodetect counterpart: classify one-second 16 kHz windows
+    (pipelines/audio_detection/environment/pipeline.json). Properties:
+    threshold, sliding-window (the stride as a fraction of the window),
+    model-instance-id."""
+
+    WINDOW = 16000  # 1 s at 16 kHz, whatever the model's input size
+
+    def __init__(self, name: str, model_key: str, properties: dict,
+                 hub: EngineHub):
+        self.name = name
+        self.threshold = float(properties.get("threshold", 0.0))
+        self.stride = max(1, int(
+            self.WINDOW * float(properties.get("sliding-window", 0.2))))
+        self.engine = hub.engine("audio", model_key,
+                                 properties.get("model-instance-id"))
+        self.model = hub.model(model_key)
+        self._buffer = np.zeros(0, np.int16)
+        self._since_last = 0
+
+    def submit(self, ctx: FrameContext) -> Future | None:
+        if ctx.audio is None:
+            return None
+        self._buffer = np.concatenate([self._buffer, ctx.audio])[-self.WINDOW:]
+        self._since_last += len(ctx.audio)
+        if len(self._buffer) < self.WINDOW or self._since_last < self.stride:
+            return None
+        self._since_last = 0
+        return self.engine.submit(windows=self._buffer.copy())
+
+    def complete(self, ctx: FrameContext,
+                 result: np.ndarray | None) -> list[FrameContext]:
+        if result is None:
+            return [ctx]
+        tensor = _frame_tensor("detection", result, self.model.labels,
+                               self.threshold)
+        if tensor is not None:
+            ctx.tensors.append(tensor)
         return [ctx]

@@ -72,6 +72,7 @@ class StreamRunner:
         self.frames_in += 1
         ctx = FrameContext(
             frame=ev.frame,
+            audio=ev.audio,
             pts_ns=ev.pts_ns,
             seq=ev.seq,
             stream_id=self.stream_id,
@@ -136,7 +137,9 @@ class StreamRunner:
             if len(outs) == 1 and outs[0] is ctx:
                 i += 1
                 continue
-            # fan-out: each emitted ctx continues from the next stage
+            # fan-out (e.g. audio re-chunking): each emitted ctx
+            # continues from the next stage, inheriting the parent's
+            # ingest time so the latency list covers them
             for out in outs:
                 out.stage_index = i + 1
                 if out.ingest_t is None:

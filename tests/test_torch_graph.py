@@ -9,7 +9,10 @@
   ``tests/test_graph.py``.
 * ``Settings.from_env`` parses each knob the port honours as the
   reference does, and raises ``NotImplementedError`` naming a slice for
-  each unported knob set to a value the port does not run with.
+  each unported knob set to a value the port does not run with — the
+  reference's settings table and the knobs its modules read from
+  ``os.environ`` (batch assembly, staging depth, depthwise conv,
+  compile serialization, faults, the native library).
 
 Exact equality throughout: these layers are copies.
 """
@@ -307,3 +310,54 @@ def test_unported_config_file_keys_raise(tmp_path):
     path.write_text(json.dumps({"no_such_key": 1}))
     with pytest.raises(ValueError, match="no_such_key"):
         port_settings.Settings.from_env(path, env={})
+
+
+#: knobs the reference's modules read: (var, a value the port refuses,
+#: values it accepts, the slice named)
+_MODULE_CASES = [
+    ("EVAM_BATCH_ASSEMBLY", "slot", ["legacy"], "slice 7"),
+    ("EVAM_STAGING_DEPTH", "4", ["0", ""], "slice 7"),
+    ("EVAM_DWCONV", "shift", ["lax", "LAX"], "slice 6"),
+    ("EVAM_DWCONV", "SHIFT", ["lax"], "slice 6"),
+    ("EVAM_SERIALIZE_COMPILE", "1", ["0", "false", ""], "slice 7"),
+    ("EVAM_SERIALIZE_COMPILE", "yes", ["no"], "slice 7"),
+    ("EVAM_FAULT_INJECT", "drop=0.1", [""], "slice 10"),
+    ("EVAM_FAULT_SEED", "7", [""], "slice 10"),
+    ("EVAM_NO_NATIVE", "1", [""], "slice 7"),
+    ("EVAM_NO_NATIVE", "0", [""], "slice 7"),
+    ("EVAM_NATIVE", "1", [""], "slice 7"),
+    ("EVAM_NATIVE_LIB", "/srv/libevam_media.so", [""], "slice 7"),
+]
+
+
+@pytest.mark.parametrize("var,refused,accepted,slice_", _MODULE_CASES,
+                         ids=[f"{c[0]}={c[1]}" for c in _MODULE_CASES])
+def test_module_read_knob_raises_naming_its_slice(var, refused, accepted,
+                                                  slice_):
+    for value in accepted:
+        port_settings.Settings.from_env(env={var: value})
+    with pytest.raises(NotImplementedError, match=slice_) as info:
+        port_settings.Settings.from_env(env={var: refused})
+    assert var in str(info.value)
+    assert set(port_settings._MODULE_KNOBS) == {c[0] for c in _MODULE_CASES}
+
+
+def test_module_read_knobs_mean_what_the_reference_reads(monkeypatch):
+    """The refused values change what the reference runs; the accepted
+    ones do not."""
+    from evam_tpu import native
+    from evam_tpu.engine import devlock
+    from evam_tpu.ops import depthwise
+
+    for value, shift in (("shift", True), ("SHIFT", True), ("lax", False)):
+        monkeypatch.setenv("EVAM_DWCONV", value)
+        assert depthwise.use_shift_depthwise() is shift
+    for value, on in (("1", True), ("yes", True), ("0", False), ("", False)):
+        monkeypatch.setenv("EVAM_SERIALIZE_COMPILE", value)
+        assert devlock.enabled() is on
+    # EVAM_NO_NATIVE=0 is a non-empty value: the reference's native
+    # library is then not loaded, so "0" is refused too
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setenv("EVAM_NO_NATIVE", "0")
+    assert not native.available()

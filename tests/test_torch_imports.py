@@ -9,8 +9,9 @@ and the CLI's parser build there); an AST scan finds no import of
 ``jax``, ``flax`` or ``evam_tpu`` anywhere (``evam_tpu_torch`` itself
 starts with ``evam_tpu``, so names are matched exactly, not by prefix)
 and no import of the machine's missing packages at a module's top level
-(``msgpack`` and ``cv2`` are imported inside the functions that use
-them).
+(``cv2`` is imported inside the function that uses it), nor of
+``msgpack`` anywhere: the port reads and writes weights files with the
+standard library.
 """
 
 from __future__ import annotations
@@ -111,6 +112,22 @@ def test_no_module_imports_a_missing_package_at_top_level():
     assert not offenders, offenders
 
 
+def test_no_module_imports_msgpack_anywhere():
+    offenders = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):  # inside functions too
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                          for n in names if _blocked(n, ("msgpack",))]
+    assert not offenders, offenders
+
+
 def test_scan_matches_names_exactly():
     assert _blocked("evam_tpu.ops") and _blocked("jax.numpy")
     assert not _blocked("evam_tpu_torch.ops") and not _blocked("jaxlib_free")
@@ -128,4 +145,7 @@ def test_the_scan_covers_every_module_of_the_port():
             "evam_tpu_torch.extensions",
             "evam_tpu_torch.extensions.event_convert",
             "evam_tpu_torch.extensions.object_line_crossing",
-            "evam_tpu_torch.extensions.object_zone_count"} <= names
+            "evam_tpu_torch.extensions.object_zone_count",
+            "evam_tpu_torch.models.zoo.action",
+            "evam_tpu_torch.models.zoo.aclnet",
+            "evam_tpu_torch.media.audio"} <= names

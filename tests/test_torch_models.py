@@ -4,6 +4,14 @@ Weights are bridged both ways: the reference's ``weights.msgpack``
 (``ModelRegistry.save_weights``) loaded by the port's registry, and
 the direct numpy handoff through ``models/convert.py::params_from_jax``.
 
+The weights files: the port's standard-library msgpack decoder reads
+every zoo family's ``weights.msgpack`` as ``msgpack`` does (float32,
+bfloat16 and INT8 registries), with ``msgpack`` blocked; the port's
+``save_weights`` writes the bytes flax's ``to_bytes`` writes for the
+same tree — byte for byte the reference's own file where the
+reference's tree is key-sorted (bfloat16 and INT8 serving; a float32
+registry keeps flax's creation order) — and reads back equal.
+
 Tolerances on ``loc``/``conf``:
 
 * ``quant=False`` at float32: rtol = atol = 1e-4;
@@ -15,6 +23,8 @@ Tolerances on ``loc``/``conf``:
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -23,8 +33,10 @@ import jax
 
 from evam_tpu.models.registry import ModelRegistry as JaxRegistry
 from evam_tpu.ops import qlinear as jql
+from evam_tpu_torch.models import convert
 from evam_tpu_torch.models.convert import params_from_jax
 from evam_tpu_torch.models.registry import (
+    ZOO_SPECS,
     MissingWeightsError,
     ModelRegistry,
     _seed_for,
@@ -166,9 +178,14 @@ def test_precision_reads_evam_precision(monkeypatch):
     assert ModelRegistry(device="cpu", **SMALL).dtype == "float32"
 
 
-def test_later_families_raise():
-    reg = ModelRegistry(device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+def test_later_families_raise(tmp_path):
+    """Every zoo family builds; an OpenVINO IR on disk (whose weights
+    the reference would serve) raises naming the import slice."""
+    ir = tmp_path / "action_recognition" / "encoder" / "FP32"
+    ir.mkdir(parents=True)
+    (ir / "model.xml").write_text("<net/>")
+    reg = ModelRegistry(models_dir=tmp_path, device="cpu", **SMALL)
+    with pytest.raises(NotImplementedError, match="slice 6"):
         reg.get("action_recognition/encoder")
     with pytest.raises(KeyError):
         reg.get("no/such_model")
@@ -188,3 +205,111 @@ def test_anchor_table_matches_the_head_rows():
     assert out["loc"].shape[1] == out["conf"].shape[1] == len(m.anchors)
     jm = JaxRegistry(**SMALL).get(KEY)
     np.testing.assert_array_equal(m.anchors, jm.anchors)
+
+
+# ------------------------------------------------------- weights files
+
+ALL_SMALL = dict(
+    input_overrides={**{k: (64, 64) for k in ZOO_SPECS},
+                     "audio_detection/environment": (1, 1600)},
+    width_overrides={k: 8 for k in ZOO_SPECS})
+
+
+def _same_tree(got, want, path="", ordered=True) -> None:
+    """Equal nested dicts of arrays: the same keys (in the same order
+    where ``ordered``), equal shapes, dtypes and bits (bfloat16 as
+    16-bit words)."""
+    if isinstance(want, dict):
+        keys = list if ordered else sorted
+        assert isinstance(got, dict) and keys(got) == keys(want), path
+        for k in want:
+            _same_tree(got[k], want[k], f"{path}/{k}", ordered)
+        return
+    def words(x):
+        if isinstance(x, torch.Tensor):  # the port's bfloat16 leaves
+            assert x.dtype == torch.bfloat16, path
+            return x.view(torch.int16).numpy()
+        x = np.asarray(x)
+        return x.view(np.int16) if x.dtype.name == "bfloat16" else x
+
+    got, want = words(got), words(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, path
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_stdlib_decoder_reads_every_family_as_msgpack(tmp_path, monkeypatch,
+                                                      dtype):
+    import msgpack
+    from flax import serialization
+
+    jreg = JaxRegistry(models_dir=tmp_path, dtype=dtype,
+                       allow_random_weights=True, **ALL_SMALL)
+    files = {}
+    for key in ZOO_SPECS:
+        jreg.get(key)
+        files[key] = jreg.save_weights(key).read_bytes()
+    want = {k: msgpack.unpackb(data, ext_hook=serialization._msgpack_ext_unpack,
+                               raw=False) for k, data in files.items()}
+    # the card's machine has no msgpack: decode with it blocked
+    monkeypatch.setitem(sys.modules, "msgpack", None)
+    for key, data in files.items():
+        _same_tree(convert.unpackb(data), want[key], key)
+        state = convert.params_from_msgpack(data)
+        assert len(state) == len(jax.tree.leaves(jreg.get(key).params))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_port_save_weights_writes_flax_bytes(tmp_path, monkeypatch, dtype):
+    from flax import serialization
+
+    treg = ModelRegistry(device="cpu", dtype=dtype, allow_random_weights=True,
+                         **ALL_SMALL)
+    jreg = JaxRegistry(models_dir=tmp_path / "ref", dtype=dtype,
+                       allow_random_weights=True, **ALL_SMALL)
+    sorted_ref = dtype != "float32"
+    for key in ZOO_SPECS:
+        monkeypatch.setitem(sys.modules, "msgpack", None)
+        path = treg.save_weights(key, tmp_path / "port")
+        monkeypatch.delitem(sys.modules, "msgpack")
+        assert path == tmp_path / "port" / key / treg.precision / "weights.msgpack"
+        data = path.read_bytes()
+        # flax's bytes for the same tree: the weights in the serving
+        # dtype (a float32-arithmetic module holds them in float32)
+        state = treg.get(key).module.state_dict()
+        saved = {k: v.to(treg.serve_dtype) for k, v in state.items()}
+        tree = jax.tree.map(
+            lambda t: np.asarray(jax.numpy.asarray(t.float().numpy(),
+                                                   jax.numpy.bfloat16))
+            if t.dtype == torch.bfloat16 else t.numpy(),
+            convert.params_to_jax(saved))
+        assert data == serialization.to_bytes(tree), key
+        # the reference reads it, into its own tree, bit for bit
+        got = serialization.from_bytes(jreg.get(key).params, data)
+        _same_tree(convert.unpackb(serialization.to_bytes(got)),
+                   convert.unpackb(data), key, ordered=sorted_ref)
+        # ... and writes the same file again where its tree is sorted
+        if sorted_ref:
+            jreg.get(key)
+            jreg._cache[key].params = got
+            assert jreg.save_weights(key).read_bytes() == data, key
+        # the port reads back what it wrote
+        back = ModelRegistry(models_dir=tmp_path / "port", device="cpu",
+                             dtype=dtype, allow_random_weights=False,
+                             **ALL_SMALL).get(key)
+        assert back.weight_source == "msgpack"
+        for name, t in back.module.state_dict().items():
+            assert torch.equal(t, state[name]), (key, name)
+
+
+def test_decoder_refuses_what_flax_does_not_write():
+    with pytest.raises(ValueError, match="ext type 2"):
+        convert.unpackb(b"\xd4\x02\x00")
+    with pytest.raises(ValueError, match="0xc1"):
+        convert.unpackb(b"\xc1")
+    with pytest.raises(ValueError, match="truncated"):
+        convert.unpackb(b"\xa5ab")
+    with pytest.raises(ValueError, match="trailing"):
+        convert.unpackb(b"\x01\x02")
+    with pytest.raises(ValueError, match="unexpected leaf"):
+        convert.params_from_msgpack(convert.packb({"a": {"bias": 1.5}}))

@@ -21,7 +21,8 @@
   servers with the same engine and frame count and publish nothing;
   their detect stage is the one compared above (same model key, and
   the same resolved stage specs, ``tests/test_torch_graph.py``).
-* DELETE reaches ABORTED; a pipeline of a later slice answers 501, and
+* DELETE reaches ABORTED; a request of a later slice (an application,
+  webcam source, ...) answers 501, every pipeline serves, and
   the requests slice 4 brought (tracking, zone count, the motion gate)
   serve; ``EVAM_GATE=on`` builds a gate in ``DetectStage`` and
   ``EVAM_GATE=off`` beats ``adaptive``; ``python -m
@@ -257,7 +258,7 @@ def test_error_routes_hold_their_goldens(server, tmp_path):
 
 
 @pytest.mark.parametrize("path,body_extra,needle", [
-    ("/pipelines/action_recognition/general", {}, "slice 5"),
+    (PIPE, {"source": {"type": "application"}}, "slice 11"),
     (PIPE, {"source": {"type": "webcam", "device": 0}}, "slice 11"),
     (PIPE, {"destination": {"metadata": {"type": "zmq"}}}, "slice 11"),
     (PIPE, {"destination": {"metadata": {"type": "null"},
@@ -300,9 +301,11 @@ def test_slice_4_requests_serve(server, tmp_path, path, body_extra):
         assert gate["enabled"] and gate["ran"] + gate["skipped"] == 6
 
 
-#: pipelines the port serves in this slice; every other one of
-#: pipelines/ and eii/pipelines/ answers 501
-_SERVED = {"pipelines": {("object_classification", "vehicle_attributes"),
+#: pipelines the port serves: every one of pipelines/ and
+#: eii/pipelines/ (a pipeline left out would have to answer 501)
+_SERVED = {"pipelines": {("action_recognition", "general"),
+                         ("audio_detection", "environment"),
+                         ("object_classification", "vehicle_attributes"),
                          ("object_detection", "app_src_dst"),
                          ("object_detection", "object_zone_count"),
                          ("object_detection", "person"),
@@ -322,12 +325,15 @@ _ALL = [(d, n, v) for d in _SERVED
 def test_every_pipeline_serves_or_names_its_slice(d, name, version, tmp_path):
     """Each pipeline either completes a stream (publishing one line per
     frame where it has a publish stage) or answers 501."""
-    keys = ("object_detection/person", "object_detection/vehicle", KEY)
+    keys = ("object_detection/person", "object_detection/vehicle", KEY,
+            "action_recognition/encoder")
     registry = ModelRegistry(
         dtype="float32", device="cpu", allow_random_weights=True,
-        input_overrides={k: (64, 64) for k in keys},
+        input_overrides={**{k: (64, 64) for k in keys},
+                         "audio_detection/environment": (1, 1600)},
         width_overrides={k: 8 for k in keys + (
-            "object_classification/vehicle_attributes",)})
+            "object_classification/vehicle_attributes",
+            "action_recognition/decoder", "audio_detection/environment")})
     srv = PortServer(PipelineRegistry(
         Settings(pipelines_dir=str(REPO / d), device="cpu"),
         hub=EngineHub(registry, device="cpu", max_batch=4, deadline_ms=4.0)))

@@ -229,8 +229,8 @@ def test_hub_shares_engines_and_refuses_later_kinds(hub):
     a = hub.engine("detect", KEY)
     assert hub.engine("detect", KEY) is a
     assert hub.engine("detect", KEY, instance_id="other") is not a
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        hub.engine("action_encode", KEY)
+    with pytest.raises(ValueError, match="no step builder"):
+        hub.engine("segment", KEY)
 
 
 def test_interval_skip_reuses_last_regions(hub):
