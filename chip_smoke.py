@@ -43,6 +43,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
               with the ``msgpack`` package blocked (the port's
               standard-library codec); every tensor and the forward
               outputs on one input equal.
+
+Every serving phase runs the reference's default engine (the
+``Settings`` defaults; the engines warm themselves: each waits until
+every bucket is captured before it counts), and prints the device
+memory the allocator holds once it has stopped its engines.
+
 6. slice    — the port's main path at full width: EVAM_PRECISION=int8,
               EVAM_QGEMM=pallas, person_vehicle_bike at 512×512, width
               32, seeded random weights. STREAMS (8) synthetic 512×512
@@ -69,7 +75,31 @@ Phases, in order; any failure exits nonzero and prints no result line:
               published in order, stream 0's objects carrying color and
               type; masked launches only where the classifier's M is
               ragged. Prints fps, p50/p99, occupancy and unit occupancy.
-8. track    — the tracking pipeline (pipelines/object_tracking/
+8. engine   — the reference's default engine against today's eager
+              one, on one registry: hub A (the ``Settings`` defaults:
+              slot staging in page-locked memory, pipelined transfer,
+              every bucket warmed and captured as a CUDA graph,
+              supervised; watchdog budget 5 s) and hub B (legacy
+              assembly, inline transfer, no warmup: every batch eager)
+              each serve detect (person_vehicle_bike) and fused
+              detect+classify (vehicle_attributes) to STREAMS × FRAMES
+              frames twice: "cold" (hub A's streams start while its
+              buckets are captured) and "warm". Every published object
+              bit-equal to hub B's cold run; one bucket's replay
+              bit-equal to its eager step, with 10 / 13 launches; every
+              bucket captured; 10 launches per detect and 13 per fused
+              forward counted through the replays (a warm run counts as
+              a forward). Prints each run's stage clock (all eight
+              stages), fps, p50 / p99, capture seconds and graph-pool
+              bytes; each hub's device busy share over a profiled run
+              of each cell, and one thread's host cost per frame
+              (source, encode). Then a stub wedge on hub A's detect
+              engine (its launches block on a host event): the stranded
+              frame fails with TimeoutError, /healthz walks 503
+              ``stalled`` → ``restarting`` → 200 ``ok``, and the rebuilt
+              engine, its graphs captured again, answers the same frame
+              with the same bits.
+9. track    — the tracking pipeline (pipelines/object_tracking/
               person_vehicle_bike: detect+classify fused into one
               engine, then the IoU tracker) at the same full width, INT8,
               pallas: STREAMS × FRAMES frames served; 13 launches per
@@ -80,7 +110,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
               plain qgemm on the card: the same objects, labels, ids and
               attribute labels on every frame, boxes within 1e-3 and
               confidences within 1e-2. Prints fps and p50/p99.
-9. gate     — pipelines/object_detection/person_vehicle_bike with
+10. gate    — pipelines/object_detection/person_vehicle_bike with
               ``inference-interval: "adaptive"``, the same traffic: per
               stream ran + skipped = FRAMES, the run/skip sequence equal
               to a host-only replay of the port's MotionGate over the
@@ -89,7 +119,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
               registry's totals (the /healthz ``gate`` block) equal to
               the stages'. Prints the skip rate and fps beside the
               slice phase's ungated fps.
-10. action  — action_recognition/general at full width (encoder 224²,
+11. action  — action_recognition/general at full width (encoder 224²,
               width 32, embed 512; decoder dim 512, depth 4, 8 heads,
               400 classes). First the card against the CPU on the same
               seeded float32 weights (TF32 off): embeddings, logits and
@@ -102,14 +132,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
               ``action`` tensor a frame; zero qgemm launches. Prints
               fps, p50/p99 and both engines' occupancy, launch and
               readback ms.
-11. audio   — audio_detection/environment: AclNet at 16000 samples,
+12. audio   — audio_detection/environment: AclNet at 16000 samples,
               width 32, 53 classes, card against CPU the same way; then
               4 ``synthetic-audio://seconds=5`` streams served INT8 at
               sliding-window 0.2, threshold 0: a ``detection`` tensor on
               exactly the chunks a host replay of the stride rule gives,
               the engine's items equal to the windows; zero qgemm
               launches. Prints windows/s and the windows' p50/p99.
-12. rest    — the same path through the port's REST server
+13. rest    — the same path through the port's REST server
               (``evam_tpu_torch.server.app``) on a free 127.0.0.1 port, in
               a thread: STREAMS POSTs to
               /pipelines/object_detection/person_vehicle_bike, each a
@@ -136,10 +166,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
               must give ABORTED; an unknown pipeline, a body without a
               source and a request of a later slice (a webcam source)
               must answer 404, 400 and 501.
-              The engine is built and warmed before the clock starts.
-13. serve   — the real entry point, ``python3 -m
+              The engine is built (``PipelineRegistry.preload``, the
+              EVAM_PRELOAD path) and warmed before the clock starts.
+14. serve   — the real entry point, ``python3 -m
               evam_tpu_torch.cli.main serve``, as a subprocess on a free
-              REST_PORT: /healthz answers 200, one 8-frame
+              REST_PORT with EVAM_PRELOAD=object_detection/
+              person_vehicle_bike: /healthz answers 200 ``ok`` (the
+              preloaded engine built and its 8 buckets captured), one 8-frame
               person_vehicle_bike stream completes with 10 aligned
               launches per forward (the child's counts, read from its
               /metrics), then one 8-frame vehicle_attributes stream with
@@ -147,9 +180,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
               and SIGTERM ends the process with 0 in 30 s.
 
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
-calls; ``launches`` sums the slice, classify, track, gate, rest and
-serve phases' served runs, split by variant in ``launches_by_variant``;
-the track phase's kernel-against-plain runs are not counted; the action
+calls; ``launches`` sums the slice, classify, engine, track, gate, rest
+and serve phases' served runs and their engines' warm runs, split by
+variant in ``launches_by_variant``; the track phase's
+kernel-against-plain runs (on an engine without warmup: a replay would
+run the kernel whichever qgemm is bound) are not counted; the action
 and audio phases launch it zero times), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -162,6 +197,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -180,7 +216,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
-          "classify", "track", "gate", "action", "audio", "rest", "serve")
+          "classify", "engine", "track", "gate", "action", "audio", "rest",
+          "serve")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -237,6 +274,7 @@ def _nvidia_smi() -> str:
 def _import_port():
     """The port's modules this script drives (imports nothing of JAX)."""
     from evam_tpu_torch.engine.hub import EngineHub
+    from evam_tpu_torch.engine.ringbuf import STAGES
     from evam_tpu_torch.engine.steps import (
         build_action_decode_step,
         build_action_encode_step,
@@ -266,7 +304,8 @@ def _import_port():
         Settings=Settings, App=App, make_server=make_server,
         PipelineRegistry=PipelineRegistry, PipelineLoader=PipelineLoader,
         resolve_parameters=resolve_parameters, build_stages=build_stages,
-        EngineHub=EngineHub, build_detect_step=build_detect_step,
+        EngineHub=EngineHub, STAGES=STAGES,
+        build_detect_step=build_detect_step,
         SyntheticSource=SyntheticSource, ModelRegistry=ModelRegistry,
         SyntheticAudioSource=SyntheticAudioSource,
         build_action_encode_step=build_action_encode_step,
@@ -278,6 +317,14 @@ def _import_port():
         MetaconvertStage=MetaconvertStage, PublishStage=PublishStage,
         StreamRunner=StreamRunner, preprocess_wire=preprocess_wire,
         gate=gate, MotionGate=gate.MotionGate, GateConfig=gate.GateConfig)
+
+
+def _memory(torch, phase: str) -> None:
+    """Device memory the caching allocator holds once a phase has
+    stopped its engines (their graphs and pools freed)."""
+    _print({"phase": f"{phase}-memory",
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            "allocated_gib": torch.cuda.memory_allocated() / 2**30})
 
 
 def _time_ms(torch, fn, calls: int = 20, rounds: int = 7) -> tuple[float, float]:
@@ -635,16 +682,18 @@ def _check_served(where: str, runners, published, threads,
                                  f"{len(seqs)} of {frames} frames")
 
 
-def _profile_serve(torch, port, hub, streams, frames, h, w) -> dict:
+def _profile_serve(torch, port, hub, streams, frames, h, w,
+                   make=None) -> dict:
     """Device busy share and kernel time by name over a served run
     (torch.profiler; a second, shorter run — the profiler slows the
-    host that issues the launches)."""
+    host that issues the launches). ``make``: the stages (default: the
+    slice phase's detect stages)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall, _ = _serve(port, _detect_stages(port, hub), streams,
-                               frames, h, w)
+        _, _, wall, _ = _serve(port, make or _detect_stages(port, hub),
+                               streams, frames, h, w)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -661,24 +710,65 @@ def _profile_serve(torch, port, hub, streams, frames, h, w) -> dict:
             "top_kernels_ms": dict(top)}
 
 
-def _warm_engine(torch, port, hub):
-    """Build the hub's shared detect engine (the one a detect stage
-    takes) and run every bucket a run of STREAMS streams can use once,
-    through its step alone (cuDNN and allocator set-up; the engine's
-    batch counts do not move)."""
-    model = hub.model(KEY)
-    h, w = model.preprocess.height, model.preprocess.width
-    engine = hub.engine("detect", KEY,
-                        score_threshold=port["ENGINE_SCORE_FLOOR"])
-    wire = port["wire_frame"](
-        next(port["SyntheticSource"](w, h, count=1).frames()).frame,
-        (h, w), "i420")
-    for b in engine.buckets:
-        if b <= STREAMS * 4:
-            engine.step_fn(torch.from_numpy(
-                wire[None].repeat(b, 0)).cuda()).cpu()
-    torch.cuda.synchronize()
-    return engine
+def _host_frame_ms(port, n: int = 64) -> dict:
+    """One thread's host cost per frame of what each stream thread does
+    before a submit: make the synthetic 512² frame, and resize and
+    encode it to the I420 wire (ms, wall)."""
+    src = port["SyntheticSource"](512, 512, count=n, seed=9)
+    t0 = time.perf_counter()
+    frames = [ev.frame for ev in src.frames()]
+    t1 = time.perf_counter()
+    for f in frames:
+        port["wire_frame"](f, (512, 512), "i420")
+    t2 = time.perf_counter()
+    return {"source_ms": 1e3 * (t1 - t0) / n, "encode_ms": 1e3 * (t2 - t1) / n}
+
+
+def _default_hub(port, registry, **overrides):
+    """An EngineHub with the serving defaults of ``Settings`` — warmup
+    on (every bucket captured as a CUDA graph), supervised, slot
+    staging, pipelined transfer — as the server builds it."""
+    e = port["Settings"].from_env(env={}).engine
+    kw = dict(max_batch=e.max_batch, deadline_ms=e.batch_deadline_ms,
+              warmup=e.warmup, stall_timeout_s=e.stall_timeout_s,
+              supervise=e.supervise, max_restarts=e.max_restarts,
+              restart_window_s=e.restart_window_s,
+              restart_backoff_s=e.restart_backoff_s,
+              first_batch_grace=e.first_batch_grace, transfer=e.transfer,
+              transfer_depth=e.transfer_depth, assembly=e.batch_assembly,
+              staging_depth=e.staging_depth)
+    kw.update(overrides)
+    return port["EngineHub"](registry, device="cuda", **kw)
+
+
+def _fwd(row: dict) -> int:
+    """Forwards an engine ran: its batches and its warm runs (one per
+    bucket warmed; each launches the kernel as a batch does)."""
+    return row["batches"] + row["warm_forwards"]
+
+
+def _stage_engines(stages) -> list:
+    return [e for st in stages for e in (
+        getattr(st, "engine", None), getattr(st, "enc_engine", None),
+        getattr(st, "dec_engine", None)) if e is not None]
+
+
+def _await_warm(where: str, engines, timeout: float = 300.0) -> list[dict]:
+    """Wait for each engine's background warmup; every bucket must have
+    been captured as a CUDA graph. Returns their /engines rows."""
+    rows = []
+    for e in engines:
+        if not e.warmed.wait(timeout):
+            raise AssertionError(f"{where}: {e.name} did not warm in "
+                                 f"{timeout:.0f} s")
+        row = e.stats_row()
+        if row["capture_failures"] or row["graphs"] != len(row["buckets"]):
+            raise AssertionError(
+                f"{where}: {e.name} captured {row['graphs']} of "
+                f"{len(row['buckets'])} buckets "
+                f"({row['capture_failures']} failed)")
+        rows.append(row)
+    return rows
 
 
 def phase_slice(torch, port, profile: bool = False) -> dict:
@@ -691,22 +781,24 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
     registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
     if registry.precision != "INT8":
         raise AssertionError("EVAM_PRECISION=int8 did not select INT8")
-    hub = port["EngineHub"](registry, device="cuda")
+    hub = _default_hub(port, registry)
     try:
         model = hub.model(KEY)
         h, w = model.preprocess.height, model.preprocess.width
-        # warm every bucket the run can use, then count from zero
-        engine = _warm_engine(torch, port, hub)
+        # the stage warms its engine (every bucket captured); then
+        # count from zero
+        engine = _detect_stages(port, hub)("warm", None)[0].engine
+        (warm,) = _await_warm("slice", [engine])
 
         _reset_launches(qg)
-        batches0 = engine.stats_row()["batches"]
+        fwd0 = _fwd(engine.stats_row())
         objects: dict[str, dict[int, list]] = {}
         runners, published, wall, threads = _serve(
             port, _detect_stages(port, hub), STREAMS, FRAMES, h, w, objects)
         launches = qg.launches
         masked = qg.variant_launches["masked"]
         stats = engine.stats_row()
-        forwards = stats["batches"] - batches0
+        forwards = _fwd(stats) - fwd0
 
         _check_served("slice phase", runners, published, threads)
         if launches != 10 * forwards or forwards == 0:
@@ -757,6 +849,8 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
                "mean_occupancy": stats["mean_occupancy"],
                "bucket_batches": stats["bucket_batches"],
                "stage_ms": stats["stage_ms"],
+               "graphs": warm["graphs"], "capture_s": warm["compile_s"],
+               "graph_pool_bytes": warm["graph_pool_bytes"],
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
         _print(row)
         if profile:
@@ -786,29 +880,6 @@ def _crop_boxes(torch, gen, b: int):
     """[b, ROI_BUDGET, 4] valid normalized boxes on the card."""
     p = torch.rand((b, ROI_BUDGET, 2, 2), generator=gen, device="cuda")
     return torch.cat([p.amin(2), p.amax(2)], -1)
-
-
-def _warm_stage_engines(torch, port, stages) -> None:
-    """Run every bucket a run of STREAMS streams can use once through
-    the step of each engine the stages hold (cuDNN and allocator
-    set-up; the engines' batch counts do not move)."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    for stage in stages:
-        engine = getattr(stage, "engine", None)
-        if engine is None:
-            continue
-        h, w = stage.ingest_size
-        wire = torch.from_numpy(port["wire_frame"](
-            next(port["SyntheticSource"](w, h, count=1).frames()).frame,
-            (h, w), "i420")).cuda()
-        for b in engine.buckets:
-            if b > STREAMS * 4:
-                break
-            frames = wire[None].repeat(b, 1, 1)
-            args = ((frames,) if engine.input_names == ("frames",)
-                    else (frames, _crop_boxes(torch, gen, b)))
-            engine.step_fn(*args).cpu()
-    torch.cuda.synchronize()
 
 
 def _attributed(objects: list[dict]) -> int:
@@ -880,7 +951,7 @@ def phase_classify(torch, port) -> dict:
     streams in this process: fused, then unfused."""
     qg = port["qgemm"]
     registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
-    hub = port["EngineHub"](registry, device="cuda")
+    hub = _default_hub(port, registry)
     total = {"aligned": 0, "masked": 0}
     try:
         det, cls = hub.model(KEY), hub.model(CLS_KEY)
@@ -896,10 +967,10 @@ def phase_classify(torch, port) -> dict:
                     else ["detect", "classify"])
             if list(engines) != want:
                 raise AssertionError(f"classify {mode}: stages {kinds}")
-            _warm_stage_engines(torch, port, stages)
+            _await_warm(f"classify {mode}", engines.values())
             if mode == "fused":
                 _check_fused_kernel_path(torch, port, stages[0])
-            batches0 = {k: e.stats_row()["batches"] for k, e in engines.items()}
+            fwd0 = {k: _fwd(e.stats_row()) for k, e in engines.items()}
             _reset_launches(qg)
             objects: dict[str, dict[int, list]] = {}
             runners, published, wall, threads = _serve(
@@ -907,7 +978,7 @@ def phase_classify(torch, port) -> dict:
             launches = qg.launches
             variants = dict(qg.variant_launches)
             rows = {k: e.stats_row() for k, e in engines.items()}
-            fwd = {k: rows[k]["batches"] - batches0[k] for k in engines}
+            fwd = {k: _fwd(rows[k]) - fwd0[k] for k in engines}
 
             _check_served(f"classify {mode}", runners, published, threads)
             per = ({"detect_classify": 13} if mode == "fused"
@@ -944,6 +1015,251 @@ def phase_classify(torch, port) -> dict:
             cls.spec.heads)}
     finally:
         hub.stop()
+
+
+#: the engine phase's watchdog budget on hub A (the stub wedge trips it)
+ENGINE_STALL_S = 5.0
+
+
+def _stage_delta(stages, row0: dict, row1: dict) -> dict:
+    """Per-batch stage ms over the batches between two /engines rows
+    (every one of ``stages``; 0 where a path has no such stage)."""
+    n0, n1 = row0["batches"], row1["batches"]
+    return {k: (row1["stage_ms"].get(k, 0.0) * n1
+                - row0["stage_ms"].get(k, 0.0) * n0) / max(1, n1 - n0)
+            for k in stages}
+
+
+def _bucket_delta(row0: dict, row1: dict) -> dict:
+    return {b: n - row0["bucket_batches"].get(b, 0)
+            for b, n in row1["bucket_batches"].items()
+            if n != row0["bucket_batches"].get(b, 0)}
+
+
+def _objects_diff(a: dict, b: dict) -> dict:
+    """Published objects of two runs of the same traffic, frame by
+    frame: frames whose objects are not exactly equal, and the largest
+    box and confidence differences among same-length frames."""
+    frames = differ = 0
+    box = conf = 0.0
+    for sid, seqs in a.items():
+        for seq, objs in seqs.items():
+            other = b.get(sid, {}).get(seq)
+            frames += 1
+            if objs == other:
+                continue
+            differ += 1
+            if other is None or len(other) != len(objs):
+                box = conf = math.inf
+                continue
+            for x, y in zip(objs, other):
+                bx, by = (x["detection"]["bounding_box"],
+                          y["detection"]["bounding_box"])
+                box = max(box, max(abs(bx[k] - by[k]) for k in bx))
+                conf = max(conf, abs(x["detection"]["confidence"]
+                                     - y["detection"]["confidence"]))
+    return {"frames": frames, "frames_differing": differ,
+            "max_box_diff": box, "max_confidence_diff": conf}
+
+
+def _replay_vs_eager(torch, port, engine, per_forward: int) -> dict:
+    """One batch of IMAGES frames through the engine's captured graph of
+    that bucket and through its step eagerly: the same bits, and the
+    replay launches the kernel ``per_forward`` times."""
+    import numpy as np
+
+    live = getattr(engine, "_engine", engine)
+    bg = live._graphs.get(IMAGES)
+    if bg is None:
+        raise AssertionError(f"engine: no graph for bucket {IMAGES}")
+    batch = torch.from_numpy(np.stack([
+        port["wire_frame"](ev.frame, (512, 512), "i420")
+        for s in range(IMAGES)
+        for ev in port["SyntheticSource"](512, 512, count=1,
+                                          seed=s).frames()])).cuda()
+    eager = live.step_fn(batch).cpu().numpy()
+    before = port["qgemm"].launches
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        replayed = live._graphs.replay(bg, [batch]).cpu().numpy()
+    torch.cuda.synchronize()
+    launched = port["qgemm"].launches - before
+    if launched != per_forward or not (replayed == eager).all():
+        raise AssertionError(
+            f"engine: replay of bucket {IMAGES} launched {launched} "
+            f"(want {per_forward}), equal to eager: "
+            f"{bool((replayed == eager).all())}")
+    # K1's device time per forward, inside the replay and eager
+    from torch.profiler import ProfilerActivity, profile
+
+    k1_ms = {}
+    for how, fn in (("replay", lambda: live._graphs.replay(bg, [batch])),
+                    ("eager", lambda: live.step_fn(batch))):
+        with torch.cuda.stream(stream):
+            fn()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if "qgemm" in e.key
+                  and e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in events) != 10 * per_forward:
+            raise AssertionError(f"engine: the profiler saw "
+                                 f"{sum(e.count for e in events)} qgemm "
+                                 f"kernels in 10 {how} forwards")
+        k1_ms[how] = sum(e.self_device_time_total for e in events) / 1e4
+    return {"bucket": IMAGES, "replay_equals_eager": True,
+            "replay_launches": launched,
+            "k1_device_ms_per_forward": k1_ms}
+
+
+def _wedge_and_recover(torch, port, hub, engine) -> dict:
+    """A stub wedge on a supervised engine of ``hub``: its launches
+    block on a host event; the watchdog fails the stranded frame and
+    flags the engine, the supervisor quarantines it and rebuilds it
+    with freshly captured graphs, and the same frame is served again
+    with the same result. /healthz (the port's route, in process) walks
+    its 503 ladder and returns to 200."""
+    import numpy as np
+
+    app = port["App"](port["PipelineRegistry"](
+        port["Settings"](pipelines_dir=str(ROOT / "pipelines"),
+                         device="cuda"), hub=hub))
+    wire = port["wire_frame"](next(port["SyntheticSource"](
+        512, 512, count=1, seed=5).frames()).frame, (512, 512), "i420")
+    before = engine.submit(frames=wire).result(timeout=60)
+    old = engine._engine
+    release = threading.Event()
+    old.pre_launch = release.wait
+    t0 = time.perf_counter()
+    stranded = engine.submit(frames=wire)
+    try:
+        stranded.result(timeout=60)
+        raise AssertionError("engine: the wedged frame resolved")
+    except TimeoutError:
+        pass
+    stall_s = time.perf_counter() - t0
+    ladder = []
+    deadline = time.perf_counter() + 120
+    while time.perf_counter() < deadline:
+        resp = app.handle("GET", "/healthz", b"")
+        status = (resp.status, json.loads(resp.body)["status"])
+        if not ladder or ladder[-1] != status:
+            ladder.append(status)
+        if (503, "restarting") in ladder and status == (200, "ok"):
+            break
+        time.sleep(0.05)
+    recovered_s = time.perf_counter() - t0
+    release.set()  # the quarantined launcher wakes and exits
+    if (503, "restarting") not in ladder or ladder[-1] != (200, "ok"):
+        raise AssertionError(f"engine: /healthz ladder {ladder}")
+    new = engine._engine
+    row = engine.stats_row()
+    if new is old or engine.restarts != 1 or row["state"] != "running":
+        raise AssertionError(f"engine: no rebuild ({engine.restarts})")
+    if new.graphs_captured() != len(new.buckets):
+        raise AssertionError(f"engine: the rebuild captured "
+                             f"{new.graphs_captured()} graphs")
+    after = engine.submit(frames=wire).result(timeout=60)
+    if not np.array_equal(before, after):
+        raise AssertionError("engine: the rebuilt engine answers the same "
+                             "frame differently")
+    return {"stall_s": stall_s, "recovered_s": recovered_s,
+            "ladder": ladder, "restarts": engine.restarts,
+            "recaptured_graphs": new.graphs_captured(),
+            "same_result": True}
+
+
+def phase_engine(torch, port) -> dict:
+    """The reference's default engine against today's eager one: hub A
+    (slot staging, pipelined transfer, every bucket captured as a CUDA
+    graph at warmup, supervised) and hub B (legacy assembly, inline
+    transfer, no warmup: every batch eager) serve detect and fused
+    detect+classify to the same STREAMS × FRAMES traffic."""
+    qg = port["qgemm"]
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hubs = {"A": _default_hub(port, registry, stall_timeout_s=ENGINE_STALL_S),
+            "B": port["EngineHub"](registry, device="cuda", warmup=False,
+                                   assembly="legacy", transfer="inline")}
+    out: dict = {"phase": "engine"}
+    variants = {"aligned": 0, "masked": 0}
+    try:
+        for label, params, pipeline, per in (
+                ("detect", {"threshold": 0.2}, DETECT_PIPELINE, 10),
+                ("fused", {"detection-threshold": 0.2}, CLS_PIPELINE, 13)):
+            served = {}
+            for name, hub in hubs.items():
+                make = _pipeline_stages(port, hub, params, pipeline)
+                engine = make("warm", None)[0].engine
+                # run 1 ("cold"): hub A's streams start while its
+                # buckets are being captured; run 2 ("warm") after
+                for run in ("cold", "warm"):
+                    warm_at_start = engine.warmed.is_set()
+                    row0 = engine.stats_row()
+                    _reset_launches(qg)
+                    objects: dict = {}
+                    runners, published, wall, threads = _serve(
+                        port, make, STREAMS, FRAMES, 512, 512, objects)
+                    where = f"engine {label} {name} {run}"
+                    _check_served(where, runners, published, threads)
+                    if name == "A":
+                        _await_warm(where, [engine])
+                    row = engine.stats_row()
+                    fwd = _fwd(row) - _fwd(row0)
+                    if fwd == 0 or qg.launches != per * fwd:
+                        raise AssertionError(
+                            f"{where}: {qg.launches} qgemm launches for "
+                            f"{fwd} forwards, expected {per} each")
+                    served[name, run] = objects
+                    for v in variants:
+                        variants[v] += qg.variant_launches[v]
+                    out[f"{label}_{name}_{run}"] = {
+                        "assembly": row["assembly"],
+                        "transfer": row["transfer"],
+                        "warmed_at_start": warm_at_start,
+                        **_latency_row(runners, wall), "forwards": fwd,
+                        "warm_forwards":
+                            row["warm_forwards"] - row0["warm_forwards"],
+                        "qgemm_launches": qg.launches,
+                        "bucket_batches": _bucket_delta(row0, row),
+                        "graphs": row["graphs"],
+                        "capture_s": row["compile_s"],
+                        "graph_pool_bytes": row["graph_pool_bytes"],
+                        "stage_ms": _stage_delta(port["STAGES"], row0, row)}
+                if name == "A":
+                    out[f"{label}_A_warm"]["replay_check"] = \
+                        _replay_vs_eager(torch, port, engine, per)
+            for key, objects in served.items():
+                diff = _objects_diff(objects, served["B", "cold"])
+                out[f"{label}_{'_'.join(key)}_vs_B_cold"] = diff
+                if diff["frames_differing"]:
+                    # not bit-equal: held to the kernel-against-plain
+                    # tolerance of the track phase, and reported
+                    _objects_agree(
+                        {(s, q): o for s, per_s in objects.items()
+                         for q, o in per_s.items()},
+                        {(s, q): o for s, per_s in served["B", "cold"].items()
+                         for q, o in per_s.items()})
+        for (label, params, pipeline), (name, hub) in itertools.product(
+                (("detect", {"threshold": 0.2}, DETECT_PIPELINE),
+                 ("fused", {"detection-threshold": 0.2}, CLS_PIPELINE)),
+                hubs.items()):
+            prof = _profile_serve(
+                torch, port, hub, STREAMS, FRAMES, 512, 512,
+                make=_pipeline_stages(port, hub, params, pipeline))
+            out[f"{label}_{name}_profiled"] = {
+                k: prof[k] for k in ("wall_s", "device_busy_ms",
+                                     "device_busy_share", "kernel_launches")}
+        out["host_per_frame"] = _host_frame_ms(port)
+        out["wedge"] = _wedge_and_recover(
+            torch, port, hubs["A"],
+            hubs["A"].engine("detect", KEY,
+                             score_threshold=port["ENGINE_SCORE_FLOOR"]))
+        _print(out)
+        return {**out, "variants": variants}
+    finally:
+        for hub in hubs.values():
+            hub.stop()
 
 
 #: the tracking pipeline (detect+classify fused, then track) and the
@@ -1010,7 +1326,10 @@ def phase_track(torch, port) -> dict:
     time with the kernel and with the plain qgemm on the card."""
     qg, ql = port["qgemm"], port["qlinear"]
     registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
-    hub = port["EngineHub"](registry, device="cuda")
+    hub = _default_hub(port, registry)
+    # the kernel-against-plain runs need the eager step (a replay runs
+    # the kernel it captured whatever qgemm is bound): no warmup there
+    eager_hub = port["EngineHub"](registry, device="cuda")
     try:
         make = _pipeline_stages(port, hub, {"detection-threshold": 0.2},
                                 TRACK_PIPELINE)
@@ -1019,8 +1338,8 @@ def phase_track(torch, port) -> dict:
         if kinds[:2] != ["FusedDetectClassifyStage", "TrackStage"]:
             raise AssertionError(f"track: stages {kinds}")
         engine = stages[0].engine
-        _warm_stage_engines(torch, port, stages)
-        batches0 = engine.stats_row()["batches"]
+        _await_warm("track", [engine])
+        fwd0 = _fwd(engine.stats_row())
         _reset_launches(qg)
         objects: dict[str, dict[int, list]] = {}
         runners, published, wall, threads = _serve(
@@ -1028,7 +1347,7 @@ def phase_track(torch, port) -> dict:
         variants = dict(qg.variant_launches)
         launches = qg.launches
         stats = engine.stats_row()
-        forwards = stats["batches"] - batches0
+        forwards = _fwd(stats) - fwd0
         _check_served("track", runners, published, threads)
         if (forwards == 0 or launches != 13 * forwards
                 or variants["masked"] > 3 * forwards):
@@ -1047,10 +1366,13 @@ def phase_track(torch, port) -> dict:
         if not attributed:
             raise AssertionError("track: no object carries color and type")
 
-        kernel = _sequential(port, make, STREAMS, FRAMES)
+        make_eager = _pipeline_stages(port, eager_hub,
+                                      {"detection-threshold": 0.2},
+                                      TRACK_PIPELINE)
+        kernel = _sequential(port, make_eager, STREAMS, FRAMES)
         ql.qgemm = qg.qgemm_reference
         try:
-            plain = _sequential(port, make, STREAMS, FRAMES)
+            plain = _sequential(port, make_eager, STREAMS, FRAMES)
         finally:
             ql.qgemm = qg.qgemm
         check = {"phase": "track-check", **_objects_agree(kernel, plain),
@@ -1067,6 +1389,7 @@ def phase_track(torch, port) -> dict:
         return variants
     finally:
         hub.stop()
+        eager_hub.stop()
 
 
 def _replay_gate(port, stream: int) -> list[bool]:
@@ -1083,11 +1406,12 @@ def phase_gate(torch, port, slice_fps: float | None) -> dict:
     never reach the engine and coast the last detections."""
     qg, gate_mod = port["qgemm"], port["gate"]
     registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
-    hub = port["EngineHub"](registry, device="cuda")
+    hub = _default_hub(port, registry)
     try:
         base = _pipeline_stages(port, hub, {"threshold": 0.2, **GATED},
                                 DETECT_PIPELINE)
-        engine = _warm_engine(torch, port, hub)
+        engine = base("warm", None)[0].engine
+        _await_warm("gate", [engine])
         decisions: dict[str, list[bool]] = {}
         gates = {}
 
@@ -1117,7 +1441,7 @@ def phase_gate(torch, port, slice_fps: float | None) -> dict:
         launches = qg.launches
         summary = gate_mod.registry.summary()
         row = engine.stats_row()
-        forwards = row["batches"] - row0["batches"]
+        forwards = _fwd(row) - _fwd(row0)
         items = row["items"] - row0["items"]
         _check_served("gate", runners, published, threads)
         ran = sum(g.ran for g in gates.values())
@@ -1422,11 +1746,15 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
         thread.start()
         try:
             # the model and engine are built and warmed before the clock
-            # starts, as in the slice phase
+            # starts (EVAM_PRELOAD's path), as in the slice phase
             t_warm = time.perf_counter()
-            engine = _warm_engine(torch, port, registry.hub)
+            if registry.preload(KEY) != 1:
+                raise AssertionError("rest: preload built no pipeline")
+            engine = registry.hub.engine(
+                "detect", KEY, score_threshold=port["ENGINE_SCORE_FLOOR"])
+            _await_warm("rest", [engine])
             warm_s = time.perf_counter() - t_warm
-            batches0 = engine.stats_row()["batches"]
+            fwd0 = _fwd(engine.stats_row())
             _reset_launches(qg)
             t0 = time.perf_counter()
             ids = []
@@ -1451,7 +1779,7 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
                 raise AssertionError(f"rest: engines {list(engines)}, "
                                      "expected one shared detect engine")
             row = engines[f"detect:{KEY}"]
-            forwards = row["batches"] - batches0
+            forwards = _fwd(row) - fwd0
             if forwards == 0 or launches != 10 * forwards or masked:
                 raise AssertionError(
                     f"rest: {launches} qgemm launches ({masked} masked) for "
@@ -1488,8 +1816,11 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
             _reset_launches(qg)
             fused, attributed = _classify_stream(
                 base, tmp / "cls.jsonl", FRAMES, golden, "rest")
+            # built by the POST, it warmed while the stream ran: count
+            # once its warmup is over
+            _await_warm("rest", [registry.hub._engines[fused]])
             _, engines = _http(base, "GET", "/engines")
-            cls_fwd = engines[fused]["batches"]
+            cls_fwd = _fwd(engines[fused])
             cls_variants = dict(qg.variant_launches)
             if (cls_fwd == 0 or qg.launches != 13 * cls_fwd
                     or cls_variants["masked"] > 3 * cls_fwd):
@@ -1500,10 +1831,10 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
             # the UDF pipelines on the same detect engine: zone count
             # with a whole-frame zone, line crossing with two lines
             _reset_launches(qg)
-            det_fwd0 = engines[f"detect:{KEY}"]["batches"]
+            det_fwd0 = _fwd(engines[f"detect:{KEY}"])
             udf = _udf_streams(base, registry, tmp, golden)
             _, engines = _http(base, "GET", "/engines")
-            udf_fwd = engines[f"detect:{KEY}"]["batches"] - det_fwd0
+            udf_fwd = _fwd(engines[f"detect:{KEY}"]) - det_fwd0
             udf_variants = dict(qg.variant_launches)
             if udf_fwd == 0 or qg.launches != 10 * udf_fwd \
                     or udf_variants["masked"]:
@@ -1798,18 +2129,11 @@ def phase_action(torch, port) -> dict:
                  probs["cuda"], top1=False)
 
     registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
-    hub = port["EngineHub"](registry, device="cuda")
+    hub = _default_hub(port, registry)
     try:
         make = _pipeline_stages(port, hub, {}, ACTION_PIPELINE)
         (stage,) = [st for st in make("warm", None) if hasattr(st, "clip")]
-        h, w = stage.ingest_size
-        one = torch.from_numpy(port["wire_frame"](frames[0], (h, w), "i420"))
-        for b in stage.enc_engine.buckets:  # cuDNN and allocator set-up
-            if b <= ACTION_STREAMS * 4:
-                stage.enc_engine.step_fn(one[None].repeat(b, 1, 1).cuda()).cpu()
-                stage.dec_engine.step_fn(
-                    torch.zeros((b, 16, 512), device="cuda")).cpu()
-        torch.cuda.synchronize()
+        _await_warm("action", [stage.enc_engine, stage.dec_engine])
         _reset_launches(qg)
         metas: dict = {}
         runners, published, wall, threads = _serve(
@@ -1889,17 +2213,12 @@ def phase_audio(torch, port) -> dict:
                  probs["cuda"], top1=False)
 
     registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
-    hub = port["EngineHub"](registry, device="cuda")
+    hub = _default_hub(port, registry)
     try:
         make = _pipeline_stages(port, hub, {"threshold": 0.0,
                                             "sliding-window": 0.2},
                                 AUDIO_PIPELINE)
-        make("warm", None)
-        engine = hub.engine("audio", AUDIO_KEY)
-        for b in engine.buckets:  # cuDNN and allocator set-up
-            if b <= AUDIO_STREAMS * 4:
-                engine.step_fn(windows[:1].repeat(b, 1).cuda()).cpu()
-        torch.cuda.synchronize()
+        _await_warm("audio", _stage_engines(make("warm", None)))
 
         def source(s):
             uri = f"synthetic-audio://seconds={AUDIO_SECONDS}&seed={s}"
@@ -1996,6 +2315,23 @@ def _kernel_launches(base: str) -> dict[str, int]:
     return {k: int(float(v)) for k, v in found.items()}
 
 
+def _await_health(base: str, proc, log_path: Path, t0: float,
+                  timeout: float = 240.0) -> dict:
+    """Poll /healthz until it answers 200 "ok" (no engine warming)."""
+    while True:
+        try:
+            status, body = _http(base, "GET", "/healthz")
+            if status == 200 and body["status"] == "ok":
+                return body
+        except OSError:
+            pass
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+            raise AssertionError(
+                f"serve: /healthz not ok (exit {proc.poll()}): "
+                f"{log_path.read_text()[-2000:]}")
+        time.sleep(0.2)
+
+
 def phase_serve() -> dict[str, int]:
     """``python3 -m evam_tpu_torch.cli.main serve`` as a user starts it:
     a person_vehicle_bike stream, then a vehicle_attributes stream.
@@ -2007,6 +2343,7 @@ def phase_serve() -> dict[str, int]:
         env = dict(os.environ, REST_PORT=str(rest_port),
                    EVAM_PRECISION="int8", EVAM_QGEMM="pallas",
                    EVAM_ALLOW_RANDOM_WEIGHTS="1",
+                   EVAM_PRELOAD="/".join(DETECT_PIPELINE),
                    MODELS_DIR=str(Path(tmp) / "models"))
         log_path = Path(tmp) / "serve.log"
         with open(log_path, "w") as log:
@@ -2015,19 +2352,12 @@ def phase_serve() -> dict[str, int]:
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
         t0 = time.perf_counter()
         try:
-            while True:
-                try:
-                    status, _ = _http(base, "GET", "/healthz")
-                    if status == 200:
-                        break
-                except OSError:
-                    pass
-                if proc.poll() is not None or time.perf_counter() - t0 > 120:
-                    raise AssertionError(
-                        f"serve: no /healthz (exit {proc.poll()}): "
-                        f"{log_path.read_text()[-2000:]}")
-                time.sleep(0.2)
+            # the preloaded engine warms before the port opens its
+            # traffic: /healthz answers "warming", then "ok"
+            health = _await_health(base, proc, log_path, t0)
             up_s = time.perf_counter() - t0
+            if (health["engines"], health["compiled_programs"]) != (1, 8):
+                raise AssertionError(f"serve: preload left {health}")
             out = Path(tmp) / "serve.jsonl"
             status, iid = _http(base, "POST", PIPELINE,
                                 _stream_body(out, 8, 0))
@@ -2041,7 +2371,7 @@ def phase_serve() -> dict[str, int]:
             # the child's forwards show on /engines, its kernel
             # launches (as its wrapper counts them) on /metrics
             _, engines = _http(base, "GET", "/engines")
-            forwards = sum(v["batches"] for v in engines.values())
+            forwards = sum(_fwd(v) for v in engines.values())
             launches = _kernel_launches(base)
             if forwards == 0 or launches["aligned"] != 10 * forwards \
                     or launches["masked"]:
@@ -2051,10 +2381,12 @@ def phase_serve() -> dict[str, int]:
             # then the detect+classify pipeline through the same server
             fused, attributed = _classify_stream(
                 base, Path(tmp) / "cls.jsonl", 8, golden, "serve")
+            # the fused engine, built by the POST, finishes its warmup
+            _await_health(base, proc, log_path, time.perf_counter())
             _, engines = _http(base, "GET", "/engines")
             total = _kernel_launches(base)
-            cls_fwd = engines[fused]["batches"]
-            det_fwd = engines[f"detect:{KEY}"]["batches"]
+            cls_fwd = _fwd(engines[fused])
+            det_fwd = _fwd(engines[f"detect:{KEY}"])
             if (cls_fwd == 0 or det_fwd != forwards
                     or sum(total.values()) != 10 * det_fwd + 13 * cls_fwd
                     or total["masked"] > 3 * cls_fwd):
@@ -2068,6 +2400,7 @@ def phase_serve() -> dict[str, int]:
                 raise AssertionError(f"serve: exit {code} on SIGTERM: "
                                      f"{log_path.read_text()[-2000:]}")
             _print({"phase": "serve", "up_s": up_s,
+                    "graphs": {k: v["graphs"] for k, v in engines.items()},
                     "streams_s": t1 - t0 - up_s, "frames": len(lines),
                     "forwards": {k: v["batches"] for k, v in engines.items()},
                     "qgemm_launches": total, "avg_fps": state["avg_fps"],
@@ -2152,6 +2485,7 @@ def main(argv: list[str] | None = None) -> int:
             raise AssertionError(f"slice ran {res['input_hw']} width "
                                  f"{res['width']}, not the full-width model")
         served.append({"aligned": res["launches"], "masked": 0})
+        _memory(torch, "slice")
     if "classify" in phases:
         res_cls = phase_classify(torch, port)
         if res_cls["models"] != (512, 512, 32, 72, 72, 32,
@@ -2159,19 +2493,28 @@ def main(argv: list[str] | None = None) -> int:
             raise AssertionError(f"classify ran {res_cls['models']}, not the "
                                  "full-width models")
         served.append(res_cls["variants"])
+        _memory(torch, "classify")
+    if "engine" in phases:
+        served.append(phase_engine(torch, port)["variants"])
+        _memory(torch, "engine")
     if "track" in phases:
         served.append(phase_track(torch, port))
+        _memory(torch, "track")
     if "gate" in phases:
         served.append(phase_gate(torch, port, res["fps"] if "slice" in phases
                                  else None))
+        _memory(torch, "gate")
     # the action and audio pipelines launch no kernel of this repo
     # (asserted inside): they add nothing to the kernels line
     if "action" in phases:
         phase_action(torch, port)
+        _memory(torch, "action")
     if "audio" in phases:
         phase_audio(torch, port)
+        _memory(torch, "audio")
     if "rest" in phases:
         served.append(phase_rest(torch, port, res["s0_objects"]))
+        _memory(torch, "rest")
     if "serve" in phases:
         served.append(phase_serve())
     if served:

@@ -6,23 +6,29 @@ reference's env names and parse rules:
 
     RUN_MODE, REST_PORT, DETECTION_DEVICE, CLASSIFICATION_DEVICE,
     MODELS_DIR, PIPELINES_DIR, PY_LOG_LEVEL, DEV_MODE,
-    EVAM_DRAIN_TIMEOUT_S, EVAM_MAX_BATCH, EVAM_BATCH_DEADLINE_MS,
-    EVAM_PRECISION, EVAM_ALLOW_RANDOM_WEIGHTS, EVAM_CONFIG_FILE
+    EVAM_DRAIN_TIMEOUT_S, EVAM_PRELOAD, EVAM_MAX_BATCH,
+    EVAM_BATCH_DEADLINE_MS, EVAM_PRECISION, EVAM_ALLOW_RANDOM_WEIGHTS,
+    EVAM_CONFIG_FILE, and the engine's: EVAM_WARMUP (on),
+    EVAM_STALL_TIMEOUT_S (120), EVAM_ENGINE_SUPERVISE (on),
+    EVAM_ENGINE_MAX_RESTARTS (3), EVAM_ENGINE_RESTART_WINDOW_S (300),
+    EVAM_ENGINE_RESTART_BACKOFF_S (0.5), EVAM_FIRST_BATCH_GRACE (10),
+    EVAM_TRANSFER (pipelined), EVAM_TRANSFER_DEPTH (2)
 
 and ``EVAM_PLATFORM`` keeps the reference CLI's meaning: ``cpu`` runs
-the port on the CPU, unset means the card (``cuda``).
+the port on the CPU, unset means the card (``cuda``). Three knobs the
+reference reads from ``os.environ`` in its engine modules are parsed
+here as those modules parse them: EVAM_BATCH_ASSEMBLY (slot),
+EVAM_STAGING_DEPTH (0: the default depth) and EVAM_SERIALIZE_COMPILE
+(off; ``engine/devlock.py`` reads it per call, as the reference does).
 
 Every other knob of the reference's table belongs to a subsystem that
 comes with a later port slice. Set to anything but the value the port
 runs with — the reference's default, or "off" where the reference's
-default turns on a subsystem the port lacks (scheduler, tracing,
-warmup, supervision, pipelined transfer) — it raises
-``NotImplementedError`` at :meth:`Settings.from_env`, naming the slice.
-So do the knobs the reference reads from ``os.environ`` in its own
-modules, outside its settings table (``_MODULE_KNOBS``): the batch
-assembly and staging ring, the depthwise-conv variant, compile
-serialization, fault injection and the native host library. None is
-silently ignored.
+default turns on a subsystem the port lacks (scheduler, tracing) — it
+raises ``NotImplementedError`` at :meth:`Settings.from_env`, naming the
+slice. So do the other knobs the reference reads in its own modules
+(``_MODULE_KNOBS``): the depthwise-conv variant, fault injection and
+the native host library. None is silently ignored.
 """
 
 from __future__ import annotations
@@ -48,6 +54,34 @@ class EngineSettings:
     max_batch: int = 128
     batch_deadline_ms: float = 8.0
     precision: str = "bfloat16"
+    #: warm every batch bucket in the background once a stage has built
+    #: its engine — on the card, capture each as a CUDA graph
+    #: (``engine/graphs.py``)
+    warmup: bool = True
+    #: stall watchdog: one batch's device round trip bound (0 disables)
+    stall_timeout_s: float = 120.0
+    #: quarantine and rebuild a wedged engine (``engine/supervisor.py``)
+    supervise: bool = True
+    #: at most this many rebuilds per engine within restart_window_s;
+    #: exhausting it is the terminal `degraded` state
+    max_restarts: int = 3
+    restart_window_s: float = 300.0
+    #: base of the exponential backoff between quarantine and rebuild
+    restart_backoff_s: float = 0.5
+    #: watchdog multiplier for a bucket's first batch
+    first_batch_grace: float = 10.0
+    #: "pipelined" (a launcher thread; upload overlapped with the
+    #: previous launch) or "inline"
+    transfer: str = "pipelined"
+    #: uploaded batches that may wait for the launcher
+    transfer_depth: int = 2
+    #: EVAM_BATCH_ASSEMBLY: "slot" (staging ring) or "legacy"
+    batch_assembly: str = "slot"
+    #: EVAM_STAGING_DEPTH: staging slots; 0 = max in flight + 1
+    staging_depth: int = 0
+    #: EVAM_SERIALIZE_COMPILE: one process-wide lock over every device
+    #: call (forces the inline transfer)
+    serialize_compile: bool = False
 
 
 @dataclass
@@ -64,6 +98,9 @@ class Settings:
     dev_mode: bool = True  # DEV_MODE: human-readable log lines
     #: shutdown drain: per-instance join budget in seconds
     drain_timeout_s: float = 5.0
+    #: build and warm these pipelines' engines before the REST port
+    #: opens: comma list of name/version (or bare name), or "all"
+    preload: str = ""
     #: EVAM_ALLOW_RANDOM_WEIGHTS: serve seeded random weights when a
     #: model has none on disk (the reference's registry reads it)
     allow_random_weights: bool = False
@@ -91,9 +128,10 @@ class Settings:
         for var, (key, conv) in _TOP_ENV.items():
             if var in env:
                 setattr(settings, key, conv(env[var]))
-        for var, (key, conv) in _ENGINE_ENV.items():
+        for var, (key, conv) in {**_ENGINE_ENV, **_MODULE_ENV}.items():
             if var in env:
                 setattr(settings.engine, key, conv(env[var]))
+        _check_engine(settings.engine)
         settings.device = _parse_platform(env.get("EVAM_PLATFORM", ""))
         return settings
 
@@ -108,6 +146,27 @@ def _parse_platform(value: str) -> str:
         f"EVAM_PLATFORM={value!r}: the port runs on 'cuda' (default) or 'cpu'")
 
 
+def _check_engine(engine: EngineSettings) -> None:
+    """The values the reference's engine refuses at construction."""
+    if engine.transfer not in ("pipelined", "inline"):
+        raise ValueError(f"EVAM_TRANSFER must be 'pipelined' or 'inline', "
+                         f"got {engine.transfer!r}")
+    if engine.batch_assembly not in ("slot", "legacy"):
+        raise ValueError(f"EVAM_BATCH_ASSEMBLY must be 'slot' or 'legacy', "
+                         f"got {engine.batch_assembly!r}")
+
+
+def _parse_depth(value: str) -> int:
+    """``int(os.environ.get("EVAM_STAGING_DEPTH", "0")) or default``:
+    unset or empty is 0, the default depth."""
+    return int(value) if value.strip() else 0
+
+
+def _parse_serialize(value: str) -> bool:
+    """``engine/devlock.py`` ``enabled()``."""
+    return value.lower() in ("1", "true", "yes")
+
+
 #: honoured env knobs: var → (Settings field, parser)
 _TOP_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "RUN_MODE": ("run_mode", str),
@@ -119,12 +178,32 @@ _TOP_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "PY_LOG_LEVEL": ("log_level", str),
     "DEV_MODE": ("dev_mode", _parse_bool),
     "EVAM_DRAIN_TIMEOUT_S": ("drain_timeout_s", float),
+    "EVAM_PRELOAD": ("preload", str),
     "EVAM_ALLOW_RANDOM_WEIGHTS": ("allow_random_weights", _parse_bool),
 }
 _ENGINE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_MAX_BATCH": ("max_batch", int),
     "EVAM_BATCH_DEADLINE_MS": ("batch_deadline_ms", float),
     "EVAM_PRECISION": ("precision", str),
+    "EVAM_WARMUP": ("warmup", _parse_bool),
+    "EVAM_STALL_TIMEOUT_S": ("stall_timeout_s", float),
+    "EVAM_ENGINE_SUPERVISE": ("supervise", _parse_bool),
+    "EVAM_ENGINE_MAX_RESTARTS": ("max_restarts", int),
+    "EVAM_ENGINE_RESTART_WINDOW_S": ("restart_window_s", float),
+    "EVAM_ENGINE_RESTART_BACKOFF_S": ("restart_backoff_s", float),
+    "EVAM_FIRST_BATCH_GRACE": ("first_batch_grace", float),
+    "EVAM_TRANSFER": ("transfer", str),
+    "EVAM_TRANSFER_DEPTH": ("transfer_depth", int),
+}
+#: knobs the reference's engine modules read from os.environ (never a
+#: config-file key there, nor here)
+_MODULE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
+    # engine/batcher.py:277
+    "EVAM_BATCH_ASSEMBLY": ("batch_assembly", str),
+    # engine/batcher.py:426-427
+    "EVAM_STAGING_DEPTH": ("staging_depth", _parse_depth),
+    # engine/devlock.py:41
+    "EVAM_SERIALIZE_COMPILE": ("serialize_compile", _parse_serialize),
 }
 _TOP_KEYS = {key for key, _ in _TOP_ENV.values()} - {"allow_random_weights"}
 _ENGINE_KEYS = {key for key, _ in _ENGINE_ENV.values()}
@@ -146,21 +225,9 @@ _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
     ("EVAM_WEBRTC_VIDEO_MODE", "", "webrtc_video_mode", str, "key", _S11),
     ("PROFILING_MODE", "", "profiling_mode", _parse_bool, False, _S10),
     ("EVAM_STATE_DIR", "", "state_dir", str, "", _S10),
-    ("EVAM_PRELOAD", "", "preload", str, "", _S7),
     ("EVAM_DECODE_POOL_WORKERS", "", "decode_pool_workers", int, 0, _S11),
     ("EVAM_RTSP_DEMUX_WORKERS", "", "rtsp_demux_workers", int, 0, _S11),
     ("EVAM_COMPILE_CACHE_DIR", "tpu", "compile_cache_dir", str, "", _S7),
-    ("EVAM_WARMUP", "tpu", "warmup", _parse_bool, False, _S7),
-    ("EVAM_STALL_TIMEOUT_S", "tpu", "stall_timeout_s", float, 120.0, _S7),
-    ("EVAM_ENGINE_SUPERVISE", "tpu", "supervise", _parse_bool, False, _S7),
-    ("EVAM_ENGINE_MAX_RESTARTS", "tpu", "max_restarts", int, 3, _S7),
-    ("EVAM_ENGINE_RESTART_WINDOW_S", "tpu", "restart_window_s",
-     float, 300.0, _S7),
-    ("EVAM_ENGINE_RESTART_BACKOFF_S", "tpu", "restart_backoff_s",
-     float, 0.5, _S7),
-    ("EVAM_FIRST_BATCH_GRACE", "tpu", "first_batch_grace", float, 10.0, _S7),
-    ("EVAM_TRANSFER", "tpu", "transfer", str, "inline", _S7),
-    ("EVAM_TRANSFER_DEPTH", "tpu", "transfer_depth", int, 2, _S7),
     # packing needs the SlotRing (the reference packs only there)
     ("EVAM_RAGGED", "tpu", "ragged", str, "off", _S7),
     ("EVAM_RAGGED_UNIT_BUDGET", "tpu", "ragged_unit_budget", int, 4, _S7),
@@ -225,16 +292,8 @@ def _unset(value: str) -> bool:
 #: runs?, the port's value, the slice that brings the rest). Each test
 #: follows the reference's own parse at the line named.
 _MODULE_KNOBS: dict[str, tuple[Callable[[str], bool], str, str]] = {
-    # engine/batcher.py:277 — the port has no staging ring, so only
-    # the legacy stack-and-pad assembly (or the knob unset)
-    "EVAM_BATCH_ASSEMBLY": (lambda v: v == "legacy", "legacy", _S7),
-    # engine/batcher.py:427 — "0" or unset means the default depth
-    "EVAM_STAGING_DEPTH": (lambda v: v.strip() in ("", "0"), "unset", _S7),
     # ops/depthwise.py:144 — any value but "shift" runs the grouped conv
     "EVAM_DWCONV": (lambda v: v.lower() != "shift", "lax", _S6),
-    # engine/devlock.py:41
-    "EVAM_SERIALIZE_COMPILE": (
-        lambda v: v.lower() not in ("1", "true", "yes"), "0", _S7),
     # obs/faults.py:275-276 — no fault is injected
     "EVAM_FAULT_INJECT": (_unset, "unset", _S10),
     "EVAM_FAULT_SEED": (_unset, "unset", _S10),

@@ -1,55 +1,81 @@
 """The shared batch engine (counterpart of ``evam_tpu/engine/batcher.py``).
 
 ONE engine per model instance multiplexes every stream that submits to
-it. This is the reference's core engine on its legacy assembly path
-(``_dispatch_loop_legacy``):
+it. Three cooperating threads per engine (four with the pipelined
+transfer, the default), as in the reference:
 
-  submit() ──queue──► dispatcher ──done queue──► completer
+  submit() ──slot──► dispatcher ──upload──► launcher ──► completer
 
-* ``submit(units=None, **inputs)`` (stream threads) enqueues one item
-  — one array per input name, e.g. ``frames`` and ``boxes`` for a
-  classify engine — and returns a ``Future``;
-* the **dispatcher** thread waits for a first item, gathers more until
-  the batch deadline or ``max_batch``, stacks and zero-pads them to a
-  power-of-two bucket, copies the batch to the device and launches the
-  step — without waiting for its result;
-* the **completer** thread reads each batch's packed output back to the
-  host (the one device→host copy per batch, which waits for the step)
-  and resolves the items' futures with their rows;
-* a semaphore bounds the batches in flight (backpressure).
+* **submit()** (stream threads) writes each item's arrays straight into
+  its reserved row of a pre-allocated staging slot (``engine/ringbuf.py``;
+  page-locked host memory on a ``cuda`` engine);
+* the **dispatcher** seals a slot at the batch deadline — the bucket,
+  the zeroed pad tail — and, pipelined, issues the slot's host→device
+  copy on the engine's copy stream into device buffers the slot owns;
+* the **launcher** (``EVAM_TRANSFER=pipelined``) waits out the upload's
+  residual (``h2d_wait``), then on the engine's compute stream copies
+  the batch into the bucket's static inputs and replays its CUDA graph
+  (``engine/graphs.py``; the eager step for a bucket not captured yet),
+  and puts the device→host copy into the slot's page-locked output in
+  flight — so the dispatcher seals and uploads batch N+1 while batch N
+  launches. ``EVAM_TRANSFER=inline`` does upload and launch back to
+  back on the dispatcher; ``EVAM_SERIALIZE_COMPILE=1`` forces inline;
+* the **completer** blocks on the batch's readback residual, copies
+  each item's row out, returns the slot to the ring and resolves the
+  futures;
+* a semaphore bounds the batches in flight; the ring adds a host-side
+  bound (a slot is reusable only after its batch's readback).
 
-Every batch's host stage clock — submit_wait, slot_write, h2d_issue,
-launch, readback, resolve — is folded into :class:`EngineStats`, with
-the reference's unit accounting: an engine whose items each carry up
-to ``max_units`` unit rows (a classify engine's ROI budget) computes
-``bucket × max_units`` rows a batch, of which each item's ``units``
-(its real region count) are real.
+``EVAM_BATCH_ASSEMBLY=legacy`` keeps the per-batch stack-and-pad
+assembly for A/B. ``warmup()`` (``warm_async``, which the stages call
+once they have built the engine) captures every bucket ahead of
+traffic; a **watchdog** fails the
+futures stranded behind a device call that exceeded
+``stall_timeout_s`` and flags ``stalled`` (the supervisor,
+``engine/supervisor.py``, then rebuilds the engine).
 
-The reference's staging ring (``SlotRing``), pipelined transfer,
-scheduling classes, ragged packing, AOT cache, control plane,
-supervisor and fleet come with later slices.
+The reference gates the device-specific halves on its backend being a
+TPU; the port gates them on ``device.type == "cuda"``. On the CPU the
+same threads run, the step runs eagerly on the staged blocks, and
+warmup runs each bucket once.
+
+Every batch's stage clock (``ringbuf.STAGES``) is folded into
+:class:`EngineStats` with the reference's unit accounting: an engine
+whose items each carry up to ``max_units`` unit rows (a classify
+engine's ROI budget) computes ``bucket × max_units`` rows a batch, of
+which each item's ``units`` are real.
+
+The reference's scheduling classes, ragged packing, AOT cache, control
+plane and fleet come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
-from concurrent.futures import Future, InvalidStateError
+from concurrent.futures import Future
 from typing import Callable
 
 import numpy as np
 import torch
 
+from evam_tpu_torch.engine import devlock
+from evam_tpu_torch.engine.ringbuf import (
+    STAGES,
+    SealedBatch,
+    SlotRing,
+    numpy_alloc,
+    pinned_alloc,
+)
 from evam_tpu_torch.obs.metrics import metrics
 
 log = logging.getLogger("evam_tpu_torch.engine.batcher")
 
-#: per-batch host stages, in pipeline order
-STAGES = ("submit_wait", "slot_write", "h2d_issue", "launch", "readback",
-          "resolve")
+__all__ = ["STAGES", "BatchEngine", "EngineStats"]
 
 
 @dataclasses.dataclass
@@ -62,36 +88,49 @@ class _WorkItem:
 
 
 def _safe_set_result(fut: Future, value) -> None:
-    """Resolve a future that stop() may already have failed."""
+    """The watchdog may already have failed this future; a late result
+    must not crash the completer."""
     try:
         fut.set_result(value)
-    except InvalidStateError:
+    except Exception:  # noqa: BLE001 — InvalidStateError
         pass
 
 
 def _safe_set_exception(fut: Future, exc: BaseException) -> None:
     try:
         fut.set_exception(exc)
-    except InvalidStateError:
+    except Exception:  # noqa: BLE001 — InvalidStateError
         pass
 
 
 @dataclasses.dataclass
 class EngineStats:
-    n_batches: int = 0
-    n_items: int = 0
+    batches: int = 0
+    items: int = 0
     occupancy_sum: float = 0.0
     #: real unit rows vs the unit rows the batches computed
     units: int = 0
     unit_slots: int = 0
     #: per-bucket dispatched-batch counts
     bucket_batches: dict[int, int] = dataclasses.field(default_factory=dict)
+    #: buckets captured into CUDA graphs, and the wall seconds their
+    #: warm run and capture took
+    compiled_programs: int = 0
+    compile_seconds: float = 0.0
+    #: captures that failed (each leaves its bucket eager, loudly)
+    capture_failures: int = 0
+    #: warm runs of the step (one per bucket warmed): real forwards
+    #: that no batch carried
+    warm_forwards: int = 0
+    #: device bytes of the graphs' memory pool after warmup (None:
+    #: the allocator's snapshot names no pools)
+    graph_pool_bytes: int | None = 0
     #: cumulative per-stage host clock (seconds), keyed by STAGES
     stage_seconds: dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def mean_occupancy(self) -> float:
-        return self.occupancy_sum / self.n_batches if self.n_batches else 0.0
+        return self.occupancy_sum / self.batches if self.batches else 0.0
 
     @property
     def unit_occupancy(self) -> float:
@@ -99,15 +138,60 @@ class EngineStats:
         per-item occupancy hides on a classify engine)."""
         return self.units / self.unit_slots if self.unit_slots else 0.0
 
+    def absorb(self, other: "EngineStats") -> None:
+        """Fold another engine's cumulative counters into this one (the
+        supervisor's rebuild carry)."""
+        for f in ("batches", "items", "occupancy_sum", "units",
+                  "unit_slots", "compiled_programs", "compile_seconds",
+                  "capture_failures", "warm_forwards"):
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+        self.graph_pool_bytes = other.graph_pool_bytes or self.graph_pool_bytes
+        for b, c in other.bucket_batches.items():
+            self.bucket_batches[b] = self.bucket_batches.get(b, 0) + c
+        for k, v in other.stage_seconds.items():
+            self.stage_seconds[k] = self.stage_seconds.get(k, 0.0) + v
+
     def add_stage(self, stage: str, dt: float) -> None:
         self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + dt
 
     def stage_ms_per_batch(self) -> dict[str, float]:
         """Mean per-batch host cost of each stage (ms)."""
-        if not self.n_batches:
+        if not self.batches:
             return {}
-        return {s: 1e3 * self.stage_seconds[s] / self.n_batches
+        return {s: 1e3 * self.stage_seconds[s] / self.batches
                 for s in STAGES if s in self.stage_seconds}
+
+
+def stats_row(e, st: EngineStats) -> dict:
+    """One engine's /engines row (a BatchEngine or its supervised
+    handle) from a consistent snapshot ``st`` of its counters."""
+    return {
+        "batches": st.batches,
+        "items": st.items,
+        "mean_occupancy": st.mean_occupancy,
+        "units": st.units,
+        "unit_slots": st.unit_slots,
+        "unit_occupancy": round(st.unit_occupancy, 4),
+        "bucket_batches": {str(b): c for b, c in sorted(
+            st.bucket_batches.items())},
+        "warmed": e.warmed.is_set(),
+        "assembly": e.assembly,
+        # effective mode: the devlock may force a pipelined request inline
+        "transfer": "pipelined" if e._pipelined else "inline",
+        "buckets": list(e.buckets),
+        "compiled_programs": st.compiled_programs,
+        "compile_s": round(st.compile_seconds, 3),
+        "graphs": e.graphs_captured(),
+        "graph_pool_bytes": st.graph_pool_bytes,
+        "capture_failures": st.capture_failures,
+        "warm_forwards": st.warm_forwards,
+        "stage_ms": st.stage_ms_per_batch(),
+        "state": getattr(e, "state", "running"),
+        "restarts": getattr(e, "restarts", 0),
+        "last_stall_ts": getattr(e, "last_stall_ts", None),
+        "queue_depth": e.queue_depth(),
+        "queue_age_s": round(e.queue_age_s(), 3),
+    }
 
 
 class BatchEngine:
@@ -117,18 +201,26 @@ class BatchEngine:
     input name (leading batch axis) and returns one tensor whose leading
     axis matches. Batches are padded to power-of-two buckets.
     ``max_units`` is the unit rows each item is padded to inside the
-    step (None: one row per item)."""
+    step (None: one row per item). ``assembly`` and ``transfer`` default
+    to ``EVAM_BATCH_ASSEMBLY`` (``slot``) and ``EVAM_TRANSFER``
+    (``pipelined``), as in the reference."""
 
     def __init__(
         self,
         name: str,
         step_fn: Callable,
-        device: torch.device,
+        device: torch.device | str,
         max_batch: int = 32,
         deadline_ms: float = 8.0,
         max_in_flight: int = 3,
         input_names: tuple[str, ...] = ("frames",),
         max_units: int | None = None,
+        stall_timeout_s: float = 120.0,
+        assembly: str | None = None,
+        staging_depth: int | None = None,
+        first_batch_grace: float = 10.0,
+        transfer: str | None = None,
+        transfer_depth: int | None = None,
     ):
         self.name = name
         self.step_fn = step_fn
@@ -138,88 +230,340 @@ class BatchEngine:
         self.input_names = input_names
         self.max_units = max_units
         self.stats = EngineStats()
-        self._stats_lock = threading.Lock()
+        #: host batch assembly: "slot" (staging ring, default) or
+        #: "legacy" (per-batch stack and pad), for A/B
+        self.assembly = (assembly
+                         or os.environ.get("EVAM_BATCH_ASSEMBLY", "slot"))
+        if self.assembly not in ("slot", "legacy"):
+            raise ValueError(
+                f"EVAM_BATCH_ASSEMBLY must be 'slot' or 'legacy', "
+                f"got {self.assembly!r}")
+        #: device transfer: "pipelined" (default; a launcher thread) or
+        #: "inline" (upload and launch back to back on the dispatcher);
+        #: EVAM_SERIALIZE_COMPILE=1 forces inline
+        self.transfer = transfer or os.environ.get(
+            "EVAM_TRANSFER", "pipelined")
+        if self.transfer not in ("pipelined", "inline"):
+            raise ValueError(
+                f"EVAM_TRANSFER must be 'pipelined' or 'inline', "
+                f"got {self.transfer!r}")
+        self._pipelined = (self.transfer == "pipelined"
+                           and not devlock.enabled())
+        #: the device-specific halves: page-locked staging, copy and
+        #: compute streams, events, CUDA graphs
+        self._cuda = self.device.type == "cuda"
+        #: watchdog bound on one batch's device round trip (0 disables)
+        self.stall_timeout_s = stall_timeout_s
+        #: a bucket that has not yet completed a batch gets
+        #: stall_timeout_s × first_batch_grace
+        self.first_batch_grace = first_batch_grace
+        self._buckets_done: set[int] = set()
+        #: set when a batch exceeded its stall deadline; submit() then
+        #: fails fast. Cleared if the stalled call later completes.
+        self.stalled = threading.Event()
+        #: dispatched-but-not-completed batches: id → (t_dispatch,
+        #: items, bucket, stall deadline)
+        self._outstanding: dict[
+            int, tuple[float, list[_WorkItem], int, float]] = {}
+        self._next_batch_id = 0
+        self._exec_lock = threading.Lock()
+        #: test seam: called on the launching thread before each
+        #: batch's device work, where the reference consults its fault
+        #: injector (which comes with a later slice) — a stub wedge
+        #: blocks here
+        self.pre_launch: Callable[[], None] | None = None
+
         self.buckets = []
         b = 1
         while b < max_batch:
             self.buckets.append(b)
             b *= 2
         self.buckets.append(max_batch)
+
+        depth = staging_depth or int(
+            os.environ.get("EVAM_STAGING_DEPTH", "0")) or (max_in_flight + 1)
+        self._ring = (SlotRing(capacity=self.buckets[-1], depth=depth,
+                               alloc=pinned_alloc if self._cuda
+                               else numpy_alloc)
+                      if self.assembly == "slot" else None)
+
+        #: one engine's device work: the compute stream every batch
+        #: launches on (in order), the copy stream pipelined uploads
+        #: ride, and the per-bucket graphs. The device lock serializes
+        #: a bucket's capture against this engine's own launches.
+        self._device_lock = threading.Lock()
+        self._graphs = None
+        self._compute = self._copy = None
+        if self._cuda:
+            from evam_tpu_torch.engine.graphs import StepGraphs
+
+            self._compute = torch.cuda.Stream(self.device)
+            self._copy = torch.cuda.Stream(self.device)
+            self._graphs = StepGraphs(step_fn, self.device)
+        self._device_freed = False
+
         self._queue: queue.Queue[_WorkItem | None] = queue.Queue()
-        self._done: queue.Queue = queue.Queue()
+        self._done: queue.Queue[tuple | None] = queue.Queue()
+        #: pipelined only: uploaded batches awaiting launch (EVAM_TUNE,
+        #: which would retune the bound, comes with a later slice)
+        self.transfer_depth = max(1, int(transfer_depth or 2))
+        self._upload_q: queue.Queue = queue.Queue(maxsize=self.transfer_depth)
+        self._warm_lock = threading.Lock()
+        self._warming = False
+        #: set when background warmup finishes (or fails)
+        self.warmed = threading.Event()
         self._in_flight = threading.Semaphore(max_in_flight)
         self._stop = threading.Event()
+        dispatch_loop = (self._dispatch_loop_slot if self._ring is not None
+                         else self._dispatch_loop_legacy)
         self._dispatcher = threading.Thread(
-            target=self._dispatch_loop, name=f"engine-{name}-dispatch",
-            daemon=True)
+            target=self._thread_guard, args=(dispatch_loop,),
+            name=f"engine-{name}-dispatch", daemon=True)
         self._completer = threading.Thread(
-            target=self._completion_loop, name=f"engine-{name}-complete",
-            daemon=True)
+            target=self._thread_guard, args=(self._completion_loop,),
+            name=f"engine-{name}-complete", daemon=True)
+        self._launcher: threading.Thread | None = None
+        if self._pipelined:
+            self._launcher = threading.Thread(
+                target=self._thread_guard, args=(self._launch_loop,),
+                name=f"engine-{name}-launch", daemon=True)
+            self._launcher.start()
         self._dispatcher.start()
         self._completer.start()
+        if self.stall_timeout_s > 0:
+            threading.Thread(target=self._watchdog_loop,
+                             name=f"engine-{name}-watchdog",
+                             daemon=True).start()
+
+    def _thread_guard(self, loop_fn: Callable) -> None:
+        """A worker loop that raises is an engine failure: logged here,
+        seen by the supervisor through thread liveness."""
+        try:
+            loop_fn()
+        except Exception:  # noqa: BLE001 — terminal thread failure
+            log.exception(
+                "engine %s worker thread %s died; the engine is wedged "
+                "until the supervisor rebuilds it",
+                self.name, threading.current_thread().name)
 
     # ------------------------------------------------------------- API
 
     def submit(self, units: int | None = None, **inputs: np.ndarray) -> Future:
         """Enqueue one item (no batch dim); resolves to its packed row.
-        ``units`` is the item's real unit rows, for the accounting only."""
+        ``units`` is the item's real unit rows, for the accounting only.
+        On the slot path this call copies the item into the staging
+        block on the calling thread, and blocks while every slot is in
+        flight."""
         if self._stop.is_set():
             raise RuntimeError(f"engine {self.name} is stopped")
+        if self.stalled.is_set():
+            raise RuntimeError(
+                f"engine {self.name} is stalled (device call exceeded "
+                f"{self.stall_timeout_s:.0f}s)")
         if set(inputs) != set(self.input_names):
             raise ValueError(
                 f"engine {self.name} expects inputs {self.input_names}, "
                 f"got {tuple(inputs)}")
         fut: Future = Future()
-        self._queue.put(_WorkItem(inputs, fut, time.perf_counter(), units))
+        item = _WorkItem(inputs, fut, time.perf_counter(), units)
+        if self._ring is not None:
+            try:
+                self._ring.write(inputs, item)
+            except RuntimeError:
+                raise RuntimeError(f"engine {self.name} is stopped") from None
+        else:
+            self._queue.put(item)
         return fut
 
     def queue_depth(self) -> int:
+        """Items submitted but not yet dispatched."""
+        if self._ring is not None:
+            return self._ring.pending_items()
         return self._queue.qsize()
 
     def queue_age_s(self) -> float:
         """Age (s) of the oldest undispatched item; 0 when idle."""
         now = time.perf_counter()
+        if self._ring is not None:
+            return self._ring.oldest_age_s(now)
         with self._queue.mutex:
             head = self._queue.queue[0] if self._queue.queue else None
         if isinstance(head, _WorkItem):
             return max(0.0, now - head.t_submit)
         return 0.0
 
+    def graphs_captured(self) -> int:
+        return len(self._graphs) if self._graphs is not None else 0
+
     def stats_row(self) -> dict:
         """Consistent snapshot of the engine's counters."""
-        with self._stats_lock:
-            st = self.stats
-            return {
-                "batches": st.n_batches,
-                "items": st.n_items,
-                "mean_occupancy": st.mean_occupancy,
-                "units": st.units,
-                "unit_slots": st.unit_slots,
-                "unit_occupancy": round(st.unit_occupancy, 4),
-                "bucket_batches": {str(b): c for b, c in sorted(
-                    st.bucket_batches.items())},
-                "stage_ms": st.stage_ms_per_batch(),
-                "queue_depth": self.queue_depth(),
-            }
+        with self._exec_lock:
+            return stats_row(self, self.stats)
+
+    def warmup(self) -> None:
+        """Prepare every bucket ahead of traffic: on the card, warm it
+        and capture its CUDA graph; on the CPU, run its warm batch once
+        (as the reference's CPU jit warms). A failed capture is logged
+        and counted (``capture_failures``) and leaves its bucket on the
+        eager step."""
+        example = self._example_item()
+        for b in self.buckets:
+            if self._stop.is_set():
+                return
+            batch = self._warm_batch(example, b)
+            t0 = time.perf_counter()
+            with devlock.device_call(f"{self.name}:warmup"):
+                try:
+                    if self._cuda:
+                        # the warm run overlaps this engine's launches;
+                        # the capture holds its device lock
+                        self._graphs.capture(
+                            b, [batch[n] for n in self.input_names],
+                            self._device_lock)
+                    else:
+                        self.step_fn(*[torch.from_numpy(batch[n])
+                                       for n in self.input_names])
+                except Exception:  # noqa: BLE001 — counted, never hidden
+                    if self._stop.is_set():
+                        return
+                    log.exception("engine %s: warmup of bucket %d failed",
+                                  self.name, b)
+                    if self._cuda:
+                        with self._exec_lock:
+                            self.stats.capture_failures += 1
+                    continue
+            with self._exec_lock:
+                self.stats.warm_forwards += 1
+                if self._cuda:
+                    self.stats.compiled_programs += 1
+                    self.stats.compile_seconds += time.perf_counter() - t0
+                # a warmed bucket gets the plain watchdog budget
+                self._buckets_done.add(b)
+        if self._cuda:
+            pool = self._graphs.pool_bytes()
+            with self._exec_lock:
+                self.stats.graph_pool_bytes = pool
+        log.info("engine %s warmed %d buckets %s (%d graphs)", self.name,
+                 len(self.buckets), self.buckets, self.graphs_captured())
+
+    def _warm_batch(self, example: dict[str, np.ndarray],
+                    b: int) -> dict[str, np.ndarray]:
+        """Bucket-``b`` warmup batch from a per-item example."""
+        return {k: np.broadcast_to(v, (b,) + v.shape).copy()
+                for k, v in example.items()}
+
+    def warm_async(self, **example: np.ndarray) -> None:
+        """Fire-and-forget bucket warmup (the serving path: no bucket's
+        first batch pays the eager step). Idempotent."""
+        with self._warm_lock:
+            if self._warming:
+                return
+            self._warming = True
+        self.set_example(**example)
+        threading.Thread(target=self._warm_guarded,
+                         name=f"engine-{self.name}-warmup",
+                         daemon=True).start()
+
+    def _warm_guarded(self) -> None:
+        try:
+            self.warmup()
+        except Exception as exc:  # noqa: BLE001 — warmup must never kill serving
+            log.warning("engine %s warmup failed: %s", self.name, exc)
+        finally:
+            self.warmed.set()
+
+    def set_example(self, **example: np.ndarray) -> None:
+        self._peek_shapes = {k: np.asarray(v) for k, v in example.items()}
+
+    #: name → example array (no batch dim) for warmup
+    _peek_shapes: dict[str, np.ndarray] | None = None
+
+    def _example_item(self) -> dict[str, np.ndarray]:
+        item = self._peek_shapes
+        if item is None:
+            raise RuntimeError("warmup requires an example (set_example)")
+        return item
 
     def stop(self) -> None:
-        """Stop both threads; futures not yet resolved fail."""
+        """Stop every thread; futures not yet resolved fail; the graphs,
+        their pool and the staging buffers are freed."""
         self._stop.set()
+        if self._ring is not None:
+            self._ring.close()
         self._queue.put(None)
         self._dispatcher.join(timeout=10)
+        if self._launcher is not None:
+            try:
+                self._upload_q.put_nowait(None)
+            except queue.Full:
+                pass  # the launcher drains the backlog, then exits on _stop
+            self._launcher.join(timeout=10)
         self._done.put(None)
         self._completer.join(timeout=10)
         exc = RuntimeError(f"engine {self.name} stopped")
-        for q in (self._queue, self._done):
-            while True:
-                try:
-                    entry = q.get_nowait()
-                except queue.Empty:
-                    break
-                items = ([entry] if isinstance(entry, _WorkItem)
-                         else entry[1] if entry is not None else [])
-                for it in items:
-                    _safe_set_exception(it.future, exc)
+        self._drain_upload_q(exc)
+        if self._ring is not None:
+            for item in self._ring.drain_items():
+                _safe_set_exception(item.future, exc)
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                _safe_set_exception(item.future, exc)
+        self._free_device()
+
+    def abandon(self) -> None:
+        """Quarantine teardown (supervisor): fail every failable caller
+        WITHOUT joining the worker threads — a wedged launcher may be
+        blocked indefinitely, and the supervisor must not inherit that
+        wait. The threads exit on their own when they wake; the device
+        state is freed by a thread that waits for the engine's device
+        lock (held only inside a device call). Idempotent."""
+        self._stop.set()
+        exc = TimeoutError(
+            f"engine {self.name} quarantined: wedged device call; the "
+            "supervisor is rebuilding the engine")
+        if self._ring is not None:
+            self._ring.close()
+            for item in self._ring.drain_items():
+                _safe_set_exception(item.future, exc)
+        self._queue.put(None)
+        self._done.put(None)
+        self._drain_upload_q(exc)
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                _safe_set_exception(item.future, exc)
+        with self._exec_lock:
+            stranded = [it for entry in self._outstanding.values()
+                        for it in entry[1]]
+            self._outstanding.clear()
+        for it in stranded:
+            _safe_set_exception(it.future, exc)
+        threading.Thread(target=self._free_device,
+                         name=f"engine-{self.name}-free",
+                         daemon=True).start()
+
+    def _free_device(self) -> None:
+        """Free the graphs, their pool and the per-slot device and
+        page-locked buffers, once no device call of this engine runs."""
+        if not self._cuda:
+            return
+        with self._device_lock:
+            if self._device_freed:
+                return
+            self._device_freed = True
+            self._compute.synchronize()
+            self._copy.synchronize()
+            if self._ring is not None:
+                for slot in self._ring.slots():
+                    slot.device.clear()
+            self._graphs.free()
 
     # -------------------------------------------------------- internals
 
@@ -229,24 +573,305 @@ class BatchEngine:
                 return b
         raise ValueError(f"{n} items exceed the top bucket {self.buckets[-1]}")
 
-    def _gather(self, first: _WorkItem) -> list[_WorkItem]:
-        items = [first]
-        deadline = time.perf_counter() + self.deadline_s
-        while len(items) < self.max_batch:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._queue.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                self._stop.set()
-                break
-            items.append(nxt)
-        return items
+    def _track_dispatch(self, t0: float, items: list[_WorkItem],
+                        bucket: int) -> int:
+        """Register a dispatched batch with the watchdog, its stall
+        deadline fixed here: stall_timeout_s, × first_batch_grace for a
+        bucket that never completed a batch, and no earlier than the
+        latest outstanding deadline + one plain budget (device work is
+        ordered)."""
+        with self._exec_lock:
+            if bucket not in self._buckets_done:
+                deadline = t0 + self.stall_timeout_s * self.first_batch_grace
+            else:
+                deadline = t0 + self.stall_timeout_s
+            if self._outstanding:
+                queue_ahead = max(e[3] for e in self._outstanding.values())
+                deadline = max(deadline, queue_ahead + self.stall_timeout_s)
+            bid = self._next_batch_id
+            self._next_batch_id += 1
+            self._outstanding[bid] = (t0, items, bucket, deadline)
+        return bid
 
-    def _dispatch_loop(self) -> None:
+    def refresh_queue_gauges(self) -> None:
+        """Push the backlog gauges (on dispatch and on watchdog and
+        supervisor ticks, so an idle or wedged engine's stay live)."""
+        metrics.set("evam_engine_queue_depth", self.queue_depth(),
+                    {"engine": self.name})
+        metrics.set("evam_engine_queue_age_s", self.queue_age_s(),
+                    {"engine": self.name})
+
+    def _record_batch(self, n: int, b: int, clock: dict[str, float],
+                      items: list[_WorkItem]) -> None:
+        """Count a launched batch — before its futures can resolve, so
+        a caller that has every result sees every batch counted."""
+        with self._exec_lock:
+            st = self.stats
+            st.batches += 1
+            st.items += n
+            st.occupancy_sum += n / b
+            if self.max_units is None:
+                st.unit_slots += b
+                st.units += n
+            else:
+                st.unit_slots += b * self.max_units
+                st.units += sum(self.max_units if it.units is None
+                                else it.units for it in items)
+            st.bucket_batches[b] = st.bucket_batches.get(b, 0) + 1
+            for stage, dt in clock.items():
+                st.add_stage(stage, dt)
+            mean_occ, unit_occ = st.mean_occupancy, st.unit_occupancy
+        metrics.observe("evam_batch_occupancy", n / b, {"engine": self.name})
+        metrics.set("evam_engine_occupancy", mean_occ, {"engine": self.name})
+        metrics.set("evam_engine_unit_occupancy", unit_occ,
+                    {"engine": self.name})
+        self.refresh_queue_gauges()
+        for stage, dt in clock.items():
+            metrics.observe("evam_engine_stage_seconds", dt,
+                            {"engine": self.name, "stage": stage})
+
+    # ----------------------------------------------- device halves
+
+    def _upload(self, batch: dict[str, np.ndarray], b: int,
+                sealed: SealedBatch | None, stream) -> list[torch.Tensor]:
+        """Host batch → step inputs. CPU: tensors over the staged
+        arrays (no copy). CUDA: an asynchronous copy on ``stream`` —
+        from the page-locked slot into device buffers the slot owns, or
+        (legacy assembly) of the freshly stacked arrays."""
+        if not self._cuda:
+            return [torch.from_numpy(batch[n]) for n in self.input_names]
+        with torch.cuda.stream(stream):
+            if sealed is None:
+                return [torch.from_numpy(batch[n]).to(
+                    self.device, non_blocking=True) for n in self.input_names]
+            dev = sealed.slot.device
+            out = []
+            for n in self.input_names:
+                block = sealed.slot.arrays[n]
+                if n not in dev:
+                    dev[n] = torch.empty(
+                        block.shape, device=self.device,
+                        dtype=torch.from_numpy(block[:0]).dtype)
+                dst = dev[n][:b]
+                dst.copy_(torch.from_numpy(batch[n]), non_blocking=True)
+                out.append(dst)
+            return out
+
+    def _execute(self, dev: list[torch.Tensor], b: int,
+                 sealed: SealedBatch | None):
+        """Launch one batch; returns what the completer reads back.
+        CUDA: on the compute stream, the bucket's graph replay (or the
+        eager step), then the device→host copy into page-locked memory
+        put in flight, and an event the completer waits on. CPU: the
+        step's output."""
+        if not self._cuda:
+            return self.step_fn(*dev)
+        with self._device_lock:
+            if self._device_freed:
+                raise RuntimeError(f"engine {self.name} stopped")
+            with torch.cuda.stream(self._compute):
+                bg = self._graphs.get(b)
+                out = (self._graphs.replay(bg, dev) if bg is not None
+                       else self.step_fn(*dev))
+                if sealed is None:
+                    # stacked on another stream: keep its memory
+                    # until this stream is done with it
+                    for t in dev:
+                        t.record_stream(self._compute)
+                    host = torch.empty(out.shape, dtype=out.dtype,
+                                       pin_memory=True)
+                else:
+                    slot = sealed.slot.device
+                    if "readback" not in slot:
+                        slot["readback"] = torch.empty(
+                            (self.buckets[-1],) + tuple(out.shape[1:]),
+                            dtype=out.dtype, pin_memory=True)
+                    host = slot["readback"][:b]
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._compute)
+        return host, done
+
+    def _readback(self, pending) -> np.ndarray:
+        if not self._cuda:
+            return pending.cpu().numpy()
+        host, done = pending
+        done.synchronize()
+        return host.numpy()
+
+    def _before_launch(self) -> None:
+        hook = self.pre_launch
+        if hook is not None:
+            hook()
+        if self._stop.is_set():
+            raise RuntimeError(f"engine {self.name} is stopped")
+
+    def _run(self, batch: dict[str, np.ndarray], b: int,
+             sealed: SealedBatch | None, clock: dict[str, float]):
+        """Inline transfer (EVAM_TRANSFER=inline, and the devlock-forced
+        mode): upload and launch back to back on the calling thread, in
+        stream order on the compute stream. h2d_wait is 0 by
+        definition: the launch absorbs the upload."""
+        self._before_launch()
+        with devlock.device_call(f"{self.name}:launch"):
+            t0 = time.perf_counter()
+            dev = self._upload(batch, b, sealed, self._compute)
+            t1 = time.perf_counter()
+            pending = self._execute(dev, b, sealed)
+            clock["h2d_issue"] = t1 - t0
+            clock["h2d_wait"] = 0.0
+            clock["launch"] = time.perf_counter() - t1
+            return pending
+
+    def _dispatch_batch(self, batch: dict[str, np.ndarray],
+                        items: list[_WorkItem], n: int, b: int,
+                        clock: dict[str, float],
+                        sealed: SealedBatch | None) -> None:
+        """Common tail of both dispatch loops. Inline: upload and launch
+        here. Pipelined: issue the upload on the copy stream
+        (h2d_issue) and queue the batch for the launcher."""
+        if not self._pipelined:
+            self._in_flight.acquire()
+            t0 = time.perf_counter()
+            bid = self._track_dispatch(t0, items, b)
+            try:
+                pending = self._run(batch, b, sealed, clock)
+            except Exception as exc:  # noqa: BLE001 — surface to every caller
+                self._fail_launch(exc, bid, items, sealed)
+                return
+            self._record_batch(n, b, clock, items)
+            self._done.put((pending, items, t0, bid, sealed, n))
+            return
+        try:
+            with devlock.device_call(f"{self.name}:h2d"):
+                t0 = time.perf_counter()
+                dev = self._upload(batch, b, sealed, self._copy)
+                uploaded = None
+                if self._cuda:
+                    uploaded = torch.cuda.Event()
+                    uploaded.record(self._copy)
+                clock["h2d_issue"] = time.perf_counter() - t0
+        except Exception as exc:  # noqa: BLE001 — surface to every caller
+            for it in items:
+                _safe_set_exception(it.future, exc)
+            if sealed is not None:
+                self._ring.release(sealed)
+            log.exception("engine %s H2D upload failed", self.name)
+            return
+        entry = (dev, uploaded, items, n, b, clock, sealed)
+        while True:
+            try:
+                self._upload_q.put(entry, timeout=0.1)
+                return
+            except queue.Full:
+                if self._stop.is_set():
+                    exc = RuntimeError(f"engine {self.name} is stopped")
+                    for it in items:
+                        _safe_set_exception(it.future, exc)
+                    if sealed is not None:
+                        self._ring.release(sealed)
+                    return
+
+    def _fail_launch(self, exc: Exception, bid: int, items: list[_WorkItem],
+                     sealed: SealedBatch | None) -> None:
+        self._in_flight.release()
+        with self._exec_lock:
+            self._outstanding.pop(bid, None)
+        for it in items:
+            _safe_set_exception(it.future, exc)
+        if sealed is not None:
+            self._ring.release(sealed)
+        if not self._stop.is_set():
+            log.error("engine %s step failed", self.name, exc_info=exc)
+
+    def _launch(self, dev: list[torch.Tensor], uploaded, b: int,
+                sealed: SealedBatch | None, clock: dict[str, float]):
+        """Launcher half of the pipelined transfer: wait out the
+        upload's residual (h2d_wait), then launch on the compute stream
+        behind it, the device→host copy put in flight at once."""
+        self._before_launch()
+        with devlock.device_call(f"{self.name}:launch"):
+            t0 = time.perf_counter()
+            if uploaded is not None:
+                uploaded.synchronize()
+                self._compute.wait_event(uploaded)
+            t1 = time.perf_counter()
+            pending = self._execute(dev, b, sealed)
+            clock["h2d_wait"] = t1 - t0
+            clock["launch"] = time.perf_counter() - t1
+        return pending
+
+    def _launch_loop(self) -> None:
+        """Pipelined transfer: pop uploaded batches and launch them —
+        while this thread launches (or is wedged), the dispatcher keeps
+        sealing and uploading."""
+        while True:
+            try:
+                entry = self._upload_q.get(timeout=0.1)
+            except queue.Empty:
+                if self._stop.is_set():
+                    break
+                continue
+            if entry is None:
+                break
+            dev, uploaded, items, n, b, clock, sealed = entry
+            if self._stop.is_set():
+                exc = RuntimeError(f"engine {self.name} is stopped")
+                for it in items:
+                    _safe_set_exception(it.future, exc)
+                if sealed is not None:
+                    self._ring.release(sealed)
+                continue
+            self._in_flight.acquire()
+            t0 = time.perf_counter()
+            bid = self._track_dispatch(t0, items, b)
+            try:
+                pending = self._launch(dev, uploaded, b, sealed, clock)
+            except Exception as exc:  # noqa: BLE001 — surface to every caller
+                self._fail_launch(exc, bid, items, sealed)
+                continue
+            self._record_batch(n, b, clock, items)
+            self._done.put((pending, items, t0, bid, sealed, n))
+
+    def _drain_upload_q(self, exc: Exception) -> None:
+        """Fail every uploaded-but-unlaunched batch (stop, abandon,
+        stall)."""
+        while True:
+            try:
+                entry = self._upload_q.get_nowait()
+            except queue.Empty:
+                return
+            if entry is None:
+                continue
+            items, sealed = entry[2], entry[6]
+            for it in items:
+                _safe_set_exception(it.future, exc)
+            if sealed is not None:
+                self._ring.release(sealed)
+
+    # ------------------------------------------------- dispatch loops
+
+    def _dispatch_loop_slot(self) -> None:
+        """Seal staged slots at the batch deadline and dispatch them —
+        no stack, no pad concat, no per-batch allocation."""
+        while True:
+            sealed = self._ring.next_batch(self.deadline_s, self._bucket)
+            if sealed is None:
+                if self._stop.is_set():
+                    break
+                continue
+            if self._stop.is_set():
+                exc = RuntimeError(f"engine {self.name} stopped")
+                for it in sealed.items:
+                    _safe_set_exception(it.future, exc)
+                self._ring.release(sealed)
+                continue  # drain whatever else is staged, then exit
+            self._dispatch_batch(sealed.arrays, sealed.items, sealed.n,
+                                 sealed.bucket, sealed.clock, sealed)
+
+    def _dispatch_loop_legacy(self) -> None:
+        """EVAM_BATCH_ASSEMBLY=legacy: gather until the deadline or the
+        top bucket, stack and zero-pad on the dispatcher thread."""
         while not self._stop.is_set():
             try:
                 first = self._queue.get(timeout=0.1)
@@ -254,88 +879,130 @@ class BatchEngine:
                 continue
             if first is None:
                 break
-            items = self._gather(first)
+            items = [first]
+            deadline = time.perf_counter() + self.deadline_s
+            while len(items) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._stop.set()
+                    break
+                items.append(nxt)
+            n = len(items)
+            b = self._bucket(n)
+            clock = {"submit_wait": time.perf_counter() - items[0].t_submit}
+            t_asm = time.perf_counter()
             try:
-                self._dispatch(items)
+                batch = {}
+                for name in self.input_names:
+                    stacked = np.stack([it.inputs[name] for it in items])
+                    if b > n:
+                        pad = np.zeros((b - n,) + stacked.shape[1:],
+                                       stacked.dtype)
+                        stacked = np.concatenate([stacked, pad])
+                    batch[name] = stacked
             except Exception as exc:  # noqa: BLE001 — surface to every caller
-                log.exception("engine %s step failed", self.name)
                 for it in items:
                     _safe_set_exception(it.future, exc)
+                continue
+            clock["slot_write"] = time.perf_counter() - t_asm
+            self._dispatch_batch(batch, items, n, b, clock, None)
 
-    def _dispatch(self, items: list[_WorkItem]) -> None:
-        n = len(items)
-        b = self._bucket(n)
-        clock = {"submit_wait": time.perf_counter() - items[0].t_submit}
-        t0 = time.perf_counter()
-        batch = []
-        for name in self.input_names:
-            stacked = np.stack([it.inputs[name] for it in items])
-            if b > n:
-                pad = np.zeros((b - n,) + stacked.shape[1:], stacked.dtype)
-                stacked = np.concatenate([stacked, pad])
-            batch.append(stacked)
-        t1 = time.perf_counter()
-        clock["slot_write"] = t1 - t0
-        self._in_flight.acquire()
-        try:
-            dev = [torch.from_numpy(a).to(self.device, non_blocking=True)
-                   for a in batch]
-            t2 = time.perf_counter()
-            out = self.step_fn(*dev)
-        except BaseException:
-            self._in_flight.release()
-            raise
-        t3 = time.perf_counter()
-        clock["h2d_issue"] = t2 - t1
-        clock["launch"] = t3 - t2
-        self._done.put((out, items, n, b, clock))
+    # ------------------------------------------------------ completion
 
     def _completion_loop(self) -> None:
         while True:
             entry = self._done.get()
             if entry is None:
                 break
-            out, items, n, b, clock = entry
-            t0 = time.perf_counter()
+            pending, items, t0, bid, sealed, n = entry
+            t_rb = time.perf_counter()
             try:
-                host = out.cpu().numpy()  # waits for the step
+                with devlock.device_call(f"{self.name}:readback"):
+                    host = self._readback(pending)
+                # each row copied out: the slot's output block, and the
+                # step's own output where it aliases the staged input,
+                # are reused by later batches
+                rows = np.array(host[:n])
             except Exception as exc:  # noqa: BLE001
-                log.exception("engine %s readback failed", self.name)
                 for it in items:
                     _safe_set_exception(it.future, exc)
-                continue
-            finally:
                 self._in_flight.release()
-            t1 = time.perf_counter()
-            clock["readback"] = t1 - t0
-            # count the batch before its futures resolve, so a caller
-            # that sees every result also sees every batch counted
-            with self._stats_lock:
-                st = self.stats
-                st.n_batches += 1
-                st.n_items += n
-                st.occupancy_sum += n / b
-                if self.max_units is None:
-                    st.unit_slots += b
-                    st.units += n
-                else:
-                    st.unit_slots += b * self.max_units
-                    st.units += sum(self.max_units if it.units is None
-                                    else it.units for it in items)
-                st.bucket_batches[b] = st.bucket_batches.get(b, 0) + 1
-                for stage, dt in clock.items():
-                    st.add_stage(stage, dt)
-                mean_occ, unit_occ = st.mean_occupancy, st.unit_occupancy
-            for i, it in enumerate(items):
-                _safe_set_result(it.future, host[i])
-            with self._stats_lock:
-                self.stats.add_stage("resolve", time.perf_counter() - t1)
-            metrics.observe("evam_batch_occupancy", n / b,
+                with self._exec_lock:
+                    self._outstanding.pop(bid, None)
+                if sealed is not None:
+                    self._ring.release(sealed)
+                continue
+            with self._exec_lock:
+                done = self._outstanding.pop(bid, None)
+                if done is not None:
+                    self._buckets_done.add(done[2])
+            self._in_flight.release()
+            if sealed is not None:
+                self._ring.release(sealed)
+            if self.stalled.is_set():
+                # the stalled call was merely slow and has completed
+                self.stalled.clear()
+                log.warning("engine %s recovered: a stalled device call "
+                            "completed; accepting work again", self.name)
+            now = time.perf_counter()
+            metrics.observe("evam_step_seconds", now - t0,
                             {"engine": self.name})
-            metrics.set("evam_engine_occupancy", mean_occ,
-                        {"engine": self.name})
-            metrics.set("evam_engine_unit_occupancy", unit_occ,
-                        {"engine": self.name})
-            for stage, dt in clock.items():
-                metrics.observe("evam_engine_stage_seconds", dt,
-                                {"engine": self.name, "stage": stage})
+            readback_s = now - t_rb
+            t_res = time.perf_counter()
+            for i, it in enumerate(items):
+                metrics.observe("evam_item_latency_seconds",
+                                now - it.t_submit, {"engine": self.name})
+                _safe_set_result(it.future, rows[i])
+            resolve_s = time.perf_counter() - t_res
+            with self._exec_lock:
+                self.stats.add_stage("readback", readback_s)
+                self.stats.add_stage("resolve", resolve_s)
+            metrics.observe("evam_engine_stage_seconds", readback_s,
+                            {"engine": self.name, "stage": "readback"})
+            metrics.observe("evam_engine_stage_seconds", resolve_s,
+                            {"engine": self.name, "stage": "resolve"})
+
+    def _watchdog_loop(self) -> None:
+        """Fail futures stranded behind a stalled device call and flag
+        the engine (the wedged thread itself cannot be unblocked)."""
+        # floor 0.2 s: tests run sub-second stall budgets
+        interval = max(self.stall_timeout_s / 4.0, 0.2)
+        while not self._stop.wait(interval):
+            self.refresh_queue_gauges()
+            now = time.perf_counter()
+            with self._exec_lock:
+                slots = list(self._outstanding.values())
+            stuck: list[_WorkItem] = []
+            for _t0, items, _b, deadline in slots:
+                if now > deadline:
+                    stuck.extend(items)
+            if not stuck:
+                continue
+            self.stalled.set()
+            log.error(
+                "engine %s stalled: device call exceeded %.0fs; failing "
+                "%d stranded item(s) and rejecting new work",
+                self.name, self.stall_timeout_s, len(stuck))
+            metrics.inc("evam_engine_stalls", labels={"engine": self.name})
+            exc = TimeoutError(
+                f"engine {self.name} device call exceeded "
+                f"{self.stall_timeout_s:.0f}s (backend wedged)")
+            for it in stuck:
+                _safe_set_exception(it.future, exc)
+            self._drain_upload_q(exc)
+            if self._ring is not None:
+                for it in self._ring.drain_items():
+                    _safe_set_exception(it.future, exc)
+            while True:
+                try:
+                    queued = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if queued is not None:
+                    _safe_set_exception(queued.future, exc)

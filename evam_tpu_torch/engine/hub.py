@@ -5,7 +5,10 @@ Counterpart of ``evam_tpu/engine/hub.py``. Pipelines that pass the same
 that omit it share per-model-key engines — cross-stream batching by
 default. The hub builds detect, classify, action encode and decode and
 audio engines, and the fused detect+classify engine
-(:meth:`EngineHub.fused_engine`).
+(:meth:`EngineHub.fused_engine`), each as a :class:`SupervisedEngine`
+around a BatchEngine (``supervise=False``: the bare engine). The hub's
+own default is ``warmup=False``, as the reference's; the server passes
+``Settings``, whose default is warmup on.
 """
 
 from __future__ import annotations
@@ -18,15 +21,12 @@ import torch
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.engine import steps as step_builders
 from evam_tpu_torch.engine.batcher import BatchEngine
+from evam_tpu_torch.engine.ringbuf import STAGES
+from evam_tpu_torch.engine.supervisor import SupervisedEngine
 from evam_tpu_torch.models.registry import LoadedModel, ModelRegistry
 from evam_tpu_torch.obs.metrics import metrics
 
 log = logging.getLogger("evam_tpu_torch.engine.hub")
-
-#: the reference's per-batch host stages (``engine/ringbuf.py``
-#: ``STAGES``), the keys of /healthz ``host_stages_ms``
-HEALTH_STAGES = ("submit_wait", "slot_write", "seal", "h2d_issue",
-                 "h2d_wait", "launch", "readback", "resolve")
 
 #: kind → (builder, input names, takes a wire format)
 _BUILDERS = {
@@ -50,6 +50,17 @@ class EngineHub:
         max_batch: int = 128,
         deadline_ms: float = 8.0,
         wire_format: str = "i420",
+        warmup: bool = False,
+        stall_timeout_s: float = 120.0,
+        supervise: bool = True,
+        max_restarts: int = 3,
+        restart_window_s: float = 300.0,
+        restart_backoff_s: float = 0.5,
+        first_batch_grace: float = 10.0,
+        transfer: str | None = None,
+        transfer_depth: int = 0,
+        assembly: str | None = None,
+        staging_depth: int = 0,
     ):
         self.registry = registry
         self.device = resolve_device(device)
@@ -57,11 +68,30 @@ class EngineHub:
             raise ValueError(
                 f"hub device {self.device} differs from the registry's "
                 f"{registry.device}")
+        #: stages warm their engines' buckets in the background once
+        #: built, from a zero example of the engine's input (the server
+        #: sets it from EVAM_WARMUP)
+        self.warmup = warmup
         self.max_batch = max_batch
         self.deadline_ms = deadline_ms
         #: host→device frame encoding for video engines
         self.wire_format = wire_format
-        self._engines: dict[str, BatchEngine] = {}
+        self.stall_timeout_s = stall_timeout_s
+        #: wedged engines are quarantined and rebuilt in place, at most
+        #: max_restarts times within restart_window_s
+        self.supervise = supervise
+        self.max_restarts = max_restarts
+        self.restart_window_s = restart_window_s
+        self.restart_backoff_s = restart_backoff_s
+        self.first_batch_grace = first_batch_grace
+        #: EVAM_TRANSFER, EVAM_TRANSFER_DEPTH, EVAM_BATCH_ASSEMBLY and
+        #: EVAM_STAGING_DEPTH: part of the rebuild recipe (the factory
+        #: carries them); None/0 = the engine reads the environment
+        self.transfer = transfer
+        self.transfer_depth = transfer_depth
+        self.assembly = assembly
+        self.staging_depth = staging_depth
+        self._engines: dict[str, BatchEngine | SupervisedEngine] = {}
         self._models: dict[str, LoadedModel] = {}
         # RLock: engine() calls model() while holding the lock
         self._lock = threading.RLock()
@@ -117,15 +147,36 @@ class EngineHub:
             return self._engines[key]
 
     def _build(self, key: str, step_fn, input_names: tuple[str, ...],
-               max_units: int | None = None) -> BatchEngine:
-        return BatchEngine(
-            name=key,
-            step_fn=step_fn,
-            device=self.device,
-            max_batch=self.max_batch,
-            deadline_ms=self.deadline_ms,
-            input_names=input_names,
-            max_units=max_units,
+               max_units: int | None = None):
+        """The engine for ``key``: a SupervisedEngine whose factory is
+        the rebuild recipe (a replacement gets fresh graphs and a fresh
+        staging ring from the same step), or the bare BatchEngine with
+        supervision off."""
+
+        def factory() -> BatchEngine:
+            return BatchEngine(
+                name=key,
+                step_fn=step_fn,
+                device=self.device,
+                max_batch=self.max_batch,
+                deadline_ms=self.deadline_ms,
+                input_names=input_names,
+                max_units=max_units,
+                stall_timeout_s=self.stall_timeout_s,
+                first_batch_grace=self.first_batch_grace,
+                transfer=self.transfer,
+                transfer_depth=self.transfer_depth or None,
+                assembly=self.assembly,
+                staging_depth=self.staging_depth or None,
+            )
+
+        if not self.supervise:
+            return factory()
+        return SupervisedEngine(
+            key, factory,
+            max_restarts=self.max_restarts,
+            restart_window_s=self.restart_window_s,
+            backoff_s=self.restart_backoff_s,
         )
 
     def stats(self) -> dict[str, dict]:
@@ -135,15 +186,9 @@ class EngineHub:
 
     # ------------------------------------------- /healthz summaries
     # Same keys as the reference's (engine/hub.py stage_summary,
-    # queue_summary, readiness) — the route golden pins them; the
+    # queue_summary, readiness) — the route golden pins them. The
     # reference's ``shed_totals`` reads zeros with its scheduler off,
-    # and /healthz (server/app.py) states them. The port's engine runs
-    # the reference's legacy assembly with the inline transfer, so
-    # ``seal`` and ``h2d_wait`` read 0 there as they do in the
-    # reference on that path; no warmup, supervisor,
-    # scheduler or ragged packing (later slices) means nothing is ever
-    # warming, stalled or restarting and nothing is shed; a classify
-    # item counts its real boxes against the ROI budget it computes.
+    # and /healthz (server/app.py) states them.
 
     def _rows(self) -> list[dict]:
         with self._lock:
@@ -152,14 +197,14 @@ class EngineHub:
 
     def stage_summary(self) -> dict[str, float]:
         """Batch-weighted mean per-batch host-stage cost across all
-        engines (ms), fixed keys from boot."""
+        engines (ms), all eight ``STAGES`` from boot."""
         rows = self._rows()
         batches = sum(r["batches"] for r in rows)
         return {
             s: (round(sum(r["stage_ms"].get(s, 0.0) * r["batches"]
                           for r in rows) / batches, 3)
                 if batches else 0.0)
-            for s in HEALTH_STAGES
+            for s in STAGES
         }
 
     def queue_summary(self) -> dict[str, float]:
@@ -179,13 +224,21 @@ class EngineHub:
         return {"depth": depth, "oldest_age_s": round(oldest, 3)}
 
     def readiness(self) -> dict[str, int | float]:
-        """Engine state for /healthz."""
-        rows = self._rows()
+        """Engine state for /healthz: ``warming`` > 0 while an engine's
+        buckets are still being captured (with warmup on); ``stalled``,
+        ``restarting`` and ``degraded`` count disjoint engines."""
+        with self._lock:
+            engines = list(self._engines.values())
+        rows = [e.stats_row() for e in engines]
+        # without warmup nothing is ever warming
+        warmed = (sum(1 for e in engines if e.warmed.is_set())
+                  if self.warmup else len(engines))
+        states = [r["state"] for r in rows]
         batches = sum(r["batches"] for r in rows)
         return {
             "engines": len(rows),
-            "warmed": len(rows),
-            "warming": 0,
+            "warmed": warmed,
+            "warming": len(rows) - warmed,
             "occupancy": round(
                 sum(r["mean_occupancy"] * r["batches"] for r in rows)
                 / batches if batches else 0.0, 4),
@@ -193,12 +246,13 @@ class EngineHub:
                 sum(r["units"] for r in rows)
                 / max(1, sum(r["unit_slots"] for r in rows))
                 if batches else 0.0, 4),
-            # eager steps: nothing is compiled ahead
-            "compiled_programs": 0,
-            "stalled": 0,
-            "restarting": 0,
-            "degraded": 0,
-            "restarts": 0,
+            # buckets captured into CUDA graphs across engines
+            "compiled_programs": sum(r["compiled_programs"] for r in rows),
+            "stalled": sum(1 for e, s in zip(engines, states)
+                           if s == "running" and e.stalled.is_set()),
+            "restarting": sum(1 for s in states if s == "restarting"),
+            "degraded": sum(1 for s in states if s == "degraded"),
+            "restarts": sum(r["restarts"] for r in rows),
         }
 
     def stop(self) -> None:

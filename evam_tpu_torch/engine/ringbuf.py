@@ -1,0 +1,361 @@
+"""Slot-based host staging ring (counterpart of ``evam_tpu/engine/ringbuf.py``).
+
+A small ring of pre-allocated host blocks, one block per input name,
+each sized to the engine's largest bucket and a few slots deep, so the
+assembly of batch N+1 overlaps the device round trip of batch N:
+
+* ``write()`` runs on the submitting stream thread and copies each
+  item's arrays straight into its reserved row of the open slot — the
+  one host copy, off the dispatcher's path and spread across stream
+  threads;
+* the dispatcher ``next_batch()`` seals a slot — picks the bucket,
+  zeroes only the dirty pad tail — and hands contiguous
+  ``block[:bucket]`` views to the upload;
+* ``release()`` returns the slot to the free list after the batch's
+  readback, so a block is never overwritten while a transfer from it
+  may still be in flight.
+
+Row indices are reserved under the ring lock, row copies happen outside
+it (each row has one writer), and a seal waits for every writer of its
+slot. Items resolve in row order.
+
+The port allocates each block through ``alloc(shape, dtype)``: plain
+numpy by default, page-locked host memory on a ``cuda`` engine
+(:func:`pinned_alloc`), so the block's host→device copy is a true
+asynchronous DMA. Each slot also carries ``device``, a dict the engine
+keeps its per-slot device buffers in. The reference's ragged packing
+(``RaggedSpec``, ``stage_direct``) comes with a later slice.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Callable
+
+import numpy as np
+
+#: stage names of the per-batch host clock, in pipeline order.
+#: submit_wait covers slot backpressure and the deadline-batching wait;
+#: slot_write is the summed per-item row copies (spent on stream
+#: threads); h2d_issue the time to enqueue the host→device copy,
+#: h2d_wait the residual wait for it at launch (0 by definition on the
+#: inline path, where the launch absorbs it), and readback the
+#: device→host residual the completer still blocks on.
+STAGES = (
+    "submit_wait", "slot_write", "seal",
+    "h2d_issue", "h2d_wait", "launch", "readback", "resolve",
+)
+
+Alloc = Callable[[tuple[int, ...], np.dtype], np.ndarray]
+
+
+def numpy_alloc(shape: tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+    return np.zeros(shape, dtype)
+
+
+def pinned_alloc(shape: tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+    """A zeroed numpy view of page-locked host memory (the view keeps
+    its torch tensor alive)."""
+    import torch
+
+    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+    t = torch.zeros(shape, dtype=tdtype, pin_memory=True)
+    return t.numpy()
+
+
+class _Slot:
+    """One staging block set: per-input pre-allocated (capacity, …)
+    arrays plus fill bookkeeping, guarded by the ring's condition
+    variable except the row contents (one writer per reserved row)."""
+
+    __slots__ = ("arrays", "items", "count", "high", "writers",
+                 "t_first", "closed", "wait_sum", "write_sum", "gen",
+                 "device")
+
+    def __init__(self, arrays: dict[str, np.ndarray]):
+        self.arrays = arrays
+        self.items: list[Any] = []
+        self.count = 0
+        #: exclusive upper bound of possibly-nonzero rows left behind
+        #: by earlier uses — the only rows a seal must zero
+        self.high = 0
+        self.writers = 0
+        self.t_first = 0.0
+        self.closed = False
+        self.wait_sum = 0.0   # summed per-item slot-acquire waits
+        self.write_sum = 0.0  # summed per-item row-copy times
+        #: bumped on every recycle, so a dispatcher that slept through
+        #: a drain sees its claim went stale
+        self.gen = 0
+        #: the engine's per-slot device buffers (ring never touches it)
+        self.device: dict[str, Any] = {}
+
+
+class SealedBatch:
+    """A sealed slot ready for dispatch: contiguous ``[:bucket]`` views
+    over the staging blocks, the items in row order, and the host-clock
+    readings so far."""
+
+    __slots__ = ("slot", "arrays", "items", "n", "bucket", "clock")
+
+    def __init__(self, slot: _Slot, arrays: dict[str, np.ndarray],
+                 items: list, n: int, bucket: int,
+                 clock: dict[str, float]):
+        self.slot = slot
+        self.arrays = arrays
+        self.items = items
+        self.n = n
+        self.bucket = bucket
+        self.clock = clock
+
+
+class SlotRing:
+    """Ring of ``depth`` pre-allocated staging slots for one engine.
+
+    Blocks are allocated on the first ``write()`` (item shapes are not
+    known at engine construction) and never reallocated —
+    ``blocks_allocated`` pins that invariant."""
+
+    def __init__(self, capacity: int, depth: int = 4,
+                 alloc: Alloc = numpy_alloc):
+        if capacity < 1 or depth < 2:
+            raise ValueError("capacity >= 1 and depth >= 2 required")
+        self.capacity = capacity
+        self.depth = depth
+        self._alloc = alloc
+        self._cv = threading.Condition()
+        self._free: deque[_Slot] = deque()
+        self._full: deque[_Slot] = deque()
+        self._open: _Slot | None = None
+        self._closed = False
+        self._shapes: dict[str, tuple[tuple[int, ...], np.dtype]] | None = None
+        self._all: list[_Slot] = []
+        #: staging-block allocations ever made (one per input name per
+        #: slot; constant after the first write)
+        self.blocks_allocated = 0
+
+    # ------------------------------------------------------- submit side
+
+    def write(self, inputs: dict[str, np.ndarray], item) -> None:
+        """Reserve the next row of the open slot and copy ``inputs``
+        into it (outside the ring lock). Blocks while every slot is in
+        flight — backpressure. Raises RuntimeError once closed."""
+        arrays = {k: np.asarray(v) for k, v in inputs.items()}
+        t0 = time.perf_counter()
+        with self._cv:
+            if self._shapes is None:
+                self._allocate(arrays)
+            else:
+                self._check_shapes(arrays)
+            while True:
+                if self._closed:
+                    raise RuntimeError("staging ring is closed")
+                if self._open is not None:
+                    slot = self._open
+                    break
+                if self._free:
+                    slot = self._free.popleft()
+                    slot.t_first = time.perf_counter()
+                    self._open = slot
+                    break
+                self._cv.wait(0.1)
+            waited = time.perf_counter() - t0
+            row = slot.count
+            slot.count += 1
+            slot.writers += 1
+            slot.items.append(item)
+            slot.wait_sum += waited
+            filled = slot.count >= self.capacity
+            if filled:
+                slot.closed = True
+                self._full.append(slot)
+                self._open = None
+            if row == 0 or filled:
+                # wake the dispatcher only on the edges it waits for
+                self._cv.notify_all()
+        t1 = time.perf_counter()
+        try:
+            for name, a in arrays.items():
+                slot.arrays[name][row] = a  # row exclusively owned
+        finally:
+            with self._cv:
+                slot.write_sum += time.perf_counter() - t1
+                slot.writers -= 1
+                if slot.writers == 0 and slot.closed:
+                    self._cv.notify_all()
+
+    # --------------------------------------------------- dispatcher side
+
+    def next_batch(self, deadline_s: float, bucket_fn) -> SealedBatch | None:
+        """Wait for rows, honour the batch-fill deadline (from the open
+        slot's first write), then seal: close the slot, wait out its
+        writers, zero the dirty pad tail and return ``[:bucket]``
+        views. None once the ring is closed and drained."""
+        with self._cv:
+            while True:
+                if self._full:
+                    slot = self._full.popleft()
+                elif self._open is not None and self._open.count > 0:
+                    slot = self._open
+                    gen = slot.gen
+                    deadline = slot.t_first + deadline_s
+                    while (not slot.closed and slot.gen == gen
+                           and not self._closed):
+                        remaining = deadline - time.perf_counter()
+                        if remaining <= 0:
+                            break
+                        self._cv.wait(remaining)
+                    if slot.gen != gen:
+                        continue  # drained (stall/stop) mid-wait
+                    if slot.closed:
+                        # filled while we waited: claim its _full entry
+                        try:
+                            self._full.remove(slot)
+                        except ValueError:
+                            continue
+                    else:
+                        slot.closed = True
+                        if self._open is slot:
+                            self._open = None
+                elif self._closed:
+                    return None
+                else:
+                    self._cv.wait(0.1)
+                    continue
+                # exclusively claimed: in neither _open nor _full
+                while slot.writers:
+                    self._cv.wait(0.05)
+                if slot.count == 0:
+                    # lost a race with a drain — recycle, keep waiting
+                    slot.closed = False
+                    self._free.append(slot)
+                    continue
+                n = slot.count
+                items = list(slot.items)
+                submit_wait = (time.perf_counter() - slot.t_first
+                               + slot.wait_sum)
+                write_sum = slot.write_sum
+                break
+        t0 = time.perf_counter()
+        sealed = self._seal(slot, items, n, bucket_fn)
+        sealed.clock.update({
+            "submit_wait": submit_wait,
+            "slot_write": write_sum,
+        })
+        sealed.clock["seal"] = time.perf_counter() - t0
+        return sealed
+
+    def _seal(self, slot: _Slot, items: list, n: int,
+              bucket_fn) -> SealedBatch:
+        """Pick the bucket, zero the dirty pad tail, build the views."""
+        bucket = bucket_fn(n)
+        dirty = min(slot.high, bucket)
+        for arr in slot.arrays.values():
+            if dirty > n:
+                arr[n:dirty] = 0
+        views = {k: a[:bucket] for k, a in slot.arrays.items()}
+        return SealedBatch(slot, views, items, n, bucket, {})
+
+    # ------------------------------------------------------- completion
+
+    def release(self, sealed: SealedBatch) -> None:
+        """Return a dispatched slot to the free list (after the batch's
+        readback — its block may back an in-flight transfer until
+        then)."""
+        slot = sealed.slot
+        with self._cv:
+            # rows [n, bucket) were zeroed at seal; rows beyond the
+            # bucket may still hold older data
+            if slot.high <= sealed.bucket:
+                slot.high = sealed.n
+            slot.count = 0
+            slot.items = []
+            slot.closed = False
+            slot.wait_sum = 0.0
+            slot.write_sum = 0.0
+            slot.gen += 1
+            self._free.append(slot)
+            self._cv.notify_all()
+
+    # -------------------------------------------------------- lifecycle
+
+    def close(self) -> None:
+        """Reject new writes and wake every waiter."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    def drain_items(self) -> list:
+        """Remove and return every written-but-undispatched item (open
+        and full slots), so the engine can fail their futures on stop
+        or stall. The slots return to the free list."""
+        out: list = []
+        with self._cv:
+            slots = list(self._full)
+            self._full.clear()
+            if self._open is not None:
+                slots.append(self._open)
+                self._open = None
+            for slot in slots:
+                while slot.writers:
+                    self._cv.wait(0.05)
+                out.extend(slot.items)
+                slot.high = max(slot.high, slot.count)
+                slot.count = 0
+                slot.items = []
+                slot.closed = False
+                slot.wait_sum = 0.0
+                slot.write_sum = 0.0
+                slot.gen += 1
+                self._free.append(slot)
+            self._cv.notify_all()
+        return out
+
+    def pending_items(self) -> int:
+        """Rows written but not yet sealed (the queue-depth gauge)."""
+        with self._cv:
+            n = sum(s.count for s in self._full)
+            if self._open is not None:
+                n += self._open.count
+            return n
+
+    def oldest_age_s(self, now: float | None = None) -> float:
+        """Age (s) of the oldest staged-but-undispatched work: the
+        earliest first-write time across full and open slots."""
+        now = time.perf_counter() if now is None else now
+        with self._cv:
+            firsts = [s.t_first for s in self._full if s.count]
+            if self._open is not None and self._open.count:
+                firsts.append(self._open.t_first)
+        return max(0.0, now - min(firsts)) if firsts else 0.0
+
+    def slots(self) -> list[_Slot]:
+        """Every allocated slot, wherever it is — the engine frees their
+        device buffers on stop."""
+        with self._cv:
+            return list(self._all)
+
+    # -------------------------------------------------------- internals
+
+    def _allocate(self, example: dict[str, np.ndarray]) -> None:
+        self._shapes = {k: (tuple(a.shape), a.dtype)
+                        for k, a in example.items()}
+        for _ in range(self.depth):
+            arrays = {k: self._alloc((self.capacity,) + shape, dtype)
+                      for k, (shape, dtype) in self._shapes.items()}
+            self.blocks_allocated += len(arrays)
+            self._all.append(_Slot(arrays))
+            self._free.append(self._all[-1])
+
+    def _check_shapes(self, arrays: dict[str, np.ndarray]) -> None:
+        for k, a in arrays.items():
+            want = self._shapes.get(k)
+            if want is None or (tuple(a.shape), a.dtype) != want:
+                raise ValueError(
+                    f"staging ring configured for {self._shapes}, got "
+                    f"{k}: shape {tuple(a.shape)} dtype {a.dtype} — "
+                    "engines batch fixed ingest shapes; use a distinct "
+                    "model-instance-id for a different resolution"
+                )

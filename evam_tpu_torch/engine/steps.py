@@ -3,10 +3,13 @@
 A builder returns ``step(frames)`` (or ``step(frames, boxes)`` for
 classify), mapping a wire-encoded uint8 batch already on the model's
 device to ONE packed float32 tensor — the reference's single-readback
-contract. Where the reference jits the step, the port runs it eagerly
-under ``torch.inference_mode()``: the whole chain — preprocess, net,
-decode, NMS, ROI crop, classifier — stays on the device and never syncs
-with the host.
+contract. Where the reference jits the step, the port runs it under
+``torch.inference_mode()``: the whole chain — preprocess, net, decode,
+NMS, ROI crop, classifier — stays on the device and never syncs with
+the host, so the engine can capture it into one CUDA graph per batch
+bucket (``engine/graphs.py``) and replay it. Nothing a step runs may
+copy from the host or wait for the device: every constant is built on
+the device when the step is built.
 
 Ported: the detect step (SSD branch), the classify step, the fused
 detect+classify step, the action encode and decode steps and the audio
@@ -27,6 +30,7 @@ from evam_tpu_torch.ops.nms import batched_nms
 from evam_tpu_torch.ops.preprocess import (
     crop_rois,
     decode_wire,
+    prepare_constants,
     preprocess_bgr,
     preprocess_wire,
 )
@@ -65,7 +69,9 @@ def _classify_crops(model: LoadedModel, frames: torch.Tensor,
 
 
 def _wire_spec(model: LoadedModel, wire_format: str):
-    """Model preprocess spec bound to the step's wire format."""
+    """Model preprocess spec bound to the step's wire format, its
+    constants built on the device."""
+    prepare_constants(model.preprocess, model.device)
     return dataclasses.replace(model.preprocess, wire_format=wire_format)
 
 
@@ -125,6 +131,7 @@ def build_classify_step(
     [B, R, Σ classes]: the heads' probability vectors, concatenated in
     ``model.spec.heads`` order.
     """
+    prepare_constants(model.preprocess, model.device)
 
     def step(frames: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -154,6 +161,7 @@ def build_detect_classify_step(
     """
     anchors = torch.from_numpy(det_model.anchors).to(det_model.device)
     det_spec = _wire_spec(det_model, wire_format)
+    prepare_constants(cls_model.preprocess, cls_model.device)
     allowed = (None if allowed_label_ids is None else torch.tensor(
         [float(lid) for lid in allowed_label_ids], dtype=torch.float32,
         device=det_model.device))
@@ -165,7 +173,9 @@ def build_detect_classify_step(
                                         iou_threshold, score_threshold)
             eligible = packed[..., 6] > 0.5
             if allowed is not None:
-                eligible = eligible & torch.isin(packed[..., 5], allowed)
+                # torch.isin may sort and sync with the host; a
+                # comparison against each allowed label never does
+                eligible = eligible & (packed[..., 5:6] == allowed).any(-1)
             # stable: eligible rows first, NMS order kept within each group
             order = torch.argsort((~eligible).to(torch.int32), dim=1,
                                   stable=True)

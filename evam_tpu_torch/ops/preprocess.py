@@ -10,6 +10,7 @@ planes) sample the grid of :func:`roi_grid_indices`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -92,6 +93,22 @@ def preprocess_bgr(x: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:
     return _finalize(x, spec)
 
 
+@functools.lru_cache(maxsize=64)
+def _channel_constant(values: tuple[float, float, float], dtype: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    """A per-channel mean or std as a tensor on ``device``, built once:
+    building it per call would be a host→device copy, which a stream
+    being captured into a CUDA graph refuses."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def prepare_constants(spec: PreprocessSpec, device: torch.device) -> None:
+    """Build ``spec``'s constants on ``device`` ahead of the first step
+    (the step builders call it)."""
+    for values in (spec.mean, spec.std):
+        _channel_constant(tuple(values), torch.float32, torch.device(device))
+
+
 def _finalize(x: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:
     """Channel flip + range/mean/std + dtype — everything after resize."""
     if spec.color_space.upper() == "RGB":
@@ -99,9 +116,9 @@ def _finalize(x: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:
     if not spec.raw_range:
         x = x / 255.0
     if spec.mean != (0.0, 0.0, 0.0):
-        x = x - torch.tensor(spec.mean, dtype=x.dtype, device=x.device)
+        x = x - _channel_constant(tuple(spec.mean), x.dtype, x.device)
     if spec.std != (1.0, 1.0, 1.0):
-        x = x / torch.tensor(spec.std, dtype=x.dtype, device=x.device)
+        x = x / _channel_constant(tuple(spec.std), x.dtype, x.device)
     return x.to(torch_dtype(spec.dtype))
 
 

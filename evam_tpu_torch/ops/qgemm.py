@@ -17,8 +17,10 @@ or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -26,13 +28,56 @@ import torch
 from evam_tpu_torch.ops import kernels
 
 
-#: launches of the CUDA kernel; the wrapper adds one per launch and
-#: nowhere else (plain-version calls do not count). Callers reset it
-#: to 0 before a run whose launches they want to count.
+#: launches of the CUDA kernel; the wrapper adds one per launch, and a
+#: replay of a CUDA graph the launches its capture recorded
+#: (:func:`count_replay`), nowhere else (plain-version calls do not
+#: count). Callers reset it to 0 before a run whose launches they want
+#: to count.
 launches = 0
 #: the same launches by variant: "aligned" (16-byte asynchronous copies,
 #: no edge checks) or "masked" (guarded loads and stores at ragged edges)
 variant_launches = {"aligned": 0, "masked": 0}
+_count_lock = threading.Lock()
+#: per thread: the variant counts a CUDA-graph capture records instead
+#: of the global counts (a captured call launches nothing)
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record this thread's calls into a fresh ``{variant: n}`` dict
+    instead of the launch counts: a call made while a CUDA graph is
+    being captured launches nothing then, but once per replay
+    (:func:`count_replay`)."""
+    counts = {"aligned": 0, "masked": 0}
+    prev = getattr(_capture, "counts", None)
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = prev
+
+
+def count_replay(counts: dict[str, int]) -> None:
+    """One replay of a graph whose capture recorded ``counts``: its
+    launches of the kernel."""
+    global launches
+    with _count_lock:
+        for variant, n in counts.items():
+            launches += n
+            variant_launches[variant] += n
+
+
+def _count(variant: str) -> None:
+    counts = getattr(_capture, "counts", None)
+    if counts is not None:
+        counts[variant] += 1
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("qgemm captured into a CUDA graph outside "
+                           "qgemm.recording(): its replays would go "
+                           "uncounted")
+    count_replay({variant: 1})
 
 #: (rows, columns) of a block's output tile; the kernel is instantiated
 #: for exactly these (csrc/qgemm.cu dispatch)
@@ -253,7 +298,6 @@ def qgemm(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     codes [M, K] and row scales [M] the computation used (the kernel
     writes them out; for comparison with :func:`quantize_rows`).
     """
-    global launches
     _check_args(x, wq, w_scale, bias)
     if x.device.type == "cpu":
         out = qgemm_reference(x, wq, w_scale, bias)
@@ -294,8 +338,7 @@ def qgemm(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
             m, n, k, p.bm, p.bn, p.kc, p.grid[0], p.nsub, int(p.masked),
             p.smem, stream)
     kernels.check(lib, rc, "qgemm")
-    launches += 1
-    variant_launches[p.variant] += 1
+    _count(p.variant)
     if return_codes:
         return out, codes, scales
     return out

@@ -231,7 +231,15 @@ class App:
                         "max_bytes": 0, "hits": 0,
                         "misses": dict.fromkeys(_AOT_MISS_REASONS, 0),
                         "evictions": 0}
-        return Response(200, {"status": "ok", **ready})
+        # the engine-failure ladder, most severe first, all 503 so a
+        # readiness probe takes the process out of rotation: degraded
+        # is terminal (restart budget spent), restarting transient (a
+        # supervisor rebuild), stalled a wedge with supervision off
+        for state in ("degraded", "restarting", "stalled"):
+            if ready.get(state):
+                return Response(503, {"status": state, **ready})
+        status = "warming" if ready["warming"] else "ok"
+        return Response(200, {"status": status, **ready})
 
 
 def _handler_class(app: App) -> type[BaseHTTPRequestHandler]:
@@ -269,6 +277,9 @@ def run_server(settings: Settings) -> int:
     """Blocking entry point of ``serve``: answers until SIGINT or
     SIGTERM, then stops every instance and the engines, and returns 0."""
     registry = PipelineRegistry(settings)
+    if settings.preload:
+        n = registry.preload(settings.preload)
+        log.info("preloaded %d pipeline(s) before opening the port", n)
     server = make_server(App(registry), port=settings.rest_port)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

@@ -7,7 +7,7 @@ per-model batch engines — and the table of running instances.
 Left out until their slices (ROADMAP.md): the mesh and fleet, the
 admission controller (503) and the self-tuning controller, the RTSP
 and WebRTC frame destinations, the decode pool and RTSP demux,
-checkpoints, and persistence (``_persist`` / ``resume``) and preload.
+checkpoints, and persistence (``_persist`` / ``resume``).
 With the scheduler off, the reference validates a request's
 ``priority`` and ``fps`` and reports ``priority``; so does the port.
 """
@@ -70,11 +70,23 @@ class PipelineRegistry:
                 allow_random_weights=settings.allow_random_weights,
                 device=settings.device,
             )
+            eng = settings.engine
             hub = EngineHub(
                 registry,
                 device=settings.device,
-                max_batch=settings.engine.max_batch,
-                deadline_ms=settings.engine.batch_deadline_ms,
+                max_batch=eng.max_batch,
+                deadline_ms=eng.batch_deadline_ms,
+                warmup=eng.warmup,
+                stall_timeout_s=eng.stall_timeout_s,
+                supervise=eng.supervise,
+                max_restarts=eng.max_restarts,
+                restart_window_s=eng.restart_window_s,
+                restart_backoff_s=eng.restart_backoff_s,
+                first_batch_grace=eng.first_batch_grace,
+                transfer=eng.transfer,
+                transfer_depth=eng.transfer_depth,
+                assembly=eng.batch_assembly,
+                staging_depth=eng.staging_depth,
             )
         self.hub = hub
         self.instances: dict[str, StreamInstance] = {}
@@ -82,6 +94,34 @@ class PipelineRegistry:
         #: admission controller counts them with the scheduler off too)
         self.admitted = dict.fromkeys(PRIORITIES, 0)
         self._lock = threading.Lock()
+
+    # ------------------------------------------------------- preload
+
+    def preload(self, names: str) -> int:
+        """Build the engines of the named pipelines (and start their
+        bucket warmup, with ``warmup`` on) before the REST port opens,
+        so the first POST pays neither the model build nor the graph
+        captures. ``names``: comma list of ``name/version`` (or a bare
+        ``name``: all its versions), or ``all``. Engines are cached in
+        the hub, so later instances find them. Returns the count."""
+        wanted = [n.strip() for n in names.split(",") if n.strip()]
+        count = 0
+        for name, version in self.loader.names():
+            label = f"{name}/{version}"
+            if "all" not in wanted and not any(
+                    w in (name, label) for w in wanted):
+                continue
+            try:
+                stage_specs, _ = resolve_parameters(
+                    self.loader.get(name, version), {})
+                build_stages(stage_specs, self.hub,
+                             publish_fn=lambda ctx: None)
+            except Exception:  # noqa: BLE001 — preload is best-effort
+                log.exception("preload %s failed", label)
+                continue
+            count += 1
+            log.info("preloaded %s", label)
+        return count
 
     # ----------------------------------------------------- definitions
 

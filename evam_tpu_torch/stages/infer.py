@@ -35,7 +35,7 @@ import numpy as np
 
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.models.zoo.action import CLIP_LEN
-from evam_tpu_torch.ops.color import bgr_to_i420_host
+from evam_tpu_torch.ops.color import bgr_to_i420_host, wire_shape
 from evam_tpu_torch.stages.base import AsyncStage
 from evam_tpu_torch.stages.context import FrameContext, Region, Tensor
 from evam_tpu_torch.stages.gate import maybe_gate
@@ -121,6 +121,23 @@ def _wire_frame(frame: np.ndarray, size: tuple[int, int],
     return np.ascontiguousarray(resize_bgr_host(frame, size[0], size[1]))
 
 
+def _warm(hub: EngineHub, engine, **example: np.ndarray) -> None:
+    """Warm the engine's buckets in the background when the hub serves
+    with warmup on; record the example on the engine either way, so a
+    supervisor rebuild re-warms the replacement from it."""
+    if hub.warmup:
+        engine.warm_async(**example)
+    else:
+        engine.set_example(**example)
+
+
+def _warm_engine(hub: EngineHub, engine, ingest_size, wire_format,
+                 **extra_example) -> None:
+    """``_warm`` with a zero frame of the engine's wire shape."""
+    frame = np.zeros(wire_shape(wire_format, *ingest_size), np.uint8)
+    _warm(hub, engine, frames=frame, **extra_example)
+
+
 def _parse_interval(properties: dict) -> int:
     """``inference-interval``: a positive int, or ``"adaptive"`` — the
     gate's schedule, under which the static interval collapses to 1."""
@@ -173,6 +190,7 @@ class DetectStage(AsyncStage):
         self.engine = hub.engine(
             "detect", model_key, properties.get("model-instance-id"),
             score_threshold=ENGINE_SCORE_FLOOR)
+        _warm_engine(hub, self.engine, self.ingest_size, self.wire)
         #: None unless inference-interval=adaptive or EVAM_GATE=on
         self.gate = maybe_gate(properties, engine_name=self.engine.name)
         self._coaster = RegionCoaster()
@@ -260,6 +278,8 @@ class ClassifyStage(AsyncStage):
         self.engine = hub.engine(
             "classify", model_key, properties.get("model-instance-id"),
             roi_budget=self.ROI_BUDGET)
+        _warm_engine(hub, self.engine, self.ingest_size, self.wire,
+                     boxes=np.zeros((self.ROI_BUDGET, 4), np.float32))
         self._heads = _head_slices(self.model)
         self._count = 0
 
@@ -325,6 +345,7 @@ class FusedDetectClassifyStage(AsyncStage):
             roi_budget=self.ROI_BUDGET,
             score_threshold=ENGINE_SCORE_FLOOR,
             allowed_label_ids=allowed)
+        _warm_engine(hub, self.engine, self.ingest_size, self.wire)
         self.cls_model = hub.model(cls_key)
         self._heads = _head_slices(self.cls_model, offset=7)
         #: the detect properties drive the gate, as in DetectStage; a
@@ -394,6 +415,10 @@ class ActionStage(AsyncStage):
         self.clip: deque[np.ndarray] = deque(maxlen=CLIP_LEN)
         self.threshold = float(properties.get("threshold", 0.0))
         self.wire = hub.wire_format
+        _warm_engine(hub, self.enc_engine, self.ingest_size, self.wire)
+        embed_dim = getattr(self.enc_model.module, "embed_dim", 512)
+        _warm(hub, self.dec_engine,
+              clips=np.zeros((CLIP_LEN, embed_dim), np.float32))
 
     def submit(self, ctx: FrameContext) -> Future | None:
         """Chain encoder → decoder without ever blocking the runner.
@@ -463,6 +488,7 @@ class AudioDetectStage(AsyncStage):
         self.engine = hub.engine("audio", model_key,
                                  properties.get("model-instance-id"))
         self.model = hub.model(model_key)
+        _warm(hub, self.engine, windows=np.zeros(self.WINDOW, np.int16))
         self._buffer = np.zeros(0, np.int16)
         self._since_last = 0
 

@@ -383,6 +383,38 @@ def _wire(rng, wire, n=3):
 _CASES = [("float32", "FP32"), ("int8", "BF16")]
 
 
+#: the port's engine modes the parity tests run through: the default
+#: engine and the legacy eager path
+ENGINE_MODES = [("slot", "pipelined"), ("legacy", "inline")]
+
+
+def _through_engines(ref_step, ref_params, port_step, inputs, mode):
+    """Each item of ``inputs`` (name → [n, ...] arrays) submitted on its
+    own to the reference's default engine (``plan=None``) and to the
+    port's engine in ``mode`` (assembly, transfer); their rows stacked
+    → (ref [n, ...], port [n, ...])."""
+    from evam_tpu.engine.batcher import BatchEngine as RefEngine
+
+    names = tuple(inputs)
+    n = len(inputs[names[0]])
+    ref_eng = RefEngine("parity-ref", ref_step, ref_params, plan=None,
+                        max_batch=4, deadline_ms=50.0, input_names=names,
+                        stall_timeout_s=0)
+    port_eng = BatchEngine("parity-port", port_step, "cpu", max_batch=4,
+                           deadline_ms=50.0, input_names=names,
+                           assembly=mode[0], transfer=mode[1],
+                           stall_timeout_s=0)
+    try:
+        items = [{k: v[i] for k, v in inputs.items()} for i in range(n)]
+        ref = [ref_eng.submit(**it) for it in items]
+        got = [port_eng.submit(**it) for it in items]
+        return (np.stack([np.asarray(f.result(timeout=300)) for f in ref]),
+                np.stack([f.result(timeout=300) for f in got]))
+    finally:
+        ref_eng.stop()
+        port_eng.stop()
+
+
 @pytest.mark.parametrize("wire", ["i420", "bgr"])
 @pytest.mark.parametrize("dtype,precision", _CASES, ids=["float32", "int8"])
 def test_classify_step_matches_reference(monkeypatch, wire, dtype, precision):
@@ -404,11 +436,12 @@ def test_classify_step_matches_reference(monkeypatch, wire, dtype, precision):
     np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("mode", ENGINE_MODES, ids="+".join)
 @pytest.mark.parametrize("allowed", [None, "one"], ids=["all", "allowed"])
 @pytest.mark.parametrize("wire", ["i420", "bgr"])
 @pytest.mark.parametrize("dtype,precision", _CASES, ids=["float32", "int8"])
 def test_detect_classify_step_matches_reference(monkeypatch, allowed, wire,
-                                                dtype, precision):
+                                                dtype, precision, mode):
     if dtype == "int8":
         monkeypatch.setattr(jql, "QGEMM_BACKEND", "pallas")
         monkeypatch.setattr(tql, "QGEMM_BACKEND", "pallas")
@@ -424,10 +457,11 @@ def test_detect_classify_step_matches_reference(monkeypatch, allowed, wire,
         labels = plain[..., 5][plain[..., 6] > 0.5].astype(int)
         kw["allowed_label_ids"] = (int(np.bincount(labels, minlength=4)[1:]
                                        .argmin()) + 1,)
-    ref = np.asarray(jax.jit(jsteps.build_detect_classify_step(jd, jc, **kw))(
-        {"det": jd.params, "cls": jc.params}, frames))
-    got = tsteps.build_detect_classify_step(td, tc, **kw)(
-        torch.from_numpy(frames)).numpy()
+    ref, got = _through_engines(
+        jsteps.build_detect_classify_step(jd, jc, **kw),
+        {"det": jd.params, "cls": jc.params},
+        tsteps.build_detect_classify_step(td, tc, **kw),
+        {"frames": frames}, mode)
     assert got.shape == ref.shape == (3, 32, 18)
     ref_cls, got_cls = ref[..., 7:].sum(-1) > 0.5, got[..., 7:].sum(-1) > 0.5
     assert (got[~got_cls][:, 7:] == 0).all()  # unclassified: exactly zero

@@ -8,11 +8,13 @@
 * ``gst_compat.parse_template`` agrees on the templates of
   ``tests/test_graph.py``.
 * ``Settings.from_env`` parses each knob the port honours as the
-  reference does, and raises ``NotImplementedError`` naming a slice for
-  each unported knob set to a value the port does not run with — the
-  reference's settings table and the knobs its modules read from
-  ``os.environ`` (batch assembly, staging depth, depthwise conv,
-  compile serialization, faults, the native library).
+  reference does — its settings table, and the engine knobs its
+  modules read from ``os.environ`` (batch assembly, staging depth,
+  compile serialization), read there through a reference engine — and
+  raises ``NotImplementedError`` naming a slice for each unported knob
+  set to a value the port does not run with (the rest of the table,
+  and the depthwise conv, faults and the native library its modules
+  read).
 
 Exact equality throughout: these layers are copies.
 """
@@ -218,7 +220,79 @@ _HONOURED = {
     "EVAM_ALLOW_RANDOM_WEIGHTS": (
         "Yes", lambda s: ref_models._env_allows_random(),
         lambda s: s.allow_random_weights),
+    "EVAM_PRELOAD": ("object_detection/person_vehicle_bike",
+                     lambda s: s.preload, lambda s: s.preload),
+    "EVAM_WARMUP": ("0", lambda s: s.tpu.warmup,
+                    lambda s: s.engine.warmup),
+    "EVAM_STALL_TIMEOUT_S": ("2.5", lambda s: s.tpu.stall_timeout_s,
+                             lambda s: s.engine.stall_timeout_s),
+    "EVAM_ENGINE_SUPERVISE": ("off", lambda s: s.tpu.supervise,
+                              lambda s: s.engine.supervise),
+    "EVAM_ENGINE_MAX_RESTARTS": ("5", lambda s: s.tpu.max_restarts,
+                                 lambda s: s.engine.max_restarts),
+    "EVAM_ENGINE_RESTART_WINDOW_S": (
+        "60", lambda s: s.tpu.restart_window_s,
+        lambda s: s.engine.restart_window_s),
+    "EVAM_ENGINE_RESTART_BACKOFF_S": (
+        "0.05", lambda s: s.tpu.restart_backoff_s,
+        lambda s: s.engine.restart_backoff_s),
+    "EVAM_FIRST_BATCH_GRACE": ("4", lambda s: s.tpu.first_batch_grace,
+                               lambda s: s.engine.first_batch_grace),
+    "EVAM_TRANSFER": ("inline", lambda s: s.tpu.transfer,
+                      lambda s: s.engine.transfer),
+    "EVAM_TRANSFER_DEPTH": ("3", lambda s: s.tpu.transfer_depth,
+                            lambda s: s.engine.transfer_depth),
+    # the reference reads these in its engine modules, per engine
+    # (the port's engines built from the settings, as the hub builds
+    # them)
+    "EVAM_BATCH_ASSEMBLY": ("legacy", lambda s: _ref_engine(
+        lambda e: e.assembly), lambda s: _port_engine(
+        s, lambda e: e.assembly)),
+    "EVAM_STAGING_DEPTH": ("5", lambda s: _ref_engine(
+        lambda e: e._ring.depth), lambda s: _port_engine(
+        s, lambda e: e._ring.depth)),
+    # (read per call by both devlock modules: the settings mirror it)
+    "EVAM_SERIALIZE_COMPILE": ("yes", lambda s: _ref_engine(
+        lambda e: not e._pipelined), lambda s: s.engine.serialize_compile),
 }
+
+
+def _ref_engine(read):
+    """``read`` applied to a reference BatchEngine built under the
+    current environment."""
+    from evam_tpu.engine.batcher import BatchEngine as RefEngine
+
+    eng = RefEngine("knob", lambda params, x: x, params=None,
+                    input_names=("x",), stall_timeout_s=0)
+    try:
+        return read(eng)
+    finally:
+        eng.stop()
+
+
+def _port_engine(settings, read):
+    """``read`` applied to the port's BatchEngine built from
+    ``settings`` as the hub builds it (the environment hidden: the
+    settings alone carry the knob)."""
+    import os
+
+    from evam_tpu_torch.engine.batcher import BatchEngine
+
+    saved = {k: os.environ.pop(k) for k in ("EVAM_BATCH_ASSEMBLY",
+                                            "EVAM_STAGING_DEPTH")
+             if k in os.environ}
+    try:
+        eng = BatchEngine("knob", lambda x: x, "cpu", input_names=("x",),
+                          stall_timeout_s=0,
+                          assembly=settings.engine.batch_assembly,
+                          staging_depth=settings.engine.staging_depth or None,
+                          transfer=settings.engine.transfer)
+    finally:
+        os.environ.update(saved)
+    try:
+        return read(eng)
+    finally:
+        eng.stop()
 
 
 @pytest.mark.parametrize("var", sorted(_HONOURED))
@@ -261,7 +335,7 @@ def test_platform_selects_the_device(monkeypatch):
 
 
 def _other_value(var: str, conv, port_value) -> str:
-    special = {"EVAM_TRANSFER": "pipelined", "EVAM_RAGGED": "packed",
+    special = {"EVAM_RAGGED": "packed",
                "EVAM_FLEET": "sharded", "EVAM_WEBRTC_VIDEO_MODE": "delta"}
     if var in special:
         return special[var]
@@ -276,8 +350,7 @@ def _other_value(var: str, conv, port_value) -> str:
 
 _ENV_UNPORTED = [u for u in port_settings._UNPORTED if u[0] is not None]
 #: knobs whose reference default turns on a subsystem the port lacks
-_ON_IN_THE_REFERENCE = {"EVAM_WARMUP", "EVAM_ENGINE_SUPERVISE",
-                        "EVAM_TRANSFER", "EVAM_SCHED", "EVAM_TRACE"}
+_ON_IN_THE_REFERENCE = {"EVAM_SCHED", "EVAM_TRACE"}
 
 
 @pytest.mark.parametrize("knob", _ENV_UNPORTED, ids=[u[0] for u in _ENV_UNPORTED])
@@ -315,12 +388,8 @@ def test_unported_config_file_keys_raise(tmp_path):
 #: knobs the reference's modules read: (var, a value the port refuses,
 #: values it accepts, the slice named)
 _MODULE_CASES = [
-    ("EVAM_BATCH_ASSEMBLY", "slot", ["legacy"], "slice 7"),
-    ("EVAM_STAGING_DEPTH", "4", ["0", ""], "slice 7"),
     ("EVAM_DWCONV", "shift", ["lax", "LAX"], "slice 6"),
     ("EVAM_DWCONV", "SHIFT", ["lax"], "slice 6"),
-    ("EVAM_SERIALIZE_COMPILE", "1", ["0", "false", ""], "slice 7"),
-    ("EVAM_SERIALIZE_COMPILE", "yes", ["no"], "slice 7"),
     ("EVAM_FAULT_INJECT", "drop=0.1", [""], "slice 10"),
     ("EVAM_FAULT_SEED", "7", [""], "slice 10"),
     ("EVAM_NO_NATIVE", "1", [""], "slice 7"),

@@ -218,7 +218,8 @@ def test_completed_instance_routes_and_health(server, tmp_path):
     assert health["scheduler"]["enabled"] is False
     assert health["scheduler"]["admitted"]["standard"] == 1
     assert health["host_stages_ms"]["launch"] > 0
-    assert health["host_stages_ms"]["seal"] == 0.0
+    # the default engine seals a staging slot per batch
+    assert health["host_stages_ms"]["seal"] > 0.0
     status, engines = server.request("GET", "/engines")
     assert list(engines) == [f"detect:{KEY}"]
     assert engines[f"detect:{KEY}"]["items"] == 6

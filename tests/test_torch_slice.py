@@ -67,12 +67,44 @@ def _models(dtype, precision):
     return jm, tm
 
 
-def _both_steps(jm, tm, frames, **kw):
-    ref = np.asarray(jax.jit(jax_detect_step(jm, wire_format="i420", **kw))(
-        jm.params, frames))
-    got = build_detect_step(tm, wire_format="i420", **kw)(
-        torch.from_numpy(frames)).numpy()
-    return ref, got
+#: the port's engine modes the parity tests run through: the default
+#: engine and the legacy eager path
+ENGINE_MODES = [("slot", "pipelined"), ("legacy", "inline")]
+
+
+def _through_engines(ref_step, ref_params, port_step, inputs, mode):
+    """Each item of ``inputs`` (name → [n, ...] arrays) submitted on its
+    own to the reference's default engine (``plan=None``) and to the
+    port's engine in ``mode`` (assembly, transfer); their rows stacked
+    → (ref [n, ...], port [n, ...])."""
+    from evam_tpu.engine.batcher import BatchEngine as RefEngine
+
+    names = tuple(inputs)
+    n = len(inputs[names[0]])
+    ref_eng = RefEngine("parity-ref", ref_step, ref_params, plan=None,
+                        max_batch=4, deadline_ms=50.0, input_names=names,
+                        stall_timeout_s=0)
+    port_eng = BatchEngine("parity-port", port_step, "cpu", max_batch=4,
+                           deadline_ms=50.0, input_names=names,
+                           assembly=mode[0], transfer=mode[1],
+                           stall_timeout_s=0)
+    try:
+        items = [{k: v[i] for k, v in inputs.items()} for i in range(n)]
+        ref = [ref_eng.submit(**it) for it in items]
+        got = [port_eng.submit(**it) for it in items]
+        return (np.stack([np.asarray(f.result(timeout=300)) for f in ref]),
+                np.stack([f.result(timeout=300) for f in got]))
+    finally:
+        ref_eng.stop()
+        port_eng.stop()
+
+
+def _both_steps(jm, tm, frames, mode, **kw):
+    """The detect step of each side, served by its engine."""
+    return _through_engines(
+        jax_detect_step(jm, wire_format="i420", **kw), jm.params,
+        build_detect_step(tm, wire_format="i420", **kw),
+        {"frames": frames}, mode)
 
 
 def _iou(a, b):
@@ -83,9 +115,10 @@ def _iou(a, b):
     return inter / np.maximum(area(a) + area(b) - inter, 1e-9)
 
 
-def test_detect_step_float_matches_reference():
+@pytest.mark.parametrize("mode", ENGINE_MODES, ids="+".join)
+def test_detect_step_float_matches_reference(mode):
     jm, tm = _models("float32", "FP32")
-    ref, got = _both_steps(jm, tm, _i420_frames(), score_threshold=0.1)
+    ref, got = _both_steps(jm, tm, _i420_frames(), mode, score_threshold=0.1)
     assert got.shape == ref.shape == (4, 32, DETECT_FIELDS)
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got[..., 6], ref[..., 6])
@@ -94,11 +127,13 @@ def test_detect_step_float_matches_reference():
     np.testing.assert_array_equal(got[..., 5], ref[..., 5])
 
 
-def test_detect_step_int8_pallas_matches_reference(monkeypatch):
+@pytest.mark.parametrize("mode", ENGINE_MODES, ids="+".join)
+def test_detect_step_int8_pallas_matches_reference(monkeypatch, mode):
     monkeypatch.setattr(jql, "QGEMM_BACKEND", "pallas")
     monkeypatch.setattr(tql, "QGEMM_BACKEND", "pallas")
     jm, tm = _models("int8", "BF16")
-    ref, got = _both_steps(jm, tm, _i420_frames(seed=1), score_threshold=0.1)
+    ref, got = _both_steps(jm, tm, _i420_frames(seed=1), mode,
+                           score_threshold=0.1)
     matched = total = 0
     for r, g in zip(ref, got):
         g = g[g[:, 6] > 0.5]
