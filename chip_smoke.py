@@ -16,7 +16,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
               shapes one SSD-512 forward gives it (8 images, bf16), the
               three of one classifier forward on 8 × 8 and on 8 crops
               (72², width 32: the largest and smallest engine bucket,
-              aligned and masked), the ragged shapes (bf16 and float32:
+              aligned and masked), the packed classifier's three at
+              U = 512 and U = 32 crops (its buckets 128 and 8), the
+              ragged shapes (bf16 and float32:
               every edge of the tiling, K = 2048 whole and in chunks)
               and M = 0: identical int8 codes and row scales, identical
               outputs; the ten SSD shapes must take the aligned variant. Kernel,
@@ -119,7 +121,36 @@ memory the allocator holds once it has stopped its engines.
               registry's totals (the /healthz ``gate`` block) equal to
               the stages'. Prints the skip rate and fps beside the
               slice phase's ungated fps.
-11. action  — action_recognition/general at full width (encoder 224²,
+11. ragged  — vehicle_attributes unfused (reclassify-interval 3: a
+              detect and a classify engine) at full width, INT8, pallas,
+              STREAMS × FRAMES frames on hub "dense" (EVAM_RAGGED off)
+              and hub "packed" (one registry; the detection threshold
+              the highest at which most frames carry 1–8 vehicles).
+              Every frame published in order on both; the packed hub's
+              engines on the ladder [1, 2, 8, 32, 128], every bucket
+              captured; 10 launches per detect and 3 per classify
+              forward; published detections equal on ≥ 95 % of frames
+              and their attributes' confidences within 2e-2; the packed
+              step against the dense one on the card (float32 within
+              1e-5, INT8 within 2e-2, the same argmax wherever the dense
+              top-2 margin exceeds the tolerance, pad rows exactly 0);
+              a packed bucket's replay bit-equal to its eager step.
+              Prints, per hub and engine, fps, p50/p99, occupancy, unit
+              occupancy, graph-pool bytes and the eight stage ms.
+12. sched   — the detect path on the default engine with EVAM_SCHED=1,
+              4 realtime and 4 batch streams: every frame published in
+              order; then a batch staleness budget of SHED_BATCH_MS:
+              every frame published once, in order, or counted as shed,
+              the per-class sheds of /healthz and /scheduler equal to
+              the streams'; then the scheduler off on the same traffic.
+              No engine stalled or restarted. Prints per-class p50/p99,
+              the stage clock and admission's capacity for each run.
+13. tune    — EVAM_TUNE=1 (EVAM_TUNE_INTERVAL_S=0.25,
+              EVAM_TRANSFER_DEPTH pinned) over the packed unfused
+              vehicle_attributes path: at least 3 ticks, every applied
+              action with its reason on /scheduler, the pinned knob
+              neutral. Prints the operating point tick by tick.
+14. action  — action_recognition/general at full width (encoder 224²,
               width 32, embed 512; decoder dim 512, depth 4, 8 heads,
               400 classes). First the card against the CPU on the same
               seeded float32 weights (TF32 off): embeddings, logits and
@@ -132,14 +163,14 @@ memory the allocator holds once it has stopped its engines.
               ``action`` tensor a frame; zero qgemm launches. Prints
               fps, p50/p99 and both engines' occupancy, launch and
               readback ms.
-12. audio   — audio_detection/environment: AclNet at 16000 samples,
+15. audio   — audio_detection/environment: AclNet at 16000 samples,
               width 32, 53 classes, card against CPU the same way; then
               4 ``synthetic-audio://seconds=5`` streams served INT8 at
               sliding-window 0.2, threshold 0: a ``detection`` tensor on
               exactly the chunks a host replay of the stride rule gives,
               the engine's items equal to the windows; zero qgemm
               launches. Prints windows/s and the windows' p50/p99.
-13. rest    — the same path through the port's REST server
+16. rest    — the same path through the port's REST server
               (``evam_tpu_torch.server.app``) on a free 127.0.0.1 port, in
               a thread: STREAMS POSTs to
               /pipelines/object_detection/person_vehicle_bike, each a
@@ -168,20 +199,27 @@ memory the allocator holds once it has stopped its engines.
               must answer 404, 400 and 501.
               The engine is built (``PipelineRegistry.preload``, the
               EVAM_PRELOAD path) and warmed before the clock starts.
-14. serve   — the real entry point, ``python3 -m
+17. serve   — the real entry point, ``python3 -m
               evam_tpu_torch.cli.main serve``, as a subprocess on a free
               REST_PORT with EVAM_PRELOAD=object_detection/
-              person_vehicle_bike: /healthz answers 200 ``ok`` (the
-              preloaded engine built and its 8 buckets captured), one 8-frame
+              person_vehicle_bike, EVAM_RAGGED=packed, EVAM_SCHED=1,
+              EVAM_TUNE=1 and EVAM_SCHED_CAPACITY_FPS=SERVE_CAPACITY_FPS:
+              /healthz answers 200 ``ok`` (the preloaded engine built
+              and its 5 buckets captured), one realtime 8-frame
               person_vehicle_bike stream completes with 10 aligned
               launches per forward (the child's counts, read from its
-              /metrics), then one 8-frame vehicle_attributes stream with
-              13 per fused forward and objects carrying color and type,
-              and SIGTERM ends the process with 0 in 30 s.
+              /metrics), then batch 8-frame vehicle_attributes streams,
+              fused (13 per forward) and unfused (3 per forward of the
+              packed classify engine), on engines their POSTs build, and
+              a realtime unfused one once they are warm, objects carrying
+              color and type; /scheduler holds the route golden; a
+              1000 fps start answers 503 with Retry-After; SIGTERM ends
+              the process with 0 in 30 s.
 
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
-calls; ``launches`` sums the slice, classify, engine, track, gate, rest
-and serve phases' served runs and their engines' warm runs, split by
+calls; ``launches`` sums the slice, classify, engine, track, gate,
+ragged, sched, tune, rest and serve phases' served runs and their
+engines' warm runs, split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action
@@ -216,8 +254,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
-          "classify", "engine", "track", "gate", "action", "audio", "rest",
-          "serve")
+          "classify", "engine", "track", "gate", "ragged", "sched", "tune",
+          "action", "audio", "rest", "serve")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -237,10 +275,16 @@ ROI_BUDGET = 8
 #: (M per ROI, K, N) of the 3 qgemm calls of one classifier forward
 #: (72×72 crops, width 32: the three pointwise convs at 18², 9², 5²)
 CLS_SHAPES = [(324, 32, 64), (81, 64, 128), (25, 128, 256)]
+#: unit rows U of the packed classify engine's buckets 128 and 8
+#: (``RaggedSpec.unit_rows``: max(8, 4 × bucket)); its 3 calls take U
+#: crops each
+PACKED_UNITS = (512, 32)
 #: per-forward sums the qgemm phase prints: the SSD's 10 calls on IMAGES
 #: frames, the classifier's 3 on IMAGES × ROI_BUDGET and on ROI_BUDGET
-#: crops (the largest and the smallest engine bucket)
-FORWARD_GROUPS = ("ssd", f"classifier_b{IMAGES}", "classifier_b1")
+#: crops (the largest and the smallest engine bucket), and the packed
+#: classifier's 3 on each U of PACKED_UNITS
+FORWARD_GROUPS = ("ssd", f"classifier_b{IMAGES}", "classifier_b1",
+                  *(f"classifier_packed_u{u}" for u in PACKED_UNITS))
 #: (M, K, N, x dtype) off the main path: ragged edges, float32 x, M = 0,
 #: K = 2048 (the zoo's largest) held whole and in chunks, and a ragged M
 #: large enough that each block walks several row tiles
@@ -257,6 +301,17 @@ FLUSH_BYTES = 256 << 20
 #: the slice phase's traffic: synthetic 512×512 streams × frames each
 STREAMS = 8
 FRAMES = 32
+#: the sched phase's shed run: the batch class's staleness budget (ms),
+#: under its 25 ms formation deadline, so batch frames are shed
+SHED_BATCH_MS = 10.0
+#: the tune phase: the controller's tick, a knob pinned at its default,
+#: and frames per stream (the run outlasts a dozen ticks)
+TUNE_ENV = {"EVAM_TUNE": "1", "EVAM_TUNE_INTERVAL_S": "0.25",
+            "EVAM_TRANSFER_DEPTH": "2"}
+TUNE_FRAMES = 64
+#: the serve phase's declared capacity (frames/s): two 30 fps starts
+#: fit under the realtime ceiling, a 1000 fps start does not
+SERVE_CAPACITY_FPS = 100.0
 
 
 def _print(obj) -> None:
@@ -279,8 +334,11 @@ def _import_port():
         build_action_decode_step,
         build_action_encode_step,
         build_audio_step,
+        build_classify_step,
+        build_classify_step_ragged,
         build_detect_step,
     )
+    from evam_tpu_torch.sched import SchedConfig
     from evam_tpu_torch.media.audio import SyntheticAudioSource
     from evam_tpu_torch.media.source import SyntheticSource
     from evam_tpu_torch.models.registry import ModelRegistry
@@ -291,7 +349,8 @@ def _import_port():
         DetectStage,
         _wire_frame,
     )
-    from evam_tpu_torch.config.settings import Settings
+    from evam_tpu_torch.config.settings import Settings, reset_settings
+    from evam_tpu_torch.control import state as control_state
     from evam_tpu_torch.graph import PipelineLoader, resolve_parameters
     from evam_tpu_torch.server.app import App, make_server
     from evam_tpu_torch.server.registry import PipelineRegistry
@@ -302,10 +361,14 @@ def _import_port():
 
     return dict(
         Settings=Settings, App=App, make_server=make_server,
+        reset_settings=reset_settings, control_state=control_state,
         PipelineRegistry=PipelineRegistry, PipelineLoader=PipelineLoader,
         resolve_parameters=resolve_parameters, build_stages=build_stages,
         EngineHub=EngineHub, STAGES=STAGES,
         build_detect_step=build_detect_step,
+        build_classify_step=build_classify_step,
+        build_classify_step_ragged=build_classify_step_ragged,
+        SchedConfig=SchedConfig,
         SyntheticSource=SyntheticSource, ModelRegistry=ModelRegistry,
         SyntheticAudioSource=SyntheticAudioSource,
         build_action_encode_step=build_action_encode_step,
@@ -319,10 +382,12 @@ def _import_port():
         gate=gate, MotionGate=gate.MotionGate, GateConfig=gate.GateConfig)
 
 
-def _memory(torch, phase: str) -> None:
+def _memory(torch, phase: str, t_start: float) -> None:
     """Device memory the caching allocator holds once a phase has
-    stopped its engines (their graphs and pools freed)."""
+    stopped its engines (their graphs and pools freed), and the script's
+    seconds so far."""
     _print({"phase": f"{phase}-memory",
+            "script_s": time.perf_counter() - t_start,
             "reserved_gib": torch.cuda.memory_reserved() / 2**30,
             "allocated_gib": torch.cuda.memory_allocated() / 2**30})
 
@@ -404,6 +469,8 @@ def phase_qgemm(torch, port) -> dict:
     shapes = [(m * IMAGES, k, n, "ssd", "bfloat16") for m, k, n in MAIN_SHAPES]
     shapes += [(m * b * ROI_BUDGET, k, n, f"classifier_b{b}", "bfloat16")
                for b in (IMAGES, 1) for m, k, n in CLS_SHAPES]
+    shapes += [(m * u, k, n, f"classifier_packed_u{u}", "bfloat16")
+               for u in PACKED_UNITS for m, k, n in CLS_SHAPES]
     shapes += [(m, k, n, None, dt) for m, k, n, dt in RAGGED_SHAPES]
     for m, k, n, group, dtype in shapes:
         main = group == "ssd"
@@ -611,7 +678,7 @@ def _detect_stages(port, hub):
 
 def _serve(port, make_stages, streams: int, frames: int, h: int, w: int,
            objects: dict | None = None, metas: dict | None = None,
-           source=None):
+           source=None, priorities: list[str] | None = None):
     """Serve ``streams`` synthetic streams of ``frames`` frames each,
     one thread per stream, through the stages ``make_stages(uri,
     publish)`` builds for each (their engines shared). Returns
@@ -620,7 +687,8 @@ def _serve(port, make_stages, streams: int, frames: int, h: int, w: int,
     list), and its whole metadata with the frame's ingest-to-publish
     seconds in ``metas`` (stream id → seq → (metadata, seconds)), if
     given. ``source(s)`` gives stream ``s``'s (uri, source) in place of
-    the synthetic ``w``×``h`` video."""
+    the synthetic ``w``×``h`` video; ``priorities[s]`` is stream ``s``'s
+    QoS class (default standard)."""
     published: dict[str, list[int]] = {}
     lock = threading.Lock()
 
@@ -643,7 +711,9 @@ def _serve(port, make_stages, streams: int, frames: int, h: int, w: int,
         else:
             uri, src = source(s)
         stages = make_stages(uri, publish)
-        runners.append((port["StreamRunner"](f"s{s}", stages, uri), src))
+        prio = priorities[s] if priorities else "standard"
+        runners.append((port["StreamRunner"](f"s{s}", stages, uri,
+                                             priority=prio), src))
     t0 = time.perf_counter()
     threads = [threading.Thread(target=r.run, args=(src.frames(),))
                for r, src in runners]
@@ -738,7 +808,7 @@ def _default_hub(port, registry, **overrides):
               transfer_depth=e.transfer_depth, assembly=e.batch_assembly,
               staging_depth=e.staging_depth)
     kw.update(overrides)
-    return port["EngineHub"](registry, device="cuda", **kw)
+    return port["EngineHub"](registry, device=registry.device, **kw)
 
 
 def _fwd(row: dict) -> int:
@@ -1487,6 +1557,467 @@ def phase_gate(torch, port, slice_fps: float | None) -> dict:
         hub.stop()
 
 
+#: the unfused detect+classify path of the ragged and tune phases: one
+#: detect and one classify engine (reclassify-interval > 1 stops the
+#: fusion pass)
+UNFUSED = {"reclassify-interval": 3}
+#: the consolidated ladder of a packed hub at max_batch 128
+PACKED_LADDER = [1, 2, 8, 32, 128]
+#: packed against dense, on probabilities: float32 and INT8 (bf16
+#: activations; cuDNN may take another algorithm at each batch)
+PACKED_ATOL = {"float32": 1e-5, "int8": 2e-2}
+#: detection thresholds the ragged phase chooses from (the seeded SSD's
+#: vehicle scores crowd between 0.3 and 0.4)
+THRESHOLDS = (0.1, 0.2, 0.3, *(round(0.3 + 0.01 * i, 2) for i in range(1, 13)))
+#: the classify stages' ingest size (stages/infer.py ClassifyStage)
+CLS_INGEST = (432, 768)
+
+
+def _vehicle_threshold(torch, port, model) -> dict:
+    """The highest detection threshold of THRESHOLDS at which most frames
+    (half or more) still carry 1–8 vehicles, else the one where the most
+    do: the first 4 frames of each of the STREAMS streams through the
+    detect step at the engine's score floor."""
+    import numpy as np
+
+    step = port["build_detect_step"](
+        model, score_threshold=port["ENGINE_SCORE_FLOOR"], wire_format="i420")
+    frames = np.stack([
+        port["wire_frame"](ev.frame, (512, 512), "i420")
+        for s in range(STREAMS)
+        for ev in port["SyntheticSource"](512, 512, count=4,
+                                          seed=s).frames()])
+    rows = step(torch.from_numpy(frames).to(model.device)).cpu().numpy()
+    vehicle = model.labels.index("vehicle")
+    counts = {}
+    for t in THRESHOLDS:
+        n = ((rows[..., 6] > 0.5) & (rows[..., 4] >= t)
+             & (rows[..., 5] == vehicle)).sum(-1)
+        counts[t] = {"share_1_to_8": float(((n >= 1) & (n <= 8)).mean()),
+                     "mean": float(n.mean())}
+    most = [t for t in THRESHOLDS if counts[t]["share_1_to_8"] >= 0.5]
+    best = (max(most) if most else
+            max(THRESHOLDS, key=lambda t: counts[t]["share_1_to_8"]))
+    return {"threshold": best, "by_threshold": counts}
+
+
+def _classify_inputs(torch, port, device, counts: list[int],
+                     seed: int = 21):
+    """Wire frames at the classify ingest size, one per entry of
+    ``counts``, and that many random valid boxes each: dense [B, 8, 4]
+    (zero rows past each count) and packed [U, 4] with its seg (−1 on a
+    pad tail: U = unit_rows(B) of a packed classify engine)."""
+    import numpy as np
+
+    h, w = CLS_INGEST
+    frames = torch.from_numpy(np.stack([
+        port["wire_frame"](next(port["SyntheticSource"](
+            w, h, count=1, seed=seed + i).frames()).frame, (h, w), "i420")
+        for i in range(len(counts))])).to(device)
+    gen = torch.Generator().manual_seed(seed)
+    dense = torch.zeros((len(counts), ROI_BUDGET, 4))
+    packed, seg = [], []
+    for i, k in enumerate(counts):
+        p = torch.rand((k, 2, 2), generator=gen)
+        b = torch.cat([p.amin(1), p.amax(1)], -1)
+        dense[i, :k] = b
+        packed.append(b)
+        seg += [i] * k
+    u = max(ROI_BUDGET, 4 * len(counts))
+    units = len(seg)
+    boxes = torch.zeros((u, 4))
+    boxes[:units] = torch.cat(packed)
+    seg = torch.tensor(seg + [-1] * (u - units), dtype=torch.int32)
+    return frames, dense.to(device), boxes.to(device), seg.to(device), units
+
+
+def _packed_vs_dense_step(torch, port, models: dict) -> dict:
+    """The packed classify step against the dense one on the card, at
+    float32 and INT8, on the same frames and boxes: every real unit
+    within PACKED_ATOL of its dense row, the same argmax per head
+    wherever the dense top-2 margin exceeds the tolerance, pad rows
+    exactly zero."""
+    counts = [3, 0, 8, 1, 5, 2, 7, 4]
+    out = {}
+    for dtype, model in models.items():
+        frames, dense, boxes, seg, units = _classify_inputs(
+            torch, port, model.device, counts)
+        tol = PACKED_ATOL[dtype]
+        d = port["build_classify_step"](model, wire_format="i420")(
+            frames, dense)
+        p = port["build_classify_step_ragged"](model, wire_format="i420")(
+            frames, boxes, seg)
+        want = torch.cat([d[i, :k] for i, k in enumerate(counts)])
+        got = p[:units]
+        diff = (got - want).abs().max().item()
+        margin_ok = True
+        for a, b in ((0, 7), (7, 11)):
+            top = want[:, a:b].topk(2, dim=-1).values
+            decided = (top[:, 0] - top[:, 1]) > tol
+            same = want[:, a:b].argmax(-1) == got[:, a:b].argmax(-1)
+            margin_ok &= bool(same[decided].all())
+        pad_zero = bool((p[units:] == 0).all())
+        out[dtype] = {"units": units, "rows": int(p.shape[0]),
+                      "max_abs_diff": diff, "bit_equal": diff == 0.0,
+                      "tolerance": tol, "labels_equal_where_decided":
+                      margin_ok, "pad_rows_zero": pad_zero}
+        if (diff > tol or not margin_ok or not pad_zero
+                or not torch.isfinite(p).all()):
+            raise AssertionError(f"ragged: packed against dense {dtype}: "
+                                 f"{out[dtype]}")
+    _print({"phase": "ragged-step", **out})
+    return out
+
+
+def _packed_replay_vs_eager(torch, port, engine) -> dict:
+    """One packed batch (8 frames, 30 real units in a block of 32)
+    through the classify engine's captured graph of bucket 8 and through
+    its step eagerly: the same bits, and 3 kernel launches per replay."""
+    live = getattr(engine, "_engine", engine)
+    bg = live._graphs.get(IMAGES)
+    if bg is None:
+        raise AssertionError(f"ragged: no packed graph for bucket {IMAGES}")
+    frames, _, boxes, seg, units = _classify_inputs(
+        torch, port, live.device, [3, 0, 8, 1, 5, 2, 7, 4], seed=33)
+    eager = live.step_fn(frames, boxes, seg).cpu()
+    before = port["qgemm"].launches
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        replayed = live._graphs.replay(bg, [frames, boxes, seg]).cpu()
+    torch.cuda.synchronize()
+    launched = port["qgemm"].launches - before
+    equal = bool(torch.equal(replayed, eager))
+    if launched != 3 or not equal or replayed.shape[0] != 32:
+        raise AssertionError(f"ragged: packed replay launched {launched}, "
+                             f"equal to eager: {equal}")
+    return {"bucket": IMAGES, "unit_rows": int(replayed.shape[0]),
+            "units": units, "replay_equals_eager": True,
+            "replay_launches": launched}
+
+
+def _attributes_diff(dense: dict, packed: dict) -> dict:
+    """Published objects of the dense and the packed hub, frame by frame:
+    frames whose detections are equal, and on those, each attribute's
+    label agreement and confidence difference (within the INT8
+    tolerance: two probability vectors within it give top confidences
+    within it, whichever label wins)."""
+    frames = same_det = attrs = labels_equal = 0
+    conf = 0.0
+    for sid, seqs in dense.items():
+        for seq, (meta, _) in seqs.items():
+            frames += 1
+            other = packed.get(sid, {}).get(seq)
+            if other is None:
+                continue
+            d, p = meta["objects"], other[0]["objects"]
+            if [o["detection"] for o in d] != [o["detection"] for o in p]:
+                continue
+            same_det += 1
+            for od, op in zip(d, p):
+                for a in ATTRIBUTES:
+                    if (a in od) != (a in op):
+                        raise AssertionError(
+                            f"ragged: {sid}/{seq}: {a} on one hub only")
+                    if a in od:
+                        attrs += 1
+                        labels_equal += od[a]["label"] == op[a]["label"]
+                        conf = max(conf, abs(od[a]["confidence"]
+                                             - op[a]["confidence"]))
+    out = {"frames": frames, "frames_same_detections": same_det,
+           "attributes": attrs, "labels_equal": labels_equal,
+           "max_confidence_diff": conf}
+    if same_det < 0.95 * frames or attrs == 0 \
+            or conf > PACKED_ATOL["int8"]:
+        raise AssertionError(f"ragged: published outputs differ: {out}")
+    return out
+
+
+def _engine_summary(stages, row: dict, row0: dict) -> dict:
+    return {"buckets": row["buckets"], "graphs": row["graphs"],
+            "graph_pool_bytes": row["graph_pool_bytes"],
+            "mean_occupancy": row["mean_occupancy"],
+            "unit_occupancy": row["unit_occupancy"],
+            "bucket_batches": _bucket_delta(row0, row),
+            "stage_ms": _stage_delta(stages, row0, row)}
+
+
+def phase_ragged(torch, port) -> dict:
+    """vehicle_attributes unfused (a detect and a classify engine), the
+    same STREAMS × FRAMES traffic on hub "dense" (EVAM_RAGGED off) and
+    hub "packed": the published outputs, the packed and dense classify
+    steps, a packed replay against its eager step, the ladder, the
+    kernel's launches."""
+    qg = port["qgemm"]
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hubs = {"dense": _default_hub(port, registry),
+            "packed": _default_hub(port, registry, ragged="packed")}
+    out: dict = {"phase": "ragged"}
+    variants = {"aligned": 0, "masked": 0}
+    try:
+        pick = _vehicle_threshold(torch, port, hubs["dense"].model(KEY))
+        out["threshold"] = pick
+        params = {"detection-threshold": pick["threshold"], **UNFUSED}
+        served = {}
+        for name, hub in hubs.items():
+            make = _pipeline_stages(port, hub, params)
+            engines = {e.name.split(":")[0]: e for e in _stage_engines(
+                make("warm", None))}
+            if list(engines) != ["detect", "classify"]:
+                raise AssertionError(f"ragged {name}: engines {list(engines)}")
+            _await_warm(f"ragged {name}", engines.values())
+            if name == "packed":
+                for e in engines.values():
+                    if e.buckets != PACKED_LADDER:
+                        raise AssertionError(f"ragged: {e.name} ladder "
+                                             f"{e.buckets}")
+            row0 = {k: e.stats_row() for k, e in engines.items()}
+            _reset_launches(qg)
+            metas: dict = {}
+            runners, published, wall, threads = _serve(
+                port, make, STREAMS, FRAMES, 512, 512, metas=metas)
+            _check_served(f"ragged {name}", runners, published, threads)
+            rows = {k: e.stats_row() for k, e in engines.items()}
+            fwd = {k: _fwd(rows[k]) - _fwd(row0[k]) for k in engines}
+            want = 10 * fwd["detect"] + 3 * fwd["classify"]
+            if not all(fwd.values()) or qg.launches != want \
+                    or qg.variant_launches["masked"] > 3 * fwd["classify"]:
+                raise AssertionError(
+                    f"ragged {name}: {qg.launches} qgemm launches "
+                    f"{dict(qg.variant_launches)} for forwards {fwd}, "
+                    "expected 10 per detect and 3 per classify forward")
+            for v in variants:
+                variants[v] += qg.variant_launches[v]
+            served[name] = metas
+            items = rows["classify"]["items"] - row0["classify"]["items"]
+            out[name] = {
+                **_latency_row(runners, wall), "forwards": fwd,
+                "qgemm_launches": dict(qg.variant_launches),
+                "classify_items": items,
+                "classify_units": (rows["classify"]["units"]
+                                   - row0["classify"]["units"]),
+                **{k: _engine_summary(port["STAGES"], rows[k], row0[k])
+                   for k in engines}}
+            if name == "packed":
+                out["packed"]["replay_check"] = _packed_replay_vs_eager(
+                    torch, port, engines["classify"])
+        # packing wins where frames carry fewer regions than the unit
+        # budget on average; reported, not asserted (it is the data's)
+        out["packed_unit_occupancy_ge_dense"] = (
+            out["packed"]["classify"]["unit_occupancy"]
+            >= out["dense"]["classify"]["unit_occupancy"])
+        out["published"] = _attributes_diff(served["dense"],
+                                             served["packed"])
+        f32 = port["ModelRegistry"](device="cuda", dtype="float32",
+                                    allow_random_weights=True).get(CLS_KEY)
+        out["step"] = _packed_vs_dense_step(
+            torch, port, {"float32": f32, "int8": hubs["dense"].model(CLS_KEY)})
+        _print(out)
+        return {"variants": variants, "packed": out["packed"]}
+    finally:
+        for hub in hubs.values():
+            hub.stop()
+
+
+def _class_latency(runners, priorities: list[str]) -> dict:
+    out = {}
+    for cls in sorted(set(priorities)):
+        mine = [r for r, p in zip(runners, priorities) if p == cls]
+        lat = sorted(x for r in mine for x in r.latencies)
+        if lat:
+            q = lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
+            out[cls] = {"frames": len(lat), "p50_ms": 1e3 * q(0.5),
+                        "p99_ms": 1e3 * q(0.99),
+                        "shed": sum(r.shed for r in mine)}
+        else:
+            out[cls] = {"frames": 0, "shed": sum(r.shed for r in mine)}
+    return out
+
+
+def _check_shed(where: str, runners, published, threads) -> dict[str, int]:
+    """Every frame published once, in order, or counted as shed (and
+    nothing else failed). Returns the streams' sheds per stream."""
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{where}: a stream did not finish")
+    for s, r in enumerate(runners):
+        seqs = published.get(f"s{s}", [])
+        if seqs != sorted(set(seqs)) or not set(seqs) <= set(range(FRAMES)):
+            raise AssertionError(f"{where}: s{s} published out of order")
+        if r.errors != r.shed or len(seqs) + r.shed != FRAMES:
+            raise AssertionError(
+                f"{where}: s{s} published {len(seqs)}, shed {r.shed}, "
+                f"errors {r.errors} of {FRAMES} frames")
+    return {r.stream_id: r.shed for r in runners}
+
+
+def phase_sched(torch, port) -> dict:
+    """The detect path on the default engine with the scheduler on: 4
+    realtime and 4 batch streams, then the same with a batch staleness
+    budget small enough to shed under that load, then the scheduler off
+    on the same traffic (one registry, three hubs)."""
+    qg = port["qgemm"]
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    cfg = port["SchedConfig"].from_settings(port["Settings"].from_env(
+        env={"EVAM_SCHED": "1"}).sched, standard_deadline_ms=8.0)
+    shed_cfg = dataclasses.replace(cfg, staleness_ms={
+        **cfg.staleness_ms, "batch": SHED_BATCH_MS})
+    priorities = ["realtime", "batch"] * (STREAMS // 2)
+    out: dict = {"phase": "sched", "config": {
+        "deadline_ms": cfg.deadline_ms, "staleness_ms": cfg.staleness_ms,
+        "shed_run_batch_staleness_ms": SHED_BATCH_MS}}
+    variants = {"aligned": 0, "masked": 0}
+    for run, sched in (("on", cfg), ("shed", shed_cfg), ("off", None)):
+        hub = _default_hub(port, registry, sched=sched)
+        try:
+            app = port["App"](port["PipelineRegistry"](
+                port["Settings"](pipelines_dir=str(ROOT / "pipelines"),
+                                 device=registry.device.type), hub=hub))
+            make = _pipeline_stages(port, hub, {"threshold": 0.2},
+                                    DETECT_PIPELINE)
+            engine = make("warm", None)[0].engine
+            _await_warm(f"sched {run}", [engine])
+            row0 = engine.stats_row()
+            _reset_launches(qg)
+            runners, published, wall, threads = _serve(
+                port, make, STREAMS, FRAMES, 512, 512, priorities=priorities)
+            where = f"sched {run}"
+            if run == "shed":
+                sheds = _check_shed(where, runners, published, threads)
+            else:
+                _check_served(where, runners, published, threads)
+                sheds = {}
+            row = engine.stats_row()
+            fwd = _fwd(row) - _fwd(row0)
+            if fwd == 0 or qg.launches != 10 * fwd \
+                    or qg.variant_launches["masked"]:
+                raise AssertionError(f"{where}: {qg.launches} qgemm "
+                                     f"launches for {fwd} forwards")
+            for v in variants:
+                variants[v] += qg.variant_launches[v]
+            seen = {c: sum(r.shed for r, p in zip(runners, priorities)
+                           if p == c) for c in ("realtime", "standard",
+                                                "batch")}
+            health = json.loads(app.handle("GET", "/healthz", b"").body)
+            sched_view = json.loads(app.handle("GET", "/scheduler",
+                                               b"").body)
+            if health["scheduler"]["shed"] != seen \
+                    or sched_view["shed"] != seen:
+                raise AssertionError(
+                    f"{where}: shed counts /healthz "
+                    f"{health['scheduler']['shed']}, /scheduler "
+                    f"{sched_view['shed']}, streams {seen}")
+            if run == "shed" and not seen["batch"]:
+                raise AssertionError(f"{where}: no batch frame was shed")
+            if row["state"] != "running" or row["restarts"] \
+                    or engine.stalled.is_set():
+                raise AssertionError(f"{where}: engine {row['state']}, "
+                                     f"{row['restarts']} restarts")
+            out[run] = {**_latency_row(runners, wall),
+                        "capacity_fps": sched_view["capacity_fps"],
+                        "by_class": _class_latency(runners, priorities),
+                        "shed": seen, "shed_per_stream": sheds,
+                        "forwards": fwd,
+                        "sched_enabled": health["scheduler"]["enabled"],
+                        "bucket_batches": _bucket_delta(row0, row),
+                        "stage_ms": _stage_delta(port["STAGES"], row0, row)}
+        finally:
+            hub.stop()
+    _print(out)
+    return variants
+
+
+def _tune_env(port, on: bool) -> None:
+    """EVAM_TUNE on (a 0.25 s tick, EVAM_TRANSFER_DEPTH pinned at its
+    default) or off; the port's settings and live operating point are
+    read again."""
+    for var, value in TUNE_ENV.items():
+        if on:
+            os.environ[var] = value
+        else:
+            os.environ.pop(var, None)
+    port["reset_settings"]()
+    port["control_state"].reset_cache()
+
+
+def phase_tune(torch, port) -> dict:
+    """EVAM_TUNE=1 (EVAM_TUNE_INTERVAL_S=0.25) over the ragged path: the
+    registry runs the controller while STREAMS streams of the unfused
+    vehicle_attributes pipeline are served on a packed hub; the
+    operating point is read from /scheduler every tick."""
+    qg = port["qgemm"]
+    _tune_env(port, True)
+    try:
+        registry = port["ModelRegistry"](device="cuda",
+                                         allow_random_weights=True)
+        hub = _default_hub(port, registry, ragged="packed")
+        preg = port["PipelineRegistry"](
+            port["Settings"](pipelines_dir=str(ROOT / "pipelines"),
+                             device=registry.device.type), hub=hub)
+        app = port["App"](preg)
+        try:
+            if preg.tuner is None or not preg.tuner.pins["transfer_depth"]:
+                raise AssertionError("tune: no controller, or "
+                                     "EVAM_TRANSFER_DEPTH not pinned")
+            make = _pipeline_stages(port, hub, {"detection-threshold": 0.2,
+                                                **UNFUSED})
+            engines = {e.name.split(":")[0]: e for e in _stage_engines(
+                make("warm", None))}
+            _await_warm("tune", engines.values())
+            row0 = {k: e.stats_row() for k, e in engines.items()}
+            _reset_launches(qg)
+            timeline = []
+            done = threading.Event()
+
+            def watch():
+                last = -1
+                while not done.wait(0.05):
+                    t = json.loads(app.handle("GET", "/scheduler",
+                                              b"").body)["tuning"]
+                    if t["ticks"] != last:
+                        last = t["ticks"]
+                        timeline.append({"ticks": t["ticks"],
+                                         "op": t["operating_point"]})
+
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            try:
+                runners, published, wall, threads = _serve(
+                    port, make, STREAMS, TUNE_FRAMES, 512, 512)
+            finally:
+                done.set()
+                watcher.join(timeout=5)
+            _check_served("tune", runners, published, threads,
+                          frames=TUNE_FRAMES)
+            rows = {k: e.stats_row() for k, e in engines.items()}
+            fwd = {k: _fwd(rows[k]) - _fwd(row0[k]) for k in engines}
+            if qg.launches != 10 * fwd["detect"] + 3 * fwd["classify"]:
+                raise AssertionError(f"tune: {qg.launches} qgemm launches "
+                                     f"for forwards {fwd}")
+            tuning = json.loads(app.handle("GET", "/scheduler",
+                                           b"").body)["tuning"]
+            actions = tuning["actions"]
+            if tuning["ticks"] < 3 or not tuning["enabled"]:
+                raise AssertionError(f"tune: {tuning['ticks']} ticks")
+            if any(not a["reason"] or set(a) != {"tick", "knob", "from",
+                                                 "to", "reason"}
+                   for a in actions):
+                raise AssertionError(f"tune: actions {actions}")
+            if tuning["operating_point"]["transfer_depth"] != 0 or any(
+                    a["knob"] == "transfer_depth" for a in actions):
+                raise AssertionError("tune: the pinned transfer depth moved")
+            variants = dict(qg.variant_launches)
+            _print({"phase": "tune", **_latency_row(runners, wall),
+                    "ticks": tuning["ticks"], "pins": preg.tuner.pins,
+                    "operating_point": tuning["operating_point"],
+                    "signals": tuning["signals"], "actions": actions,
+                    "timeline": timeline, "forwards": fwd,
+                    "qgemm_launches": variants})
+            return variants
+        finally:
+            preg.stop_all()
+    finally:
+        _tune_env(port, False)
+
+
 #: published-metadata golden (read only) and the routes the rest phase
 #: drives
 GOLDEN = ROOT / "tests" / "golden" / "message_eva_metadata.json"
@@ -1604,12 +2135,17 @@ CLS_PATH = "/pipelines/{}/{}".format(*CLS_PIPELINE)
 
 
 def _classify_stream(base: str, out: Path, count: int, golden: dict,
-                     where: str) -> tuple[str, int]:
-    """POST one vehicle_attributes stream and wait for it: ``count``
+                     where: str, extra: dict | None = None,
+                     priority: str = "standard") -> tuple[str, int]:
+    """POST one vehicle_attributes stream (``extra`` parameters, e.g.
+    reclassify-interval for the unfused pair) and wait for it: ``count``
     lines of the golden's shape, in order, some objects classified.
-    Returns (its fused engine's name, its objects with attributes)."""
-    status, iid = _http(base, "POST", CLS_PATH, _stream_body(
-        out, count, 0, "detection-threshold"))
+    Returns (its classifying engine's name, its objects with
+    attributes)."""
+    body = _stream_body(out, count, 0, "detection-threshold")
+    body["parameters"].update(extra or {})
+    body["priority"] = priority
+    status, iid = _http(base, "POST", CLS_PATH, body)
     if status != 200:
         raise AssertionError(f"{where}: vehicle_attributes POST gave {status} "
                              f"{iid}")
@@ -1631,8 +2167,10 @@ def _classify_stream(base: str, out: Path, count: int, golden: dict,
     if not attributed:
         raise AssertionError(f"{where}: no vehicle_attributes object carries "
                              "color and type")
-    engine = state["weights"]["detection+classification"]["engine"]
-    return engine, attributed
+    weights = state["weights"]
+    stage = ("detection+classification" if "detection+classification"
+             in weights else "classification")
+    return weights[stage]["engine"], attributed
 
 
 #: the rest phase's UDF requests: a whole-frame zone, and two lines
@@ -2332,10 +2870,29 @@ def _await_health(base: str, proc, log_path: Path, t0: float,
         time.sleep(0.2)
 
 
+def _scheduler_shape(base: str, where: str) -> dict:
+    """GET /scheduler against tests/golden/route_scheduler.json (its
+    action log, empty in the golden, checked entry by entry)."""
+    status, sched = _http(base, "GET", "/scheduler")
+    golden = json.loads((ROOT / "tests" / "golden"
+                         / "route_scheduler.json").read_text())
+    actions = sched["tuning"]["actions"]
+    got = canonical({**sched, "tuning": {**sched["tuning"], "actions": []}})
+    errors = [] if got == golden else [json.dumps(got)[:1500]]
+    errors += [f"action {a}" for a in actions
+               if set(a) != {"tick", "knob", "from", "to", "reason"}]
+    if status != 200 or errors:
+        raise AssertionError(f"{where}: /scheduler {status}: {errors[:3]}")
+    return sched
+
+
 def phase_serve() -> dict[str, int]:
-    """``python3 -m evam_tpu_torch.cli.main serve`` as a user starts it:
-    a person_vehicle_bike stream, then a vehicle_attributes stream.
-    Returns the child's qgemm launches by variant."""
+    """``python3 -m evam_tpu_torch.cli.main serve`` as a user starts it,
+    with ragged packing, the scheduler (capacity pinned) and the control
+    plane on: a realtime person_vehicle_bike stream, batch fused and
+    unfused vehicle_attributes streams, a realtime unfused one, then a
+    start past the capacity. Returns the child's qgemm launches by
+    variant."""
     golden = json.loads(GOLDEN.read_text())
     rest_port = _free_port()
     base = f"http://127.0.0.1:{rest_port}"
@@ -2344,7 +2901,9 @@ def phase_serve() -> dict[str, int]:
                    EVAM_PRECISION="int8", EVAM_QGEMM="pallas",
                    EVAM_ALLOW_RANDOM_WEIGHTS="1",
                    EVAM_PRELOAD="/".join(DETECT_PIPELINE),
-                   MODELS_DIR=str(Path(tmp) / "models"))
+                   MODELS_DIR=str(Path(tmp) / "models"),
+                   EVAM_RAGGED="packed", EVAM_SCHED="1", EVAM_TUNE="1",
+                   EVAM_SCHED_CAPACITY_FPS=str(SERVE_CAPACITY_FPS))
         log_path = Path(tmp) / "serve.log"
         with open(log_path, "w") as log:
             proc = subprocess.Popen(
@@ -2356,11 +2915,12 @@ def phase_serve() -> dict[str, int]:
             # traffic: /healthz answers "warming", then "ok"
             health = _await_health(base, proc, log_path, t0)
             up_s = time.perf_counter() - t0
-            if (health["engines"], health["compiled_programs"]) != (1, 8):
+            if (health["engines"], health["compiled_programs"]) != (
+                    1, len(PACKED_LADDER)) or not health["scheduler"]["enabled"]:
                 raise AssertionError(f"serve: preload left {health}")
             out = Path(tmp) / "serve.jsonl"
-            status, iid = _http(base, "POST", PIPELINE,
-                                _stream_body(out, 8, 0))
+            status, iid = _http(base, "POST", PIPELINE, {
+                **_stream_body(out, 8, 0), "priority": "realtime"})
             if status != 200:
                 raise AssertionError(f"serve: POST gave {status} {iid}")
             state = _wait_states(base, [iid], ("COMPLETED", "ERROR",
@@ -2378,21 +2938,64 @@ def phase_serve() -> dict[str, int]:
                 raise AssertionError(
                     f"serve: qgemm launches {launches} for {forwards} "
                     "forwards, expected 10 aligned per forward")
-            # then the detect+classify pipeline through the same server
+            # then the detect+classify pipeline through the same server,
+            # fused (batch class) and unfused on the packed classify
+            # engine (realtime)
+            # (an engine a POST builds captures its buckets under the
+            # stream's first frames: those can outlive the realtime
+            # class's 200 ms staleness budget, so the cold starts are
+            # batch-class and the realtime stream runs warm)
             fused, attributed = _classify_stream(
-                base, Path(tmp) / "cls.jsonl", 8, golden, "serve")
-            # the fused engine, built by the POST, finishes its warmup
+                base, Path(tmp) / "cls.jsonl", 8, golden, "serve",
+                priority="batch")
+            packed, packed_attributed = _classify_stream(
+                base, Path(tmp) / "unfused.jsonl", 8, golden, "serve",
+                extra=UNFUSED, priority="batch")
+            # the engines the POSTs built finish their warmup
             _await_health(base, proc, log_path, time.perf_counter())
+            _classify_stream(base, Path(tmp) / "unfused_rt.jsonl", 8, golden,
+                             "serve", extra=UNFUSED, priority="realtime")
             _, engines = _http(base, "GET", "/engines")
             total = _kernel_launches(base)
             cls_fwd = _fwd(engines[fused])
+            pk_fwd = _fwd(engines[packed])
             det_fwd = _fwd(engines[f"detect:{KEY}"])
-            if (cls_fwd == 0 or det_fwd != forwards
-                    or sum(total.values()) != 10 * det_fwd + 13 * cls_fwd
-                    or total["masked"] > 3 * cls_fwd):
+            if (cls_fwd == 0 or pk_fwd == 0 or det_fwd <= forwards
+                    or engines[packed]["ragged"] != "packed"
+                    or engines[packed]["buckets"] != PACKED_LADDER
+                    or sum(total.values())
+                    != 10 * det_fwd + 13 * cls_fwd + 3 * pk_fwd
+                    or total["masked"] > 3 * (cls_fwd + pk_fwd)):
                 raise AssertionError(
-                    f"serve: qgemm launches {total} for {det_fwd} detect and "
-                    f"{cls_fwd} fused forwards, expected 10 and 13 per forward")
+                    f"serve: qgemm launches {total} for {det_fwd} detect, "
+                    f"{cls_fwd} fused and {pk_fwd} packed classify forwards, "
+                    "expected 10, 13 and 3 per forward")
+            # /scheduler in the golden's shape; a start past the pinned
+            # capacity answers 503 with Retry-After
+            _scheduler_shape(base, "serve")
+            req = urllib.request.Request(
+                base + PIPELINE, method="POST", data=json.dumps({
+                    **_stream_body(Path(tmp) / "no.jsonl", 8, 0),
+                    "fps": 1000}).encode())
+            try:
+                urllib.request.urlopen(req, timeout=60)
+                raise AssertionError("serve: an over-capacity start was "
+                                     "admitted")
+            except urllib.error.HTTPError as exc:
+                rejected = {"status": exc.code,
+                            "retry_after": exc.headers.get("Retry-After"),
+                            "body": json.loads(exc.read())}
+            if (rejected["status"] != 503 or not rejected["retry_after"]
+                    or set(rejected["body"]) != {"error", "retry_after_s"}):
+                raise AssertionError(f"serve: over capacity gave {rejected}")
+            after = _scheduler_shape(base, "serve")
+            if (after["rejected"]["standard"] != 1 or after["admitted"] != {
+                    "realtime": 2, "standard": 0, "batch": 2}
+                    or after["capacity_fps"] != SERVE_CAPACITY_FPS
+                    or not after["tuning"]["enabled"]
+                    or after["tuning"]["ticks"] < 1):
+                raise AssertionError(f"serve: /scheduler after the 503: "
+                                     f"{after}")
             t1 = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
             code = proc.wait(timeout=30)
@@ -2405,6 +3008,15 @@ def phase_serve() -> dict[str, int]:
                     "forwards": {k: v["batches"] for k, v in engines.items()},
                     "qgemm_launches": total, "avg_fps": state["avg_fps"],
                     "attributed_objects": attributed,
+                    "packed_attributed_objects": packed_attributed,
+                    "over_capacity": rejected,
+                    "scheduler": {k: after[k] for k in (
+                        "capacity_fps", "admitted", "rejected", "shed",
+                        "utilization")},
+                    "tuning": {"ticks": after["tuning"]["ticks"],
+                               "actions": len(after["tuning"]["actions"]),
+                               "operating_point":
+                                   after["tuning"]["operating_point"]},
                     "exit_code": code, "stop_s": time.perf_counter() - t1})
             return total
         finally:
@@ -2426,6 +3038,7 @@ def main(argv: list[str] | None = None) -> int:
     if "rest" in phases and "slice" not in phases:
         ap.error("the rest phase checks its objects against the slice phase")
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2485,7 +3098,7 @@ def main(argv: list[str] | None = None) -> int:
             raise AssertionError(f"slice ran {res['input_hw']} width "
                                  f"{res['width']}, not the full-width model")
         served.append({"aligned": res["launches"], "masked": 0})
-        _memory(torch, "slice")
+        _memory(torch, "slice", t_start)
     if "classify" in phases:
         res_cls = phase_classify(torch, port)
         if res_cls["models"] != (512, 512, 32, 72, 72, 32,
@@ -2493,30 +3106,40 @@ def main(argv: list[str] | None = None) -> int:
             raise AssertionError(f"classify ran {res_cls['models']}, not the "
                                  "full-width models")
         served.append(res_cls["variants"])
-        _memory(torch, "classify")
+        _memory(torch, "classify", t_start)
     if "engine" in phases:
         served.append(phase_engine(torch, port)["variants"])
-        _memory(torch, "engine")
+        _memory(torch, "engine", t_start)
     if "track" in phases:
         served.append(phase_track(torch, port))
-        _memory(torch, "track")
+        _memory(torch, "track", t_start)
     if "gate" in phases:
         served.append(phase_gate(torch, port, res["fps"] if "slice" in phases
                                  else None))
-        _memory(torch, "gate")
+        _memory(torch, "gate", t_start)
+    if "ragged" in phases:
+        served.append(phase_ragged(torch, port)["variants"])
+        _memory(torch, "ragged", t_start)
+    if "sched" in phases:
+        served.append(phase_sched(torch, port))
+        _memory(torch, "sched", t_start)
+    if "tune" in phases:
+        served.append(phase_tune(torch, port))
+        _memory(torch, "tune", t_start)
     # the action and audio pipelines launch no kernel of this repo
     # (asserted inside): they add nothing to the kernels line
     if "action" in phases:
         phase_action(torch, port)
-        _memory(torch, "action")
+        _memory(torch, "action", t_start)
     if "audio" in phases:
         phase_audio(torch, port)
-        _memory(torch, "audio")
+        _memory(torch, "audio", t_start)
     if "rest" in phases:
         served.append(phase_rest(torch, port, res["s0_objects"]))
-        _memory(torch, "rest")
+        _memory(torch, "rest", t_start)
     if "serve" in phases:
         served.append(phase_serve())
+    _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {
             v: sum(d[v] for d in served) for v in ("aligned", "masked")}

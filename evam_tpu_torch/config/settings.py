@@ -12,7 +12,10 @@ reference's env names and parse rules:
     EVAM_STALL_TIMEOUT_S (120), EVAM_ENGINE_SUPERVISE (on),
     EVAM_ENGINE_MAX_RESTARTS (3), EVAM_ENGINE_RESTART_WINDOW_S (300),
     EVAM_ENGINE_RESTART_BACKOFF_S (0.5), EVAM_FIRST_BATCH_GRACE (10),
-    EVAM_TRANSFER (pipelined), EVAM_TRANSFER_DEPTH (2)
+    EVAM_TRANSFER (pipelined), EVAM_TRANSFER_DEPTH (2), EVAM_RAGGED (off),
+    EVAM_RAGGED_UNIT_BUDGET (4); the scheduler's EVAM_SCHED and its nine
+    EVAM_SCHED_* (``SchedSettings``), and the control plane's EVAM_TUNE
+    and its eight EVAM_TUNE_* (``TuneSettings``)
 
 and ``EVAM_PLATFORM`` keeps the reference CLI's meaning: ``cpu`` runs
 the port on the CPU, unset means the card (``cuda``). Three knobs the
@@ -20,6 +23,13 @@ reference reads from ``os.environ`` in its engine modules are parsed
 here as those modules parse them: EVAM_BATCH_ASSEMBLY (slot),
 EVAM_STAGING_DEPTH (0: the default depth) and EVAM_SERIALIZE_COMPILE
 (off; ``engine/devlock.py`` reads it per call, as the reference does).
+
+The scheduler is off unless EVAM_SCHED turns it on, where the
+reference's default turns it on: unset, the port serves through its
+single-FIFO engine path, as before the scheduler was ported. Each block
+records the fields its config-file keys and environment variables set
+(``fields_set``, the reference's pydantic ``model_fields_set``): the
+control plane keeps its hands off a knob the operator set.
 
 Every other knob of the reference's table belongs to a subsystem that
 comes with a later port slice. Set to anything but the value the port
@@ -82,6 +92,66 @@ class EngineSettings:
     #: EVAM_SERIALIZE_COMPILE: one process-wide lock over every device
     #: call (forces the inline transfer)
     serialize_compile: bool = False
+    #: EVAM_RAGGED: "packed" packs a classify engine's real region rows
+    #: into one fixed unit block and thins the bucket ladder
+    #: (``engine/ragged.py``); "off" keeps the dense buckets
+    ragged: str = "off"
+    #: EVAM_RAGGED_UNIT_BUDGET: packed unit rows per batch row
+    ragged_unit_budget: int = 4
+    #: fields the config file or the environment set
+    fields_set: set[str] = field(default_factory=set, repr=False,
+                                 compare=False)
+
+
+@dataclass
+class SchedSettings:
+    """QoS scheduling knobs (``evam_tpu_torch/sched/``): admission
+    control, priority classes, load shedding."""
+
+    #: EVAM_SCHED (off here; on in the reference, see the module text)
+    enabled: bool = False
+    #: projected-utilization ceiling for admission (0 disables it)
+    admit_util: float = 0.85
+    #: declared serving capacity in frames/s (0: derived from the
+    #: engines' stage clock)
+    capacity_fps: float = 0.0
+    #: assumed per-stream fps when a start request declares none
+    default_fps: float = 30.0
+    #: per-class batch-formation deadlines (ms); unless set, the
+    #: standard class follows EVAM_BATCH_DEADLINE_MS
+    deadline_ms_realtime: float = 4.0
+    deadline_ms_standard: float = 8.0
+    deadline_ms_batch: float = 25.0
+    #: per-class staleness budgets (ms); 0 never sheds that class
+    staleness_ms_realtime: float = 200.0
+    staleness_ms_standard: float = 1000.0
+    staleness_ms_batch: float = 5000.0
+    fields_set: set[str] = field(default_factory=set, repr=False,
+                                 compare=False)
+
+
+@dataclass
+class TuneSettings:
+    """Self-tuning control plane knobs (``evam_tpu_torch/control/``)."""
+
+    enabled: bool = False
+    #: controller tick period (s)
+    interval_s: float = 2.0
+    #: bounded log of the last N control actions (/scheduler)
+    actions: int = 32
+    #: consecutive agreeing ticks before a law's action applies
+    damping: int = 3
+    #: ticks a knob sits out after an applied action
+    cooldown: int = 2
+    #: utilization above which the controller tightens, below which it
+    #: relaxes
+    util_hi: float = 0.80
+    util_lo: float = 0.50
+    #: the fleet law's bounds (inert while the fleet is unported)
+    scale_up_util: float = 0.90
+    scale_down_util: float = 0.30
+    fields_set: set[str] = field(default_factory=set, repr=False,
+                                 compare=False)
 
 
 @dataclass
@@ -107,6 +177,8 @@ class Settings:
     #: EVAM_PLATFORM: "cuda" (default) or "cpu"
     device: str = "cuda"
     engine: EngineSettings = field(default_factory=EngineSettings)
+    sched: SchedSettings = field(default_factory=SchedSettings)
+    tune: TuneSettings = field(default_factory=TuneSettings)
 
     @classmethod
     def from_env(cls, config_file: str | os.PathLike | None = None,
@@ -118,22 +190,33 @@ class Settings:
         _refuse_unported(data, env)
 
         settings = cls()
+        blocks = {"tpu": (settings.engine, _ENGINE_KEYS),
+                  "sched": (settings.sched, _SCHED_KEYS)}
         for key, value in data.items():
-            if key == "tpu":
-                for k in _ENGINE_KEYS:
-                    if k in value:
-                        setattr(settings.engine, k, value[k])
+            if key in blocks:
+                block, keys = blocks[key]
+                for k in keys & set(value):
+                    _assign(block, k, value[k])
             elif key in _TOP_KEYS:
                 setattr(settings, key, value)
         for var, (key, conv) in _TOP_ENV.items():
             if var in env:
                 setattr(settings, key, conv(env[var]))
-        for var, (key, conv) in {**_ENGINE_ENV, **_MODULE_ENV}.items():
-            if var in env:
-                setattr(settings.engine, key, conv(env[var]))
+        for table, block in ((_ENGINE_ENV, settings.engine),
+                             (_MODULE_ENV, settings.engine),
+                             (_SCHED_ENV, settings.sched)):
+            for var, (key, conv) in table.items():
+                if var in env:
+                    _assign(block, key, conv(env[var]))
+        settings.tune = tune_from_env(config_file, env)
         _check_engine(settings.engine)
         settings.device = _parse_platform(env.get("EVAM_PLATFORM", ""))
         return settings
+
+
+def _assign(block, key: str, value) -> None:
+    setattr(block, key, value)
+    block.fields_set.add(key)
 
 
 def _parse_platform(value: str) -> str:
@@ -154,6 +237,9 @@ def _check_engine(engine: EngineSettings) -> None:
     if engine.batch_assembly not in ("slot", "legacy"):
         raise ValueError(f"EVAM_BATCH_ASSEMBLY must be 'slot' or 'legacy', "
                          f"got {engine.batch_assembly!r}")
+    if engine.ragged not in ("packed", "off"):
+        raise ValueError(f"EVAM_RAGGED must be 'packed' or 'off', "
+                         f"got {engine.ragged!r}")
 
 
 def _parse_depth(value: str) -> int:
@@ -194,6 +280,31 @@ _ENGINE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_FIRST_BATCH_GRACE": ("first_batch_grace", float),
     "EVAM_TRANSFER": ("transfer", str),
     "EVAM_TRANSFER_DEPTH": ("transfer_depth", int),
+    "EVAM_RAGGED": ("ragged", str),
+    "EVAM_RAGGED_UNIT_BUDGET": ("ragged_unit_budget", int),
+}
+_SCHED_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
+    "EVAM_SCHED": ("enabled", _parse_bool),
+    "EVAM_SCHED_ADMIT_UTIL": ("admit_util", float),
+    "EVAM_SCHED_CAPACITY_FPS": ("capacity_fps", float),
+    "EVAM_SCHED_DEFAULT_FPS": ("default_fps", float),
+    "EVAM_SCHED_DEADLINE_MS_REALTIME": ("deadline_ms_realtime", float),
+    "EVAM_SCHED_DEADLINE_MS_STANDARD": ("deadline_ms_standard", float),
+    "EVAM_SCHED_DEADLINE_MS_BATCH": ("deadline_ms_batch", float),
+    "EVAM_SCHED_STALENESS_MS_REALTIME": ("staleness_ms_realtime", float),
+    "EVAM_SCHED_STALENESS_MS_STANDARD": ("staleness_ms_standard", float),
+    "EVAM_SCHED_STALENESS_MS_BATCH": ("staleness_ms_batch", float),
+}
+_TUNE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
+    "EVAM_TUNE": ("enabled", _parse_bool),
+    "EVAM_TUNE_INTERVAL_S": ("interval_s", float),
+    "EVAM_TUNE_ACTIONS": ("actions", int),
+    "EVAM_TUNE_DAMPING": ("damping", int),
+    "EVAM_TUNE_COOLDOWN": ("cooldown", int),
+    "EVAM_TUNE_UTIL_HI": ("util_hi", float),
+    "EVAM_TUNE_UTIL_LO": ("util_lo", float),
+    "EVAM_TUNE_SCALE_UP_UTIL": ("scale_up_util", float),
+    "EVAM_TUNE_SCALE_DOWN_UTIL": ("scale_down_util", float),
 }
 #: knobs the reference's engine modules read from os.environ (never a
 #: config-file key there, nor here)
@@ -207,6 +318,8 @@ _MODULE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
 }
 _TOP_KEYS = {key for key, _ in _TOP_ENV.values()} - {"allow_random_weights"}
 _ENGINE_KEYS = {key for key, _ in _ENGINE_ENV.values()}
+_SCHED_KEYS = {key for key, _ in _SCHED_ENV.values()}
+_TUNE_KEYS = {key for key, _ in _TUNE_ENV.values()}
 
 _S6 = slices.MODEL_IMPORT
 _S7 = slices.ENGINE_DEPTH
@@ -228,30 +341,11 @@ _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
     ("EVAM_DECODE_POOL_WORKERS", "", "decode_pool_workers", int, 0, _S11),
     ("EVAM_RTSP_DEMUX_WORKERS", "", "rtsp_demux_workers", int, 0, _S11),
     ("EVAM_COMPILE_CACHE_DIR", "tpu", "compile_cache_dir", str, "", _S7),
-    # packing needs the SlotRing (the reference packs only there)
-    ("EVAM_RAGGED", "tpu", "ragged", str, "off", _S7),
-    ("EVAM_RAGGED_UNIT_BUDGET", "tpu", "ragged_unit_budget", int, 4, _S7),
     ("EVAM_FLEET", "tpu", "fleet", str, "off", _S7),
     ("EVAM_FLEET_SHARDS", "tpu", "fleet_shards", int, 0, _S7),
     ("EVAM_FLEET_SHARD_MAX_BATCH", "tpu", "fleet_shard_max_batch",
      int, 0, _S7),
     ("EVAM_FLEET_MAX_SHARDS", "tpu", "fleet_max_shards", int, 0, _S7),
-    ("EVAM_SCHED", "sched", "enabled", _parse_bool, False, _S7),
-    ("EVAM_SCHED_ADMIT_UTIL", "sched", "admit_util", float, 0.85, _S7),
-    ("EVAM_SCHED_CAPACITY_FPS", "sched", "capacity_fps", float, 0.0, _S7),
-    ("EVAM_SCHED_DEFAULT_FPS", "sched", "default_fps", float, 30.0, _S7),
-    ("EVAM_SCHED_DEADLINE_MS_REALTIME", "sched", "deadline_ms_realtime",
-     float, 4.0, _S7),
-    ("EVAM_SCHED_DEADLINE_MS_STANDARD", "sched", "deadline_ms_standard",
-     float, 8.0, _S7),
-    ("EVAM_SCHED_DEADLINE_MS_BATCH", "sched", "deadline_ms_batch",
-     float, 25.0, _S7),
-    ("EVAM_SCHED_STALENESS_MS_REALTIME", "sched", "staleness_ms_realtime",
-     float, 200.0, _S7),
-    ("EVAM_SCHED_STALENESS_MS_STANDARD", "sched", "staleness_ms_standard",
-     float, 1000.0, _S7),
-    ("EVAM_SCHED_STALENESS_MS_BATCH", "sched", "staleness_ms_batch",
-     float, 5000.0, _S7),
     ("EVAM_TRACE", "trace", "enabled", _parse_bool, False, _S10),
     ("EVAM_TRACE_SAMPLE_N", "trace", "sample_n", int, 16, _S10),
     ("EVAM_TRACE_RING", "trace", "ring", int, 1024, _S10),
@@ -266,15 +360,6 @@ _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
     ("EVAM_CKPT_INTERVAL", "ckpt", "interval", int, 30, _S10),
     ("EVAM_CKPT_RESTORE_TIMEOUT_S", "ckpt", "restore_timeout_s",
      float, 2.0, _S10),
-    ("EVAM_TUNE", "tune", "enabled", _parse_bool, False, _S7),
-    ("EVAM_TUNE_INTERVAL_S", "tune", "interval_s", float, 2.0, _S7),
-    ("EVAM_TUNE_ACTIONS", "tune", "actions", int, 32, _S7),
-    ("EVAM_TUNE_DAMPING", "tune", "damping", int, 3, _S7),
-    ("EVAM_TUNE_COOLDOWN", "tune", "cooldown", int, 2, _S7),
-    ("EVAM_TUNE_UTIL_HI", "tune", "util_hi", float, 0.80, _S7),
-    ("EVAM_TUNE_UTIL_LO", "tune", "util_lo", float, 0.50, _S7),
-    ("EVAM_TUNE_SCALE_UP_UTIL", "tune", "scale_up_util", float, 0.90, _S7),
-    ("EVAM_TUNE_SCALE_DOWN_UTIL", "tune", "scale_down_util", float, 0.30, _S7),
     ("EVAM_AOT", "aot", "enabled", _parse_bool, False, _S7),
     ("EVAM_AOT_DIR", "aot", "dir", str, "", _S7),
     ("EVAM_AOT_MAX_BYTES", "aot", "max_bytes", int, 1073741824, _S7),
@@ -336,10 +421,29 @@ def _refuse_unported(data: dict[str, Any], env: Mapping[str, str]) -> None:
     for block in _BLOCKS:
         keys = set(data.get(block, {}))
         keys -= {key for _, b, key, *_ in _UNPORTED if b == block}
-        if block == "tpu":
-            keys -= _ENGINE_KEYS
+        keys -= {"tpu": _ENGINE_KEYS, "sched": _SCHED_KEYS,
+                 "tune": _TUNE_KEYS}.get(block, set())
         if keys:
             raise ValueError(f"unknown settings keys {block}.{sorted(keys)}")
+
+
+def tune_from_env(config_file: str | os.PathLike | None,
+                  env: Mapping[str, str] | None = None) -> TuneSettings:
+    """The control plane's block alone (``Settings.from_env`` reads it
+    here too): the config file's ``tune`` keys, then the EVAM_TUNE*
+    variables. ``control/state.py`` resolves it from hot paths, which
+    must not fail on a knob of another block (``Settings.from_env``
+    refuses the unported ones)."""
+    env = os.environ if env is None else env
+    tune = TuneSettings()
+    if config_file and Path(config_file).exists():
+        block = json.loads(Path(config_file).read_text()).get("tune", {})
+        for key in _TUNE_KEYS & set(block):
+            _assign(tune, key, block[key])
+    for var, (key, conv) in _TUNE_ENV.items():
+        if var in env:
+            _assign(tune, key, conv(env[var]))
+    return tune
 
 
 _settings: Settings | None = None

@@ -45,8 +45,19 @@ whose items each carry up to ``max_units`` unit rows (a classify
 engine's ROI budget) computes ``bucket × max_units`` rows a batch, of
 which each item's ``units`` are real.
 
-The reference's scheduling classes, ragged packing, AOT cache, control
-plane and fleet come with later slices.
+``ragged="packed"`` (``EVAM_RAGGED``, ``engine/ragged.py``) thins the
+bucket ladder of every engine and, on a classify engine (one with a
+``ragged_spec``), packs the real region rows into one fixed unit block
+per batch (the ring seals ``seg`` as an extra step input) and hands each
+item its own rows of the packed output.
+``sched`` (``EVAM_SCHED``, ``sched/``) replaces the single queue with
+per-class queues drained realtime-first under per-class deadlines,
+shedding stale frames before they are staged; the dispatcher then
+copies each batch into a slot itself (``SlotRing.stage_direct``). The
+control plane's live operating point (``control/state.py``) scales the
+batch deadlines and caps the batch in the dispatch loops, and
+``retune`` resizes the upload queue. The reference's AOT cache and
+fleet come with a later slice.
 """
 
 from __future__ import annotations
@@ -63,7 +74,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from evam_tpu_torch.control.state import current_op
 from evam_tpu_torch.engine import devlock
+from evam_tpu_torch.engine.ragged import (
+    RaggedSpec,
+    consolidate_buckets,
+    ragged_mode,
+)
 from evam_tpu_torch.engine.ringbuf import (
     STAGES,
     SealedBatch,
@@ -72,6 +89,13 @@ from evam_tpu_torch.engine.ringbuf import (
     pinned_alloc,
 )
 from evam_tpu_torch.obs.metrics import metrics
+from evam_tpu_torch.sched.classes import (
+    DEFAULT_PRIORITY,
+    PRIORITIES,
+    ClassQueues,
+    SchedConfig,
+)
+from evam_tpu_torch.sched.shedder import Shedder
 
 log = logging.getLogger("evam_tpu_torch.engine.batcher")
 
@@ -83,8 +107,20 @@ class _WorkItem:
     inputs: dict[str, np.ndarray]
     future: Future
     t_submit: float
+    priority: str = DEFAULT_PRIORITY
     #: real unit rows the item carries (None: the whole budget)
     units: int | None = None
+
+
+class _TunableQueue(queue.Queue):
+    """``queue.Queue`` whose bound the control plane can change live:
+    growing it wakes blocked putters at once; shrinking applies as the
+    consumer drains below the new bound (no staged batch is dropped)."""
+
+    def set_depth(self, n: int) -> None:
+        with self.mutex:
+            self.maxsize = max(1, int(n))
+            self.not_full.notify_all()
 
 
 def _safe_set_result(fut: Future, value) -> None:
@@ -176,6 +212,7 @@ def stats_row(e, st: EngineStats) -> dict:
             st.bucket_batches.items())},
         "warmed": e.warmed.is_set(),
         "assembly": e.assembly,
+        "ragged": e.ragged,
         # effective mode: the devlock may force a pipelined request inline
         "transfer": "pipelined" if e._pipelined else "inline",
         "buckets": list(e.buckets),
@@ -191,6 +228,7 @@ def stats_row(e, st: EngineStats) -> dict:
         "last_stall_ts": getattr(e, "last_stall_ts", None),
         "queue_depth": e.queue_depth(),
         "queue_age_s": round(e.queue_age_s(), 3),
+        "sched_queues": e.class_depths(),
     }
 
 
@@ -201,9 +239,12 @@ class BatchEngine:
     input name (leading batch axis) and returns one tensor whose leading
     axis matches. Batches are padded to power-of-two buckets.
     ``max_units`` is the unit rows each item is padded to inside the
-    step (None: one row per item). ``assembly`` and ``transfer`` default
-    to ``EVAM_BATCH_ASSEMBLY`` (``slot``) and ``EVAM_TRANSFER``
-    (``pipelined``), as in the reference."""
+    step (None: one row per item; a ``ragged_spec``'s ``max_units``
+    where one is given). ``assembly`` and ``transfer`` default to
+    ``EVAM_BATCH_ASSEMBLY`` (``slot``) and ``EVAM_TRANSFER``
+    (``pipelined``), as in the reference. ``ragged="packed"`` with a
+    ``ragged_spec`` builds the packed engine (its step takes ``seg``
+    after its inputs); an enabled ``sched`` the scheduler's dispatch."""
 
     def __init__(
         self,
@@ -221,6 +262,9 @@ class BatchEngine:
         first_batch_grace: float = 10.0,
         transfer: str | None = None,
         transfer_depth: int | None = None,
+        sched: SchedConfig | None = None,
+        ragged: str | None = None,
+        ragged_spec: RaggedSpec | None = None,
     ):
         self.name = name
         self.step_fn = step_fn
@@ -228,6 +272,8 @@ class BatchEngine:
         self.max_batch = max_batch
         self.deadline_s = deadline_ms / 1000.0
         self.input_names = input_names
+        if max_units is None and ragged_spec is not None:
+            max_units = ragged_spec.max_units
         self.max_units = max_units
         self.stats = EngineStats()
         #: host batch assembly: "slot" (staging ring, default) or
@@ -249,6 +295,31 @@ class BatchEngine:
                 f"got {self.transfer!r}")
         self._pipelined = (self.transfer == "pipelined"
                            and not devlock.enabled())
+        #: ragged batching (EVAM_RAGGED): packing needs the staging
+        #: ring, so the legacy assembly forces it off
+        self.ragged = ragged_mode(ragged)
+        if self.ragged == "packed" and self.assembly == "legacy":
+            log.warning(
+                "engine %s: EVAM_RAGGED=packed requires the slot "
+                "staging ring; EVAM_BATCH_ASSEMBLY=legacy forces it "
+                "off", name)
+            self.ragged = "off"
+        self.ragged_spec = ragged_spec
+        self._packed = self.ragged == "packed" and ragged_spec is not None
+        #: the step's inputs: the packed step takes the segment ids
+        #: after the submitted inputs (the ring seals them per batch)
+        self._step_inputs = (input_names + ("seg",) if self._packed
+                             else input_names)
+        if self._packed and "seg" in input_names:
+            raise ValueError(
+                f"engine {name}: input name 'seg' is reserved by the "
+                "packed-ragged path")
+        #: QoS scheduling (EVAM_SCHED): per-class queues, per-class
+        #: deadlines, staleness shedding; None keeps the single queue
+        self.sched = sched if (sched is not None and sched.enabled) else None
+        self._classq = ClassQueues() if self.sched is not None else None
+        self._shedder = (Shedder(name, self.sched.staleness_s())
+                         if self.sched is not None else None)
         #: the device-specific halves: page-locked staging, copy and
         #: compute streams, events, CUDA graphs
         self._cuda = self.device.type == "cuda"
@@ -279,12 +350,20 @@ class BatchEngine:
             self.buckets.append(b)
             b *= 2
         self.buckets.append(max_batch)
+        if self.ragged == "packed":
+            # bucket consolidation, on every engine of a packed hub:
+            # adjacent buckets share a graph (engine/ragged.py)
+            self.buckets = consolidate_buckets(self.buckets)
+        #: output rows of the top bucket (unit rows when packed)
+        self._out_rows = (ragged_spec.unit_rows(self.buckets[-1])
+                          if self._packed else self.buckets[-1])
 
         depth = staging_depth or int(
             os.environ.get("EVAM_STAGING_DEPTH", "0")) or (max_in_flight + 1)
         self._ring = (SlotRing(capacity=self.buckets[-1], depth=depth,
                                alloc=pinned_alloc if self._cuda
-                               else numpy_alloc)
+                               else numpy_alloc,
+                               ragged=ragged_spec if self._packed else None)
                       if self.assembly == "slot" else None)
 
         #: one engine's device work: the compute stream every batch
@@ -304,18 +383,26 @@ class BatchEngine:
 
         self._queue: queue.Queue[_WorkItem | None] = queue.Queue()
         self._done: queue.Queue[tuple | None] = queue.Queue()
-        #: pipelined only: uploaded batches awaiting launch (EVAM_TUNE,
-        #: which would retune the bound, comes with a later slice)
-        self.transfer_depth = max(1, int(transfer_depth or 2))
-        self._upload_q: queue.Queue = queue.Queue(maxsize=self.transfer_depth)
+        #: pipelined only: uploaded batches awaiting launch. The live
+        #: operating point's depth first, so a rebuild resumes at the
+        #: controller's depth; retune() resizes it live
+        op = current_op()
+        live_depth = op.transfer_depth if op is not None else 0
+        self.transfer_depth = max(1, int(live_depth
+                                         or (transfer_depth or 2)))
+        self._upload_q = _TunableQueue(maxsize=self.transfer_depth)
         self._warm_lock = threading.Lock()
         self._warming = False
         #: set when background warmup finishes (or fails)
         self.warmed = threading.Event()
         self._in_flight = threading.Semaphore(max_in_flight)
         self._stop = threading.Event()
-        dispatch_loop = (self._dispatch_loop_slot if self._ring is not None
-                         else self._dispatch_loop_legacy)
+        if self._classq is not None:
+            dispatch_loop = self._dispatch_loop_sched
+        elif self._ring is not None:
+            dispatch_loop = self._dispatch_loop_slot
+        else:
+            dispatch_loop = self._dispatch_loop_legacy
         self._dispatcher = threading.Thread(
             target=self._thread_guard, args=(dispatch_loop,),
             name=f"engine-{name}-dispatch", daemon=True)
@@ -348,12 +435,18 @@ class BatchEngine:
 
     # ------------------------------------------------------------- API
 
-    def submit(self, units: int | None = None, **inputs: np.ndarray) -> Future:
-        """Enqueue one item (no batch dim); resolves to its packed row.
-        ``units`` is the item's real unit rows, for the accounting only.
-        On the slot path this call copies the item into the staging
-        block on the calling thread, and blocks while every slot is in
-        flight."""
+    def submit(self, priority: str = DEFAULT_PRIORITY,
+               units: int | None = None, **inputs: np.ndarray) -> Future:
+        """Enqueue one item (no batch dim); resolves to its packed row
+        (on the packed engine: its own unit rows).
+
+        ``priority`` selects the scheduling class with the scheduler on;
+        without it the argument is accepted and ignored. ``units`` is
+        the item's real unit rows, for the accounting only (the packed
+        engine reads them off the ragged input). On the slot path this
+        call copies the item into the staging block on the calling
+        thread, and blocks while every slot is in flight; on the sched
+        path the dispatcher copies it once its class is picked."""
         if self._stop.is_set():
             raise RuntimeError(f"engine {self.name} is stopped")
         if self.stalled.is_set():
@@ -364,8 +457,22 @@ class BatchEngine:
             raise ValueError(
                 f"engine {self.name} expects inputs {self.input_names}, "
                 f"got {tuple(inputs)}")
+        if self._packed:
+            units = int(np.asarray(inputs[self.ragged_spec.input]).shape[0])
         fut: Future = Future()
-        item = _WorkItem(inputs, fut, time.perf_counter(), units)
+        if self._classq is not None:
+            if priority not in PRIORITIES:
+                raise ValueError(
+                    f"unknown priority {priority!r}; valid: "
+                    f"{'|'.join(PRIORITIES)}")
+            item = _WorkItem(inputs, fut, time.perf_counter(), priority,
+                             units)
+            try:
+                self._classq.put(priority, item)
+            except RuntimeError:
+                raise RuntimeError(f"engine {self.name} is stopped") from None
+            return fut
+        item = _WorkItem(inputs, fut, time.perf_counter(), units=units)
         if self._ring is not None:
             try:
                 self._ring.write(inputs, item)
@@ -377,6 +484,8 @@ class BatchEngine:
 
     def queue_depth(self) -> int:
         """Items submitted but not yet dispatched."""
+        if self._classq is not None:
+            return self._classq.depth()
         if self._ring is not None:
             return self._ring.pending_items()
         return self._queue.qsize()
@@ -384,6 +493,8 @@ class BatchEngine:
     def queue_age_s(self) -> float:
         """Age (s) of the oldest undispatched item; 0 when idle."""
         now = time.perf_counter()
+        if self._classq is not None:
+            return self._classq.oldest_age_s(now)
         if self._ring is not None:
             return self._ring.oldest_age_s(now)
         with self._queue.mutex:
@@ -391,6 +502,28 @@ class BatchEngine:
         if isinstance(head, _WorkItem):
             return max(0.0, now - head.t_submit)
         return 0.0
+
+    def class_depths(self) -> dict[str, int]:
+        """Per-class queued depth ({} with the scheduler off)."""
+        if self._classq is None:
+            return {}
+        return self._classq.depth_by_class()
+
+    def shed_counts(self) -> dict[str, int]:
+        """Per-class shed totals ({} with the scheduler off)."""
+        if self._shedder is None:
+            return {}
+        return dict(self._shedder.counts)
+
+    def retune(self, op) -> None:
+        """Apply the controller's operating point to the one pushed
+        knob, the upload-queue depth (scalar setpoints are read per
+        dispatch). Never blocks a dispatcher: a resize takes the queue's
+        own mutex only."""
+        depth = int(op.transfer_depth or 0)
+        if depth and depth != self.transfer_depth:
+            self.transfer_depth = max(1, depth)
+            self._upload_q.set_depth(self.transfer_depth)
 
     def graphs_captured(self) -> int:
         return len(self._graphs) if self._graphs is not None else 0
@@ -418,11 +551,11 @@ class BatchEngine:
                         # the warm run overlaps this engine's launches;
                         # the capture holds its device lock
                         self._graphs.capture(
-                            b, [batch[n] for n in self.input_names],
+                            b, [batch[n] for n in self._step_inputs],
                             self._device_lock)
                     else:
                         self.step_fn(*[torch.from_numpy(batch[n])
-                                       for n in self.input_names])
+                                       for n in self._step_inputs])
                 except Exception:  # noqa: BLE001 — counted, never hidden
                     if self._stop.is_set():
                         return
@@ -448,9 +581,21 @@ class BatchEngine:
 
     def _warm_batch(self, example: dict[str, np.ndarray],
                     b: int) -> dict[str, np.ndarray]:
-        """Bucket-``b`` warmup batch from a per-item example."""
-        return {k: np.broadcast_to(v, (b,) + v.shape).copy()
-                for k, v in example.items()}
+        """Bucket-``b`` warmup batch from a per-item example. The packed
+        engine warms the packed shapes: the unit block and ``seg`` at
+        ``unit_rows(b)``, all pad (seg −1)."""
+        spec = self.ragged_spec
+        batch: dict[str, np.ndarray] = {}
+        for k, v in example.items():
+            if self._packed and k == spec.input:
+                batch[k] = np.zeros(
+                    (spec.unit_rows(b),) + tuple(spec.unit_shape),
+                    spec.dtype)
+            else:
+                batch[k] = np.broadcast_to(v, (b,) + v.shape).copy()
+        if self._packed:
+            batch["seg"] = np.full((spec.unit_rows(b),), -1, np.int32)
+        return batch
 
     def warm_async(self, **example: np.ndarray) -> None:
         """Fire-and-forget bucket warmup (the serving path: no bucket's
@@ -488,6 +633,8 @@ class BatchEngine:
         """Stop every thread; futures not yet resolved fail; the graphs,
         their pool and the staging buffers are freed."""
         self._stop.set()
+        if self._classq is not None:
+            self._classq.close()
         if self._ring is not None:
             self._ring.close()
         self._queue.put(None)
@@ -502,9 +649,7 @@ class BatchEngine:
         self._completer.join(timeout=10)
         exc = RuntimeError(f"engine {self.name} stopped")
         self._drain_upload_q(exc)
-        if self._ring is not None:
-            for item in self._ring.drain_items():
-                _safe_set_exception(item.future, exc)
+        self._drain_queued(exc)
         while True:
             try:
                 item = self._queue.get_nowait()
@@ -525,10 +670,11 @@ class BatchEngine:
         exc = TimeoutError(
             f"engine {self.name} quarantined: wedged device call; the "
             "supervisor is rebuilding the engine")
+        if self._classq is not None:
+            self._classq.close()
         if self._ring is not None:
             self._ring.close()
-            for item in self._ring.drain_items():
-                _safe_set_exception(item.future, exc)
+        self._drain_queued(exc)
         self._queue.put(None)
         self._done.put(None)
         self._drain_upload_q(exc)
@@ -567,11 +713,30 @@ class BatchEngine:
 
     # -------------------------------------------------------- internals
 
+    def _drain_queued(self, exc: BaseException) -> None:
+        """Fail every item in the class queues and the staging ring
+        (stop, abandon, stall)."""
+        if self._classq is not None:
+            for item in self._classq.drain():
+                _safe_set_exception(item.future, exc)
+        if self._ring is not None:
+            for item in self._ring.drain_items():
+                _safe_set_exception(item.future, exc)
+
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
             if n <= b:
                 return b
         raise ValueError(f"{n} items exceed the top bucket {self.buckets[-1]}")
+
+    def _bucket_ragged(self, n: int, units: int) -> int:
+        """The packed engine's bucket: the smallest rung that fits both
+        the item rows and the packed unit rows."""
+        spec = self.ragged_spec
+        for b in self.buckets:
+            if n <= b and units <= spec.unit_rows(b):
+                return b
+        return self.buckets[-1]
 
     def _track_dispatch(self, t0: float, items: list[_WorkItem],
                         bucket: int) -> int:
@@ -602,15 +767,20 @@ class BatchEngine:
                     {"engine": self.name})
 
     def _record_batch(self, n: int, b: int, clock: dict[str, float],
-                      items: list[_WorkItem]) -> None:
+                      items: list[_WorkItem],
+                      sealed: SealedBatch | None = None) -> None:
         """Count a launched batch — before its futures can resolve, so
-        a caller that has every result sees every batch counted."""
+        a caller that has every result sees every batch counted. A
+        packed batch knows its real and computed unit rows exactly."""
         with self._exec_lock:
             st = self.stats
             st.batches += 1
             st.items += n
             st.occupancy_sum += n / b
-            if self.max_units is None:
+            if sealed is not None and sealed.row_len is not None:
+                st.units += sealed.units
+                st.unit_slots += sealed.unit_rows
+            elif self.max_units is None:
                 st.unit_slots += b
                 st.units += n
             else:
@@ -639,20 +809,22 @@ class BatchEngine:
         from the page-locked slot into device buffers the slot owns, or
         (legacy assembly) of the freshly stacked arrays."""
         if not self._cuda:
-            return [torch.from_numpy(batch[n]) for n in self.input_names]
+            return [torch.from_numpy(batch[n]) for n in self._step_inputs]
         with torch.cuda.stream(stream):
             if sealed is None:
                 return [torch.from_numpy(batch[n]).to(
                     self.device, non_blocking=True) for n in self.input_names]
-            dev = sealed.slot.device
+            slot = sealed.slot
+            dev = slot.device
             out = []
-            for n in self.input_names:
-                block = sealed.slot.arrays[n]
+            for n in self._step_inputs:
+                block = slot.seg if n == "seg" else slot.arrays[n]
                 if n not in dev:
                     dev[n] = torch.empty(
                         block.shape, device=self.device,
                         dtype=torch.from_numpy(block[:0]).dtype)
-                dst = dev[n][:b]
+                # b rows, or the packed block's unit rows
+                dst = dev[n][:batch[n].shape[0]]
                 dst.copy_(torch.from_numpy(batch[n]), non_blocking=True)
                 out.append(dst)
             return out
@@ -683,10 +855,12 @@ class BatchEngine:
                 else:
                     slot = sealed.slot.device
                     if "readback" not in slot:
+                        # sized for the top bucket's output rows: its
+                        # unit rows on the packed engine
                         slot["readback"] = torch.empty(
-                            (self.buckets[-1],) + tuple(out.shape[1:]),
+                            (self._out_rows,) + tuple(out.shape[1:]),
                             dtype=out.dtype, pin_memory=True)
-                    host = slot["readback"][:b]
+                    host = slot["readback"][:out.shape[0]]
                 host.copy_(out, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(self._compute)
@@ -739,7 +913,7 @@ class BatchEngine:
             except Exception as exc:  # noqa: BLE001 — surface to every caller
                 self._fail_launch(exc, bid, items, sealed)
                 return
-            self._record_batch(n, b, clock, items)
+            self._record_batch(n, b, clock, items, sealed)
             self._done.put((pending, items, t0, bid, sealed, n))
             return
         try:
@@ -830,7 +1004,7 @@ class BatchEngine:
             except Exception as exc:  # noqa: BLE001 — surface to every caller
                 self._fail_launch(exc, bid, items, sealed)
                 continue
-            self._record_batch(n, b, clock, items)
+            self._record_batch(n, b, clock, items, sealed)
             self._done.put((pending, items, t0, bid, sealed, n))
 
     def _drain_upload_q(self, exc: Exception) -> None:
@@ -851,11 +1025,74 @@ class BatchEngine:
 
     # ------------------------------------------------- dispatch loops
 
+    def _dispatch_loop_sched(self) -> None:
+        """QoS dispatch: drain the class queues realtime-first (a pick
+        no class can starve), form each batch under its class deadline,
+        and shed frames past their class staleness budget (oldest
+        first) before they are staged."""
+        cq = self._classq
+        shedder = self._shedder
+        while True:
+            if self._stop.is_set():
+                exc = RuntimeError(f"engine {self.name} stopped")
+                for it in cq.drain():
+                    _safe_set_exception(it.future, exc)
+                break
+            shedder.sweep(cq)
+            cls = cq.pick(timeout=0.05)
+            if cls is None:
+                continue
+            # live setpoints: one None check with EVAM_TUNE off
+            op = current_op()
+            cap = self.max_batch
+            deadline = self.sched.deadline_s(cls)
+            if op is not None:
+                if op.batch_cap:
+                    cap = min(cap, op.batch_cap)
+                deadline *= op.deadline_scale
+            items = cq.collect(cls, cap, deadline)
+            # the formation wait itself can age items past budget
+            items = shedder.shed(cls, items)
+            if not items:
+                continue
+            self._launch_sched(items)
+
+    def _launch_sched(self, items: list[_WorkItem]) -> None:
+        """Assemble and dispatch one class-ordered batch: through the
+        staging ring (the copies on this thread), or stacked when
+        EVAM_BATCH_ASSEMBLY=legacy. A pick past the slot's rows — or,
+        packed, its unit block — is split across batches in order."""
+        if self._ring is not None:
+            bucket_fn = self._bucket_ragged if self._packed else self._bucket
+            staged = [(it.inputs, it) for it in items]
+            while staged:
+                clock: dict[str, float] = {
+                    "submit_wait": time.perf_counter() - staged[0][1].t_submit,
+                }
+                try:
+                    sealed, staged = self._ring.stage_direct(
+                        staged, bucket_fn, clock)
+                except RuntimeError:
+                    exc = RuntimeError(f"engine {self.name} is stopped")
+                    for _, it in staged:
+                        _safe_set_exception(it.future, exc)
+                    return
+                if sealed is None:
+                    continue  # every staged row failed its shape check
+                self._dispatch_batch(sealed.arrays, sealed.items, sealed.n,
+                                     sealed.bucket, sealed.clock, sealed)
+            return
+        self._dispatch_stacked(items)
+
     def _dispatch_loop_slot(self) -> None:
         """Seal staged slots at the batch deadline and dispatch them —
         no stack, no pad concat, no per-batch allocation."""
+        bucket_fn = self._bucket_ragged if self._packed else self._bucket
         while True:
-            sealed = self._ring.next_batch(self.deadline_s, self._bucket)
+            op = current_op()
+            deadline = (self.deadline_s * op.deadline_scale
+                        if op is not None else self.deadline_s)
+            sealed = self._ring.next_batch(deadline, bucket_fn)
             if sealed is None:
                 if self._stop.is_set():
                     break
@@ -879,9 +1116,16 @@ class BatchEngine:
                 continue
             if first is None:
                 break
+            op = current_op()
+            cap = self.max_batch
+            deadline_s = self.deadline_s
+            if op is not None:
+                if op.batch_cap:
+                    cap = min(cap, op.batch_cap)
+                deadline_s *= op.deadline_scale
             items = [first]
-            deadline = time.perf_counter() + self.deadline_s
-            while len(items) < self.max_batch:
+            deadline = time.perf_counter() + deadline_s
+            while len(items) < cap:
                 remaining = deadline - time.perf_counter()
                 if remaining <= 0:
                     break
@@ -893,25 +1137,30 @@ class BatchEngine:
                     self._stop.set()
                     break
                 items.append(nxt)
-            n = len(items)
-            b = self._bucket(n)
-            clock = {"submit_wait": time.perf_counter() - items[0].t_submit}
-            t_asm = time.perf_counter()
-            try:
-                batch = {}
-                for name in self.input_names:
-                    stacked = np.stack([it.inputs[name] for it in items])
-                    if b > n:
-                        pad = np.zeros((b - n,) + stacked.shape[1:],
-                                       stacked.dtype)
-                        stacked = np.concatenate([stacked, pad])
-                    batch[name] = stacked
-            except Exception as exc:  # noqa: BLE001 — surface to every caller
-                for it in items:
-                    _safe_set_exception(it.future, exc)
-                continue
-            clock["slot_write"] = time.perf_counter() - t_asm
-            self._dispatch_batch(batch, items, n, b, clock, None)
+            self._dispatch_stacked(items)
+
+    def _dispatch_stacked(self, items: list[_WorkItem]) -> None:
+        """The legacy assembly: stack and zero-pad on the dispatcher
+        thread, then dispatch."""
+        n = len(items)
+        b = self._bucket(n)
+        clock = {"submit_wait": time.perf_counter() - items[0].t_submit}
+        t_asm = time.perf_counter()
+        try:
+            batch = {}
+            for name in self.input_names:
+                stacked = np.stack([it.inputs[name] for it in items])
+                if b > n:
+                    pad = np.zeros((b - n,) + stacked.shape[1:],
+                                   stacked.dtype)
+                    stacked = np.concatenate([stacked, pad])
+                batch[name] = stacked
+        except Exception as exc:  # noqa: BLE001 — surface to every caller
+            for it in items:
+                _safe_set_exception(it.future, exc)
+            return
+        clock["slot_write"] = time.perf_counter() - t_asm
+        self._dispatch_batch(batch, items, n, b, clock, None)
 
     # ------------------------------------------------------ completion
 
@@ -928,7 +1177,8 @@ class BatchEngine:
                 # each row copied out: the slot's output block, and the
                 # step's own output where it aliases the staged input,
                 # are reused by later batches
-                rows = np.array(host[:n])
+                ragged = sealed is not None and sealed.row_len is not None
+                rows = np.array(host[:sealed.units if ragged else n])
             except Exception as exc:  # noqa: BLE001
                 for it in items:
                     _safe_set_exception(it.future, exc)
@@ -958,7 +1208,14 @@ class BatchEngine:
             for i, it in enumerate(items):
                 metrics.observe("evam_item_latency_seconds",
                                 now - it.t_submit, {"engine": self.name})
-                _safe_set_result(it.future, rows[i])
+                if ragged:
+                    # item i owns its packed unit rows (none: an empty
+                    # slice)
+                    off = int(sealed.row_offset[i])
+                    _safe_set_result(
+                        it.future, rows[off:off + int(sealed.row_len[i])])
+                else:
+                    _safe_set_result(it.future, rows[i])
             resolve_s = time.perf_counter() - t_res
             with self._exec_lock:
                 self.stats.add_stage("readback", readback_s)
@@ -996,9 +1253,7 @@ class BatchEngine:
             for it in stuck:
                 _safe_set_exception(it.future, exc)
             self._drain_upload_q(exc)
-            if self._ring is not None:
-                for it in self._ring.drain_items():
-                    _safe_set_exception(it.future, exc)
+            self._drain_queued(exc)
             while True:
                 try:
                     queued = self._queue.get_nowait()

@@ -9,6 +9,12 @@ audio engines, and the fused detect+classify engine
 around a BatchEngine (``supervise=False``: the bare engine). The hub's
 own default is ``warmup=False``, as the reference's; the server passes
 ``Settings``, whose default is warmup on.
+
+A classify engine carries a ``RaggedSpec`` (its ROI budget) in both
+ragged modes, for the unit accounting; with ``ragged="packed"`` it is
+built on ``steps.build_classify_step_ragged``. ``sched`` (an enabled
+``SchedConfig``) gives every engine the scheduler's dispatch. Both are
+part of the rebuild recipe.
 """
 
 from __future__ import annotations
@@ -16,15 +22,18 @@ from __future__ import annotations
 import logging
 import threading
 
+import numpy as np
 import torch
 
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.engine import steps as step_builders
 from evam_tpu_torch.engine.batcher import BatchEngine
+from evam_tpu_torch.engine.ragged import RaggedSpec, ragged_mode
 from evam_tpu_torch.engine.ringbuf import STAGES
 from evam_tpu_torch.engine.supervisor import SupervisedEngine
 from evam_tpu_torch.models.registry import LoadedModel, ModelRegistry
 from evam_tpu_torch.obs.metrics import metrics
+from evam_tpu_torch.sched.classes import PRIORITIES, SchedConfig
 
 log = logging.getLogger("evam_tpu_torch.engine.hub")
 
@@ -61,6 +70,9 @@ class EngineHub:
         transfer_depth: int = 0,
         assembly: str | None = None,
         staging_depth: int = 0,
+        sched: SchedConfig | None = None,
+        ragged: str | None = None,
+        ragged_unit_budget: int = 4,
     ):
         self.registry = registry
         self.device = resolve_device(device)
@@ -91,6 +103,11 @@ class EngineHub:
         self.transfer_depth = transfer_depth
         self.assembly = assembly
         self.staging_depth = staging_depth
+        #: EVAM_SCHED: the scheduler's config (None: single FIFO)
+        self.sched = sched if (sched is not None and sched.enabled) else None
+        #: EVAM_RAGGED and EVAM_RAGGED_UNIT_BUDGET
+        self.ragged = ragged_mode(ragged)
+        self.ragged_unit_budget = ragged_unit_budget
         self._engines: dict[str, BatchEngine | SupervisedEngine] = {}
         self._models: dict[str, LoadedModel] = {}
         # RLock: engine() calls model() while holding the lock
@@ -115,13 +132,14 @@ class EngineHub:
                 builder, input_names, wired = _BUILDERS[kind]
                 if wired:
                     builder_kwargs.setdefault("wire_format", self.wire_format)
-                # a classify item is padded to the ROI budget in the
-                # step: the unit accounting counts its real boxes
-                max_units = (int(builder_kwargs.get("roi_budget", 8))
-                             if kind == "classify" else None)
+                spec = self._ragged_spec(kind, builder_kwargs)
+                if spec is not None and self.ragged == "packed":
+                    # masked region packing: one fixed-shape step over
+                    # the packed unit block (engine/ragged.py)
+                    builder = step_builders.build_classify_step_ragged
                 self._engines[key] = self._build(
                     key, builder(model, **builder_kwargs), input_names,
-                    max_units)
+                    ragged_spec=spec)
                 log.info("created engine %s (model %s)", key, model_key)
             return self._engines[key]
 
@@ -146,12 +164,28 @@ class EngineHub:
                 log.info("created fused engine %s", key)
             return self._engines[key]
 
+    def _ragged_spec(self, kind: str, builder_kwargs: dict
+                     ) -> RaggedSpec | None:
+        """The unit-level shape of a classify engine's boxes (the ROI
+        budget each item is padded to on the dense path), attached in
+        both ragged modes so the occupancy accounting counts real
+        boxes; packing itself is mode-gated."""
+        if kind != "classify":
+            return None
+        budget = int(builder_kwargs.get("roi_budget", 8))
+        return RaggedSpec(
+            input="boxes", unit_shape=(4,), dtype=np.float32,
+            max_units=budget,
+            unit_budget=min(self.ragged_unit_budget, budget),
+        )
+
     def _build(self, key: str, step_fn, input_names: tuple[str, ...],
-               max_units: int | None = None):
+               ragged_spec: RaggedSpec | None = None):
         """The engine for ``key``: a SupervisedEngine whose factory is
         the rebuild recipe (a replacement gets fresh graphs and a fresh
-        staging ring from the same step), or the bare BatchEngine with
-        supervision off."""
+        staging ring from the same step, with the same ragged mode and
+        scheduler config), or the bare BatchEngine with supervision
+        off."""
 
         def factory() -> BatchEngine:
             return BatchEngine(
@@ -161,13 +195,15 @@ class EngineHub:
                 max_batch=self.max_batch,
                 deadline_ms=self.deadline_ms,
                 input_names=input_names,
-                max_units=max_units,
                 stall_timeout_s=self.stall_timeout_s,
                 first_batch_grace=self.first_batch_grace,
                 transfer=self.transfer,
                 transfer_depth=self.transfer_depth or None,
                 assembly=self.assembly,
                 staging_depth=self.staging_depth or None,
+                sched=self.sched,
+                ragged=self.ragged,
+                ragged_spec=ragged_spec,
             )
 
         if not self.supervise:
@@ -186,9 +222,8 @@ class EngineHub:
 
     # ------------------------------------------- /healthz summaries
     # Same keys as the reference's (engine/hub.py stage_summary,
-    # queue_summary, readiness) — the route golden pins them. The
-    # reference's ``shed_totals`` reads zeros with its scheduler off,
-    # and /healthz (server/app.py) states them.
+    # queue_summary, class_queue_depths, shed_totals, readiness) — the
+    # route goldens pin them.
 
     def _rows(self) -> list[dict]:
         with self._lock:
@@ -222,6 +257,40 @@ class EngineHub:
             metrics.set("evam_engine_queue_depth", d, {"engine": k})
             metrics.set("evam_engine_queue_age_s", age, {"engine": k})
         return {"depth": depth, "oldest_age_s": round(oldest, 3)}
+
+    def class_queue_depths(self) -> dict[str, int]:
+        """Per-class queued depth summed across engines (zeros with the
+        scheduler off: /scheduler keeps its shape)."""
+        out = {c: 0 for c in PRIORITIES}
+        with self._lock:
+            engines = list(self._engines.values())
+        for e in engines:
+            for c, n in e.class_depths().items():
+                out[c] = out.get(c, 0) + n
+        return out
+
+    def shed_totals(self) -> dict[str, int]:
+        """Per-class shed counts summed across engines, monotonic across
+        supervisor rebuilds (``SupervisedEngine.shed_counts``)."""
+        out = {c: 0 for c in PRIORITIES}
+        with self._lock:
+            engines = list(self._engines.values())
+        for e in engines:
+            for c, n in e.shed_counts().items():
+                out[c] = out.get(c, 0) + n
+        return out
+
+    def retune(self, op) -> None:
+        """Push the controller's operating point to every engine (the
+        upload-queue depth; scalar setpoints are pulled per dispatch)."""
+        with self._lock:
+            engines = list(self._engines.values())
+        for e in engines:
+            try:
+                e.retune(op)
+            except Exception:  # noqa: BLE001 — an engine mid-teardown
+                log.debug("retune skipped for a stopping engine",
+                          exc_info=True)
 
     def readiness(self) -> dict[str, int | float]:
         """Engine state for /healthz: ``warming`` > 0 while an engine's

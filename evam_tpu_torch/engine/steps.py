@@ -11,9 +11,9 @@ bucket (``engine/graphs.py``) and replay it. Nothing a step runs may
 copy from the host or wait for the device: every constant is built on
 the device when the step is built.
 
-Ported: the detect step (SSD branch), the classify step, the fused
-detect+classify step, the action encode and decode steps and the audio
-step. The packed-ragged classify step comes with a later slice.
+Ported: the detect step (SSD branch), the classify step and its
+packed-ragged form (``EVAM_RAGGED=packed``), the fused detect+classify
+step, the action encode and decode steps and the audio step.
 """
 
 from __future__ import annotations
@@ -52,8 +52,15 @@ def _classify_crops(model: LoadedModel, frames: torch.Tensor,
                     boxes: torch.Tensor, wire_format: str) -> torch.Tensor:
     """Wire frames [B, ...] + boxes [B, R, 4] → per-head probabilities
     [B, R, Σ classes], heads in ``model.spec.heads`` order."""
-    pre = model.preprocess
     b, r = boxes.shape[:2]
+    return _crop_probs(model, frames, boxes, wire_format).reshape(b, r, -1)
+
+
+def _crop_probs(model: LoadedModel, frames: torch.Tensor,
+                boxes: torch.Tensor, wire_format: str) -> torch.Tensor:
+    """Wire frames [B, ...] + boxes [B, R, 4] → per-head probabilities
+    [B·R, Σ classes], heads in ``model.spec.heads`` order."""
+    pre = model.preprocess
     if wire_format == "i420":
         # crop straight from the wire planes: the full-resolution BGR
         # batch never materializes
@@ -61,11 +68,10 @@ def _classify_crops(model: LoadedModel, frames: torch.Tensor,
     else:
         crops = crop_rois(decode_wire(frames, wire_format), boxes,
                           (pre.height, pre.width))
-    crops = crops.reshape((b * r,) + crops.shape[2:])
+    crops = crops.reshape((-1,) + crops.shape[2:])
     out = model.forward(preprocess_bgr(crops, pre))
-    probs = torch.cat([_head_probs(model, name, out)
-                       for name, _ in model.spec.heads], dim=-1)
-    return probs.reshape(b, r, -1)
+    return torch.cat([_head_probs(model, name, out)
+                      for name, _ in model.spec.heads], dim=-1)
 
 
 def _wire_spec(model: LoadedModel, wire_format: str):
@@ -136,6 +142,36 @@ def build_classify_step(
     def step(frames: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return _classify_crops(model, frames, boxes, wire_format)
+
+    return step
+
+
+def build_classify_step_ragged(
+    model: LoadedModel, roi_budget: int = 8, wire_format: str = "bgr"
+) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Packed-ragged classify (``EVAM_RAGGED=packed``,
+    ``engine/ragged.py``): frames + a packed box block + segment ids →
+    per-unit head probabilities.
+
+    ``frames`` wire-encoded uint8 [B, ...]; ``boxes`` float32 [U, 4],
+    every frame's real boxes end to end; ``seg`` int32 [U], the batch
+    row that owns each unit (−1 on the pad tail). Pad units gather a
+    clamped, valid frame so the step has no branch, and their rows are
+    zeroed by the validity mask. Output [U, Σ classes]; the completer
+    hands each item its rows through the sealed batch's
+    ``row_len``/``row_offset``. ``roi_budget`` is the dense step's
+    signature kept; the packed block's size comes from the ring.
+    """
+    prepare_constants(model.preprocess, model.device)
+
+    def step(frames: torch.Tensor, boxes: torch.Tensor,
+             seg: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            src = torch.clamp(seg, 0, frames.shape[0] - 1).long()
+            f = torch.index_select(frames, 0, src)  # [U, wire...]
+            probs = _crop_probs(model, f, boxes[:, None, :], wire_format)
+            valid = (seg >= 0).to(probs.dtype)
+            return probs * valid[:, None]
 
     return step
 

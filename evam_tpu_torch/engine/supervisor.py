@@ -76,6 +76,9 @@ class SupervisedEngine:
         #: cumulative counters of quarantined engines, so /healthz and
         #: /engines stay monotonic across a rebuild
         self._stats_carry: EngineStats | None = None
+        #: per-class shed counts of quarantined engines, so the hub's
+        #: shed totals stay monotonic across a rebuild
+        self._shed_carry: dict[str, int] = {}
         self._example: dict | None = None
         self._warm_requested = False
         self._lock = threading.RLock()
@@ -90,7 +93,8 @@ class SupervisedEngine:
 
     # ------------------------------------------------------------- API
 
-    def submit(self, units: int | None = None, **inputs) -> Future:
+    def submit(self, priority: str = "standard", units: int | None = None,
+               **inputs) -> Future:
         with self._lock:
             state = self.state
             eng = self._engine
@@ -105,7 +109,7 @@ class SupervisedEngine:
             raise TimeoutError(
                 f"engine {self.name} is restarting after a wedge; "
                 "retry shortly")
-        return eng.submit(units=units, **inputs)
+        return eng.submit(priority=priority, units=units, **inputs)
 
     def warm_async(self, **example) -> None:
         with self._lock:
@@ -158,16 +162,30 @@ class SupervisedEngine:
             merged.absorb(eng.stats)
         return stats_row(self, merged)
 
+    def shed_counts(self) -> dict[str, int]:
+        """Per-class shed totals, quarantined predecessors included."""
+        live = object.__getattribute__(self, "_engine").shed_counts()
+        with self._lock:
+            if not self._shed_carry:
+                return live
+            out = dict(self._shed_carry)
+        for c, n in live.items():
+            out[c] = out.get(c, 0) + n
+        return out
+
     def _absorb_counters(self, eng: BatchEngine) -> None:
         """Fold a quarantined engine's counters into the carry before
         it is abandoned and replaced."""
         snap = EngineStats()
         with eng._exec_lock:
             snap.absorb(eng.stats)
+        shed = eng.shed_counts()
         with self._lock:
             if self._stats_carry is None:
                 self._stats_carry = EngineStats()
             self._stats_carry.absorb(snap)
+            for c, n in shed.items():
+                self._shed_carry[c] = self._shed_carry.get(c, 0) + n
 
     def __getattr__(self, item):
         # only for attributes NOT found on the handle: warmed, stalled,

@@ -7,7 +7,7 @@
     GET    /pipelines/{name}/{version}/{id}
     GET    /pipelines/{name}/{version}/{id}/status
     DELETE /pipelines/{name}/{version}/{id}
-    GET    /models, /engines, /metrics, /healthz
+    GET    /models, /engines, /scheduler, /metrics, /healthz
 
 ``/metrics`` also carries ``evam_kernel_launches{kernel, variant}``,
 the hand kernels' launch counts since the process started.
@@ -20,8 +20,9 @@ only its own connection. Frames never touch it. Status codes and
 that is not an object → 400, ``KeyError`` → 404, ``MissingWeightsError``
 / ``RequestError`` / ``ValueError`` → 400; a pipeline, source or
 destination that waits for a later slice (``NotImplementedError``) →
-501 with the slice in the error. ``/scheduler`` and ``/traces`` answer
-501 until their slices.
+501 with the slice in the error; a start over the admission ceiling
+(``AdmissionError``) → 503 with ``Retry-After`` and ``{"error",
+"retry_after_s"}``. ``/traces`` answers 501 until its slice.
 """
 
 from __future__ import annotations
@@ -40,11 +41,8 @@ from evam_tpu_torch.config.settings import Settings
 from evam_tpu_torch.models.registry import MissingWeightsError
 from evam_tpu_torch.obs.metrics import metrics
 from evam_tpu_torch.ops import qgemm
-from evam_tpu_torch.server.registry import (
-    PRIORITIES,
-    PipelineRegistry,
-    RequestError,
-)
+from evam_tpu_torch.sched import AdmissionError
+from evam_tpu_torch.server.registry import PipelineRegistry, RequestError
 from evam_tpu_torch.stages.gate import registry as gate_registry
 
 log = logging.getLogger("evam_tpu_torch.server.app")
@@ -58,8 +56,10 @@ class Response:
     """Status, body bytes and content type of one answer."""
 
     def __init__(self, status: int, payload: Any = None,
-                 text: str | None = None):
+                 text: str | None = None,
+                 headers: dict[str, str] | None = None):
         self.status = status
+        self.headers = headers or {}
         if text is not None:
             self.body = text.encode()
             self.content_type = "text/plain; charset=utf-8"
@@ -95,7 +95,7 @@ class App:
              self.instance_stop),
             ("GET", "/models", self.list_models),
             ("GET", "/engines", self.engines),
-            ("GET", "/scheduler", self.later(slices.ENGINE_DEPTH)),
+            ("GET", "/scheduler", self.scheduler),
             ("GET", "/metrics", self.metrics_endpoint),
             ("GET", "/traces", self.later(slices.TRACE_STATE)),
             ("GET", "/healthz", self.healthz),
@@ -149,6 +149,12 @@ class App:
         try:
             instance = self.registry.start_instance(
                 params["name"], params["version"], request)
+        except AdmissionError as exc:
+            # over capacity: 503 and a back-off hint, never an
+            # oversubscription that degrades the admitted streams
+            return Response(
+                503, {"error": str(exc), "retry_after_s": exc.retry_after_s},
+                headers={"Retry-After": str(int(exc.retry_after_s))})
         except KeyError as exc:
             return _error(404, str(exc.args[0]))
         except MissingWeightsError as exc:
@@ -196,6 +202,9 @@ class App:
     def engines(self, params, body) -> Response:
         return Response(200, self.registry.hub.stats())
 
+    def scheduler(self, params, body) -> Response:
+        return Response(200, self.registry.scheduler_status())
+
     def metrics_endpoint(self, params, body) -> Response:
         # the hand kernel's launches so far, as its wrapper counts them
         # where it launches (the plain version on the CPU counts none)
@@ -215,17 +224,17 @@ class App:
         ready: dict[str, Any] = dict(hub.readiness())
         ready["host_stages_ms"] = hub.stage_summary()
         ready["queue"] = hub.queue_summary()
-        # the reference's off-path blocks: no scheduler (every start is
-        # admitted and counted, none rejected or shed) and no AOT cache
-        # in this slice
+        # the QoS ladder (admit → queue → shed) per class
+        counts = self.registry.admission.counts()
         ready["scheduler"] = {
-            "enabled": False,
-            "admitted": dict(self.registry.admitted),
-            "rejected": dict.fromkeys(PRIORITIES, 0),
-            "shed": dict.fromkeys(PRIORITIES, 0),
+            "enabled": self.registry.sched_cfg.enabled,
+            "admitted": counts["admitted"],
+            "rejected": counts["rejected"],
+            "shed": hub.shed_totals(),
         }
         # the motion gates' run/skip totals and live skipped-frames/s
-        # (fixed keys, all zero while nothing gates)
+        # (fixed keys, all zero while nothing gates); the AOT cache's
+        # block reads zeros until its slice
         ready["gate"] = gate_registry.summary()
         ready["aot"] = {"enabled": False, "entries": 0, "bytes": 0,
                         "max_bytes": 0, "hits": 0,
@@ -251,6 +260,8 @@ def _handler_class(app: App) -> type[BaseHTTPRequestHandler]:
             body = self.rfile.read(length) if length else b""
             resp = app.handle(self.command, self.path, body)
             self.send_response(resp.status)
+            for key, value in resp.headers.items():
+                self.send_header(key, value)
             self.send_header("Content-Type", resp.content_type)
             self.send_header("Content-Length", str(len(resp.body)))
             self.end_headers()

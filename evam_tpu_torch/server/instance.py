@@ -20,7 +20,7 @@ import random
 import threading
 import time
 import uuid
-from typing import Any
+from typing import Any, Callable
 
 from evam_tpu_torch.media.source import create_source
 from evam_tpu_torch.obs.metrics import metrics
@@ -68,15 +68,18 @@ class StreamInstance:
         retry_backoff_s: float = 1.0,
         max_backoff_s: float = 30.0,
         priority: str = "standard",
+        on_finish: Callable[["StreamInstance"], None] | None = None,
     ):
         self.id = str(uuid.uuid4())
         self.pipeline_name = pipeline_name
         self.version = version
         self.request = request
         self.stages = stages
-        #: QoS class (realtime|standard|batch): validated and reported;
-        #: scheduling by class comes with a later slice
+        #: QoS class (realtime|standard|batch), stamped on every frame
         self.priority = priority
+        #: called once when the instance ends, however it ends (the
+        #: registry releases the stream's admission ticket here)
+        self.on_finish = on_finish
         self.destination = destination or NullDestination()
         self.max_retries = max_retries
         self.retry_backoff_s = retry_backoff_s
@@ -163,6 +166,12 @@ class StreamInstance:
             except Exception:  # noqa: BLE001
                 log.exception("stream %s destination close failed",
                               self.id[:8])
+            if self.on_finish is not None:
+                try:
+                    self.on_finish(self)
+                except Exception:  # noqa: BLE001 — cleanup boundary
+                    log.exception("stream %s finish hook failed",
+                                  self.id[:8])
 
     def _run_once(self) -> None:
         src_cfg = self.request.get("source", {})
@@ -177,6 +186,7 @@ class StreamInstance:
             stream_id=self.id,
             stages=self.stages,
             source_uri=src_cfg.get("uri", ""),
+            priority=self.priority,
         )
         try:
             self._runner.run(source.frames())

@@ -4,12 +4,18 @@ Counterpart of ``evam_tpu/server/registry.py``. The registry owns the
 one EngineHub — instances are lightweight adapters around shared
 per-model batch engines — and the table of running instances.
 
-Left out until their slices (ROADMAP.md): the mesh and fleet, the
-admission controller (503) and the self-tuning controller, the RTSP
+The QoS layer (``sched/``): a start names its ``priority`` (request,
+then the pipeline spec, then ``standard``) and its ``fps``; admission
+reserves capacity for it before any resource is built, or refuses it
+(``AdmissionError``, a 503 with Retry-After), and the instance's end
+releases the reservation. With the scheduler off admission admits
+everything and counts it. With ``EVAM_TUNE`` on the registry runs the
+self-tuning controller (``control/``) until ``stop_all``.
+``scheduler_status`` is the ``GET /scheduler`` payload.
+
+Left out until their slices (ROADMAP.md): the mesh and fleet, the RTSP
 and WebRTC frame destinations, the decode pool and RTSP demux,
 checkpoints, and persistence (``_persist`` / ``resume``).
-With the scheduler off, the reference validates a request's
-``priority`` and ``fps`` and reports ``priority``; so does the port.
 """
 
 from __future__ import annotations
@@ -20,39 +26,23 @@ from typing import Any
 
 from evam_tpu_torch import slices
 from evam_tpu_torch.config.settings import Settings
+from evam_tpu_torch.control import state as control_state
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.graph import PipelineLoader, resolve_parameters
 from evam_tpu_torch.media.source import check_source
 from evam_tpu_torch.models.registry import ModelRegistry
 from evam_tpu_torch.obs.metrics import metrics
 from evam_tpu_torch.publish.base import create_destination
+from evam_tpu_torch.sched import (
+    DEFAULT_PRIORITY,
+    AdmissionController,
+    SchedConfig,
+    validate_priority,
+)
 from evam_tpu_torch.server.instance import StreamInstance
 from evam_tpu_torch.stages.build import build_stages
 
 log = logging.getLogger("evam_tpu_torch.server.registry")
-
-#: the reference's scheduling classes, highest priority first, and its
-#: default class (``evam_tpu/sched/classes.py``)
-PRIORITIES = ("realtime", "standard", "batch")
-DEFAULT_PRIORITY = "standard"
-#: assumed per-stream fps when a start request declares none (the
-#: reference's ``SchedSettings.default_fps``)
-DEFAULT_FPS = 30.0
-
-
-def validate_priority(value: Any) -> str:
-    """Normalize + validate a request/spec ``priority`` value (a copy of
-    the reference's ``sched/classes.py`` ``validate_priority``)."""
-    if not isinstance(value, str):
-        raise ValueError(
-            f"priority must be one of {'|'.join(PRIORITIES)}, "
-            f"got {value!r}")
-    prio = value.strip().lower()
-    if prio not in PRIORITIES:
-        raise ValueError(
-            f"unknown priority {value!r}; valid values: "
-            f"{'|'.join(PRIORITIES)}")
-    return prio
 
 
 class RequestError(ValueError):
@@ -71,6 +61,8 @@ class PipelineRegistry:
                 device=settings.device,
             )
             eng = settings.engine
+            sched_cfg = SchedConfig.from_settings(
+                settings.sched, standard_deadline_ms=eng.batch_deadline_ms)
             hub = EngineHub(
                 registry,
                 device=settings.device,
@@ -87,12 +79,26 @@ class PipelineRegistry:
                 transfer_depth=eng.transfer_depth,
                 assembly=eng.batch_assembly,
                 staging_depth=eng.staging_depth,
+                sched=sched_cfg,
+                ragged=eng.ragged,
+                ragged_unit_budget=eng.ragged_unit_budget,
             )
         self.hub = hub
+        #: the hub's scheduler config is the one source; a hub without
+        #: one (tests, embedders) gets admission that admits everything
+        self.sched_cfg = (getattr(hub, "sched", None)
+                          or SchedConfig.disabled())
+        self.admission = AdmissionController(hub, self.sched_cfg)
+        #: the self-tuning controller, with EVAM_TUNE on
+        self.tuner = None
+        tune_state = control_state.active()
+        if tune_state is not None:
+            from evam_tpu_torch.control import TuneController
+
+            self.tuner = TuneController(hub, tune_state,
+                                        admission=self.admission)
+            self.tuner.start()
         self.instances: dict[str, StreamInstance] = {}
-        #: starts that passed validation, per class (the reference's
-        #: admission controller counts them with the scheduler off too)
-        self.admitted = dict.fromkeys(PRIORITIES, 0)
         self._lock = threading.Lock()
 
     # ------------------------------------------------------- preload
@@ -163,14 +169,25 @@ class PipelineRegistry:
         except ValueError as exc:
             raise RequestError(str(exc)) from None
         try:
-            fps = float(request.get("fps") or DEFAULT_FPS)
+            fps = float(request.get("fps") or self.sched_cfg.default_fps)
         except (TypeError, ValueError):
             raise RequestError("request.fps must be a number") from None
         if fps <= 0:
             raise RequestError("request.fps must be > 0")
-        with self._lock:
-            self.admitted[priority] += 1
-        metrics.inc("evam_sched_admitted", labels={"class": priority})
+        # admission before any resource is built: an over-capacity
+        # start costs nothing (AdmissionError → 503 in server/app.py);
+        # the ticket is released by the instance's end or the unwind
+        ticket = self.admission.admit(priority, fps)
+        try:
+            return self._start_admitted(name, version, spec, src, request,
+                                        priority, ticket)
+        except BaseException:
+            ticket.release()
+            raise
+
+    def _start_admitted(self, name: str, version: str, spec, src,
+                        request: dict[str, Any], priority: str,
+                        ticket) -> StreamInstance:
         check_source(src)
         frame_cfg = (request.get("destination") or {}).get("frame") or {}
         if frame_cfg.get("type"):
@@ -202,6 +219,7 @@ class PipelineRegistry:
             request=request,
             destination=destination,
             priority=priority,
+            on_finish=lambda _inst: ticket.release(),
         )
         with self._lock:
             self.instances[instance.id] = instance
@@ -218,6 +236,23 @@ class PipelineRegistry:
             inst.stop()
         return inst
 
+    def scheduler_status(self) -> dict[str, Any]:
+        """GET /scheduler: the admission snapshot, the engines' per-class
+        queue depths and shed totals, the queue summary, the fleet block
+        (``mode: "off"``: the fleet is unported) and the control plane's
+        block — fixed keys whatever the knobs (the route golden)."""
+        out = self.admission.snapshot()
+        out["shed"] = self.hub.shed_totals()
+        out["queues"] = self.hub.class_queue_depths()
+        out["queue"] = self.hub.queue_summary()
+        out["fleet"] = {"mode": "off", "shards": 0, "degraded_shards": 0,
+                        "rebalances": 0, "streams": {}, "max_shards": 0,
+                        "scale_ups": 0, "scale_downs": 0}
+        st = control_state.active()
+        out["tuning"] = (st.snapshot() if st is not None
+                         else control_state.disabled_snapshot())
+        return out
+
     def statuses(self) -> list[dict[str, Any]]:
         with self._lock:
             instances = list(self.instances.values())
@@ -228,6 +263,8 @@ class PipelineRegistry:
         number of LEAKED instances — worker threads still alive after
         the per-instance drain budget (``settings.drain_timeout_s``),
         logged and counted in ``evam_shutdown_leaked_streams``."""
+        if self.tuner is not None:
+            self.tuner.stop()
         with self._lock:
             instances = list(self.instances.values())
         for inst in instances:

@@ -1,7 +1,7 @@
 """Per-frame context flowing through a stream's stage chain.
 
-Counterpart of ``evam_tpu/stages/context.py`` (a copy, less the QoS
-priority and trace handle, whose layers come with later slices).
+Counterpart of ``evam_tpu/stages/context.py`` (a copy, less the trace
+handle, whose layer comes with a later slice).
 """
 
 from __future__ import annotations
@@ -76,6 +76,8 @@ class FrameContext:
     ingest_t: float | None = None
     #: arbitrary cross-stage scratch
     scratch: dict[str, Any] = field(default_factory=dict)
+    #: the stream's QoS class (``sched/``), carried into every submit
+    priority: str = "standard"
 
     @property
     def height(self) -> int:

@@ -19,7 +19,9 @@ which the scene counts as moving), ``gate-threshold-lo`` /
 ``EVAM_GATE_THRESHOLD_LO`` (hysteresis exit, default threshold/2),
 ``gate-max-skip`` / ``EVAM_GATE_MAX_SKIP`` (bound on consecutive
 skips), ``gate-refresh`` / ``EVAM_GATE_REFRESH`` (forced re-inference
-period in frames, 0 = off).
+period in frames, 0 = off). With the control plane on (``EVAM_TUNE``)
+its ``gate_scale`` stretches both thresholds, unless this gate's were
+set explicitly (``pinned``).
 
 Observability: ``evam_gate_ran_total{engine}`` and
 ``evam_gate_skipped_total{engine}``, per-stream state on
@@ -39,6 +41,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from evam_tpu_torch.control.state import current_op
 from evam_tpu_torch.media.luma import luma_grid
 from evam_tpu_torch.obs.metrics import metrics
 
@@ -81,6 +84,9 @@ class GateConfig:
     max_skip: int = 8
     #: forced-refresh period in frames (0 = rely on max_skip alone)
     refresh: int = 30
+    #: the thresholds were set explicitly (property or env var): the
+    #: control plane's gate_scale leaves this gate alone
+    pinned: bool = False
 
     @classmethod
     def from_properties(cls, properties: dict) -> "GateConfig":
@@ -98,6 +104,10 @@ class GateConfig:
             "gate-threshold", _env_float("EVAM_GATE_THRESHOLD", 2.0)))
         lo_default = _env_float("EVAM_GATE_THRESHOLD_LO", thr / 2.0)
         lo = float(properties.get("gate-threshold-lo", lo_default))
+        pinned = ("gate-threshold" in properties
+                  or "gate-threshold-lo" in properties
+                  or "EVAM_GATE_THRESHOLD" in os.environ
+                  or "EVAM_GATE_THRESHOLD_LO" in os.environ)
         return cls(
             enabled=enabled,
             threshold=thr,
@@ -106,6 +116,7 @@ class GateConfig:
                 "gate-max-skip", _env_int("EVAM_GATE_MAX_SKIP", 8)))),
             refresh=max(0, int(properties.get(
                 "gate-refresh", _env_int("EVAM_GATE_REFRESH", 30)))),
+            pinned=pinned,
         )
 
 
@@ -167,11 +178,19 @@ class MotionGate:
             run = True  # the staleness bound
         else:
             # hysteresis: enter "moving" at threshold, leave at
-            # threshold_lo. (The control plane's gate_scale comes with
-            # port slice 7.)
-            if s >= self.cfg.threshold:
+            # threshold_lo; the control plane's gate_scale stretches
+            # both unless this gate's thresholds are pinned (max_skip
+            # and refresh hold at any operating point)
+            thr = self.cfg.threshold
+            lo = self.cfg.threshold_lo
+            if not self.cfg.pinned:
+                op = current_op()
+                if op is not None and op.gate_scale != 1.0:
+                    thr *= op.gate_scale
+                    lo *= op.gate_scale
+            if s >= thr:
                 self._moving = True
-            elif s <= self.cfg.threshold_lo:
+            elif s <= lo:
                 self._moving = False
             run = self._moving
         if run:

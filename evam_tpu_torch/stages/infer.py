@@ -4,14 +4,17 @@
 the engine's wire format on the stream's thread, submits it to the
 shared detect engine, and turns the packed result rows into regions.
 ``ClassifyStage`` (gvaclassify) submits the frame with the boxes of its
-eligible regions and appends one attribute tensor per head to each;
+eligible regions (on a packed engine, ``EVAM_RAGGED=packed``, exactly
+those rows; otherwise padded to the ROI budget) and appends one
+attribute tensor per head to each;
 ``FusedDetectClassifyStage`` does both in one engine round trip.
 ``ActionStage`` (gvaactionrecognitionbin) chains a per-frame encoder
 engine and a 16-frame-clip decoder engine; ``AudioDetectStage``
 (gvaaudiodetect) classifies one-second windows of the audio stream.
 Thresholds are applied here, on the host, so one engine (whose NMS uses
 the permissive ``ENGINE_SCORE_FLOOR``) serves pipelines with different
-``threshold`` parameters.
+``threshold`` parameters. Every submit carries the frame's
+``priority`` (the stream's QoS class).
 
 A frame skipped by a static ``inference-interval`` gets fresh copies of
 the last inferred regions (``stages/track.py`` ``RegionCoaster``), so a
@@ -200,6 +203,7 @@ class DetectStage(AsyncStage):
         if _skip(self, ctx):
             return None
         return self.engine.submit(
+            priority=ctx.priority,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
 
     def complete(self, ctx: FrameContext,
@@ -278,6 +282,9 @@ class ClassifyStage(AsyncStage):
         self.engine = hub.engine(
             "classify", model_key, properties.get("model-instance-id"),
             roi_budget=self.ROI_BUDGET)
+        #: a packed engine takes each frame's real region rows, shape
+        #: (k, 4), and packs them across the batch
+        self._packed = self.engine.ragged == "packed"
         _warm_engine(hub, self.engine, self.ingest_size, self.wire,
                      boxes=np.zeros((self.ROI_BUDGET, 4), np.float32))
         self._heads = _head_slices(self.model)
@@ -294,10 +301,13 @@ class ClassifyStage(AsyncStage):
         regions = self._eligible(ctx)
         if not regions:
             return None
-        boxes = np.zeros((self.ROI_BUDGET, 4), np.float32)
+        # packed: the frame's region rows; dense: the ROI-budget block
+        rows = len(regions) if self._packed else self.ROI_BUDGET
+        boxes = np.zeros((rows, 4), np.float32)
         for i, r in enumerate(regions):
             boxes[i] = [r.x0, r.y0, r.x1, r.y1]
         return self.engine.submit(
+            priority=ctx.priority,
             units=len(regions),
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire),
             boxes=boxes)
@@ -358,6 +368,7 @@ class FusedDetectClassifyStage(AsyncStage):
         if _skip(self, ctx):
             return None
         return self.engine.submit(
+            priority=ctx.priority,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
 
     def complete(self, ctx: FrameContext,
@@ -428,7 +439,9 @@ class ActionStage(AsyncStage):
         happens inside the encoder future's callback (on the encoder
         engine's completer thread), so frames keep flowing while a
         decoder batch is pending."""
+        prio = ctx.priority
         enc_fut = self.enc_engine.submit(
+            priority=prio,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
         outer: Future = Future()
 
@@ -444,7 +457,8 @@ class ActionStage(AsyncStage):
                     outer.set_result(None)  # the clip is still filling
                     return
                 # raises RuntimeError when the engine is stopping
-                dec_fut = self.dec_engine.submit(clips=np.stack(self.clip))
+                dec_fut = self.dec_engine.submit(priority=prio,
+                                                 clips=np.stack(self.clip))
             except Exception as exc:  # noqa: BLE001 — propagate to the runner
                 outer.set_exception(exc)
                 return
@@ -500,7 +514,8 @@ class AudioDetectStage(AsyncStage):
         if len(self._buffer) < self.WINDOW or self._since_last < self.stride:
             return None
         self._since_last = 0
-        return self.engine.submit(windows=self._buffer.copy())
+        return self.engine.submit(priority=ctx.priority,
+                                  windows=self._buffer.copy())
 
     def complete(self, ctx: FrameContext,
                  result: np.ndarray | None) -> list[FrameContext]:

@@ -5,8 +5,11 @@ A frame walks sync stages inline, parks at an async (engine-backed)
 stage, and resumes — strictly in seq order — once its batch result
 lands, so one stream keeps up to ``window`` frames in the engine at
 once. Each frame that leaves the chain adds its ingest-to-exit latency
-to :attr:`StreamRunner.latencies`. The reference's trace, fault
-injection, shedding and checkpoint hooks come with later slices.
+to :attr:`StreamRunner.latencies`. Every frame carries the stream's
+``priority`` into its submits; a frame the scheduler sheds
+(``ShedError``) is one counted frame error, also counted in
+:attr:`StreamRunner.shed`, never the end of the stream. The reference's
+trace, fault injection and checkpoint hooks come with later slices.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Callable, Iterator
 
 from evam_tpu_torch.media.source import FrameEvent
 from evam_tpu_torch.obs.metrics import metrics
+from evam_tpu_torch.sched.shedder import ShedError
 from evam_tpu_torch.stages.base import AsyncStage, Stage
 from evam_tpu_torch.stages.context import FrameContext
 
@@ -41,8 +45,11 @@ class StreamRunner:
         source_uri: str = "",
         window: int = 4,
         on_error: Callable[[Exception], None] | None = None,
+        priority: str = "standard",
     ):
         self.stream_id = stream_id
+        #: QoS class stamped on every FrameContext
+        self.priority = priority
         self.stages = stages
         self.source_uri = source_uri
         self.window = max(1, window)
@@ -50,6 +57,8 @@ class StreamRunner:
         self.frames_in = 0
         self.frames_out = 0
         self.errors = 0
+        #: frames the scheduler shed (each also counts in errors)
+        self.shed = 0
         #: ingest → exit seconds of every frame that left the chain
         self.latencies: list[float] = []
         self._parked: deque[_Parked] = deque()
@@ -78,6 +87,7 @@ class StreamRunner:
             stream_id=self.stream_id,
             source_uri=self.source_uri,
             ingest_t=time.perf_counter(),
+            priority=self.priority,
         )
         # free a slot first (blocking only when the window is full),
         # then start this frame down the chain
@@ -153,6 +163,8 @@ class StreamRunner:
 
     def _handle_error(self, exc: Exception, ctx: FrameContext) -> None:
         self.errors += 1
+        if isinstance(exc, ShedError):
+            self.shed += 1
         metrics.inc("evam_frame_errors", labels={"stream": self.stream_id})
         log.warning("stream %s frame %d error: %s", self.stream_id, ctx.seq,
                     exc)

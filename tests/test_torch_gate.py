@@ -230,7 +230,7 @@ def test_gate_config_equals_the_references(monkeypatch, env, props):
     ref = jgate.GateConfig.from_properties(dict(props))
     got = tgate.GateConfig.from_properties(dict(props))
     for field in ("enabled", "threshold", "threshold_lo", "max_skip",
-                  "refresh"):
+                  "refresh", "pinned"):
         assert getattr(got, field) == getattr(ref, field), field
     assert (tgate.maybe_gate(dict(props)) is None) == \
         (jgate.maybe_gate(dict(props)) is None)

@@ -242,6 +242,40 @@ _HONOURED = {
                       lambda s: s.engine.transfer),
     "EVAM_TRANSFER_DEPTH": ("3", lambda s: s.tpu.transfer_depth,
                             lambda s: s.engine.transfer_depth),
+    # slice 7b: ragged packing, the scheduler and the control plane
+    "EVAM_RAGGED": ("packed", lambda s: s.tpu.ragged,
+                    lambda s: s.engine.ragged),
+    "EVAM_RAGGED_UNIT_BUDGET": ("2", lambda s: s.tpu.ragged_unit_budget,
+                                lambda s: s.engine.ragged_unit_budget),
+    **{var: (value, (lambda k: lambda s: getattr(s.sched, k))(key),
+             (lambda k: lambda s: getattr(s.sched, k))(key))
+       for var, value, key in [
+           ("EVAM_SCHED", "on", "enabled"),
+           ("EVAM_SCHED_ADMIT_UTIL", "0.7", "admit_util"),
+           ("EVAM_SCHED_CAPACITY_FPS", "120", "capacity_fps"),
+           ("EVAM_SCHED_DEFAULT_FPS", "20", "default_fps"),
+           ("EVAM_SCHED_DEADLINE_MS_REALTIME", "2", "deadline_ms_realtime"),
+           ("EVAM_SCHED_DEADLINE_MS_STANDARD", "6", "deadline_ms_standard"),
+           ("EVAM_SCHED_DEADLINE_MS_BATCH", "40", "deadline_ms_batch"),
+           ("EVAM_SCHED_STALENESS_MS_REALTIME", "100",
+            "staleness_ms_realtime"),
+           ("EVAM_SCHED_STALENESS_MS_STANDARD", "500",
+            "staleness_ms_standard"),
+           ("EVAM_SCHED_STALENESS_MS_BATCH", "9000", "staleness_ms_batch"),
+       ]},
+    **{var: (value, (lambda k: lambda s: getattr(s.tune, k))(key),
+             (lambda k: lambda s: getattr(s.tune, k))(key))
+       for var, value, key in [
+           ("EVAM_TUNE", "1", "enabled"),
+           ("EVAM_TUNE_INTERVAL_S", "0.25", "interval_s"),
+           ("EVAM_TUNE_ACTIONS", "8", "actions"),
+           ("EVAM_TUNE_DAMPING", "1", "damping"),
+           ("EVAM_TUNE_COOLDOWN", "0", "cooldown"),
+           ("EVAM_TUNE_UTIL_HI", "0.9", "util_hi"),
+           ("EVAM_TUNE_UTIL_LO", "0.3", "util_lo"),
+           ("EVAM_TUNE_SCALE_UP_UTIL", "0.95", "scale_up_util"),
+           ("EVAM_TUNE_SCALE_DOWN_UTIL", "0.2", "scale_down_util"),
+       ]},
     # the reference reads these in its engine modules, per engine
     # (the port's engines built from the settings, as the hub builds
     # them)
@@ -305,6 +339,25 @@ def test_honoured_knob_parses_as_in_the_reference(var, monkeypatch):
     assert port_read(got) != port_read(port_settings.Settings())
 
 
+@pytest.mark.parametrize("env", [
+    {},
+    {"EVAM_TRANSFER_DEPTH": "2", "EVAM_SCHED_ADMIT_UTIL": "0.85"},
+    {"EVAM_MAX_BATCH": "64", "EVAM_BATCH_DEADLINE_MS": "8",
+     "EVAM_SCHED": "1", "EVAM_SCHED_STALENESS_MS_BATCH": "10"},
+], ids=["none", "defaults-set", "mixed"])
+def test_fields_set_is_the_references_model_fields_set(env, monkeypatch):
+    """The control plane pins the knobs the operator set: the port
+    records them as pydantic's ``model_fields_set`` does, default
+    values included."""
+    for var in env:
+        monkeypatch.setenv(var, env[var])
+    ref = ref_settings.Settings.from_env()
+    got = port_settings.Settings.from_env()
+    assert got.engine.fields_set == set(ref.tpu.model_fields_set)
+    assert got.sched.fields_set == set(ref.sched.model_fields_set)
+    assert got.tune.fields_set == set(ref.tune.model_fields_set)
+
+
 def test_config_file_then_env(monkeypatch, tmp_path):
     path = tmp_path / "evam.json"
     path.write_text(json.dumps({"rest_port": 9000, "models_dir": "/m",
@@ -335,8 +388,7 @@ def test_platform_selects_the_device(monkeypatch):
 
 
 def _other_value(var: str, conv, port_value) -> str:
-    special = {"EVAM_RAGGED": "packed",
-               "EVAM_FLEET": "sharded", "EVAM_WEBRTC_VIDEO_MODE": "delta"}
+    special = {"EVAM_FLEET": "sharded", "EVAM_WEBRTC_VIDEO_MODE": "delta"}
     if var in special:
         return special[var]
     if conv is port_settings._parse_bool:
@@ -350,7 +402,7 @@ def _other_value(var: str, conv, port_value) -> str:
 
 _ENV_UNPORTED = [u for u in port_settings._UNPORTED if u[0] is not None]
 #: knobs whose reference default turns on a subsystem the port lacks
-_ON_IN_THE_REFERENCE = {"EVAM_SCHED", "EVAM_TRACE"}
+_ON_IN_THE_REFERENCE = {"EVAM_TRACE"}
 
 
 @pytest.mark.parametrize("knob", _ENV_UNPORTED, ids=[u[0] for u in _ENV_UNPORTED])

@@ -124,12 +124,14 @@ def test_concurrent_writers_drain_close_and_release():
             seen.extend(sealed.items)
             ring.release(sealed)
         # the other 20 writes are staged or waiting; hold one slot in
-        # flight, drain what is staged, then close
+        # flight, close (as the engine's stop does: a writer woken by the
+        # drain could otherwise take the freed slot), then drain what is
+        # staged
         held = ring.next_batch(0.01, _bucket)
         seen.extend(held.items)
+        ring.close()
         drained = ring.drain_items()
         seen.extend(drained)
-        ring.close()
         for t in threads:
             t.join(timeout=10)
     finally:

@@ -21,14 +21,18 @@
   servers with the same engine and frame count and publish nothing;
   their detect stage is the one compared above (same model key, and
   the same resolved stage specs, ``tests/test_torch_graph.py``).
+* ``GET /scheduler`` holds ``route_scheduler.json``, and a start past
+  a declared capacity answers 503 with ``Retry-After`` in the shape of
+  ``route_503_admission.json``.
 * DELETE reaches ABORTED; a request of a later slice (an application,
   webcam source, ...) answers 501, every pipeline serves, and
   the requests slice 4 brought (tracking, zone count, the motion gate)
   serve; ``EVAM_GATE=on`` builds a gate in ``DetectStage`` and
   ``EVAM_GATE=off`` beats ``adaptive``; ``python -m
   evam_tpu_torch.cli.main list`` prints the reference's JSON, and
-  ``serve`` answers on the CPU with ``EVAM_PLATFORM=cpu`` (and refuses
-  to start without a card, or with ``EVAM_RAGGED=packed``, otherwise).
+  ``serve`` answers on the CPU with ``EVAM_PLATFORM=cpu``, with ragged
+  packing, the scheduler and the control plane on too (and refuses to
+  start without a card, or with a fleet, otherwise).
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from evam_tpu_torch.graph import PipelineLoader
 from evam_tpu_torch.models.registry import ModelRegistry
 from evam_tpu_torch.ops import qgemm as tqg
 from evam_tpu_torch.ops import qlinear as tql
+from evam_tpu_torch.sched import SchedConfig
 from evam_tpu_torch.server.app import App, make_server
 from evam_tpu_torch.server.instance import StreamInstance, _retry_delay
 from evam_tpu_torch.server.registry import PipelineRegistry
@@ -139,11 +144,12 @@ class PortServer:
 
 
 def _port_registry(models_dir=None, dtype="float32",
-                   pipelines="pipelines") -> PipelineRegistry:
+                   pipelines="pipelines", **hub_kw) -> PipelineRegistry:
     registry = ModelRegistry(models_dir=models_dir, dtype=dtype, device="cpu",
                              input_overrides=SMALL, width_overrides=NARROW,
                              allow_random_weights=True)
-    hub = EngineHub(registry, device="cpu", max_batch=16, deadline_ms=4.0)
+    hub = EngineHub(registry, device="cpu", max_batch=16, deadline_ms=4.0,
+                    **hub_kw)
     settings = Settings(pipelines_dir=str(REPO / pipelines), device="cpu",
                         drain_timeout_s=10.0)
     return PipelineRegistry(settings, hub=hub)
@@ -264,7 +270,6 @@ def test_error_routes_hold_their_goldens(server, tmp_path):
     (PIPE, {"destination": {"metadata": {"type": "zmq"}}}, "slice 11"),
     (PIPE, {"destination": {"metadata": {"type": "null"},
                             "frame": {"type": "rtsp"}}}, "slice 11"),
-    ("/scheduler", None, "slice 7"),
     ("/traces", None, "slice 10"),
 ])
 def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
@@ -277,6 +282,49 @@ def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
     assert needle in data["error"]
     assert not (tmp_path / "o.jsonl").exists()
     assert server.registry.hub.stats() == {}
+
+
+def test_scheduler_route_holds_its_golden(server):
+    """``GET /scheduler`` answers the reference's payload: the admission
+    snapshot, per-class queues and sheds, the queue summary, the fleet
+    block (off) and the control plane's block (off here)."""
+    status, data = server.request("GET", "/scheduler")
+    assert status == 200
+    _assert_golden("route_scheduler", data)
+    assert data["fleet"]["mode"] == "off"
+    assert data["tuning"]["enabled"] is False
+    assert data["enabled"] is False
+
+
+def test_over_capacity_start_holds_the_503_golden(tmp_path):
+    """A declared capacity of 10 fps: every 30 fps start projects a
+    utilization of 3.0, past every class ceiling — 503 with Retry-After,
+    nothing built or opened, the rejection counted on /scheduler and
+    /healthz."""
+    srv = PortServer(_port_registry(sched=SchedConfig(capacity_fps=10.0)))
+    try:
+        body = {**_body(tmp_path / "o.jsonl"), "priority": "batch"}
+        req = urllib.request.Request(srv.base + PIPE,
+                                     data=json.dumps(body).encode(),
+                                     method="POST")
+        with pytest.raises(urllib.error.HTTPError) as info:
+            urllib.request.urlopen(req, timeout=60)
+        assert info.value.code == 503
+        assert int(info.value.headers["Retry-After"]) >= 1
+        data = json.loads(info.value.read())
+        _assert_golden("route_503_admission", data)
+        assert data["retry_after_s"] == int(info.value.headers["Retry-After"])
+        assert not (tmp_path / "o.jsonl").exists()
+        assert srv.registry.hub.stats() == {}
+        status, sched = srv.request("GET", "/scheduler")
+        assert status == 200 and sched["enabled"] is True
+        _assert_golden("route_scheduler", sched)
+        assert sched["rejected"] == {"realtime": 0, "standard": 0, "batch": 1}
+        assert sched["streams"] == {"realtime": 0, "standard": 0, "batch": 0}
+        _, health = srv.request("GET", "/healthz")
+        assert health["scheduler"]["rejected"]["batch"] == 1
+    finally:
+        srv.close()
 
 
 @pytest.mark.parametrize("path,body_extra", [
@@ -655,16 +703,53 @@ def test_cli_serve_without_a_card_refuses_to_start():
     assert "no CUDA device" in res.stderr
 
 
-def test_cli_serve_with_ragged_packing_names_slice_7():
-    """Ragged packing needs the SlotRing, which comes with slice 7:
-    ``serve`` refuses to start rather than serve dense batches."""
+def test_cli_serve_runs_packed_sched_tune_and_refuses_the_fleet():
+    """``serve`` on the CPU with EVAM_RAGGED=packed, EVAM_SCHED=1 and
+    EVAM_TUNE=1: /scheduler reports the scheduler and the controller on,
+    the controller ticks, SIGTERM ends it with 0. The fleet still comes
+    with slice 7: EVAM_FLEET=sharded refuses to start, naming it."""
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve"], cwd=REPO,
+        env=_port_env(EVAM_PLATFORM="cpu", REST_PORT=str(port),
+                      EVAM_RAGGED="packed", EVAM_SCHED="1", EVAM_TUNE="1",
+                      EVAM_TUNE_INTERVAL_S="0.1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 60
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/scheduler", timeout=5) as r:
+                    sched = json.loads(r.read())
+                if sched["tuning"]["ticks"] >= 2:
+                    break
+            except OSError:
+                assert proc.poll() is None, proc.stdout.read()
+            assert time.time() < deadline
+            time.sleep(0.2)
+        assert sched["enabled"] is True and sched["tuning"]["enabled"] is True
+        # an idle hub reads utilization 0: the deadline law shrinks
+        # deadlines, so the action log (empty in the golden) has entries
+        actions = sched["tuning"]["actions"]
+        assert all(set(a) == {"tick", "knob", "from", "to", "reason"}
+                   for a in actions)
+        assert canonical({**sched, "tuning": {**sched["tuning"],
+                                              "actions": []}}) == \
+            _golden("route_scheduler")
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     res = subprocess.run(
         [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve"], cwd=REPO,
-        env=_port_env(EVAM_PLATFORM="cpu", EVAM_RAGGED="packed",
+        env=_port_env(EVAM_PLATFORM="cpu", EVAM_FLEET="sharded",
                       REST_PORT=str(_free_port())),
         capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
-    assert "EVAM_RAGGED" in res.stderr and "slice 7" in res.stderr
+    assert "EVAM_FLEET" in res.stderr and "slice 7" in res.stderr
 
 
 def test_cli_eii_mode_and_fetch_models_name_their_slices():
