@@ -11,7 +11,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
               and power limit as ``nvidia-smi`` gives them.
 2. build    — compiles every kernel under ``evam_tpu_torch/csrc`` with
               nvcc (one process per source, in parallel) into
-              ``build/kernels/``, and prints the seconds it took.
+              ``build/kernels/``, and the host library
+              (``csrc/evam_media.cpp``) with g++ into ``build/native/``,
+              and prints the seconds it took.
 3. qgemm    — the int8 GEMM kernel against its plain version at the ten
               shapes one SSD-512 forward gives it (8 images, bf16), the
               three of one classifier forward on 8 × 8 and on 8 crops
@@ -100,7 +102,11 @@ memory the allocator holds once it has stopped its engines.
               frame fails with TimeoutError, /healthz walks 503
               ``stalled`` → ``restarting`` → 200 ``ok``, and the rebuilt
               engine, its graphs captured again, answers the same frame
-              with the same bits.
+              with the same bits. Per bucket, the seconds of its first
+              eager step and of its graph capture (the slice phase's
+              engine, the first of the process; hub A's; and a second
+              detect engine built after them): the input of the AOT
+              cache's design.
 9. track    — the tracking pipeline (pipelines/object_tracking/
               person_vehicle_bike: detect+classify fused into one
               engine, then the IoU tracker) at the same full width, INT8,
@@ -150,7 +156,40 @@ memory the allocator holds once it has stopped its engines.
               vehicle_attributes path: at least 3 ticks, every applied
               action with its reason on /scheduler, the pinned knob
               neutral. Prints the operating point tick by tick.
-14. action  — action_recognition/general at full width (encoder 224²,
+14. native  — the host encode in the native library
+              (``evam_tpu_torch/native.py``: ``csrc/evam_media.cpp``
+              built with g++ -fopenmp in the build phase): byte-equal to the numpy copies for
+              ``resize_bgr_to_i420`` 1080×1920 → 512² and → 432×768,
+              ``resize_bgr``, ``bgr_to_i420`` and ``luma_grid``, at odd
+              sizes and without a resize; ms per frame of the 1080p →
+              512² encode, native against numpy, on one thread and on 8
+              threads at once. Then the detect and the fused cell served
+              from STREAMS synthetic 1080p streams × FRAMES frames
+              (every frame resized on its stream's thread) with the
+              policy on (this host's cores) and with EVAM_NO_NATIVE=1:
+              equal objects (bit-equal, or within the track phase's
+              tolerance where batches formed otherwise, and reported),
+              10 / 13 launches per forward; fps, p50 / p99, the eight
+              stage ms and the device busy share of a profiled run, for
+              both.
+15. fleet   — EVAM_FLEET=sharded through ``PipelineRegistry`` on this
+              machine's devices (one card: degraded to off, printed);
+              then a FleetEngine of two shards on cuda:0 through the
+              hub's device list (``max_batch`` FLEET_MAX_BATCH, each
+              shard's ladder to half of it) against a single engine:
+              each stream's objects bit-equal one frame at a time (both
+              bucket 1), each stream pinned where the placer says, all
+              streams at once within the track phase's tolerance (the
+              largest difference printed) with 10 launches per forward
+              split by shard; IMAGES batch-class frames on the mesh
+              twin (its bucket split over the two devices' replicas and
+              gathered) matching the single engine's detections; the
+              controller (EVAM_FLEET_MAX_SHARDS 2) draining a shard at
+              low utilization and growing it back, captured before it
+              joins, at high; then a shard wedged past its restart
+              budget (0) with the engine phase's stub: degraded, retired,
+              its stream re-placed, the rebalances printed.
+16. action  — action_recognition/general at full width (encoder 224²,
               width 32, embed 512; decoder dim 512, depth 4, 8 heads,
               400 classes). First the card against the CPU on the same
               seeded float32 weights (TF32 off): embeddings, logits and
@@ -163,14 +202,14 @@ memory the allocator holds once it has stopped its engines.
               ``action`` tensor a frame; zero qgemm launches. Prints
               fps, p50/p99 and both engines' occupancy, launch and
               readback ms.
-15. audio   — audio_detection/environment: AclNet at 16000 samples,
+17. audio   — audio_detection/environment: AclNet at 16000 samples,
               width 32, 53 classes, card against CPU the same way; then
               4 ``synthetic-audio://seconds=5`` streams served INT8 at
               sliding-window 0.2, threshold 0: a ``detection`` tensor on
               exactly the chunks a host replay of the stride rule gives,
               the engine's items equal to the windows; zero qgemm
               launches. Prints windows/s and the windows' p50/p99.
-16. rest    — the same path through the port's REST server
+18. rest    — the same path through the port's REST server
               (``evam_tpu_torch.server.app``) on a free 127.0.0.1 port, in
               a thread: STREAMS POSTs to
               /pipelines/object_detection/person_vehicle_bike, each a
@@ -199,7 +238,7 @@ memory the allocator holds once it has stopped its engines.
               must answer 404, 400 and 501.
               The engine is built (``PipelineRegistry.preload``, the
               EVAM_PRELOAD path) and warmed before the clock starts.
-17. serve   — the real entry point, ``python3 -m
+19. serve   — the real entry point, ``python3 -m
               evam_tpu_torch.cli.main serve``, as a subprocess on a free
               REST_PORT with EVAM_PRELOAD=object_detection/
               person_vehicle_bike, EVAM_RAGGED=packed, EVAM_SCHED=1,
@@ -218,8 +257,8 @@ memory the allocator holds once it has stopped its engines.
 
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
 calls; ``launches`` sums the slice, classify, engine, track, gate,
-ragged, sched, tune, rest and serve phases' served runs and their
-engines' warm runs, split by
+ragged, sched, tune, native, fleet, rest and serve phases' served runs
+and their engines' warm runs, split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action
@@ -255,7 +294,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
-          "action", "audio", "rest", "serve")
+          "native", "fleet", "action", "audio", "rest", "serve")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -358,6 +397,13 @@ def _import_port():
     from evam_tpu_torch.stages import gate
     from evam_tpu_torch.stages.meta import MetaconvertStage, PublishStage
     from evam_tpu_torch.stages.runner import StreamRunner
+    from evam_tpu_torch import native
+    from evam_tpu_torch.config.settings import TuneSettings
+    from evam_tpu_torch.control import TuneController
+    from evam_tpu_torch.control.state import TuneState
+    from evam_tpu_torch.fleet import ConsistentHashPlacer, FleetEngine
+    from evam_tpu_torch.media.luma import luma_grid
+    from evam_tpu_torch.ops import color
 
     return dict(
         Settings=Settings, App=App, make_server=make_server,
@@ -379,7 +425,11 @@ def _import_port():
         ENGINE_SCORE_FLOOR=ENGINE_SCORE_FLOOR,
         MetaconvertStage=MetaconvertStage, PublishStage=PublishStage,
         StreamRunner=StreamRunner, preprocess_wire=preprocess_wire,
-        gate=gate, MotionGate=gate.MotionGate, GateConfig=gate.GateConfig)
+        gate=gate, MotionGate=gate.MotionGate, GateConfig=gate.GateConfig,
+        native=native, color=color, luma_grid=luma_grid,
+        ConsistentHashPlacer=ConsistentHashPlacer, FleetEngine=FleetEngine,
+        TuneController=TuneController, TuneState=TuneState,
+        TuneSettings=TuneSettings)
 
 
 def _memory(torch, phase: str, t_start: float) -> None:
@@ -811,6 +861,14 @@ def _default_hub(port, registry, **overrides):
     return port["EngineHub"](registry, device=registry.device, **kw)
 
 
+def _warm_split(engine) -> dict:
+    """Per bucket, the seconds of its first eager step and of its
+    CUDA graph capture at warmup (``StepGraphs.timings``)."""
+    live = getattr(engine, "_engine", engine)
+    return {str(b): {"eager_s": e, "capture_s": c}
+            for b, (e, c) in sorted(live._graphs.timings.items())}
+
+
 def _fwd(row: dict) -> int:
     """Forwards an engine ran: its batches and its warm runs (one per
     bucket warmed; each launches the kernel as a batch does)."""
@@ -921,6 +979,7 @@ def phase_slice(torch, port, profile: bool = False) -> dict:
                "stage_ms": stats["stage_ms"],
                "graphs": warm["graphs"], "capture_s": warm["compile_s"],
                "graph_pool_bytes": warm["graph_pool_bytes"],
+               "warm_split_s": _warm_split(engine),
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
         _print(row)
         if profile:
@@ -1299,6 +1358,8 @@ def phase_engine(torch, port) -> dict:
                 if name == "A":
                     out[f"{label}_A_warm"]["replay_check"] = \
                         _replay_vs_eager(torch, port, engine, per)
+                    out[f"{label}_A_warm"]["warm_split_s"] = \
+                        _warm_split(engine)
             for key, objects in served.items():
                 diff = _objects_diff(objects, served["B", "cold"])
                 out[f"{label}_{'_'.join(key)}_vs_B_cold"] = diff
@@ -1321,6 +1382,14 @@ def phase_engine(torch, port) -> dict:
                 k: prof[k] for k in ("wall_s", "device_busy_ms",
                                      "device_busy_share", "kernel_launches")}
         out["host_per_frame"] = _host_frame_ms(port)
+        # the same detect engine built again in this process: what its
+        # warmup costs once the first engine has paid the one-time set-up
+        hubs["C"] = _default_hub(port, registry, stall_timeout_s=ENGINE_STALL_S)
+        second = _pipeline_stages(port, hubs["C"], {"threshold": 0.2},
+                                  DETECT_PIPELINE)("warm", None)[0].engine
+        _await_warm("engine second", [second])
+        out["detect_second_engine_warm_split_s"] = _warm_split(second)
+        hubs.pop("C").stop()
         out["wedge"] = _wedge_and_recover(
             torch, port, hubs["A"],
             hubs["A"].engine("detect", KEY,
@@ -2627,6 +2696,361 @@ def _check_actions(where: str, lines: list[dict], golden: dict) -> int:
     return max(0, len(lines) - (clip - 1))
 
 
+#: the native phase: synthetic 1080p streams, so every frame's encode
+#: is a real resize (1080×1920 → the engines' 512²)
+NATIVE_HW = (1080, 1920)
+#: (source, destination) of the byte checks: the two served encodes,
+#: odd sizes, an upscale and the no-resize case
+NATIVE_CASES = [((1080, 1920), (512, 512)), ((1080, 1920), (432, 768)),
+                ((481, 641), (64, 96)), ((97, 131), (100, 130)),
+                ((33, 47), (12, 10)), ((480, 640), (480, 640))]
+#: threads encoding at once in the native phase's timing
+ENCODE_THREADS = 8
+
+
+def _native_bytes(port) -> dict:
+    """The library against the numpy copies, byte for byte, on every
+    function at every NATIVE_CASES size (odd destinations for the BGR
+    resize and the luma grid)."""
+    import numpy as np
+
+    native, color = port["native"], port["color"]
+    checked = 0
+    for (sh, sw), (dh, dw) in NATIVE_CASES:
+        frame = np.random.default_rng(sh + dw).integers(
+            0, 256, (sh, sw, 3), np.uint8)
+        pairs = [
+            (native.resize_bgr_to_i420(frame, dh, dw),
+             color.resize_bgr_to_i420_host(frame, dh, dw)),
+            (native.resize_bgr(frame, dh + 1, dw + 3),
+             color.resize_bgr_host(frame, dh + 1, dw + 3)),
+            (native.luma_grid(frame, 16, 16), port["luma_grid"](frame, 16, 16)),
+            (native.luma_grid(frame, 5, 7), port["luma_grid"](frame, 5, 7)),
+        ]
+        if sh % 4 == 0 and sw % 2 == 0:
+            pairs.append((native.bgr_to_i420(frame),
+                          color.bgr_to_i420_host(frame)))
+        for got, want in pairs:
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(
+                    f"native: {sh}x{sw} → {dh}x{dw} differs from the numpy "
+                    f"copy in {int((got != want).sum())} bytes")
+            checked += 1
+    return {"arrays_equal": checked}
+
+
+def _encode_ms(fn, frames: list, threads: int) -> dict:
+    """``fn(frame)`` over ``frames`` on each of ``threads`` threads at
+    once: wall ms per frame over all threads, and frames per second."""
+    barrier = threading.Barrier(threads + 1)
+
+    def work():
+        barrier.wait()
+        for f in frames:
+            fn(f)
+
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in pool:
+        t.join()
+    wall = time.perf_counter() - t0
+    n = threads * len(frames)
+    return {"ms_per_frame": 1e3 * wall / n, "frames_per_s": n / wall}
+
+
+def phase_native(torch, port, built: dict) -> dict:
+    """The host encode in the native library (``built``: the build
+    phase's ``native.build()``) against its numpy copies: bytes, ms per
+    frame on one and on ENCODE_THREADS threads, then the detect and the
+    fused cell served from 1080p streams with the policy on and with
+    EVAM_NO_NATIVE=1."""
+    import numpy as np
+
+    native, qg = port["native"], port["qgemm"]
+    if os.environ.get("EVAM_NO_NATIVE") or os.environ.get("EVAM_NATIVE"):
+        raise AssertionError("native: run with EVAM_NO_NATIVE and "
+                             "EVAM_NATIVE unset (the default policy)")
+    out: dict = {"phase": "native", "compile_s": built["seconds"],
+                 "library": built["path"], "cpu_count": os.cpu_count()}
+    if not native._use_native():
+        raise AssertionError(f"native: the policy is off on "
+                             f"{os.cpu_count()} cores")
+    out["bytes"] = _native_bytes(port)
+
+    frames = [ev.frame for ev in port["SyntheticSource"](
+        NATIVE_HW[1], NATIVE_HW[0], count=16, seed=1).frames()]
+    ms = {}
+    for path, fn in (("native", native.resize_bgr_to_i420),
+                     ("numpy", port["color"].resize_bgr_to_i420_host)):
+        for threads in (1, ENCODE_THREADS):
+            ms[f"{path}_{threads}_threads"] = _encode_ms(
+                lambda f: fn(f, 512, 512), frames, threads)
+    out["encode_1080p_to_512"] = ms
+
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hub = _default_hub(port, registry)
+    variants = {"aligned": 0, "masked": 0}
+    try:
+        for label, params, pipeline, per in (
+                ("detect", {"threshold": 0.2}, DETECT_PIPELINE, 10),
+                ("fused", {"detection-threshold": 0.2}, CLS_PIPELINE, 13)):
+            make = _pipeline_stages(port, hub, params, pipeline)
+            engine = make("warm", None)[0].engine
+            _await_warm(f"native {label}", [engine])
+            served = {}
+            for policy in ("on", "off"):
+                if policy == "off":
+                    os.environ["EVAM_NO_NATIVE"] = "1"
+                try:
+                    where = f"native {label} {policy}"
+                    row0 = engine.stats_row()
+                    _reset_launches(qg)
+                    objects: dict = {}
+                    runners, published, wall, threads = _serve(
+                        port, make, STREAMS, FRAMES, *NATIVE_HW, objects)
+                    _check_served(where, runners, published, threads)
+                    row = engine.stats_row()
+                    fwd = _fwd(row) - _fwd(row0)
+                    if fwd == 0 or qg.launches != per * fwd:
+                        raise AssertionError(
+                            f"{where}: {qg.launches} qgemm launches for "
+                            f"{fwd} forwards, expected {per} each")
+                    for v in variants:
+                        variants[v] += qg.variant_launches[v]
+                    prof = _profile_serve(torch, port, hub, STREAMS, FRAMES,
+                                          *NATIVE_HW, make=make)
+                finally:
+                    os.environ.pop("EVAM_NO_NATIVE", None)
+                served[policy] = objects
+                out[f"{label}_{policy}"] = {
+                    **_latency_row(runners, wall), "forwards": fwd,
+                    "qgemm_launches": per * fwd,
+                    "bucket_batches": _bucket_delta(row0, row),
+                    "stage_ms": _stage_delta(port["STAGES"], row0, row),
+                    "device_busy_share": prof["device_busy_share"],
+                    "profiled_wall_s": prof["wall_s"]}
+            diff = _objects_diff(served["on"], served["off"])
+            out[f"{label}_on_vs_off"] = diff
+            if diff["frames_differing"]:
+                # batches formed otherwise: held to the kernel-against-
+                # plain tolerance, and reported
+                _objects_agree(
+                    {(s, q): o for s, per_s in served["on"].items()
+                     for q, o in per_s.items()},
+                    {(s, q): o for s, per_s in served["off"].items()
+                     for q, o in per_s.items()})
+    finally:
+        hub.stop()
+    if not np.isfinite(out["detect_on"]["fps"]):
+        raise AssertionError("native: no frames served")
+    _print(out)
+    return {"variants": variants}
+
+
+#: the fleet phase's engines: each shard's ladder tops at half of it
+FLEET_MAX_BATCH = 16
+
+
+class _Saturation:
+    """Admission stand-in for the fleet phase's controller: a set
+    utilization."""
+
+    def __init__(self, util: float):
+        self.util = util
+
+    def utilization(self) -> float:
+        return self.util
+
+    def capacity_fps(self, live: bool = False) -> float:
+        return 100.0
+
+    def effective_demand_fps(self) -> float:
+        return 100.0 * self.util
+
+
+def phase_fleet(torch, port) -> dict:
+    """EVAM_FLEET=sharded: on this one-card machine the served path
+    degrades to off; then a FleetEngine of two shards on cuda:0 built
+    through the hub's device list, held against a single engine."""
+    import numpy as np
+
+    qg = port["qgemm"]
+    out: dict = {"phase": "fleet", "cuda_devices": torch.cuda.device_count()}
+    served_reg = port["PipelineRegistry"](port["Settings"].from_env(
+        env={"EVAM_FLEET": "sharded"}))
+    try:
+        hub = served_reg.hub
+        out["served"] = {"devices": [str(d) for d in hub.devices],
+                         "fleet_active": hub.fleet_active,
+                         "mode": served_reg.scheduler_status()["fleet"]["mode"]}
+        if hub.fleet_active != (len(hub.devices) > 1):
+            raise AssertionError(f"fleet: {out['served']}")
+    finally:
+        served_reg.stop_all()
+
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    fleet_hub = port["EngineHub"](
+        registry, device="cuda", devices=["cuda:0", "cuda:0"],
+        fleet="sharded", fleet_max_shards=2, max_batch=FLEET_MAX_BATCH,
+        stall_timeout_s=ENGINE_STALL_S, first_batch_grace=2.0,
+        max_restarts=0, warmup=True)
+    single_hub = port["EngineHub"](registry, device="cuda",
+                                   max_batch=FLEET_MAX_BATCH, warmup=True)
+    variants = {"aligned": 0, "masked": 0}
+    try:
+        params = {"threshold": 0.2}
+        make_f = _pipeline_stages(port, fleet_hub, params, DETECT_PIPELINE)
+        make_s = _pipeline_stages(port, single_hub, params, DETECT_PIPELINE)
+        fleet = make_f("warm", None)[0].engine
+        single = make_s("warm", None)[0].engine
+        if not isinstance(fleet, port["FleetEngine"]) or sorted(
+                fleet.shards) != ["s0", "s1"]:
+            raise AssertionError(f"fleet: built {type(fleet).__name__}")
+        # both hubs serve captured graphs, as `serve` does
+        _await_warm("fleet", [*fleet.shards.values(), single])
+        out["buckets"] = {"shard": fleet.buckets}
+
+        # one frame in flight: every forward a batch of one on both
+        seq_f = _sequential(port, make_f, STREAMS, 8)
+        seq_s = _sequential(port, make_s, STREAMS, 8)
+        differ = [k for k in seq_s if seq_f.get(k) != seq_s[k]]
+        if differ:
+            raise AssertionError(f"fleet: bucket-1 objects differ from a "
+                                 f"single engine's on {differ[:4]}")
+        out["same_bucket_bit_equal_frames"] = len(seq_s)
+        placer = port["ConsistentHashPlacer"](["s0", "s1"])
+        pins = {f"s{s}": fleet.placement(f"s{s}") for s in range(STREAMS)}
+        if pins != {k: placer.place(k) for k in pins}:
+            raise AssertionError(f"fleet: pins {pins} are not the placer's")
+        out["placement"] = pins
+
+        # all streams at once
+        rows0 = {label: e.stats_row() for label, _, e in fleet.shard_rows()}
+        _reset_launches(qg)
+        objects: dict = {}
+        runners, published, wall, threads = _serve(
+            port, make_f, STREAMS, FRAMES, 512, 512, objects)
+        _check_served("fleet", runners, published, threads)
+        launches = qg.launches
+        for v in variants:
+            variants[v] += qg.variant_launches[v]
+        per_shard = {label: 10 * (_fwd(e.stats_row()) - _fwd(rows0[label]))
+                     for label, _, e in fleet.shard_rows()}
+        if launches != sum(per_shard.values()) or not all(
+                per_shard[label] for label in set(pins.values())):
+            raise AssertionError(f"fleet: {launches} launches, per shard "
+                                 f"{per_shard}")
+        ref_objects: dict = {}
+        ref_runners, ref_published, ref_wall, ref_threads = _serve(
+            port, make_s, STREAMS, FRAMES, 512, 512, ref_objects)
+        _check_served("fleet single", ref_runners, ref_published,
+                      ref_threads)
+        diff = _objects_diff(objects, ref_objects)
+        if diff["frames_differing"]:
+            _objects_agree({(s, q): o for s, p in objects.items()
+                            for q, o in p.items()},
+                           {(s, q): o for s, p in ref_objects.items()
+                            for q, o in p.items()})
+        out["served_run"] = {**_latency_row(runners, wall),
+                             "k1_launches_per_shard": per_shard,
+                             "vs_single_engine": diff,
+                             # the same streams on one engine, also warm
+                             "single_engine": _latency_row(ref_runners,
+                                                           ref_wall)}
+
+        # the batch class rides the twin: a bucket of IMAGES rows split
+        # over the two shards' devices and gathered back
+        pre = fleet_hub.model(KEY).preprocess
+        wires = [port["wire_frame"](ev.frame, (pre.height, pre.width), "i420")
+                 for s in range(IMAGES)
+                 for ev in port["SyntheticSource"](512, 512, count=1,
+                                                   seed=s).frames()]
+        # the first batch-class frame builds the twin, which warms
+        # before the rest are sent: the fleet is then warm as a whole
+        fleet.submit(priority="batch", stream="bulk",
+                     frames=wires[0]).result(timeout=120)
+        _await_warm("fleet twin", [fleet._mesh_eng])
+        if not fleet.warmed.is_set() or fleet_hub.readiness()["warming"]:
+            raise AssertionError(f"fleet: {fleet_hub.readiness()}")
+        futs = [fleet.submit(priority="batch", stream="bulk", frames=w)
+                for w in wires]
+        twin_rows = np.stack([f.result(timeout=120) for f in futs])
+        single_rows = np.stack([f.result(timeout=120) for f in [
+            single.submit(frames=w) for w in wires]])
+        twin = fleet._mesh_eng
+        rates = [_match_rate(single_rows[i], twin_rows[i])
+                 for i in range(IMAGES)]
+        if twin is None or twin.stats.items != IMAGES + 1 \
+                or min(rates) < 0.95:
+            raise AssertionError(f"fleet: the twin matched {rates}")
+        out["twin"] = {"items": twin.stats.items, "buckets": twin.buckets,
+                       "bucket_batches": twin.stats_row()["bucket_batches"],
+                       "detections_matched": min(rates),
+                       "max_abs_diff": float(np.abs(twin_rows
+                                                    - single_rows).max())}
+
+        # the eighth law through the controller: idle drains a shard,
+        # saturation grows one back (warmed before it joins)
+        tune = port["TuneController"](
+            fleet_hub, port["TuneState"](port["TuneSettings"](
+                enabled=True, damping=1, cooldown=0)),
+            admission=_Saturation(0.1))
+        tune.tick()
+        down = sorted(fleet.shards)
+        tune.admission = _Saturation(0.95)
+        tune.tick()
+        deadline = time.perf_counter() + 300
+        while len(fleet.shards) < 2 and time.perf_counter() < deadline:
+            time.sleep(0.1)
+        grown = fleet.shards.get("s1")
+        if down != ["s0"] or grown is None or \
+                grown.stats_row()["graphs"] != len(grown.buckets):
+            raise AssertionError(f"fleet: scale down gave {down}, scale up "
+                                 f"{sorted(fleet.shards)}")
+        out["scale"] = {"after_down": down, "after_up": sorted(fleet.shards),
+                        "summary": fleet.fleet_summary(),
+                        "spinup_s": fleet._last_spinup_s,
+                        "actions": [a for a in tune.state.snapshot()["actions"]
+                                    if a["knob"] == "fleet_shards"]}
+
+        # a wedged shard past its restart budget (0): degraded, retired,
+        # its streams re-placed onto the survivor
+        stream = "s0"
+        label = fleet.placement(stream)
+        shard = fleet.shards[label]
+        release = threading.Event()
+        shard._engine.pre_launch = release.wait
+        before = fleet.rebalances
+        try:
+            fleet.submit(stream=stream, frames=wires[0]).result(timeout=60)
+            raise AssertionError("fleet: the wedged frame resolved")
+        except TimeoutError:
+            pass
+        deadline = time.perf_counter() + 60
+        while shard.state != "degraded" and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        again = fleet.submit(stream=stream, frames=wires[0]).result(timeout=60)
+        release.set()
+        moved = fleet.placement(stream)
+        summary = fleet.fleet_summary()
+        if (shard.state != "degraded" or moved == label
+                or summary["degraded_shards"] != 1
+                or fleet.rebalances <= before or again.shape != (32, 7)):
+            raise AssertionError(f"fleet: wedge of {label}: {summary}")
+        out["wedge"] = {"shard": label, "state": shard.state,
+                        "stream_moved_to": moved,
+                        "rebalances": fleet.rebalances - before,
+                        "summary": summary}
+        _print(out)
+        return {"variants": variants}
+    finally:
+        fleet_hub.stop()
+        single_hub.stop()
+
+
 def phase_action(torch, port) -> dict:
     """action_recognition/general: the full-width encoder and decoder on
     the card against the CPU at float32, then served INT8 (the float
@@ -3068,8 +3492,11 @@ def main(argv: list[str] | None = None) -> int:
 
     t0 = time.perf_counter()
     built = port["kernels"].build()
+    # the host encode's library too: every serving phase calls it
+    native = port["native"].build()
     _print({"phase": "build", "seconds": time.perf_counter() - t0,
-            "kernels": {k: v["seconds"] for k, v in built.items()}})
+            "kernels": {k: v["seconds"] for k, v in built.items()},
+            "native_s": native["seconds"], "native": native["path"]})
 
     kernel = {"name": "qgemm", "route": "cuda",
               "source": "evam_tpu_torch/csrc/qgemm.cu",
@@ -3126,6 +3553,12 @@ def main(argv: list[str] | None = None) -> int:
     if "tune" in phases:
         served.append(phase_tune(torch, port))
         _memory(torch, "tune", t_start)
+    if "native" in phases:
+        served.append(phase_native(torch, port, native)["variants"])
+        _memory(torch, "native", t_start)
+    if "fleet" in phases:
+        served.append(phase_fleet(torch, port)["variants"])
+        _memory(torch, "fleet", t_start)
     # the action and audio pipelines launch no kernel of this repo
     # (asserted inside): they add nothing to the kernels line
     if "action" in phases:

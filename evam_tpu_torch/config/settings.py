@@ -13,9 +13,12 @@ reference's env names and parse rules:
     EVAM_ENGINE_MAX_RESTARTS (3), EVAM_ENGINE_RESTART_WINDOW_S (300),
     EVAM_ENGINE_RESTART_BACKOFF_S (0.5), EVAM_FIRST_BATCH_GRACE (10),
     EVAM_TRANSFER (pipelined), EVAM_TRANSFER_DEPTH (2), EVAM_RAGGED (off),
-    EVAM_RAGGED_UNIT_BUDGET (4); the scheduler's EVAM_SCHED and its nine
-    EVAM_SCHED_* (``SchedSettings``), and the control plane's EVAM_TUNE
-    and its eight EVAM_TUNE_* (``TuneSettings``)
+    EVAM_RAGGED_UNIT_BUDGET (4), the fleet's EVAM_FLEET (off),
+    EVAM_FLEET_SHARDS, EVAM_FLEET_SHARD_MAX_BATCH and
+    EVAM_FLEET_MAX_SHARDS (0), and the config file's ``tpu.mesh_shape``
+    ([-1]) and ``tpu.mesh_axes`` (["data"]); the scheduler's EVAM_SCHED
+    and its nine EVAM_SCHED_* (``SchedSettings``), and the control
+    plane's EVAM_TUNE and its eight EVAM_TUNE_* (``TuneSettings``)
 
 and ``EVAM_PLATFORM`` keeps the reference CLI's meaning: ``cpu`` runs
 the port on the CPU, unset means the card (``cuda``). Three knobs the
@@ -23,6 +26,9 @@ reference reads from ``os.environ`` in its engine modules are parsed
 here as those modules parse them: EVAM_BATCH_ASSEMBLY (slot),
 EVAM_STAGING_DEPTH (0: the default depth) and EVAM_SERIALIZE_COMPILE
 (off; ``engine/devlock.py`` reads it per call, as the reference does).
+The host encode's EVAM_NO_NATIVE, EVAM_NATIVE and EVAM_NATIVE_LIB are
+read by ``native.py`` on every call, as the reference's module reads
+them, and pass here.
 
 The scheduler is off unless EVAM_SCHED turns it on, where the
 reference's default turns it on: unset, the port serves through its
@@ -37,8 +43,8 @@ runs with — the reference's default, or "off" where the reference's
 default turns on a subsystem the port lacks (scheduler, tracing) — it
 raises ``NotImplementedError`` at :meth:`Settings.from_env`, naming the
 slice. So do the other knobs the reference reads in its own modules
-(``_MODULE_KNOBS``): the depthwise-conv variant, fault injection and
-the native host library. None is silently ignored.
+(``_MODULE_KNOBS``): the depthwise-conv variant and fault injection.
+None is silently ignored.
 """
 
 from __future__ import annotations
@@ -98,6 +104,23 @@ class EngineSettings:
     ragged: str = "off"
     #: EVAM_RAGGED_UNIT_BUDGET: packed unit rows per batch row
     ragged_unit_budget: int = 4
+    #: EVAM_FLEET: "sharded" serves every engine key as one shard per
+    #: device of the mesh behind a consistent-hash stream placer, plus a
+    #: mesh twin for the batch class (``fleet/``); "off" one engine
+    fleet: str = "off"
+    #: EVAM_FLEET_SHARDS: shard over the first N devices only (0: all);
+    #: with EVAM_FLEET_MAX_SHARDS the boot size instead
+    fleet_shards: int = 0
+    #: EVAM_FLEET_SHARD_MAX_BATCH: a shard's ladder top (0: max_batch /
+    #: shards)
+    fleet_shard_max_batch: int = 0
+    #: EVAM_FLEET_MAX_SHARDS: the eighth control law's ceiling (0: the
+    #: law is inert)
+    fleet_max_shards: int = 0
+    #: config-file only: the data mesh (``device.mesh_devices``): [-1]
+    #: is every visible CUDA device
+    mesh_shape: list = field(default_factory=lambda: [-1])
+    mesh_axes: list = field(default_factory=lambda: ["data"])
     #: fields the config file or the environment set
     fields_set: set[str] = field(default_factory=set, repr=False,
                                  compare=False)
@@ -147,7 +170,7 @@ class TuneSettings:
     #: relaxes
     util_hi: float = 0.80
     util_lo: float = 0.50
-    #: the fleet law's bounds (inert while the fleet is unported)
+    #: the fleet law's bounds (inert unless EVAM_FLEET_MAX_SHARDS)
     scale_up_util: float = 0.90
     scale_down_util: float = 0.30
     fields_set: set[str] = field(default_factory=set, repr=False,
@@ -240,6 +263,9 @@ def _check_engine(engine: EngineSettings) -> None:
     if engine.ragged not in ("packed", "off"):
         raise ValueError(f"EVAM_RAGGED must be 'packed' or 'off', "
                          f"got {engine.ragged!r}")
+    if engine.fleet not in ("sharded", "off"):
+        raise ValueError(f"EVAM_FLEET must be 'sharded' or 'off', "
+                         f"got {engine.fleet!r}")
 
 
 def _parse_depth(value: str) -> int:
@@ -282,6 +308,10 @@ _ENGINE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_TRANSFER_DEPTH": ("transfer_depth", int),
     "EVAM_RAGGED": ("ragged", str),
     "EVAM_RAGGED_UNIT_BUDGET": ("ragged_unit_budget", int),
+    "EVAM_FLEET": ("fleet", str),
+    "EVAM_FLEET_SHARDS": ("fleet_shards", int),
+    "EVAM_FLEET_SHARD_MAX_BATCH": ("fleet_shard_max_batch", int),
+    "EVAM_FLEET_MAX_SHARDS": ("fleet_max_shards", int),
 }
 _SCHED_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_SCHED": ("enabled", _parse_bool),
@@ -317,7 +347,8 @@ _MODULE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_SERIALIZE_COMPILE": ("serialize_compile", _parse_serialize),
 }
 _TOP_KEYS = {key for key, _ in _TOP_ENV.values()} - {"allow_random_weights"}
-_ENGINE_KEYS = {key for key, _ in _ENGINE_ENV.values()}
+_ENGINE_KEYS = {key for key, _ in _ENGINE_ENV.values()} | {
+    "mesh_shape", "mesh_axes"}
 _SCHED_KEYS = {key for key, _ in _SCHED_ENV.values()}
 _TUNE_KEYS = {key for key, _ in _TUNE_ENV.values()}
 
@@ -341,11 +372,6 @@ _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
     ("EVAM_DECODE_POOL_WORKERS", "", "decode_pool_workers", int, 0, _S11),
     ("EVAM_RTSP_DEMUX_WORKERS", "", "rtsp_demux_workers", int, 0, _S11),
     ("EVAM_COMPILE_CACHE_DIR", "tpu", "compile_cache_dir", str, "", _S7),
-    ("EVAM_FLEET", "tpu", "fleet", str, "off", _S7),
-    ("EVAM_FLEET_SHARDS", "tpu", "fleet_shards", int, 0, _S7),
-    ("EVAM_FLEET_SHARD_MAX_BATCH", "tpu", "fleet_shard_max_batch",
-     int, 0, _S7),
-    ("EVAM_FLEET_MAX_SHARDS", "tpu", "fleet_max_shards", int, 0, _S7),
     ("EVAM_TRACE", "trace", "enabled", _parse_bool, False, _S10),
     ("EVAM_TRACE_SAMPLE_N", "trace", "sample_n", int, 16, _S10),
     ("EVAM_TRACE_RING", "trace", "ring", int, 1024, _S10),
@@ -363,8 +389,6 @@ _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
     ("EVAM_AOT", "aot", "enabled", _parse_bool, False, _S7),
     ("EVAM_AOT_DIR", "aot", "dir", str, "", _S7),
     ("EVAM_AOT_MAX_BYTES", "aot", "max_bytes", int, 1073741824, _S7),
-    (None, "tpu", "mesh_shape", None, [-1], _S7),
-    (None, "tpu", "mesh_axes", None, ["data"], _S7),
     (None, "tpu", "donate_buffers", None, True, _S7),
 ]
 
@@ -382,12 +406,6 @@ _MODULE_KNOBS: dict[str, tuple[Callable[[str], bool], str, str]] = {
     # obs/faults.py:275-276 — no fault is injected
     "EVAM_FAULT_INJECT": (_unset, "unset", _S10),
     "EVAM_FAULT_SEED": (_unset, "unset", _S10),
-    # native.py:42 — any non-empty value, "0" included, turns the
-    # native arithmetic off, which the port always runs
-    "EVAM_NO_NATIVE": (lambda v: v == "", "unset", _S7),
-    # native.py:28,105 — the host encode as native code
-    "EVAM_NATIVE": (lambda v: v == "", "unset", _S7),
-    "EVAM_NATIVE_LIB": (lambda v: v == "", "unset", _S7),
 }
 
 #: reference settings blocks the config file may carry

@@ -20,8 +20,11 @@ through :mod:`control.state`:
   EWMA;
 - **staleness_scale** tightens the staleness budgets under sustained
   overload;
-- **fleet_shards** stays inert: the fleet is unported, so the hub
-  reports no fleet and ``max_shards`` is 0.
+- **fleet_shards** (the eighth law): utilization sustained at or above
+  ``scale_up_util`` grows the fleet by one warm shard, at or below
+  ``scale_down_util`` drains one (``FleetEngine.retune`` actuates one
+  step per push). Inert while the hub's ``fleet_summary`` reports
+  ``max_shards`` 0: the fleet off, or EVAM_FLEET_MAX_SHARDS unset.
 
 Anti-flap: a law must agree in direction for ``damping`` consecutive
 ticks before its action applies, and an applied knob sits out a
@@ -178,7 +181,7 @@ class TuneController:
                 self.admission.capacity_fps(live=True))
             sig["demand_fps"] = float(
                 self.admission.effective_demand_fps())
-        # the fleet law's inputs: zeros while no hub reports a fleet
+        # the fleet law's inputs (zeros with the fleet off)
         fleet_fn = getattr(self.hub, "fleet_summary", None)
         if fleet_fn is not None:
             fs = fleet_fn()
@@ -375,7 +378,12 @@ class TuneController:
                         round(min(1.0, cur / STALENESS_FACTOR), 4),
                         "headroom: relax staleness budgets"))
 
-        # fleet_shards: inert unless a hub reports a fleet ceiling
+        # fleet_shards (the eighth law): sustained saturation grows the
+        # fleet by a warm shard, sustained idleness drains one. The
+        # thresholds sit outside the util_hi/util_lo band: the in-shard
+        # laws absorb pressure before the fleet takes a device.
+        # max_shards 0 (EVAM_FLEET_MAX_SHARDS unset, or the fleet off)
+        # keeps the law inert.
         maxs = int(sig["fleet_max_shards"])
         live_shards = int(sig["fleet_shards"])
         if maxs > 0 and live_shards > 0:
@@ -384,14 +392,15 @@ class TuneController:
             if util >= up and live_shards < maxs:
                 out.append(("fleet_shards", live_shards + 1,
                             f"utilization {util:.2f} >= {up:.2f} "
-                            f"sustained: spawn shard "
-                            f"{live_shards + 1}/{maxs} from the AOT "
-                            f"cache"))
+                            f"sustained: warm shard "
+                            f"{live_shards + 1}/{maxs} before it "
+                            f"joins"))
             elif util <= down and live_shards > 1:
                 out.append(("fleet_shards", live_shards - 1,
                             f"utilization {util:.2f} <= {down:.2f} "
-                            f"sustained: drain one shard "
-                            f"(checkpointed migration)"))
+                            f"sustained: drain one shard, its "
+                            f"streams re-placed without a "
+                            f"checkpoint"))
             elif old.fleet_shards and old.fleet_shards != live_shards \
                     and down < util < up:
                 out.append(("fleet_shards", live_shards,

@@ -45,8 +45,7 @@ class OperatingPoint:
     capacity_fps: float = 0.0
     #: multiplier on per-class staleness budgets
     staleness_scale: float = 1.0
-    #: target fleet size (0 = no target; inert while the fleet is
-    #: unported)
+    #: target fleet size (0 = no target: the eighth law at rest)
     fleet_shards: int = 0
 
     def to_dict(self) -> dict:

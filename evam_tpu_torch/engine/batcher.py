@@ -56,8 +56,11 @@ shedding stale frames before they are staged; the dispatcher then
 copies each batch into a slot itself (``SlotRing.stage_direct``). The
 control plane's live operating point (``control/state.py``) scales the
 batch deadlines and caps the batch in the dispatch loops, and
-``retune`` resizes the upload queue. The reference's AOT cache and
-fleet come with a later slice.
+``retune`` resizes the upload queue. The fleet's mesh twin
+(``fleet/engine.py``) is the one BatchEngine with ``data_size`` N > 1:
+its ladder is aligned to N, with the rungs under N in front (the
+reference's ``fleet_local`` bypass). The reference's AOT cache comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -265,6 +268,7 @@ class BatchEngine:
         sched: SchedConfig | None = None,
         ragged: str | None = None,
         ragged_spec: RaggedSpec | None = None,
+        data_size: int = 1,
     ):
         self.name = name
         self.step_fn = step_fn
@@ -344,16 +348,36 @@ class BatchEngine:
         #: blocks here
         self.pre_launch: Callable[[], None] | None = None
 
+        #: the mesh twin's device count (``fleet/engine.py``
+        #: ``MeshStep``): its rungs start at it and are multiples of it,
+        #: so a bucket splits evenly over the devices; 1 elsewhere
+        d = max(1, int(data_size))
+        top = -(-max_batch // d) * d
         self.buckets = []
-        b = 1
-        while b < max_batch:
+        b = d
+        while b < top:
             self.buckets.append(b)
             b *= 2
-        self.buckets.append(max_batch)
+        self.buckets.append(top)
         if self.ragged == "packed":
             # bucket consolidation, on every engine of a packed hub:
             # adjacent buckets share a graph (engine/ragged.py)
-            self.buckets = consolidate_buckets(self.buckets)
+            self.buckets = consolidate_buckets(self.buckets, align=d)
+        #: the fleet's bypass (the reference's ``fleet_local``): an
+        #: engine over several devices is the fleet's twin, and gets the
+        #: rungs under its device count too, which its step runs on the
+        #: first device alone — a trickle of batch traffic does not pay
+        #: a gather for 2 real rows
+        if d > 1:
+            sub, r = [], 1
+            while r < d:
+                sub.append(r)
+                r *= 2
+            self.buckets = sub + self.buckets
+        #: a step over several devices cannot be captured as one graph
+        #: (``MeshStep.capturable``): its buckets run eagerly
+        self._capturable = self._cuda and getattr(step_fn, "capturable",
+                                                  True)
         #: output rows of the top bucket (unit rows when packed)
         self._out_rows = (ragged_spec.unit_rows(self.buckets[-1])
                           if self._packed else self.buckets[-1])
@@ -436,12 +460,16 @@ class BatchEngine:
     # ------------------------------------------------------------- API
 
     def submit(self, priority: str = DEFAULT_PRIORITY,
-               units: int | None = None, **inputs: np.ndarray) -> Future:
+               units: int | None = None, stream: str | None = None,
+               **inputs: np.ndarray) -> Future:
         """Enqueue one item (no batch dim); resolves to its packed row
         (on the packed engine: its own unit rows).
 
         ``priority`` selects the scheduling class with the scheduler on;
-        without it the argument is accepted and ignored. ``units`` is
+        without it the argument is accepted and ignored. ``stream`` is
+        the submitting stream's identity: a single engine ignores it;
+        the fleet (``fleet/engine.py``) pins a stream to a shard by it,
+        and the stages pass it whatever the hub serves. ``units`` is
         the item's real unit rows, for the accounting only (the packed
         engine reads them off the ragged input). On the slot path this
         call copies the item into the staging block on the calling
@@ -547,27 +575,27 @@ class BatchEngine:
             t0 = time.perf_counter()
             with devlock.device_call(f"{self.name}:warmup"):
                 try:
-                    if self._cuda:
+                    if self._capturable:
                         # the warm run overlaps this engine's launches;
                         # the capture holds its device lock
                         self._graphs.capture(
                             b, [batch[n] for n in self._step_inputs],
                             self._device_lock)
                     else:
-                        self.step_fn(*[torch.from_numpy(batch[n])
-                                       for n in self._step_inputs])
+                        self.step_fn(*[torch.from_numpy(batch[n]).to(
+                            self.device) for n in self._step_inputs])
                 except Exception:  # noqa: BLE001 — counted, never hidden
                     if self._stop.is_set():
                         return
                     log.exception("engine %s: warmup of bucket %d failed",
                                   self.name, b)
-                    if self._cuda:
+                    if self._capturable:
                         with self._exec_lock:
                             self.stats.capture_failures += 1
                     continue
             with self._exec_lock:
                 self.stats.warm_forwards += 1
-                if self._cuda:
+                if self._capturable:
                     self.stats.compiled_programs += 1
                     self.stats.compile_seconds += time.perf_counter() - t0
                 # a warmed bucket gets the plain watchdog budget

@@ -34,6 +34,7 @@ an eager call of one bucket give the same bits.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -63,6 +64,10 @@ class StepGraphs:
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
         self._graphs: dict[int, BucketGraph] = {}
+        #: bucket → (seconds of its eager warm step, synchronized;
+        #: seconds of its capture, lock waits excluded): what a cache of
+        #: the warmup would have to save
+        self.timings: dict[int, tuple[float, float]] = {}
         self.freed = False
 
     def __len__(self) -> int:
@@ -80,12 +85,15 @@ class StepGraphs:
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                       for a in batch]
+            t0 = time.perf_counter()
             self.step_fn(*inputs)
             self.stream.synchronize()
+            eager_s = time.perf_counter() - t0
             graph = torch.cuda.CUDAGraph()
             with _capture_lock, lock:
                 if self.freed:
                     raise RuntimeError("graphs were freed")
+                t1 = time.perf_counter()
                 with qgemm.recording() as launches:
                     graph.capture_begin(pool=self.pool,
                                         capture_error_mode="thread_local")
@@ -95,6 +103,7 @@ class StepGraphs:
                         graph.capture_end()
                 bg = BucketGraph(graph, inputs, output, dict(launches))
                 self._graphs[b] = bg
+                self.timings[b] = (eager_s, time.perf_counter() - t1)
         return bg
 
     @staticmethod

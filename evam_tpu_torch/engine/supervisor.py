@@ -94,7 +94,7 @@ class SupervisedEngine:
     # ------------------------------------------------------------- API
 
     def submit(self, priority: str = "standard", units: int | None = None,
-               **inputs) -> Future:
+               stream: str | None = None, **inputs) -> Future:
         with self._lock:
             state = self.state
             eng = self._engine
@@ -109,7 +109,8 @@ class SupervisedEngine:
             raise TimeoutError(
                 f"engine {self.name} is restarting after a wedge; "
                 "retry shortly")
-        return eng.submit(priority=priority, units=units, **inputs)
+        return eng.submit(priority=priority, units=units, stream=stream,
+                          **inputs)
 
     def warm_async(self, **example) -> None:
         with self._lock:

@@ -1,11 +1,11 @@
-"""Downsampled luma grid for the motion gate.
+"""Downsampled luma grid for the motion gate: the numpy copy.
 
-Counterpart of ``luma_grid`` in ``evam_tpu/native.py`` (a copy of its
-numpy path, which that module keeps bit-identical to its native
-kernel in ``native/evam_media.cpp``): the same sample lattice, BT.601
-integer luma and floor-divided box mean, so the port's gate scores —
-and so its run/skip decisions — equal the reference's on every frame.
-The port needs no shared library for it.
+A copy of the numpy path of ``luma_grid`` in ``evam_tpu/native.py``,
+bit-identical to the native kernel (``csrc/evam_media.cpp``): the same
+sample lattice, BT.601 integer luma and floor-divided box mean, so the
+port's gate scores — and so its run/skip decisions — equal the
+reference's on every frame. The gate calls ``native.luma_grid``, which
+runs the library or, when the policy turns it off, this copy.
 """
 
 from __future__ import annotations

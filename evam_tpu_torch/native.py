@@ -1,0 +1,243 @@
+"""ctypes bindings for the port's host media kernels (``csrc/evam_media.cpp``).
+
+Counterpart of ``evam_tpu/native.py``. The per-frame host work of a
+stream thread — the fused bilinear resize + BGR→I420 wire encode, the
+plain conversions, and the motion gate's luma grid — runs in a shared
+library built with OpenMP and called through ``ctypes``, which releases
+the interpreter lock for the length of each call: the stream threads
+encode in parallel, and each encode spreads its rows over the cores.
+
+The library is built from the port's own copy of the reference's
+source, the first time it is used: ``g++ -O3 -fPIC -fopenmp -Wall
+-std=c++17 -shared`` (the flags of ``native/Makefile``) into
+``build/native/`` at the root of the checkout, named by a digest of the
+source and the flags, written to a temporary name and renamed (parallel
+processes may build it at once). :func:`build` builds it ahead of use.
+
+The policy is the reference's (``evam_tpu/native.py:42, :98-106``),
+read on every call:
+
+- ``EVAM_NO_NATIVE`` set to any non-empty value, ``"0"`` included,
+  turns the library off;
+- else ``EVAM_NATIVE`` (non-empty) turns it on;
+- else it is on when ``os.cpu_count() >= 4``;
+- ``EVAM_NATIVE_LIB`` names a prebuilt library to load instead of
+  building one.
+
+With the library off, each function runs its numpy copy
+(``ops/color.py``, ``media/luma.py``), which gives the same bytes.
+
+**One difference from the reference.** Where its library is absent,
+the reference quietly falls back to cv2 or numpy. The port builds its
+library from its own source, so "absent" can only mean that the build
+or the load failed, and then it raises, with the compiler's output. It
+never falls back: only the policy leads onto the numpy copies.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+
+from evam_tpu_torch.media.luma import luma_grid as luma_grid_host
+from evam_tpu_torch.ops.color import (
+    bgr_to_i420_host,
+    i420_shape,
+    resize_bgr_host,
+    resize_bgr_to_i420_host,
+)
+
+log = logging.getLogger("evam_tpu_torch.native")
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "evam_media.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
+#: the compiler (tests point it elsewhere to see a failed build raise)
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-Wall", "-std=c++17", "-shared")
+#: the source's ``evam_native_version()``
+VERSION = 2
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def native_mode(env) -> str:
+    """The policy as the reference's module reads it (``:42``,
+    ``:98-106``): "off" when EVAM_NO_NATIVE holds anything non-empty
+    ("0" included), else "on" when EVAM_NATIVE does, else "auto" (on
+    with 4 or more cores)."""
+    if env.get("EVAM_NO_NATIVE"):
+        return "off"
+    if env.get("EVAM_NATIVE"):
+        return "on"
+    return "auto"
+
+
+def library_path() -> Path:
+    """Where the library of this source and these flags is built."""
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join((CXX, *CXX_FLAGS)).encode()
+    ).hexdigest()[:12]
+    return BUILD_DIR / f"libevam_media_{digest}.so"
+
+
+def build() -> dict:
+    """Compile the library unless it is built. Returns ``{"path",
+    "seconds", "log"}`` (``seconds`` 0 when it was built already).
+    Raises ``RuntimeError`` with the compiler's output when the build
+    fails, or when the compiler is not found."""
+    target = library_path()
+    if target.exists():
+        return {"path": str(target), "seconds": 0.0, "log": ""}
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [CXX, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(
+            f"native build: compiler {CXX!r} not found ({exc}); the host "
+            "encode needs g++ with OpenMP, or EVAM_NO_NATIVE=1 for the "
+            "numpy copies") from exc
+    output = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"native build of {SOURCE} failed:\n{output}")
+    os.replace(tmp, target)
+    return {"path": str(target), "seconds": time.perf_counter() - t0,
+            "log": output}
+
+
+def _bind(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for name in ("resize_bgr_to_i420", "resize_bgr", "luma_grid"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_U8P, ctypes.c_int, ctypes.c_int,
+                       _U8P, ctypes.c_int, ctypes.c_int]
+        fn.restype = None
+    lib.bgr_to_i420.argtypes = [_U8P, _U8P, ctypes.c_int, ctypes.c_int]
+    lib.bgr_to_i420.restype = None
+    lib.evam_native_version.restype = ctypes.c_int
+    version = lib.evam_native_version()
+    if version != VERSION:
+        raise RuntimeError(f"native library {path} is version {version}, "
+                           f"the bindings need {VERSION}")
+    return lib
+
+
+def _load() -> ctypes.CDLL:
+    """The loaded library: ``EVAM_NATIVE_LIB`` where it names one, else
+    this source's build (built now on first use). Raises when the build
+    or the load fails."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            prebuilt = os.environ.get("EVAM_NATIVE_LIB", "")
+            path = prebuilt or build()["path"]
+            try:
+                _lib = _bind(path)
+            except OSError as exc:
+                raise RuntimeError(
+                    f"native library {path} failed to load: {exc}") from exc
+            log.info("native media kernels loaded (%s, v%d)", path, VERSION)
+        return _lib
+
+
+def available() -> bool:
+    """True when the library is loaded or loads now (building it);
+    False when ``EVAM_NO_NATIVE`` turns it off. A failed build raises."""
+    if native_mode(os.environ) == "off":
+        return False
+    _load()
+    return True
+
+
+def _use_native() -> bool:
+    """The policy, read on every call (the reference's: the OpenMP
+    kernels win on a host of 4 or more cores). On means the library is
+    loaded: it is built now if it is not, and a failure raises."""
+    mode = native_mode(os.environ)
+    if mode == "off" or (mode == "auto" and (os.cpu_count() or 1) < 4):
+        return False
+    _load()
+    return True
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(_U8P)
+
+
+def _native_ok(frame: np.ndarray, *sizes: int) -> bool:
+    """Whether this call goes to the library. Checks first what the
+    C code assumes and cannot check: a BGR uint8 ``[H, W, 3]`` frame and
+    positive sizes."""
+    if (frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3
+            or 0 in frame.shape or min(sizes, default=1) < 1):
+        raise ValueError(f"expected a BGR uint8 [H, W, 3] frame and "
+                         f"positive sizes, got {frame.dtype} "
+                         f"{frame.shape} → {sizes}")
+    return frame.flags.c_contiguous and _use_native()
+
+
+# ------------------------------------------------------------- kernels
+
+def resize_bgr_to_i420(frame: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """Fused bilinear resize + I420 wire encode of a BGR uint8 frame
+    (one pass; the per-frame host op of every video stage):
+    ``[dh * 3 / 2, dw]`` uint8."""
+    i420_shape(dh, dw)  # the planes' layout: height % 4, width % 2
+    if not _native_ok(frame, dh, dw):
+        return resize_bgr_to_i420_host(frame, dh, dw)
+    sh, sw = frame.shape[:2]
+    out = np.empty((dh * 3 // 2, dw), np.uint8)
+    _lib.resize_bgr_to_i420(_ptr(frame), sh, sw, _ptr(out), dh, dw)
+    return out
+
+
+def bgr_to_i420(frame: np.ndarray) -> np.ndarray:
+    """BGR uint8 ``[H, W, 3]`` → I420 ``[H * 3 / 2, W]``, no resize."""
+    i420_shape(*frame.shape[:2])
+    if not _native_ok(frame):
+        return bgr_to_i420_host(frame)
+    h, w = frame.shape[:2]
+    out = np.empty((h * 3 // 2, w), np.uint8)
+    _lib.bgr_to_i420(_ptr(frame), _ptr(out), h, w)
+    return out
+
+
+def resize_bgr(frame: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """Bilinear BGR uint8 resize (float32 weights, half-pixel
+    centers): ``[dh, dw, 3]`` uint8."""
+    if not _native_ok(frame, dh, dw):
+        return resize_bgr_host(frame, dh, dw)
+    sh, sw = frame.shape[:2]
+    out = np.empty((dh, dw, 3), np.uint8)
+    _lib.resize_bgr(_ptr(frame), sh, sw, _ptr(out), dh, dw)
+    return out
+
+
+def luma_grid(frame: np.ndarray, gh: int = 16, gw: int = 16) -> np.ndarray:
+    """The motion gate's downsampled BT.601 luma grid: uint8
+    ``[gh, gw]``, O(gh·gw·16) point samples whatever the frame's size
+    (``media/luma.py`` has the lattice)."""
+    if not _native_ok(frame, gh, gw):
+        return luma_grid_host(frame, gh, gw)
+    h, w = frame.shape[:2]
+    out = np.empty((gh, gw), np.uint8)
+    _lib.luma_grid(_ptr(frame), h, w, _ptr(out), gh, gw)
+    return out
+
+
+if __name__ == "__main__":
+    print(build())

@@ -6,11 +6,14 @@ and V (H/4 rows), each an H/2 × W/2 plane — half the bytes of BGR. The
 device resizes each plane and applies the studio-swing BT.601 inverse
 at target resolution.
 
-The host encoder is numpy, so the port needs no cv2 (the reference
-calls cv2). It is the fixed-point BT.601 matrix of
-the reference's native kernel (``native/evam_media.cpp::bgr_to_yuv``),
-with chroma taken from the top-left pixel of each 2×2 block;
-``tests/test_torch_ops.py`` holds it against cv2.
+The host encoders here (``bgr_to_i420_host``, ``resize_bgr_host``,
+``resize_bgr_to_i420_host``) are numpy copies of the native library's
+arithmetic (``csrc/evam_media.cpp``, a copy of the reference's
+``native/evam_media.cpp``): the fixed-point BT.601 matrix of its
+``bgr_to_yuv``, with chroma taken from the top-left pixel of each 2×2
+block. They give its bytes exactly, so the port needs no cv2; they are
+``native.py``'s path when its policy turns the library off, and the
+plain reference the tests and ``chip_smoke.py`` hold the library to.
 """
 
 from __future__ import annotations
@@ -57,6 +60,65 @@ def bgr_to_i420_host(frame: np.ndarray) -> np.ndarray:
     out[h:h + quarter] = np.clip(u, 0, 255).reshape(quarter, w)
     out[h + quarter:] = np.clip(v, 0, 255).reshape(quarter, w)
     return out
+
+
+def resize_bgr_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear BGR uint8 resize on the host, in the float32 arithmetic
+    of the reference's native ``resize_bgr`` (``native/evam_media.cpp``:
+    half-pixel centers, edge clamped, truncation after adding 0.5), so
+    frames from streams of other sizes stack into one batch."""
+    sh, sw = frame.shape[:2]
+    if (sh, sw) == (h, w):
+        return frame
+    f32 = np.float32
+
+    def taps(n_out, n_in):
+        pos = (np.arange(n_out, dtype=f32) + f32(0.5)) * (f32(n_in) / f32(n_out)) \
+            - f32(0.5)
+        i0 = np.maximum(pos.astype(np.int64), 0)  # C's truncation, then the clamp
+        wt = np.maximum(pos - i0.astype(f32), f32(0))
+        return i0, np.minimum(i0 + 1, n_in - 1), wt
+
+    y0, y1, wy = taps(h, sh)
+    x0, x1, wx = taps(w, sw)
+    wy, wx = wy[:, None, None], wx[None, :, None]
+    one = f32(1)
+    r0, r1 = frame[y0], frame[y1]  # gather the rows before widening
+    out = ((one - wy) * (one - wx) * r0[:, x0].astype(f32)
+           + (one - wy) * wx * r0[:, x1].astype(f32)
+           + wy * (one - wx) * r1[:, x0].astype(f32)
+           + wy * wx * r1[:, x1].astype(f32) + f32(0.5))
+    return out.astype(np.uint8)
+
+
+def resize_bgr_to_i420_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear resize and I420 encode on the host, in the 8-bit fixed
+    point of the reference's native fused ``resize_bgr_to_i420``
+    (``native/evam_media.cpp``), so the port's wire bytes equal the
+    reference's on its default path (a host of 4 or more cores with the
+    native library; its cv2 fallback rounds differently)."""
+    sh, sw = frame.shape[:2]
+    if (sh, sw) == (h, w):
+        return bgr_to_i420_host(frame)  # the kernel's taps are the identity
+
+    def taps(n_out, n_in):
+        step = (n_in << 16) // n_out
+        pos = np.maximum(np.arange(n_out, dtype=np.int64) * step
+                         + (step >> 1) - (1 << 15), 0)
+        i0 = pos >> 16
+        return i0, np.minimum(i0 + 1, n_in - 1), (pos >> 8) & 0xFF
+
+    def lerp(a, b, wt):
+        return a + (((b - a) * wt) >> 8)
+
+    y0, y1, wy = taps(h, sh)
+    x0, x1, wx = taps(w, sw)
+    wx = wx[None, :, None]
+    i32 = np.int32
+    r0, r1 = frame[y0], frame[y1]  # gather the rows before widening
+    top = lerp(r0[:, x0].astype(i32), r0[:, x1].astype(i32), wx)
+    bottom = lerp(r1[:, x0].astype(i32), r1[:, x1].astype(i32), wx)
+    return bgr_to_i420_host(lerp(top, bottom, wy[:, None, None]))
 
 
 def _split_planes(i420: torch.Tensor):

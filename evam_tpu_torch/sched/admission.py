@@ -163,9 +163,12 @@ class AdmissionController:
         """Declared capacity, the controller's published EWMA, or the
         bottleneck projection from the engines' stats; 0 = unknown (a
         cold hub admits). ``live`` skips the controller's setpoint (the
-        controller itself reads this form). Rows are summed within their
-        ``group`` (one group per engine on one card) and the minimum
-        across groups is the capacity."""
+        controller itself reads this form). Each row derives its own
+        capacity from its own stage clock and batch fill; rows are
+        summed within their ``group`` (the shards of one fleet engine
+        are parallel capacity, Σ shards) and the minimum across groups
+        is the capacity (a pipeline is bounded by its slowest engine
+        kind). A single engine is its own group."""
         if self.cfg.capacity_fps > 0:
             return self.cfg.capacity_fps
         if not live:

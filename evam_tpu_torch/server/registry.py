@@ -13,9 +13,14 @@ everything and counts it. With ``EVAM_TUNE`` on the registry runs the
 self-tuning controller (``control/``) until ``stop_all``.
 ``scheduler_status`` is the ``GET /scheduler`` payload.
 
-Left out until their slices (ROADMAP.md): the mesh and fleet, the RTSP
-and WebRTC frame destinations, the decode pool and RTSP demux,
-checkpoints, and persistence (``_persist`` / ``resume``).
+The hub's device list comes from ``tpu.mesh_shape`` / ``tpu.mesh_axes``
+(``device.mesh_devices``), narrowed by EVAM_FLEET_SHARDS or
+EVAM_FLEET_MAX_SHARDS with the fleet on, as the reference narrows its
+mesh.
+
+Left out until their slices (ROADMAP.md): the RTSP and WebRTC frame
+destinations, the decode pool and RTSP demux, checkpoints, and
+persistence (``_persist`` / ``resume``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any
 from evam_tpu_torch import slices
 from evam_tpu_torch.config.settings import Settings
 from evam_tpu_torch.control import state as control_state
+from evam_tpu_torch.device import mesh_devices
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.graph import PipelineLoader, resolve_parameters
 from evam_tpu_torch.media.source import check_source
@@ -63,9 +69,18 @@ class PipelineRegistry:
             eng = settings.engine
             sched_cfg = SchedConfig.from_settings(
                 settings.sched, standard_deadline_ms=eng.batch_deadline_ms)
+            devices = mesh_devices(settings.device, eng.mesh_shape,
+                                   eng.mesh_axes)
+            n_devices = max(eng.fleet_shards, eng.fleet_max_shards)
+            if eng.fleet == "sharded" and n_devices > 0:
+                # shard over the first N devices only; with autoscaling
+                # the list spans the ceiling, and the fleet boots at
+                # EVAM_FLEET_SHARDS shards and grows into the rest
+                devices = devices[:n_devices]
             hub = EngineHub(
                 registry,
                 device=settings.device,
+                devices=devices,
                 max_batch=eng.max_batch,
                 deadline_ms=eng.batch_deadline_ms,
                 warmup=eng.warmup,
@@ -82,6 +97,13 @@ class PipelineRegistry:
                 sched=sched_cfg,
                 ragged=eng.ragged,
                 ragged_unit_budget=eng.ragged_unit_budget,
+                fleet=eng.fleet,
+                fleet_shard_max_batch=eng.fleet_shard_max_batch,
+                fleet_max_shards=eng.fleet_max_shards,
+                # the boot size means something only under a ceiling:
+                # without one the fleet spans the device list
+                fleet_initial_shards=(eng.fleet_shards
+                                      if eng.fleet_max_shards > 0 else 0),
             )
         self.hub = hub
         #: the hub's scheduler config is the one source; a hub without
@@ -239,15 +261,13 @@ class PipelineRegistry:
     def scheduler_status(self) -> dict[str, Any]:
         """GET /scheduler: the admission snapshot, the engines' per-class
         queue depths and shed totals, the queue summary, the fleet block
-        (``mode: "off"``: the fleet is unported) and the control plane's
+        (``EngineHub.fleet_summary``) and the control plane's
         block — fixed keys whatever the knobs (the route golden)."""
         out = self.admission.snapshot()
         out["shed"] = self.hub.shed_totals()
         out["queues"] = self.hub.class_queue_depths()
         out["queue"] = self.hub.queue_summary()
-        out["fleet"] = {"mode": "off", "shards": 0, "degraded_shards": 0,
-                        "rebalances": 0, "streams": {}, "max_shards": 0,
-                        "scale_ups": 0, "scale_downs": 0}
+        out["fleet"] = self.hub.fleet_summary()
         st = control_state.active()
         out["tuning"] = (st.snapshot() if st is not None
                          else control_state.disabled_snapshot())

@@ -7,7 +7,7 @@ silent fallback.
 """
 
 MODEL_IMPORT = "port slice 6 (real-model import)"
-ENGINE_DEPTH = "port slice 7 (the fleet, the AOT cache and the native host encode)"
+ENGINE_DEPTH = "port slice 7 (the AOT cache)"
 EII = "port slice 8 (EII mode)"
 PARALLEL = "port slice 9 (frozen parallel and training code)"
 TRACE_STATE = "port slice 10 (tracing and stream state)"

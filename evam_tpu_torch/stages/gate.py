@@ -3,7 +3,8 @@ temporally redundant frames.
 
 Counterpart of ``evam_tpu/stages/gate.py`` (a copy, numpy only). A
 detect stage asks its gate, before ``submit()``, whether a frame needs
-inference: a downsampled luma grid (``media/luma.py``) is diffed
+inference: a downsampled luma grid (``native.luma_grid``: the native
+library, or its numpy copy in ``media/luma.py``) is diffed
 against the grid of the last *inferred* frame, and a small controller
 with hysteresis, a max-skip bound and a forced-refresh period turns
 the score into a run/skip decision. Skipped frames reuse the last
@@ -41,8 +42,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from evam_tpu_torch import native
 from evam_tpu_torch.control.state import current_op
-from evam_tpu_torch.media.luma import luma_grid
 from evam_tpu_torch.obs.metrics import metrics
 
 log = logging.getLogger("evam_tpu_torch.stages.gate")
@@ -151,7 +152,7 @@ class MotionGate:
     def score(self, frame: np.ndarray) -> float:
         """Mean |Δluma| per grid cell (0-255) against the last inferred
         frame; +inf when there is none yet (the first frame)."""
-        self._pending_grid = luma_grid(frame, GRID_H, GRID_W)
+        self._pending_grid = native.luma_grid(frame, GRID_H, GRID_W)
         if self._ref_grid is None:
             return float("inf")
         d = np.abs(self._pending_grid.astype(np.int16)

@@ -36,9 +36,13 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from evam_tpu_torch import native
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.models.zoo.action import CLIP_LEN
-from evam_tpu_torch.ops.color import bgr_to_i420_host, wire_shape
+from evam_tpu_torch.ops.color import (  # noqa: F401 — re-exported
+    resize_bgr_host,
+    wire_shape,
+)
 from evam_tpu_torch.stages.base import AsyncStage
 from evam_tpu_torch.stages.context import FrameContext, Region, Tensor
 from evam_tpu_torch.stages.gate import maybe_gate
@@ -57,71 +61,16 @@ def _wire_safe_size(size: tuple[int, int]) -> tuple[int, int]:
     return (-(-h // 4) * 4, -(-w // 2) * 2)
 
 
-def resize_bgr_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bilinear BGR uint8 resize on the host, in the float32 arithmetic
-    of the reference's native ``resize_bgr`` (``native/evam_media.cpp``:
-    half-pixel centers, edge clamped, truncation after adding 0.5), so
-    frames from streams of other sizes stack into one batch."""
-    sh, sw = frame.shape[:2]
-    if (sh, sw) == (h, w):
-        return frame
-    f32 = np.float32
-
-    def taps(n_out, n_in):
-        pos = (np.arange(n_out, dtype=f32) + f32(0.5)) * (f32(n_in) / f32(n_out)) \
-            - f32(0.5)
-        i0 = np.maximum(pos.astype(np.int64), 0)  # C's truncation, then the clamp
-        wt = np.maximum(pos - i0.astype(f32), f32(0))
-        return i0, np.minimum(i0 + 1, n_in - 1), wt
-
-    y0, y1, wy = taps(h, sh)
-    x0, x1, wx = taps(w, sw)
-    wy, wx = wy[:, None, None], wx[None, :, None]
-    one = f32(1)
-    r0, r1 = frame[y0], frame[y1]  # gather the rows before widening
-    out = ((one - wy) * (one - wx) * r0[:, x0].astype(f32)
-           + (one - wy) * wx * r0[:, x1].astype(f32)
-           + wy * (one - wx) * r1[:, x0].astype(f32)
-           + wy * wx * r1[:, x1].astype(f32) + f32(0.5))
-    return out.astype(np.uint8)
-
-
-def resize_bgr_to_i420_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bilinear resize and I420 encode on the host, in the 8-bit fixed
-    point of the reference's native fused ``resize_bgr_to_i420``
-    (``native/evam_media.cpp``), so the port's wire bytes equal the
-    reference's on its default path (a host of 4 or more cores with the
-    native library; its cv2 fallback rounds differently)."""
-    sh, sw = frame.shape[:2]
-    if (sh, sw) == (h, w):
-        return bgr_to_i420_host(frame)  # the kernel's taps are the identity
-
-    def taps(n_out, n_in):
-        step = (n_in << 16) // n_out
-        pos = np.maximum(np.arange(n_out, dtype=np.int64) * step
-                         + (step >> 1) - (1 << 15), 0)
-        i0 = pos >> 16
-        return i0, np.minimum(i0 + 1, n_in - 1), (pos >> 8) & 0xFF
-
-    def lerp(a, b, wt):
-        return a + (((b - a) * wt) >> 8)
-
-    y0, y1, wy = taps(h, sh)
-    x0, x1, wx = taps(w, sw)
-    wx = wx[None, :, None]
-    i32 = np.int32
-    r0, r1 = frame[y0], frame[y1]  # gather the rows before widening
-    top = lerp(r0[:, x0].astype(i32), r0[:, x1].astype(i32), wx)
-    bottom = lerp(r1[:, x0].astype(i32), r1[:, x1].astype(i32), wx)
-    return bgr_to_i420_host(lerp(top, bottom, wy[:, None, None]))
-
-
 def _wire_frame(frame: np.ndarray, size: tuple[int, int],
                 wire_format: str) -> np.ndarray:
-    """Resize to the engine's ingest size and encode to its wire format."""
+    """Resize to the engine's ingest size and encode to its wire format:
+    one fused pass in the native library, or the numpy copies of its
+    arithmetic, as ``native.py``'s policy says (the same bytes)."""
     if wire_format == "i420":
-        return resize_bgr_to_i420_host(frame, size[0], size[1])
-    return np.ascontiguousarray(resize_bgr_host(frame, size[0], size[1]))
+        return native.resize_bgr_to_i420(frame, size[0], size[1])
+    if frame.shape[:2] != tuple(size):
+        frame = native.resize_bgr(frame, size[0], size[1])
+    return np.ascontiguousarray(frame)
 
 
 def _warm(hub: EngineHub, engine, **example: np.ndarray) -> None:
@@ -204,6 +153,7 @@ class DetectStage(AsyncStage):
             return None
         return self.engine.submit(
             priority=ctx.priority,
+            stream=ctx.stream_id,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
 
     def complete(self, ctx: FrameContext,
@@ -309,6 +259,7 @@ class ClassifyStage(AsyncStage):
         return self.engine.submit(
             priority=ctx.priority,
             units=len(regions),
+            stream=ctx.stream_id,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire),
             boxes=boxes)
 
@@ -369,6 +320,7 @@ class FusedDetectClassifyStage(AsyncStage):
             return None
         return self.engine.submit(
             priority=ctx.priority,
+            stream=ctx.stream_id,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
 
     def complete(self, ctx: FrameContext,
@@ -440,8 +392,10 @@ class ActionStage(AsyncStage):
         engine's completer thread), so frames keep flowing while a
         decoder batch is pending."""
         prio = ctx.priority
+        stream_id = ctx.stream_id
         enc_fut = self.enc_engine.submit(
             priority=prio,
+            stream=stream_id,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
         outer: Future = Future()
 
@@ -458,6 +412,7 @@ class ActionStage(AsyncStage):
                     return
                 # raises RuntimeError when the engine is stopping
                 dec_fut = self.dec_engine.submit(priority=prio,
+                                                 stream=stream_id,
                                                  clips=np.stack(self.clip))
             except Exception as exc:  # noqa: BLE001 — propagate to the runner
                 outer.set_exception(exc)
@@ -515,6 +470,7 @@ class AudioDetectStage(AsyncStage):
             return None
         self._since_last = 0
         return self.engine.submit(priority=ctx.priority,
+                                  stream=ctx.stream_id,
                                   windows=self._buffer.copy())
 
     def complete(self, ctx: FrameContext,

@@ -372,6 +372,9 @@ def test_recording_takes_this_threads_calls_only(monkeypatch):
     stream is being captured; no card here)."""
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
+    # the process-wide counts, restored after: later tests read them
+    monkeypatch.setattr(qgemm, "launches", 0)
+    monkeypatch.setattr(qgemm, "variant_launches", {"aligned": 0, "masked": 0})
     with qgemm.recording() as rec:
         qgemm._count("aligned")
         qgemm._count("masked")

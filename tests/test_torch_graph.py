@@ -10,11 +10,12 @@
 * ``Settings.from_env`` parses each knob the port honours as the
   reference does — its settings table, and the engine knobs its
   modules read from ``os.environ`` (batch assembly, staging depth,
-  compile serialization), read there through a reference engine — and
-  raises ``NotImplementedError`` naming a slice for each unported knob
-  set to a value the port does not run with (the rest of the table,
-  and the depthwise conv, faults and the native library its modules
-  read).
+  compile serialization), read there through a reference engine; the
+  native host library's EVAM_NO_NATIVE / EVAM_NATIVE / EVAM_NATIVE_LIB
+  as the reference's ``native`` module decides on them — and raises
+  ``NotImplementedError`` naming a slice for each unported knob set to
+  a value the port does not run with (the rest of the table, and the
+  depthwise conv and faults its modules read).
 
 Exact equality throughout: these layers are copies.
 """
@@ -247,6 +248,16 @@ _HONOURED = {
                     lambda s: s.engine.ragged),
     "EVAM_RAGGED_UNIT_BUDGET": ("2", lambda s: s.tpu.ragged_unit_budget,
                                 lambda s: s.engine.ragged_unit_budget),
+    # slice 7c: the fleet
+    "EVAM_FLEET": ("sharded", lambda s: s.tpu.fleet,
+                   lambda s: s.engine.fleet),
+    "EVAM_FLEET_SHARDS": ("2", lambda s: s.tpu.fleet_shards,
+                          lambda s: s.engine.fleet_shards),
+    "EVAM_FLEET_SHARD_MAX_BATCH": (
+        "16", lambda s: s.tpu.fleet_shard_max_batch,
+        lambda s: s.engine.fleet_shard_max_batch),
+    "EVAM_FLEET_MAX_SHARDS": ("4", lambda s: s.tpu.fleet_max_shards,
+                              lambda s: s.engine.fleet_max_shards),
     **{var: (value, (lambda k: lambda s: getattr(s.sched, k))(key),
              (lambda k: lambda s: getattr(s.sched, k))(key))
        for var, value, key in [
@@ -426,8 +437,8 @@ def test_unported_knob_raises_naming_its_slice(knob, monkeypatch):
 
 def test_unported_config_file_keys_raise(tmp_path):
     path = tmp_path / "evam.json"
-    path.write_text(json.dumps({"tpu": {"mesh_shape": [2, 4]}}))
-    with pytest.raises(NotImplementedError, match="tpu.mesh_shape"):
+    path.write_text(json.dumps({"tpu": {"donate_buffers": False}}))
+    with pytest.raises(NotImplementedError, match="tpu.donate_buffers"):
         port_settings.Settings.from_env(path, env={})
     path.write_text(json.dumps({"trace": {"enabled": True}}))
     with pytest.raises(NotImplementedError, match="trace.enabled"):
@@ -444,10 +455,6 @@ _MODULE_CASES = [
     ("EVAM_DWCONV", "SHIFT", ["lax"], "slice 6"),
     ("EVAM_FAULT_INJECT", "drop=0.1", [""], "slice 10"),
     ("EVAM_FAULT_SEED", "7", [""], "slice 10"),
-    ("EVAM_NO_NATIVE", "1", [""], "slice 7"),
-    ("EVAM_NO_NATIVE", "0", [""], "slice 7"),
-    ("EVAM_NATIVE", "1", [""], "slice 7"),
-    ("EVAM_NATIVE_LIB", "/srv/libevam_media.so", [""], "slice 7"),
 ]
 
 
@@ -461,6 +468,45 @@ def test_module_read_knob_raises_naming_its_slice(var, refused, accepted,
         port_settings.Settings.from_env(env={var: refused})
     assert var in str(info.value)
     assert set(port_settings._MODULE_KNOBS) == {c[0] for c in _MODULE_CASES}
+
+
+#: the native host library's knobs, honoured since slice 7c: (var, value,
+#: the policy ``native.py`` reads from it)
+_NATIVE_CASES = [
+    ("EVAM_NO_NATIVE", "1", "off"),
+    ("EVAM_NO_NATIVE", "0", "off"),
+    ("EVAM_NATIVE", "1", "on"),
+    ("EVAM_NATIVE_LIB", "/srv/libevam_media.so", "auto"),
+]
+
+
+@pytest.mark.parametrize("var,value,mode", _NATIVE_CASES,
+                         ids=[f"{c[0]}={c[1]}" for c in _NATIVE_CASES])
+def test_module_read_knob_is_honoured(var, value, mode, monkeypatch):
+    """The host library's knobs pass ``Settings.from_env``, and mean
+    what the reference's ``native`` module makes of them: off for any
+    non-empty EVAM_NO_NATIVE ("0" included), on for EVAM_NATIVE whatever
+    the host's cores; EVAM_NATIVE_LIB changes the library, not the
+    policy (``tests/test_torch_native.py`` loads one through it)."""
+    from evam_tpu import native as ref_native
+    from evam_tpu_torch import native as port_native
+
+    port_settings.Settings.from_env(env={var: value})
+    assert var not in port_settings._MODULE_KNOBS
+    assert port_native.native_mode({var: value}) == mode
+    monkeypatch.setenv(var, value)
+    monkeypatch.setattr("os.cpu_count", lambda: 2)
+    if var == "EVAM_NO_NATIVE":
+        # the reference reads it where it loads its library
+        monkeypatch.setattr(ref_native, "_tried", False)
+        monkeypatch.setattr(ref_native, "_lib", None)
+    else:
+        # its library present (a stand-in: only _load's None check
+        # matters to the decision)
+        monkeypatch.setattr(ref_native, "_load", lambda: object())
+    monkeypatch.setattr(port_native, "_load", lambda: None)
+    assert port_native._use_native() == ref_native._use_native() == (
+        mode == "on")
 
 
 def test_module_read_knobs_mean_what_the_reference_reads(monkeypatch):
@@ -477,7 +523,7 @@ def test_module_read_knobs_mean_what_the_reference_reads(monkeypatch):
         monkeypatch.setenv("EVAM_SERIALIZE_COMPILE", value)
         assert devlock.enabled() is on
     # EVAM_NO_NATIVE=0 is a non-empty value: the reference's native
-    # library is then not loaded, so "0" is refused too
+    # library is then not loaded, so "0" turns the port's off too
     monkeypatch.setattr(native, "_tried", False)
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setenv("EVAM_NO_NATIVE", "0")

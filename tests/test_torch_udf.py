@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
 
@@ -235,9 +236,14 @@ def test_a_udf_that_cannot_import_fails_the_post(tmp_path):
 
 
 def test_every_served_pipeline_builds_with_the_reference_blocked():
+    # one torch thread, as every test process of the suite runs (its
+    # xdist workers share the cores): left at the core count, the
+    # child's model builds oversubscribe them and slow down manyfold
     code = "\n".join([
         "import json, sys",
         *[f"sys.modules[{b!r}] = None" for b in BLOCKED + ABSENT],
+        "import torch",
+        "torch.set_num_threads(1)",
         "from evam_tpu_torch.engine.hub import EngineHub",
         "from evam_tpu_torch.graph import PipelineLoader, resolve_parameters",
         "from evam_tpu_torch.models.registry import ModelRegistry",
@@ -268,13 +274,20 @@ def test_every_served_pipeline_builds_with_the_reference_blocked():
         "assert not bad, bad",
         "print(json.dumps({'built': built, 'later': later}))",
     ])
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    # the child's environment is the suite's, less what would change what
+    # it builds: the knobs an earlier test of this worker may have left
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("EVAM_") or k == "EVAM_ALLOW_RANDOM_WEIGHTS"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-3000:]
+    # whatever fails below, the child's own account goes with it
+    child = (f"exit {res.returncode}\nstderr:\n{res.stderr[-3000:]}\n"
+             f"stdout:\n{res.stdout[-1000:]}")
+    assert res.returncode == 0, child
     out = json.loads(res.stdout.strip().splitlines()[-1])
     want = {f"{d}:{n}/{v}" for d, pipes in _SERVED.items() for n, v in pipes}
-    assert set(out["built"]) == want
-    assert all("port slice" in msg for msg in out["later"].values())
+    assert set(out["built"]) == want, child
+    assert all("port slice" in msg for msg in out["later"].values()), child
     pipes = "pipelines:object_"
     assert out["built"][pipes + "tracking/person_vehicle_bike"] == [
         "FusedDetectClassifyStage", "TrackStage", "MetaconvertStage",
