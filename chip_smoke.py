@@ -209,7 +209,31 @@ memory the allocator holds once it has stopped its engines.
               exactly the chunks a host replay of the stride rule gives,
               the engine's items equal to the windows; zero qgemm
               launches. Prints windows/s and the windows' p50/p99.
-18. rest    — the same path through the port's REST server
+18. ir      — real-model import: ``python -m evam_tpu_torch.cli.main
+              fetch-models --synthesize-omz omz --topology manifest``
+              (a subprocess) writes the nine manifest IRs, and the
+              script a YOLOv3-tiny-shaped IR (416², two RegionYolo
+              heads, 80 classes). Every IR at float32 on the card and on
+              the CPU (TF32 off): raw outputs within FP32_RTOL × max;
+              the YOLO IR's detect step on both, ≥ 90 % of the CPU's
+              detections matched. One IR SSD forward (512², width 32) at
+              bucket IR_BUCKET: EVAM_IR_LAYOUT nhwc / nchw and
+              EVAM_DWCONV lax / shift agree at float32, then each timed
+              in bfloat16. Served from the IR models dir at the slice's
+              INT8 configuration (the IRs serve bfloat16 float
+              weights): person_vehicle_bike (the IR SSD at full width)
+              and vehicle_attributes fused (both models IR), STREAMS ×
+              FRAMES frames each, twice, on hub A (defaults, every
+              bucket captured first) and hub B (eager): every frame
+              published in order, every run's objects bit-equal to hub
+              B's first (else held to the track phase's tolerance and
+              the difference printed), fps, p50/p99, the eight stage ms
+              and hub A's profiled busy share; action_recognition/general (the
+              encoder and TensorIterator decoder IRs, 4 × 24 frames)
+              and audio_detection/environment (AclNet IR, 2 × 3 s) on
+              hub A, every bucket captured. Zero qgemm launches on
+              every IR engine.
+19. rest    — the same path through the port's REST server
               (``evam_tpu_torch.server.app``) on a free 127.0.0.1 port, in
               a thread: STREAMS POSTs to
               /pipelines/object_detection/person_vehicle_bike, each a
@@ -238,7 +262,7 @@ memory the allocator holds once it has stopped its engines.
               must answer 404, 400 and 501.
               The engine is built (``PipelineRegistry.preload``, the
               EVAM_PRELOAD path) and warmed before the clock starts.
-19. serve   — the real entry point, ``python3 -m
+20. serve   — the real entry point, ``python3 -m
               evam_tpu_torch.cli.main serve``, as a subprocess on a free
               REST_PORT with EVAM_PRELOAD=object_detection/
               person_vehicle_bike, EVAM_RAGGED=packed, EVAM_SCHED=1,
@@ -261,8 +285,8 @@ ragged, sched, tune, native, fleet, rest and serve phases' served runs
 and their engines' warm runs, split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
-run the kernel whichever qgemm is bound) are not counted; the action
-and audio phases launch it zero times), the nvidia-smi line, and last
+run the kernel whichever qgemm is bound) are not counted; the action,
+audio and ir phases launch it zero times), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for a quick first check of a new kernel);
@@ -294,7 +318,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
-          "native", "fleet", "action", "audio", "rest", "serve")
+          "native", "fleet", "action", "audio", "ir", "rest", "serve")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -403,6 +427,8 @@ def _import_port():
     from evam_tpu_torch.control.state import TuneState
     from evam_tpu_torch.fleet import ConsistentHashPlacer, FleetEngine
     from evam_tpu_torch.media.luma import luma_grid
+    from evam_tpu_torch.models.ir import load_ir
+    from evam_tpu_torch.models.ir_build import IRBuilder, conv_bias_relu
     from evam_tpu_torch.ops import color
 
     return dict(
@@ -429,7 +455,8 @@ def _import_port():
         native=native, color=color, luma_grid=luma_grid,
         ConsistentHashPlacer=ConsistentHashPlacer, FleetEngine=FleetEngine,
         TuneController=TuneController, TuneState=TuneState,
-        TuneSettings=TuneSettings)
+        TuneSettings=TuneSettings, load_ir=load_ir, IRBuilder=IRBuilder,
+        conv_bias_relu=conv_bias_relu)
 
 
 def _memory(torch, phase: str, t_start: float) -> None:
@@ -3449,6 +3476,356 @@ def phase_serve() -> dict[str, int]:
                 proc.wait()
 
 
+
+# ------------------------------------------------------------------ ir
+
+#: the manifest's IR models (``fetch-models --synthesize-omz --topology
+#: manifest``): key → what its input is
+IR_KEYS = {
+    "object_detection/person_vehicle_bike": "image",
+    "object_detection/person": "image",
+    "object_detection/vehicle": "image",
+    "face_detection_retail/1": "image",
+    "object_classification/vehicle_attributes": "image",
+    "emotion_recognition/1": "image",
+    "action_recognition/encoder": "image",
+    "action_recognition/decoder": "clips",
+    "audio_detection/environment": "audio",
+}
+#: the IR SSD forward the layout and depthwise variants are timed on
+IR_BUCKET = 8
+
+
+def _write_yolo_ir(port, target: Path) -> Path:
+    """A YOLOv3-tiny-shaped detector IR at 416²: the input scaled by
+    1/255 in the graph (as Model Optimizer folds ``--scale 255`` in), a
+    stride-2 conv ladder to /32 and a 1×1 head of 255 channels on /16
+    and /32, each cut at a RegionYolo (80 classes, three masked anchors
+    of the six)."""
+    import numpy as np
+
+    rng = np.random.default_rng(20260801)
+    b = port["IRBuilder"]("yolo_tiny_like")
+    weights: dict = {}
+    s = 416
+    shape = (1, 3, s, s)
+    data = b.layer("Parameter", {"shape": f"1,3,{s},{s}",
+                                 "element_type": "f32"},
+                   out_shapes=(shape,), name="data")
+    scale = b.const(np.full((1, 1, 1, 1), 1 / 255, np.float32), "scale")
+    cur = b.layer("Multiply", inputs=[(data[0], data[1], shape),
+                                      (*scale, (1, 1, 1, 1))],
+                  out_shapes=(shape,), name="scaled")
+    feats = []
+    for i, ch in enumerate((16, 32, 64, 128, 256)):  # /2 … /32
+        cur, shape = port["conv_bias_relu"](b, weights, rng, cur, shape,
+                                            f"c{i}", ch, 3, 2)
+        if i >= 3:
+            feats.append((cur, shape))
+    for j, (mask, (feat, fshape)) in enumerate(zip(("0,1,2", "3,4,5"), feats)):
+        _, c, h, w = fshape
+        wgt = (rng.normal(size=(255, c, 1, 1)) / np.sqrt(c)).astype(np.float32)
+        wc = b.const(wgt, f"head{j}_w")
+        head = b.layer(
+            "Convolution", {"strides": "1,1", "pads_begin": "0,0",
+                            "pads_end": "0,0", "dilations": "1,1"},
+            inputs=[(feat[0], feat[1], fshape), (*wc, wgt.shape)],
+            out_shapes=((1, 255, h, w),), name=f"head{j}")
+        region = b.layer(
+            "RegionYolo", {"classes": "80", "coords": "4", "num": "6",
+                           "do_softmax": "0", "mask": mask,
+                           "anchors": "10,14,23,27,37,58,81,82,135,169,"
+                                      "344,319"},
+            inputs=[(head[0], head[1], (1, 255, h, w))],
+            out_shapes=((1, 255, h, w),), name=f"region{j}")
+        b.result((region[0], region[1], (1, 255, h, w)))
+    target.mkdir(parents=True, exist_ok=True)
+    return b.write(target)
+
+
+def _ir_input(torch, model, gen, batch: int = 2):
+    """A batch the model's engine step would hand its forward: frames
+    (NHWC, 0–255), embedding clips, or audio windows in [-1, 1]."""
+    kind = IR_KEYS.get(model.spec.key, "image")
+    if kind == "clips":
+        return torch.randn((batch,) + tuple(model.ir.input_shape[1:]),
+                           generator=gen)
+    if kind == "audio":
+        return torch.rand((batch, model.ir.input_shape[-1]),
+                          generator=gen) * 2 - 1
+    h, w = model.preprocess.height, model.preprocess.width
+    return torch.rand((batch, h, w, 3), generator=gen) * 255
+
+
+def _ir_outputs(out) -> dict:
+    return out if isinstance(out, dict) else {"out": out}
+
+
+def _ir_serve(torch, port, hubs: dict, params: dict, pipeline, label: str,
+              out: dict) -> None:
+    """One pipeline from the IR models dir on hub A (the defaults: every
+    bucket captured, after it has warmed) and hub B (eager), twice each
+    (the second run is the cell's reading): every frame published in
+    order, no qgemm launch, every run's objects against hub B's first
+    run (bit-equal, or held to the track phase's tolerance and the
+    difference reported); fps, p50/p99, stage ms and hub A's profiled
+    busy share."""
+    qg = port["qgemm"]
+    served = {}
+    for name, hub in hubs.items():
+        make = _pipeline_stages(port, hub, params, pipeline)
+        engines = _stage_engines(make("warm", None))
+        if name == "A":
+            _await_warm(f"ir {label} A", engines)
+        for run in ("first", "second"):
+            rows0 = [e.stats_row() for e in engines]
+            _reset_launches(qg)
+            objects: dict = {}
+            runners, published, wall, threads = _serve(
+                port, make, STREAMS, FRAMES, 512, 512, objects)
+            where = f"ir {label} {name} {run}"
+            _check_served(where, runners, published, threads)
+            if qg.launches:
+                raise AssertionError(f"{where}: {qg.launches} qgemm launches "
+                                     "on an IR engine")
+            rows = [e.stats_row() for e in engines]
+            served[name, run] = objects
+            out[f"{label}_{name}_{run}"] = {
+                "engines": [e.name for e in engines],
+                "assembly": rows[0]["assembly"],
+                "transfer": rows[0]["transfer"],
+                **_latency_row(runners, wall),
+                "forwards": sum(_fwd(r) - _fwd(r0)
+                                for r, r0 in zip(rows, rows0)),
+                "qgemm_launches": qg.launches,
+                "graphs": rows[0]["graphs"],
+                "capture_failures": rows[0]["capture_failures"],
+                "capture_s": rows[0]["compile_s"],
+                "graph_pool_bytes": rows[0]["graph_pool_bytes"],
+                "bucket_batches": _bucket_delta(rows0[0], rows[0]),
+                "stage_ms": _stage_delta(port["STAGES"], rows0[0], rows[0])}
+    base = served["B", "first"]
+    if not any(objs for per in base.values() for objs in per.values()):
+        raise AssertionError(f"ir {label}: no object published")
+    for key, objects in served.items():
+        if key == ("B", "first"):
+            continue
+        diff = _objects_diff(objects, base)
+        out[f"{label}_{'_'.join(key)}_vs_B_first"] = diff
+        if diff["frames_differing"]:
+            diff["held"] = _objects_agree(
+                {(s, q): o for s, per in objects.items()
+                 for q, o in per.items()},
+                {(s, q): o for s, per in base.items()
+                 for q, o in per.items()})
+    prof = _profile_serve(torch, port, hubs["A"], STREAMS, FRAMES, 512, 512,
+                          make=_pipeline_stages(port, hubs["A"], params,
+                                                pipeline))
+    out[f"{label}_A_profiled"] = {k: prof[k] for k in (
+        "wall_s", "device_busy_ms", "device_busy_share", "kernel_launches")}
+    if qg.launches:
+        raise AssertionError(f"ir {label}: qgemm launched in the profiled run")
+
+
+def _ir_temporal(port, hub, out: dict) -> None:
+    """action_recognition/general (the encoder IR, the TensorIterator
+    decoder IR) and audio_detection/environment (the AclNet IR) served
+    on hub A, every bucket of their engines captured first: an action
+    tensor a frame from frame 16, a detection on each replayed window,
+    no qgemm launch."""
+    qg = port["qgemm"]
+    golden = json.loads(GOLDEN.read_text())
+    frames = 24
+    make = _pipeline_stages(port, hub, {}, ACTION_PIPELINE)
+    engines = _stage_engines(make("warm", None))
+    rows = _await_warm("ir action", engines)
+    graphs = {e.name: r["graphs"] for e, r in zip(engines, rows)}
+    _reset_launches(qg)
+    metas: dict = {}
+    runners, published, wall, threads = _serve(
+        port, make, ACTION_STREAMS, frames, 512, 512, metas=metas)
+    _check_served("ir action", runners, published, threads, frames)
+    tensors = sum(_check_actions(
+        f"ir action s{s}", [metas[f"s{s}"][i][0] for i in range(frames)],
+        golden) for s in range(ACTION_STREAMS))
+    out["action"] = {**_latency_row(runners, wall), "action_tensors": tensors,
+                     "graphs": graphs, "qgemm_launches": qg.launches}
+
+    make = _pipeline_stages(port, hub, {"threshold": 0.0,
+                                        "sliding-window": 0.2},
+                            AUDIO_PIPELINE)
+    engines = _stage_engines(make("warm", None))
+    rows = _await_warm("ir audio", engines)
+
+    def source(s):
+        uri = f"synthetic-audio://seconds=3&seed={s}"
+        return uri, port["SyntheticAudioSource"].from_uri(uri)
+
+    chunks = 3 * 16000 // CHUNK_SAMPLES
+    metas = {}
+    runners, published, wall, threads = _serve(
+        port, make, 2, chunks, 0, 0, metas=metas, source=source)
+    _check_served("ir audio", runners, published, threads, chunks)
+    windows = sum(_check_windows(
+        f"ir audio s{s}", [metas[f"s{s}"][i][0] for i in range(chunks)],
+        golden) for s in range(2))
+    out["audio"] = {"windows": windows, "wall_s": wall,
+                    "graphs": {e.name: r["graphs"]
+                               for e, r in zip(engines, rows)},
+                    "qgemm_launches": qg.launches}
+    if qg.launches:
+        raise AssertionError(f"ir: {qg.launches} qgemm launches on the "
+                             "action or audio IR engines")
+
+
+def _ir_variants(torch, port, xml: Path, out: dict) -> None:
+    """One IR SSD forward at bucket IR_BUCKET (512², width 32): the
+    layout (EVAM_IR_LAYOUT nhwc / nchw) and depthwise (EVAM_DWCONV lax /
+    shift, which the NCHW plan reaches) variants, outputs within
+    FP32_RTOL × max at float32, then each timed in bfloat16 (the serving
+    dtype) on the engine's channels_last view of NHWC frames."""
+    gen = torch.Generator().manual_seed(21)
+    frames = torch.rand((IR_BUCKET, 512, 512, 3), generator=gen) * 255
+    variants = (("nhwc", "lax"), ("nchw", "lax"), ("nchw", "shift"))
+    before = os.environ.get("EVAM_DWCONV")
+    models = {}
+    try:
+        for layout, dw in variants:
+            os.environ["EVAM_DWCONV"] = dw
+            models[layout, dw] = port["load_ir"](xml, layout=layout).cuda()
+    finally:
+        if before is None:
+            os.environ.pop("EVAM_DWCONV", None)
+        else:
+            os.environ["EVAM_DWCONV"] = before
+    x32 = frames.cuda().permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        ref = models[variants[0]](x32)
+        for key in variants[1:]:
+            got = models[key](x32)
+            for name in ref:
+                _card_vs_cpu(torch, "ir-variants", f"{'/'.join(key)} {name}",
+                             ref[name].cpu(), got[name], top1=False)
+    xb = frames.to("cuda", torch.bfloat16).permute(0, 3, 1, 2)
+    timings = {}
+    for key, model in models.items():
+        model.cast_params(torch.bfloat16)
+        with torch.inference_mode():
+            wall, dev = _time_ms(torch, lambda m=model: m(xb))
+        timings["/".join(key)] = {"wall_ms": wall, "device_ms": dev}
+    out["ssd_forward_b8_bf16"] = timings
+
+
+def phase_ir(torch, port) -> dict:
+    """Real-model import on the card: the manifest's IRs written by the
+    real entry point, card against CPU, the full-width IR SSD and the
+    fused IR detect+classify served, the YOLO IR's detect step, the
+    layout and depthwise variants, and no qgemm launch on an IR
+    engine."""
+    import numpy as np
+
+    qg = port["qgemm"]
+    out: dict = {"phase": "ir", "nvidia_smi": _nvidia_smi()}
+    with tempfile.TemporaryDirectory() as tmp:
+        models = Path(tmp) / "models"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "evam_tpu_torch.cli.main", "fetch-models",
+             "--synthesize-omz", "omz", "--topology", "manifest", "--output",
+             str(models)], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"ir: fetch-models exited {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+        out["fetch_models_s"] = time.perf_counter() - t0
+        yolo_xml = _write_yolo_ir(port, models / "yolo" / "1" / "FP32")
+
+        # every IR at float32 on the CPU and on the card (TF32 off)
+        kw = dict(models_dir=models, dtype="float32")
+        cpu = port["ModelRegistry"](device="cpu", **kw)
+        gpu = port["ModelRegistry"](device="cuda", **kw)
+        gen = torch.Generator().manual_seed(11)
+        checked = {}
+        for key in IR_KEYS:
+            mc, mg = cpu.get(key), gpu.get(key)
+            if mg.weight_source != "ir-bin" or mg.ir is None:
+                raise AssertionError(f"ir: {key} is not served from its IR")
+            x = _ir_input(torch, mc, gen)
+            with torch.inference_mode():
+                oc, og = (_ir_outputs(mc.forward(x)),
+                          _ir_outputs(mg.forward(x.cuda())))
+            checked[key] = {
+                name: _card_vs_cpu(torch, "ir-check", f"{key} {name}",
+                                   oc[name], og[name],
+                                   top1=False)["max_abs_diff"]
+                for name in oc}
+        out["card_vs_cpu_max_abs_diff"] = checked
+        det = gpu.get(KEY)
+        shape = (det.ir.input_shape, tuple(det.ir.params["conv0_w"].shape),
+                 det.spec.num_classes, gpu.get(CLS_KEY).ir.input_shape,
+                 tuple(gpu.get(CLS_KEY).ir.params["c1_w"].shape),
+                 gpu.get(CLS_KEY).spec.heads)
+        if shape != ((1, 3, 512, 512), (32, 3, 3, 3), 4, (1, 3, 72, 72),
+                     (16, 3, 3, 3), (("color", 7), ("type", 4))):
+            raise AssertionError(f"ir: not the full-width models: {shape}")
+
+        # the YOLO IR through the detect step, card against CPU
+        yc, yg = cpu.get("yolo/1"), gpu.get("yolo/1")
+        frames = torch.randint(0, 256, (4, 416, 416, 3), generator=gen,
+                               dtype=torch.uint8).numpy()
+        wire = torch.from_numpy(np.stack(
+            [port["wire_frame"](f, (416, 416), "i420") for f in frames]))
+        rows = {}
+        for dev, model in (("cpu", yc), ("cuda", yg)):
+            step = port["build_detect_step"](model, score_threshold=0.6,
+                                             wire_format="i420")
+            rows[dev] = step(wire.to(dev)).cpu().numpy()
+        with torch.inference_mode():
+            x = _ir_input(torch, yc, gen)
+            maps_c, maps_g = yc.forward(x), yg.forward(x.cuda())
+        for name in maps_c:
+            _card_vs_cpu(torch, "ir-check", f"yolo {name}", maps_c[name],
+                         maps_g[name], top1=False)
+        rate = float(np.mean([_match_rate(rows["cpu"][i], rows["cuda"][i])
+                              for i in range(len(frames))]))
+        valid = int((rows["cpu"][..., 6] > 0.5).sum())
+        out["yolo"] = {"heads": len(yg.yolo_specs), "classes":
+                       yg.spec.num_classes, "valid_cpu": valid,
+                       "valid_card": int((rows["cuda"][..., 6] > 0.5).sum()),
+                       "match_rate": rate}
+        # random weights put many YOLO scores within float rounding of
+        # each other, so NMS may keep a different near-tie on the card
+        if valid == 0 or rate < 0.9:
+            raise AssertionError(f"ir: YOLO detections differ: {out['yolo']}")
+        del cpu, gpu
+
+        # the layout and depthwise variants of the full-width IR SSD
+        _ir_variants(torch, port, next((models / KEY / "FP32").glob("*.xml")),
+                     out)
+
+        # served: the IR SSD, then the fused IR detect+classify (INT8
+        # serving configuration: the IRs serve their float weights in
+        # bfloat16 and never reach the int8 kernel)
+        registry = port["ModelRegistry"](models_dir=models, device="cuda")
+        hubs = {"A": _default_hub(port, registry,
+                                  stall_timeout_s=ENGINE_STALL_S),
+                "B": port["EngineHub"](registry, device="cuda", warmup=False,
+                                       assembly="legacy", transfer="inline")}
+        try:
+            out["precision"] = registry.precision
+            _ir_serve(torch, port, hubs, {"threshold": 0.2}, DETECT_PIPELINE,
+                      "detect", out)
+            _ir_serve(torch, port, hubs, {"detection-threshold": 0.2},
+                      CLS_PIPELINE, "fused", out)
+            _ir_temporal(port, hubs["A"], out)
+        finally:
+            for hub in hubs.values():
+                hub.stop()
+    out["qgemm_launches"] = qg.launches
+    _print(out)
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3567,6 +3944,10 @@ def main(argv: list[str] | None = None) -> int:
     if "audio" in phases:
         phase_audio(torch, port)
         _memory(torch, "audio", t_start)
+    # the IR engines launch it zero times (asserted inside)
+    if "ir" in phases:
+        phase_ir(torch, port)
+        _memory(torch, "ir", t_start)
     if "rest" in phases:
         served.append(phase_rest(torch, port, res["s0_objects"]))
         _memory(torch, "rest", t_start)

@@ -28,7 +28,11 @@ EVAM_STAGING_DEPTH (0: the default depth) and EVAM_SERIALIZE_COMPILE
 (off; ``engine/devlock.py`` reads it per call, as the reference does).
 The host encode's EVAM_NO_NATIVE, EVAM_NATIVE and EVAM_NATIVE_LIB are
 read by ``native.py`` on every call, as the reference's module reads
-them, and pass here.
+them, and pass here; so do the IR importer's EVAM_IR_LAYOUT (``nhwc``
+unless set to another value; read by ``models/ir.py`` when it builds
+a model) and the depthwise-conv variant EVAM_DWCONV (``shift`` in any
+case, else the grouped conv; read by ``ops/depthwise.py`` when a
+module is built).
 
 The scheduler is off unless EVAM_SCHED turns it on, where the
 reference's default turns it on: unset, the port serves through its
@@ -43,8 +47,7 @@ runs with — the reference's default, or "off" where the reference's
 default turns on a subsystem the port lacks (scheduler, tracing) — it
 raises ``NotImplementedError`` at :meth:`Settings.from_env`, naming the
 slice. So do the other knobs the reference reads in its own modules
-(``_MODULE_KNOBS``): the depthwise-conv variant and fault injection.
-None is silently ignored.
+(``_MODULE_KNOBS``): fault injection. None is silently ignored.
 """
 
 from __future__ import annotations
@@ -352,7 +355,6 @@ _ENGINE_KEYS = {key for key, _ in _ENGINE_ENV.values()} | {
 _SCHED_KEYS = {key for key, _ in _SCHED_ENV.values()}
 _TUNE_KEYS = {key for key, _ in _TUNE_ENV.values()}
 
-_S6 = slices.MODEL_IMPORT
 _S7 = slices.ENGINE_DEPTH
 _S10 = slices.TRACE_STATE
 _S11 = slices.INGEST_EGRESS
@@ -401,8 +403,6 @@ def _unset(value: str) -> bool:
 #: runs?, the port's value, the slice that brings the rest). Each test
 #: follows the reference's own parse at the line named.
 _MODULE_KNOBS: dict[str, tuple[Callable[[str], bool], str, str]] = {
-    # ops/depthwise.py:144 — any value but "shift" runs the grouped conv
-    "EVAM_DWCONV": (lambda v: v.lower() != "shift", "lax", _S6),
     # obs/faults.py:275-276 — no fault is injected
     "EVAM_FAULT_INJECT": (_unset, "unset", _S10),
     "EVAM_FAULT_SEED": (_unset, "unset", _S10),

@@ -11,9 +11,12 @@ bucket (``engine/graphs.py``) and replay it. Nothing a step runs may
 copy from the host or wait for the device: every constant is built on
 the device when the step is built.
 
-Ported: the detect step (SSD branch), the classify step and its
-packed-ragged form (``EVAM_RAGGED=packed``), the fused detect+classify
-step, the action encode and decode steps and the audio step.
+Ported: the detect step (SSD and YOLO detectors), the classify step
+and its packed-ragged form (``EVAM_RAGGED=packed``), the fused
+detect+classify step, the action encode and decode steps and the audio
+step. A model that already emits probabilities (an IR's in-graph
+SoftMax: ``conf_is_prob``, ``head_is_prob``, ``out_is_prob``) is not
+softmaxed again.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Callable
 import torch
 
 from evam_tpu_torch.models.registry import LoadedModel
-from evam_tpu_torch.ops.boxes import decode_boxes
+from evam_tpu_torch.ops.boxes import decode_boxes, yolo_gather
 from evam_tpu_torch.ops.color import crop_rois_i420
 from evam_tpu_torch.ops.nms import batched_nms
 from evam_tpu_torch.ops.preprocess import (
@@ -81,18 +84,40 @@ def _wire_spec(model: LoadedModel, wire_format: str):
     return dataclasses.replace(model.preprocess, wire_format=wire_format)
 
 
+def _detector_constants(model: LoadedModel):
+    """The detect step's box constants on the model's device, built once:
+    the SSD anchors, or each YOLO head's spec with its anchors as a
+    tensor."""
+    if model.detector_kind == "yolo":
+        return [{"anchors": torch.tensor(spec["anchors"], dtype=torch.float32,
+                                         device=model.device)}
+                for spec in model.yolo_specs]
+    return torch.from_numpy(model.anchors).to(model.device)
+
+
 def _detect_packed(x, model, anchors, max_detections, iou_threshold,
                    score_threshold):
-    """Preprocessed input → (packed [B,K,7], boxes). See DETECT_FIELDS."""
-    if model.detector_kind != "ssd":
-        raise NotImplementedError(
-            f"detector kind {model.detector_kind!r} comes with a later "
-            "port slice (OpenVINO IR import)")
+    """Preprocessed input → (packed [B,K,7], boxes). See DETECT_FIELDS.
+    ``anchors``: :func:`_detector_constants`."""
     out = model.forward(x)
-    boxes = decode_boxes(out["loc"].float(), anchors,
-                         variances=model.variances)
-    conf = out["conf"].float()
-    scores = conf if model.conf_is_prob else torch.softmax(conf, dim=-1)
+    if model.detector_kind == "yolo":
+        # RegionYolo-cut IR: raw grid maps, decoded here — scores come
+        # out as probabilities with a background column. Numeric sort:
+        # a lexicographic one would pair yolo_10 with head 2's anchors.
+        keys = sorted(out, key=lambda k: int(k.rsplit("_", 1)[1]))
+        if len(keys) != len(anchors):
+            raise ValueError(
+                f"{len(keys)} yolo outputs vs {len(anchors)} anchor specs "
+                "— importer/model mismatch")
+        boxes, scores = yolo_gather(
+            [out[k].float() for k in keys], anchors,
+            (model.preprocess.height, model.preprocess.width),
+            model.spec.num_classes)
+    else:
+        boxes = decode_boxes(out["loc"].float(), anchors,
+                             variances=model.variances)
+        conf = out["conf"].float()
+        scores = conf if model.conf_is_prob else torch.softmax(conf, dim=-1)
     bx, sc, lb, valid = batched_nms(
         boxes, scores,
         max_outputs=max_detections,
@@ -114,7 +139,7 @@ def build_detect_step(
     wire_format: str = "bgr",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Wire-encoded uint8 frames → packed detections [B,K,7] float32."""
-    anchors = torch.from_numpy(model.anchors).to(model.device)
+    anchors = _detector_constants(model)
     spec = _wire_spec(model, wire_format)
 
     def step(frames: torch.Tensor) -> torch.Tensor:
@@ -195,7 +220,7 @@ def build_detect_classify_step(
     row's probability block, all zero exactly where the row was not
     classified (a classified block sums to the number of heads).
     """
-    anchors = torch.from_numpy(det_model.anchors).to(det_model.device)
+    anchors = _detector_constants(det_model)
     det_spec = _wire_spec(det_model, wire_format)
     prepare_constants(cls_model.preprocess, cls_model.device)
     allowed = (None if allowed_label_ids is None else torch.tensor(
@@ -248,10 +273,12 @@ def build_action_decode_step(
     """Embedding clips [B, T, D] float32 → class probabilities [B, C]
     (the registry serves the decoder in float32 arithmetic, as flax
     promotes its params against float32 clips)."""
+    is_prob = model.out_is_prob  # an IR may softmax in-graph
 
     def step(clips: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return torch.softmax(model.forward(clips.float()), dim=-1)
+            out = model.forward(clips.float()).float()
+            return out if is_prob else torch.softmax(out, dim=-1)
 
     return step
 
@@ -264,10 +291,12 @@ def build_audio_step(
     gvaaudiodetect consumes S16LE directly,
     pipelines/audio_detection/environment/pipeline.json:5); AclNet runs
     in float32 arithmetic, as the decoder does."""
+    is_prob = model.out_is_prob  # an IR may softmax in-graph
 
     def step(windows: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             x = windows.float() / 32768.0
-            return torch.softmax(model.forward(x), dim=-1)
+            out = model.forward(x).float()
+            return out if is_prob else torch.softmax(out, dim=-1)
 
     return step

@@ -19,6 +19,11 @@ carry the same names, so each leaf maps to one ``state_dict`` entry:
 LayerNorm scale; ranks 2, 3 and 4 are Dense, attention and conv
 kernels).
 
+An imported OpenVINO IR keeps the reference's flat ``{layer name:
+array}`` dict instead (``models/ir.py``): :func:`flat_from_msgpack`
+reads it and :func:`packb` writes it as is, no renaming, no
+transposes.
+
 ``weights.msgpack`` is flax's ``serialization.to_bytes`` of that tree.
 :func:`unpackb` and :func:`packb` read and write the subset of msgpack
 it uses with the standard library alone (the card's machine has no
@@ -329,3 +334,19 @@ def params_to_msgpack(state: dict[str, torch.Tensor]) -> bytes:
     """Port ``state_dict`` → the bytes flax's ``to_bytes`` writes for the
     same params tree."""
     return packb(params_to_jax(state))
+
+
+def flat_from_msgpack(data: bytes) -> dict[str, torch.Tensor]:
+    """A flat ``{name: array}`` weights file (an IR model's, as flax's
+    ``to_bytes`` writes it) → tensors, in the file's order. Anything
+    else — a nested zoo tree, a non-array leaf — raises ValueError."""
+    tree = unpackb(data)
+    if not isinstance(tree, dict):
+        raise ValueError("a weights file holds a map of parameters")
+    out = {}
+    for key, leaf in tree.items():
+        if not isinstance(leaf, (np.ndarray, torch.Tensor)):
+            raise ValueError(f"not a flat weight dict: {key!r} holds a "
+                             f"{type(leaf).__name__}")
+        out[key] = _to_tensor(leaf).contiguous()
+    return out

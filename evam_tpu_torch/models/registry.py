@@ -25,8 +25,17 @@ steps, against which flax promotes the bfloat16 params: their weights
 are rounded to the serving dtype and their arithmetic is float32 — the
 port keeps such a module in float32 after the rounding.
 :meth:`ModelRegistry.save_weights` writes a model's weights into the
-same layout, as flax's ``to_bytes`` would. OpenVINO IR imports come
-with a later slice and raise until then.
+same layout, as flax's ``to_bytes`` would.
+
+An OpenVINO IR under ``<models_dir>/<alias>/<version>/<precision>/
+*.xml`` (the reference's layout) is served in place of the zoo module
+(``models/ir.py``): its family comes from the zoo alias it is
+installed under (else detector or classifier from its graph), its
+weights from the ``.bin`` — or from a flat ``weights.msgpack`` beside
+it, which overrides them (weight source ``ir-bin+override``; a zoo
+tree there is ignored with a warning) — cast to the serving dtype.
+Under ``INT8`` an IR serves its float weights at the registry's dtype,
+as the reference does: the int8 kernel is never launched for it.
 """
 
 from __future__ import annotations
@@ -43,14 +52,16 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from evam_tpu_torch import slices
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.models import labels as L
 from evam_tpu_torch.modelproc import ModelProc, load_model_proc
 from evam_tpu_torch.models.convert import (
+    flat_from_msgpack,
+    packb,
     params_from_msgpack,
     params_to_msgpack,
 )
+from evam_tpu_torch.models.ir import ImportedIRModel, load_ir
 from evam_tpu_torch.models.zoo.aclnet import WINDOW_SAMPLES, AclNet
 from evam_tpu_torch.models.zoo.action import (
     ActionDecoder,
@@ -70,6 +81,10 @@ log = logging.getLogger("evam_tpu_torch.models.registry")
 _FLOAT32_INPUT = ("action_decoder", "aclnet")
 
 _INT8_ALIASES = ("int8", "fp32-int8", "fp16-int8", "bf16-int8")
+
+#: families whose engine steps take one raw array from the model (the
+#: action encode and decode steps, the audio step), not a head dict
+_ARRAY_OUT = ("action_decoder", "action_encoder", "aclnet")
 
 
 class MissingWeightsError(RuntimeError):
@@ -179,9 +194,19 @@ class LoadedModel:
     #: the same per classifier head (IR imports only; zoo heads emit
     #: logits, so it stays empty)
     head_is_prob: dict[str, bool] = field(default_factory=dict)
+    #: "ssd" (loc/conf + anchors) or "yolo" (RegionYolo grid maps,
+    #: decoded by ops.boxes.yolo_gather in the detect step)
     detector_kind: str = "ssd"
-    #: weight provenance — "msgpack" (loaded from disk) or "random"
-    #: (seeded init, opt-in only)
+    #: single-array models (action decoder, AclNet): True when the graph
+    #: already ends in SoftMax, so the step must not softmax again
+    out_is_prob: bool = False
+    #: per YOLO head: {"anchors": [[w, h], ...] in input pixels}
+    yolo_specs: list = field(default_factory=list)
+    #: the imported OpenVINO IR graph backing the model (models/ir.py)
+    ir: ImportedIRModel | None = None
+    #: weight provenance — "msgpack" (loaded from disk), "ir-bin" (the
+    #: IR's .bin), "ir-bin+override" (.bin + weights.msgpack) or
+    #: "random" (seeded init, opt-in only)
     weight_source: str = "unknown"
 
     @property
@@ -189,6 +214,55 @@ class LoadedModel:
         """batch → raw outputs (the reference's ``forward(params, batch)``
         with the params held by the module)."""
         return self.module
+
+
+class IRForward(nn.Module):
+    """The engine-facing forward of an IR model (the reference's
+    ``LoadedModel._ir_forward``): the engine feeds NHWC frames, the IR
+    takes NCHW (a 1-channel IR takes BT.601 luma in the delivered
+    channel order); a non-image batch takes the IR's rank. A detector
+    returns ``{"loc": [B, A, 4], "conf": [B, A, C]}``, a YOLO detector
+    its raw grid maps, the array-output families their one output
+    [B, -1], a classifier each head [B, -1]."""
+
+    def __init__(self, ir: ImportedIRModel, family: str, num_classes: int,
+                 key: str, rgb_order: bool):
+        super().__init__()
+        self.ir = ir
+        self.family = family
+        self.num_classes = num_classes
+        self.key = key
+        self.array_out = family in _ARRAY_OUT
+        self.register_buffer("luma", torch.tensor(
+            [0.299, 0.587, 0.114] if rgb_order else [0.114, 0.587, 0.299]),
+            persistent=False)
+
+    def forward(self, batch: torch.Tensor):
+        ir = self.ir
+        if len(ir.input_shape) == 4 and batch.dim() == 4:
+            if int(ir.input_shape[1]) == 1 and batch.shape[-1] == 3:
+                batch = (batch * self.luma.to(batch.dtype)).sum(
+                    -1, keepdim=True)
+            x = batch.permute(0, 3, 1, 2)
+        else:
+            x = batch.reshape((batch.shape[0],)
+                              + tuple(int(d) for d in ir.input_shape[1:]))
+        out = ir(x)
+        if ir.detector_kind == "yolo":
+            return out
+        if ir.is_detector:
+            b = batch.shape[0]
+            return {"loc": out["loc"].reshape(b, -1, 4),
+                    "conf": out["conf"].reshape(b, -1, self.num_classes)}
+        if self.array_out:
+            if len(out) != 1:
+                raise ValueError(
+                    f"{self.key}: {self.family} IR must have exactly one "
+                    f"output, got {list(out)} — an auxiliary Result would "
+                    "be served silently")
+            sole = next(iter(out.values()))
+            return sole.reshape(sole.shape[0], -1)
+        return {k: v.reshape(v.shape[0], -1) for k, v in out.items()}
 
 
 def build_module(spec: ModelSpec, overrides: dict[str, Any] | None = None):
@@ -292,7 +366,7 @@ class ModelRegistry:
     def keys(self) -> list[str]:
         """Model keys, as the reference lists them: the built-in zoo plus
         any on-disk OpenVINO IR dirs (``{alias}/{version}/{precision}/
-        *.xml``; loading one raises until the import slice)."""
+        *.xml``)."""
         keys = set(ZOO_SPECS)
         if self.models_dir and self.models_dir.exists():
             for xml in self.models_dir.glob("*/*/*/*.xml"):
@@ -341,16 +415,19 @@ class ModelRegistry:
         return None
 
     def _load(self, key: str) -> LoadedModel:
-        if self._ir_xml_path(key) is not None:
-            # the reference would serve the IR's weights: serving the
-            # zoo module instead would be a silent divergence
-            raise NotImplementedError(
-                f"{key}: OpenVINO IR models come with {slices.MODEL_IMPORT}")
+        ir_xml = self._ir_xml_path(key)
+        if ir_xml is not None:
+            if "INT8" in self.precision.upper():
+                log.warning(
+                    "%s: INT8 precision requested but the model is "
+                    "IR-backed — it serves its float weights (quantized "
+                    "variants exist for zoo modules only)", key)
+            return self._load_ir(key, ir_xml)
         spec = ZOO_SPECS.get(key)
         if spec is None:
             raise KeyError(
-                f"unknown model '{key}' — not in the built-in zoo "
-                f"(known: {sorted(ZOO_SPECS)})")
+                f"unknown model '{key}' — not in the built-in zoo and no "
+                f"OpenVINO IR on disk (known: {sorted(ZOO_SPECS)})")
         if key in self.input_overrides:
             spec = ModelSpec(**{**spec.__dict__,
                                 "input_size": self.input_overrides[key]})
@@ -387,6 +464,102 @@ class ModelRegistry:
             head_labels={k: list(v) for k, v in spec.head_labels},
             anchors=(module.anchors(spec.input_size)
                      if spec.family == "ssd" else None),
+            weight_source=weight_source,
+        )
+
+    def _load_ir(self, key: str, xml_path: Path) -> LoadedModel:
+        """A LoadedModel from an imported OpenVINO IR: topology and
+        weights from the IR, labels and heads metadata from the zoo spec
+        when the key is a known alias."""
+        ir = load_ir(xml_path)
+        h, w = ir.input_hw
+        base = ZOO_SPECS.get(key)
+        if ir.is_detector:
+            family = "ssd"
+            num_classes = ir.num_classes or (base.num_classes if base else 2)
+            heads: tuple = ()
+        elif base is not None and base.family in _ARRAY_OUT:
+            # installed under a temporal or audio alias: that family's
+            # engine step (one raw array), e.g. the OMZ
+            # action-recognition-0001 decoder's TensorIterator/LSTM IR
+            family = base.family
+            heads = ()
+            if len(ir.output_names) != 1:
+                raise ValueError(
+                    f"{key}: a {family} IR must have exactly one "
+                    f"output, got {ir.output_names}")
+            if family == "action_encoder" or not ir.output_shapes:
+                num_classes = base.num_classes  # encoder output = embedding
+            else:
+                # the class count of the installed IR, not the zoo's
+                num_classes = int(np.prod(ir.output_shapes[0][1:]))
+        else:
+            family = "classifier"
+            num_classes = base.num_classes if base else 0
+            # each output flattens to [B, prod(rest)]: OMZ classifier
+            # IRs emit [1, C, 1, 1]
+            heads = tuple(
+                (name, int(np.prod(shape[1:])) if len(shape) > 1 else 1)
+                for name, shape in zip(ir.output_names, ir.output_shapes))
+        spec = ModelSpec(
+            key=key, family=family, input_size=(h, w),
+            num_classes=num_classes, heads=heads,
+            labels=base.labels if base else (),
+            head_labels=base.head_labels if base else (),
+            omz_name=base.omz_name if base else ir.name,
+        )
+
+        weight_source = "ir-bin"
+        # fine-tuned weights next to the IR override the .bin tensors
+        override = xml_path.parent / "weights.msgpack"
+        if override.exists():
+            try:
+                ir.load_params(flat_from_msgpack(override.read_bytes()))
+                weight_source = "ir-bin+override"
+                log.info("overrode IR weights for %s from %s", key, override)
+            except (ValueError, TypeError) as exc:
+                # a zoo-module msgpack can share the directory: its
+                # nested tree is not the IR's flat dict
+                log.warning("ignoring %s (not an IR weight dict: %s) — "
+                            "serving the .bin weights", override, exc)
+        if self.dtype == "bfloat16":
+            ir.cast_params(torch.bfloat16)
+
+        proc = self._find_model_proc(spec)
+        model_labels = list(spec.labels)
+        if proc and proc.labels_for(0):
+            model_labels = proc.labels_for(0)
+        if (ir.detector_kind == "yolo" and model_labels
+                and model_labels[0].lower().strip("_")
+                not in ("background", "none")):
+            # NMS label ids are 1-based (yolo_gather prepends the
+            # background column); YOLO label lists are 0-based
+            model_labels = ["background"] + list(model_labels)
+        if proc:
+            preproc = proc.preprocess_spec(h, w, dtype=self.dtype)
+        else:
+            preproc = PreprocessSpec(height=h, width=w, color_space="BGR",
+                                     dtype=self.dtype)
+        module = IRForward(ir, family, num_classes, key,
+                           rgb_order=preproc.color_space.upper() == "RGB")
+        module = module.to(self.device).eval().requires_grad_(False)
+        probs = dict(zip(ir.output_names, ir.output_is_prob))
+        return LoadedModel(
+            spec=spec,
+            module=module,
+            preprocess=preproc,
+            device=self.device,
+            model_proc=proc,
+            labels=model_labels,
+            head_labels={k: list(v) for k, v in spec.head_labels},
+            anchors=ir.anchors,
+            variances=ir.variances,
+            conf_is_prob=probs.get("conf", False),
+            head_is_prob=probs,
+            detector_kind=ir.detector_kind,
+            out_is_prob=bool(ir.output_is_prob and ir.output_is_prob[0]),
+            yolo_specs=list(ir.yolo_specs),
+            ir=ir,
             weight_source=weight_source,
         )
 
@@ -440,13 +613,21 @@ class ModelRegistry:
         """Write the model's current weights into the models-dir layout,
         ``<root>/<key>/<precision>/weights.msgpack``, as the reference's
         ``save_weights`` does: the bytes flax's ``to_bytes`` writes for
-        the same params tree (``models/convert.py``)."""
+        the same params tree (``models/convert.py``). An IR model writes
+        its flat weight dict — in its own order, or sorted when served in
+        bfloat16, as the reference's cast re-sorts it."""
         model = self.get(key)
         root = Path(out_dir) if out_dir else self.models_dir
         if root is None:
             raise ValueError("no models_dir to save into")
         path = root / key / self.precision / "weights.msgpack"
         path.parent.mkdir(parents=True, exist_ok=True)
+        if model.ir is not None:
+            flat = model.ir.params
+            if self.dtype == "bfloat16":
+                flat = dict(sorted(flat.items()))
+            path.write_bytes(packb(flat))
+            return path
         state = {k: v.to(self.serve_dtype) if v.is_floating_point() else v
                  for k, v in model.module.state_dict().items()}
         path.write_bytes(params_to_msgpack(state))

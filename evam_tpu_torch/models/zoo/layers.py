@@ -13,8 +13,10 @@ Port notes:
 * activations run NCHW-shaped in ``torch.channels_last`` memory, so a
   1×1 conv's input is a contiguous ``[B·H·W, C]`` matrix for the int8
   kernel;
-* the depthwise conv is the reference's default ``EVAM_DWCONV=lax``
-  grouped conv; the shift-and-add variant comes in a later slice.
+* the depthwise conv is the grouped conv (``EVAM_DWCONV=lax``, the
+  default) or, with ``EVAM_DWCONV=shift`` when the module is built, the
+  shift-and-add :class:`DepthwiseConv` (``ops/depthwise.py``) over the
+  same parameters.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from evam_tpu_torch.ops.depthwise import (
+    depthwise_conv_shift,
+    use_shift_depthwise,
+)
 from evam_tpu_torch.ops.padding import pad_same
 from evam_tpu_torch.ops.qlinear import qconv_nchw, quantize_weight
 
@@ -51,6 +57,17 @@ class Conv(nn.Module):
         x = pad_same(x, self.weight.shape[2:], self.stride)
         return F.conv2d(x, self.weight, self.bias, self.stride,
                         groups=self.groups)
+
+
+class DepthwiseConv(Conv):
+    """Depthwise :class:`Conv` (``groups == in_ch``) computed by
+    shift-and-add; the same parameters, so checkpoints are unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stride = ((self.stride, self.stride) if isinstance(self.stride, int)
+                  else self.stride)
+        return (depthwise_conv_shift(x, self.weight[:, 0], stride)
+                + self.bias[:, None, None])
 
 
 class QuantConv(Conv):
@@ -113,7 +130,8 @@ class SeparableConv(nn.Module):
     def __init__(self, in_ch: int, features: int, stride: int = 1,
                  quant: bool = False):
         super().__init__()
-        self.Conv_0 = Conv(in_ch, in_ch, 3, stride, groups=in_ch)
+        dw = DepthwiseConv if use_shift_depthwise() else Conv
+        self.Conv_0 = dw(in_ch, in_ch, 3, stride, groups=in_ch)
         self.Conv_1 = _conv(quant, in_ch, features, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

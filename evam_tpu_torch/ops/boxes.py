@@ -1,8 +1,8 @@
 """Box utilities: anchors, decoding, IoU (counterpart of ``evam_tpu/ops/boxes.py``).
 
 Anchors are numpy, computed once per model build (copied from the
-reference). Decode and IoU are elementwise torch ops that run on the
-device inside the detect step.
+reference). Decode (SSD and YOLO) and IoU are elementwise torch ops
+that run on the device inside the detect step.
 """
 
 from __future__ import annotations
@@ -77,3 +77,83 @@ def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / torch.clamp(union, min=1e-9)
+
+
+def yolo_decode(
+    feature_map: torch.Tensor,
+    anchors: torch.Tensor,
+    num_classes: int,
+    input_hw: tuple[int, int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode one YOLO (v3-style) head into normalized boxes and scores.
+
+    ``feature_map``: [B, A*(5+C), H, W] raw conv output (NCHW: the IR
+    importer cuts the graph at RegionYolo). ``anchors``: [A, 2] (w, h)
+    in input pixels. Returns (boxes [B, A*H*W, 4] normalized corners,
+    scores [B, A*H*W, C]) with score = sigmoid(obj) * sigmoid(class),
+    the v3 multi-label convention.
+    """
+    b, chan, h, w = feature_map.shape
+    a = anchors.shape[0]
+    per = 5 + num_classes
+    if chan != a * per:
+        raise ValueError(
+            f"RegionYolo map has {chan} channels, expected "
+            f"{a}*(5+{num_classes})={a * per}"
+        )
+    ih, iw = input_hw
+    x = feature_map.reshape(b, a, per, h, w)
+    tx, ty = x[:, :, 0], x[:, :, 1]
+    tw, th = x[:, :, 2], x[:, :, 3]
+    obj = x[:, :, 4]
+    cls = x[:, :, 5:]  # [B, A, C, H, W]
+
+    dev = feature_map.device
+    gx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, None, :]
+    gy = torch.arange(h, dtype=torch.float32, device=dev)[None, None, :, None]
+    cx = (torch.sigmoid(tx) + gx) / w
+    cy = (torch.sigmoid(ty) + gy) / h
+    aw = anchors[:, 0].float()[None, :, None, None]
+    ah = anchors[:, 1].float()[None, :, None, None]
+    # cap the size logit (standard yolo guard): keeps inf/NaN out of
+    # the shared NMS when the net emits garbage (warmup, random init)
+    bw = aw * torch.exp(torch.clamp(tw, max=10.0)) / iw
+    bh = ah * torch.exp(torch.clamp(th, max=10.0)) / ih
+
+    boxes = torch.stack(
+        [cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], dim=2
+    )  # [B, A, 4, H, W]
+    scores = torch.sigmoid(obj)[:, :, None] * torch.sigmoid(cls)
+
+    boxes = boxes.permute(0, 1, 3, 4, 2).reshape(b, a * h * w, 4)
+    scores = scores.permute(0, 1, 3, 4, 2).reshape(
+        b, a * h * w, num_classes)
+    return boxes, scores
+
+
+def yolo_gather(
+    maps: list[torch.Tensor],
+    specs: list[dict],
+    input_hw: tuple[int, int],
+    num_classes: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode and concatenate multi-scale YOLO heads; prepend the
+    background column so the result feeds ``batched_nms``'s
+    SSD-convention scores [B, A_total, 1+C]. A spec's ``anchors`` is a
+    list of (w, h) pairs or an [A, 2] tensor already on the maps'
+    device (the detect step builds those once, so it never copies from
+    the host)."""
+    all_boxes, all_scores = [], []
+    for m, spec in zip(maps, specs):
+        bx, sc = yolo_decode(
+            m, torch.as_tensor(spec["anchors"], dtype=torch.float32,
+                               device=m.device),
+            num_classes, input_hw,
+        )
+        all_boxes.append(bx)
+        all_scores.append(sc)
+    boxes = torch.cat(all_boxes, dim=1)
+    scores = torch.cat(all_scores, dim=1)
+    bg = torch.zeros(scores.shape[:-1] + (1,), dtype=scores.dtype,
+                     device=scores.device)
+    return boxes, torch.cat([bg, scores], dim=-1)

@@ -6,7 +6,6 @@ module option that comes with a later slice raises
 silent fallback.
 """
 
-MODEL_IMPORT = "port slice 6 (real-model import)"
 ENGINE_DEPTH = "port slice 7 (the AOT cache)"
 EII = "port slice 8 (EII mode)"
 PARALLEL = "port slice 9 (frozen parallel and training code)"

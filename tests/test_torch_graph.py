@@ -448,11 +448,12 @@ def test_unported_config_file_keys_raise(tmp_path):
         port_settings.Settings.from_env(path, env={})
 
 
-#: knobs the reference's modules read: (var, a value the port refuses,
-#: values it accepts, the slice named)
+#: knobs the reference's modules read: (var, a value the port refuses —
+#: or, where the port honours the knob, a value it now runs — values it
+#: accepts, the slice named; None: honoured)
 _MODULE_CASES = [
-    ("EVAM_DWCONV", "shift", ["lax", "LAX"], "slice 6"),
-    ("EVAM_DWCONV", "SHIFT", ["lax"], "slice 6"),
+    ("EVAM_DWCONV", "shift", ["lax", "LAX"], None),  # since slice 6
+    ("EVAM_DWCONV", "SHIFT", ["lax"], None),
     ("EVAM_FAULT_INJECT", "drop=0.1", [""], "slice 10"),
     ("EVAM_FAULT_SEED", "7", [""], "slice 10"),
 ]
@@ -461,13 +462,29 @@ _MODULE_CASES = [
 @pytest.mark.parametrize("var,refused,accepted,slice_", _MODULE_CASES,
                          ids=[f"{c[0]}={c[1]}" for c in _MODULE_CASES])
 def test_module_read_knob_raises_naming_its_slice(var, refused, accepted,
-                                                  slice_):
+                                                  slice_, monkeypatch):
     for value in accepted:
         port_settings.Settings.from_env(env={var: value})
-    with pytest.raises(NotImplementedError, match=slice_) as info:
+    if slice_ is None:
+        # honoured: the settings pass it, and the port's module parses
+        # it as the reference's does (ops/depthwise.py)
+        from evam_tpu.ops import depthwise as ref_dw
+        from evam_tpu_torch.ops import depthwise as port_dw
+
         port_settings.Settings.from_env(env={var: refused})
-    assert var in str(info.value)
-    assert set(port_settings._MODULE_KNOBS) == {c[0] for c in _MODULE_CASES}
+        for value in [refused, *accepted]:
+            monkeypatch.setenv(var, value)
+            assert port_dw.use_shift_depthwise() \
+                == ref_dw.use_shift_depthwise()
+        assert port_dw.use_shift_depthwise() is False
+        monkeypatch.setenv(var, refused)
+        assert port_dw.use_shift_depthwise() is True
+    else:
+        with pytest.raises(NotImplementedError, match=slice_) as info:
+            port_settings.Settings.from_env(env={var: refused})
+        assert var in str(info.value)
+    assert set(port_settings._MODULE_KNOBS) == {
+        c[0] for c in _MODULE_CASES if c[3] is not None}
 
 
 #: the native host library's knobs, honoured since slice 7c: (var, value,

@@ -179,14 +179,21 @@ def test_precision_reads_evam_precision(monkeypatch):
 
 
 def test_later_families_raise(tmp_path):
-    """Every zoo family builds; an OpenVINO IR on disk (whose weights
-    the reference would serve) raises naming the import slice."""
-    ir = tmp_path / "action_recognition" / "encoder" / "FP32"
-    ir.mkdir(parents=True)
-    (ir / "model.xml").write_text("<net/>")
+    """Every zoo family builds; an OpenVINO IR on disk is served from
+    its own weights, as the reference serves it (real-model import),
+    and an unknown key still raises."""
+    from evam_tpu_torch.models.ir_build import build_action_encoder_like_ir
+
+    build_action_encoder_like_ir(
+        tmp_path / "action_recognition" / "encoder" / "FP32",
+        input_size=32, width=4, embed_dim=16)
     reg = ModelRegistry(models_dir=tmp_path, device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        reg.get("action_recognition/encoder")
+    model = reg.get("action_recognition/encoder")
+    assert model.ir is not None and model.weight_source == "ir-bin"
+    assert model.spec.family == "action_encoder"
+    with torch.inference_mode():
+        out = model.forward(torch.zeros(2, 32, 32, 3, dtype=torch.bfloat16))
+    assert tuple(out.shape) == (2, 16)
     with pytest.raises(KeyError):
         reg.get("no/such_model")
 

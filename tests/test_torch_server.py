@@ -750,12 +750,30 @@ def test_cli_serve_runs_packed_sched_tune_and_refuses_the_fleet():
             proc.wait()
 
 
-def test_cli_eii_mode_and_fetch_models_name_their_slices():
-    for args, needle in ((["serve", "--mode", "EII"], "slice 8"),
-                         (["fetch-models"], "slice 6")):
-        res = subprocess.run(
-            [sys.executable, "-m", "evam_tpu_torch.cli.main", *args], cwd=REPO,
-            env=_port_env(EVAM_PLATFORM="cpu"), capture_output=True,
-            text=True, timeout=120)
-        assert res.returncode != 0
-        assert needle in res.stderr
+def test_cli_eii_mode_and_fetch_models_name_their_slices(tmp_path):
+    """EII mode still names its slice; fetch-models, ported with real
+    model import, runs: it synthesizes an attributes IR the port's
+    registry lists, and refuses two modes at once with exit 2."""
+    res = subprocess.run(
+        [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve", "--mode",
+         "EII"], cwd=REPO, env=_port_env(EVAM_PLATFORM="cpu"),
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "slice 8" in res.stderr
+    out = tmp_path / "models"
+    res = subprocess.run(
+        [sys.executable, "-m", "evam_tpu_torch.cli.main", "fetch-models",
+         "--synthesize-omz", "cls_ir", "--topology", "attributes",
+         "--size", "24", "--output", str(out)], cwd=REPO,
+        env=_port_env(EVAM_PLATFORM="cpu"), capture_output=True, text=True,
+        timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert (out / "cls_ir" / "1" / "FP32" / "model.xml").exists()
+    assert "cls_ir/1" in ModelRegistry(models_dir=out, device="cpu").keys()
+    res = subprocess.run(
+        [sys.executable, "-m", "evam_tpu_torch.cli.main", "fetch-models",
+         "--synthesize-omz", "x", "--from-ir", str(out)], cwd=REPO,
+        env=_port_env(EVAM_PLATFORM="cpu"), capture_output=True, text=True,
+        timeout=120)
+    assert res.returncode == 2
+    assert "mutually exclusive" in res.stderr
