@@ -278,11 +278,38 @@ memory the allocator holds once it has stopped its engines.
               color and type; /scheduler holds the route golden; a
               1000 fps start answers 503 with Retry-After; SIGTERM ends
               the process with 0 in 30 s.
+21. eii     — EII mode at the slice's configuration, on the default
+              settings (the scheduler on, as in the reference): a
+              registry's detect engine warmed, then the EVA path's
+              objects for EII_FRAMES (64) synthetic 768×432 frames;
+              (a) an ``EiiManager`` with a decoder source and a zmq_tcp
+              publisher (PNG level 3): the port's ``MsgBusSubscriber``
+              receives all 64 messages in order, each in the shape of
+              tests/golden/message_eii_msgbus.json, its PNG decoded by
+              ``decode_frame`` pixel-equal to the source's frame, its
+              ``gva_meta`` and objects bit-equal to the EVA path's;
+              (b) 64 raw 1080p BGR frames at 30 fps over zmq_ipc
+              through the port's ``MsgBusPublisher`` into a manager with
+              ``source: msgbus``: one result per frame, in order, no
+              ingest drop; 10 aligned launches per forward in both;
+              (c) ``python -m evam_tpu_torch.cli.main serve --mode EII``
+              as a child (``EVAM_EII_CONFIG``): time to its first
+              message, then SIGTERM → exit 0 in 30 s. Each manager's
+              start is held until a probe on its publisher reaches the
+              subscriber (a PUB drops what it sends before a
+              subscription arrives). Prints messages/s of (a) and (b),
+              the first-message seconds of (c) and the drops.
+
+The rest phase runs the scheduler as the default has it (on), with a
+declared capacity (``EVAM_SCHED_CAPACITY_FPS``): the capacity model
+reads the first batches' stage clock and can refuse streams the card
+serves (PERF.md §7). The phases before it build their hubs without a
+scheduler, as before it was ported.
 
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
 calls; ``launches`` sums the slice, classify, engine, track, gate,
-ragged, sched, tune, native, fleet, rest and serve phases' served runs
-and their engines' warm runs, split by
+ragged, sched, tune, native, fleet, rest, serve and eii phases' served
+runs and their engines' warm runs, split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action,
@@ -318,7 +345,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
-          "native", "fleet", "action", "audio", "ir", "rest", "serve")
+          "native", "fleet", "action", "audio", "ir", "rest", "serve",
+          "eii")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -375,6 +403,9 @@ TUNE_FRAMES = 64
 #: the serve phase's declared capacity (frames/s): two 30 fps starts
 #: fit under the realtime ceiling, a 1000 fps start does not
 SERVE_CAPACITY_FPS = 100.0
+#: the rest phase's declared capacity (frames/s): its STREAMS 30 fps
+#: starts fit under the standard ceiling
+REST_CAPACITY_FPS = 1000.0
 
 
 def _print(obj) -> None:
@@ -430,6 +461,15 @@ def _import_port():
     from evam_tpu_torch.models.ir import load_ir
     from evam_tpu_torch.models.ir_build import IRBuilder, conv_bias_relu
     from evam_tpu_torch.ops import color
+    from evam_tpu_torch.eii import (
+        ConfigMgr,
+        EiiManager,
+        MsgBusPublisher,
+        MsgBusSubscriber,
+    )
+    from evam_tpu_torch.eii.manager import _gva_meta
+    from evam_tpu_torch.obs.metrics import metrics
+    from evam_tpu_torch.publish.encode import decode_frame
 
     return dict(
         Settings=Settings, App=App, make_server=make_server,
@@ -456,7 +496,10 @@ def _import_port():
         ConsistentHashPlacer=ConsistentHashPlacer, FleetEngine=FleetEngine,
         TuneController=TuneController, TuneState=TuneState,
         TuneSettings=TuneSettings, load_ir=load_ir, IRBuilder=IRBuilder,
-        conv_bias_relu=conv_bias_relu)
+        conv_bias_relu=conv_bias_relu, ConfigMgr=ConfigMgr,
+        EiiManager=EiiManager, MsgBusPublisher=MsgBusPublisher,
+        MsgBusSubscriber=MsgBusSubscriber, eii_gva_meta=_gva_meta,
+        metrics=metrics, decode_frame=decode_frame)
 
 
 def _memory(torch, phase: str, t_start: float) -> None:
@@ -2372,7 +2415,8 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
         settings = port["Settings"].from_env(env={
             "EVAM_PRECISION": "int8", "EVAM_ALLOW_RANDOM_WEIGHTS": "1",
             "PIPELINES_DIR": str(ROOT / "pipelines"),
-            "MODELS_DIR": str(tmp / "models")})
+            "MODELS_DIR": str(tmp / "models"),
+            "EVAM_SCHED_CAPACITY_FPS": str(REST_CAPACITY_FPS)})
         registry = port["PipelineRegistry"](settings)
         server = port["make_server"](port["App"](registry), "127.0.0.1", 0)
         base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -3477,6 +3521,339 @@ def phase_serve() -> dict[str, int]:
 
 
 
+
+# ------------------------------------------------------------------ eii
+
+EII_FRAMES = 64
+EII_RESULTS = "eii_results"
+
+
+def _eii_message_errors(meta: dict, golden: dict) -> list[str]:
+    """An EII message against tests/golden/message_eii_msgbus.json: the
+    golden's keys in its shape (the message carries more: the frame's
+    EVA-schema fields and the encoding), every region checked, the
+    image handle 12 hex digits. A region's ``object_id`` is null where
+    no tracker runs (the reference publishes null too): it is held to
+    the golden's number only where it is set."""
+    missing = set(golden) - set(meta)
+    if missing:
+        return [f"missing {sorted(missing)}"]
+    sub = {k: meta[k] for k in golden}
+    sub["gva_meta"] = [{**g, "object_id": 0 if g.get("object_id") is None
+                        else g["object_id"]} for g in meta["gva_meta"]]
+    errors = _shape_errors(canonical(sub), golden)
+    handle = meta["img_handle"]
+    if not (isinstance(handle, str) and len(handle) == 12
+            and all(c in "0123456789abcdef" for c in handle)):
+        errors.append(f"img_handle {handle!r}")
+    return errors
+
+
+def _sock_dir(tmp: Path) -> str:
+    """A socket directory under ``tmp`` by its shorter name (relative
+    to the working directory, or absolute): an AF_UNIX path holds at
+    most 107 bytes."""
+    d = tmp / "s"
+    d.mkdir()
+    name = min(os.path.relpath(d), str(d), key=len)
+    if len(name) + len(EII_RESULTS) + 2 > 107:
+        raise AssertionError(f"eii: no socket path under 107 bytes: {d}")
+    return name
+
+
+def _hold_until_joined(registry, subscriber) -> None:
+    """Hold the EII manager's pipeline start until a probe published on
+    its own publisher reaches ``subscriber``: a PUB drops what it sends
+    before a subscription arrives (pub/sub's slow joiner), and every one
+    of the frames must arrive."""
+    start = registry.start_instance
+
+    def held(name, version, request, publish_fn=None, **kw):
+        publisher = publish_fn.__self__.publisher
+        deadline = time.perf_counter() + 60
+        while True:
+            publisher.publish({"probe": True})
+            if subscriber.recv() is not None:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("eii: the subscriber never joined")
+        return start(name, version, request, publish_fn=publish_fn, **kw)
+
+    registry.start_instance = held
+
+
+def _eii_results(subscriber, n: int, where: str) -> list:
+    """``n`` messages that are not probes, in arrival order."""
+    out = []
+    deadline = time.perf_counter() + 300
+    while len(out) < n:
+        msg = subscriber.recv()
+        if msg is not None and "probe" not in msg[0]:
+            out.append(msg)
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{where}: {len(out)} of {n} messages")
+    return out
+
+
+def _halt_manager(mgr) -> None:
+    """Stop an EII manager whose stream has ended and keep its registry
+    (and the hub's warm engine) for the next manager."""
+    mgr._stop.set()
+    if mgr.app_source is not None:
+        mgr.app_source.end()
+    mgr._teardown_ingest()
+    mgr.cfg.close()
+    if mgr.instance is not None:
+        mgr.registry.stop_instance(mgr.instance.id)
+        mgr.instance.wait(timeout=60)
+    mgr.publisher.close()
+
+
+def _eii_config(path: Path, app: dict, publisher: dict,
+                subscribers: list | None = None) -> Path:
+    path.write_text(json.dumps({"config": app, "interfaces": {
+        "Publishers": [{"Name": "default", "Topics": [EII_RESULTS],
+                        "AllowedClients": ["*"], **publisher}],
+        "Subscribers": subscribers or []}}))
+    return path
+
+
+def phase_eii(torch, port) -> dict:
+    """EII mode at the slice's configuration (INT8, the hand kernel,
+    person_vehicle_bike 512², width 32): (a) a decoder source to the
+    bus, (b) the bus through an AppSource to the bus, both in this
+    process on one registry whose detect engine is warmed first, then
+    (c) ``python -m evam_tpu_torch.cli.main serve --mode EII`` as a
+    child. Returns the qgemm launches of (a) and (b) by variant."""
+    import numpy as np
+
+    qg = port["qgemm"]
+    golden = json.loads((ROOT / "tests" / "golden"
+                         / "message_eii_msgbus.json").read_text())
+    params = {"threshold": 0.2}
+    uri = f"synthetic://768x432@30?count={EII_FRAMES}"
+    out: dict = {"phase": "eii", "frames": EII_FRAMES}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        settings = port["Settings"].from_env(env={
+            "EVAM_PRECISION": "int8", "EVAM_ALLOW_RANDOM_WEIGHTS": "1",
+            "PIPELINES_DIR": str(ROOT / "pipelines"),
+            "MODELS_DIR": str(tmp / "models")})
+        if not settings.sched.enabled:
+            raise AssertionError("eii: the scheduler is not on by default")
+        registry = port["PipelineRegistry"](settings)
+        hub = registry.hub
+        try:
+            if registry.preload(KEY) != 1:
+                raise AssertionError("eii: preload built no pipeline")
+            engine = hub.engine("detect", KEY,
+                                score_threshold=port["ENGINE_SCORE_FLOOR"])
+            _await_warm("eii", [engine])
+
+            # what the EVA path publishes for the same 64 frames, on the
+            # same warm engine
+            eva: dict[int, tuple] = {}
+
+            def record(ctx):
+                eva[ctx.seq] = (port["eii_gva_meta"](ctx),
+                                ctx.metadata["objects"],
+                                ctx.metadata["timestamp"])
+
+            specs, _ = port["resolve_parameters"](
+                registry.loader.get(*DETECT_PIPELINE), params)
+            runner = port["StreamRunner"](
+                "eva", port["build_stages"](specs, hub, source_uri=uri,
+                                            publish_fn=record), uri)
+            runner.run(port["SyntheticSource"].from_uri(uri).frames())
+            if sorted(eva) != list(range(EII_FRAMES)) or runner.errors:
+                raise AssertionError(f"eii: the EVA path published "
+                                     f"{len(eva)} frames")
+
+            # (a) decoder source → bus
+            _reset_launches(qg)
+            fwd0 = _fwd(engine.stats_row())
+            tcp_port = _free_port()
+            cfg_a = _eii_config(tmp / "a.json", {
+                "source": "gstreamer", "pipeline": "/".join(DETECT_PIPELINE),
+                "source_parameters": {"type": "uri", "uri": uri},
+                "publish_frame": True, "encoding": {"type": "png", "level": 3},
+                "model_parameters": params},
+                {"Type": "zmq_tcp", "EndPoint": f"127.0.0.1:{tcp_port}"})
+            sub = port["MsgBusSubscriber"](
+                {"Type": "zmq_tcp", "EndPoint": f"127.0.0.1:{tcp_port}"},
+                EII_RESULTS, recv_timeout_ms=100)
+            start = registry.start_instance
+            _hold_until_joined(registry, sub)
+            try:
+                t0 = time.perf_counter()
+                mgr = port["EiiManager"](
+                    settings, cfg_mgr=port["ConfigMgr"](cfg_a),
+                    registry=registry)
+                t1 = time.perf_counter()
+                try:
+                    msgs = _eii_results(sub, EII_FRAMES, "eii (a)")
+                    wall_a = time.perf_counter() - t1
+                finally:
+                    _halt_manager(mgr)
+            finally:
+                registry.start_instance = start
+                sub.close()
+            forwards = _fwd(engine.stats_row()) - fwd0
+            launches_a = dict(qg.variant_launches)
+            if (forwards == 0 or launches_a["aligned"] != 10 * forwards
+                    or launches_a["masked"]):
+                raise AssertionError(
+                    f"eii (a): qgemm launches {launches_a} for {forwards} "
+                    "forwards, expected 10 aligned per forward")
+            frames = [ev.frame for ev in
+                      port["SyntheticSource"].from_uri(uri).frames()]
+            n_objects = 0
+            for k, ((meta, blob), frame) in enumerate(zip(msgs, frames)):
+                errors = _eii_message_errors(meta, golden)
+                gva, objects, ts = eva[k]
+                if meta["timestamp"] != ts:
+                    errors.append(f"frame {k}: timestamp {meta['timestamp']}"
+                                  f" out of order (EVA {ts})")
+                if meta["gva_meta"] != gva or meta["objects"] != objects:
+                    errors.append(f"frame {k}: objects differ from EVA")
+                if meta.get("encoding_type") != "png" or not np.array_equal(
+                        port["decode_frame"](blob, "png"), frame):
+                    errors.append(f"frame {k}: PNG not pixel-equal")
+                if errors:
+                    raise AssertionError(f"eii (a): {errors[:4]}")
+                n_objects += len(meta["gva_meta"])
+            if n_objects == 0:
+                raise AssertionError("eii (a): no object in 64 frames")
+            out["a"] = {"messages": len(msgs), "wall_s": wall_a,
+                        "msgs_per_s": len(msgs) / wall_a,
+                        "boot_s": t1 - t0, "objects": n_objects,
+                        "forwards": forwards, "qgemm_launches": launches_a,
+                        "png_bytes_mean": sum(len(b) for _, b in msgs)
+                        / len(msgs)}
+
+            # (b) bus → AppSource → bus: raw 1080p BGR frames at 30 fps
+            _reset_launches(qg)
+            fwd0 = _fwd(engine.stats_row())
+            drops0 = port["metrics"].get_counter("evam_eii_ingest_drops")
+            sock_dir = _sock_dir(tmp)
+            ipc = {"Type": "zmq_ipc", "EndPoint": sock_dir}
+            cfg_b = _eii_config(tmp / "b.json", {
+                "source": "msgbus", "pipeline": "/".join(DETECT_PIPELINE),
+                "publish_frame": False, "model_parameters": params}, ipc,
+                [{"Name": "in", "Topics": ["camera1_stream"], **ipc}])
+            sub = port["MsgBusSubscriber"](ipc, EII_RESULTS,
+                                           recv_timeout_ms=100)
+            _hold_until_joined(registry, sub)
+            feeder = None
+            try:
+                mgr = port["EiiManager"](
+                    settings, cfg_mgr=port["ConfigMgr"](cfg_b),
+                    registry=registry)
+                try:
+                    feeder = port["MsgBusPublisher"](ipc, "camera1_stream")
+                    deadline = time.perf_counter() + 60
+                    while not feeder._sock.subscribed_peers():
+                        if time.perf_counter() > deadline:
+                            raise AssertionError("eii (b): the ingest "
+                                                 "never subscribed")
+                        time.sleep(0.01)
+                    t1 = time.perf_counter()
+                    for ev in port["SyntheticSource"](
+                            1920, 1080, count=EII_FRAMES,
+                            realtime=True).frames():
+                        feeder.publish({"width": 1920, "height": 1080},
+                                       ev.frame.tobytes())
+                    # the stream keeps frames in flight until later frames
+                    # or its end release them: end it once every frame
+                    # is in
+                    while mgr.app_source._seq < EII_FRAMES:
+                        if time.perf_counter() - t1 > 120:
+                            raise AssertionError(
+                                f"eii (b): {mgr.app_source._seq} of "
+                                f"{EII_FRAMES} frames ingested")
+                        time.sleep(0.01)
+                    mgr.app_source.end()
+                    results = _eii_results(sub, EII_FRAMES, "eii (b)")
+                    wall_b = time.perf_counter() - t1
+                finally:
+                    mgr.stop()  # the whole stop path: registry and hub
+            finally:
+                sub.close()
+                if feeder is not None:
+                    feeder.close()
+            forwards_b = _fwd(engine.stats_row()) - fwd0
+            launches_b = dict(qg.variant_launches)
+            drops = port["metrics"].get_counter(
+                "evam_eii_ingest_drops") - drops0
+            stamps = [m["timestamp"] for m, _ in results]
+            errors = [e for m, _ in results
+                      for e in _eii_message_errors(m, golden)]
+            if (drops or errors or stamps != sorted(stamps)
+                    or any(m["resolution"] != {"height": 1080, "width": 1920}
+                           or b is not None for m, b in results)):
+                raise AssertionError(f"eii (b): drops {drops}, "
+                                     f"{errors[:3]}")
+            if (forwards_b == 0 or launches_b["aligned"] != 10 * forwards_b
+                    or launches_b["masked"]):
+                raise AssertionError(
+                    f"eii (b): qgemm launches {launches_b} for "
+                    f"{forwards_b} forwards, expected 10 aligned per forward")
+            out["b"] = {"messages": len(results), "wall_s": wall_b,
+                        "msgs_per_s": len(results) / wall_b,
+                        "ingest_drops": drops, "forwards": forwards_b,
+                        "qgemm_launches": launches_b}
+        finally:
+            hub.stop()
+
+        # (c) the CLI as a user starts it
+        tcp_port = _free_port()
+        cfg_c = _eii_config(tmp / "c.json", {
+            "source": "gstreamer", "pipeline": "/".join(DETECT_PIPELINE),
+            "source_parameters": {"type": "uri",
+                                  "uri": "synthetic://768x432@30"},
+            "model_parameters": params},
+            {"Type": "zmq_tcp", "EndPoint": f"127.0.0.1:{tcp_port}"})
+        env = dict(os.environ, EVAM_EII_CONFIG=str(cfg_c),
+                   EVAM_PRECISION="int8", EVAM_QGEMM="pallas",
+                   EVAM_ALLOW_RANDOM_WEIGHTS="1",
+                   MODELS_DIR=str(tmp / "models_c"))
+        log_path = tmp / "eii.log"
+        sub = port["MsgBusSubscriber"](
+            {"Type": "zmq_tcp", "EndPoint": f"127.0.0.1:{tcp_port}"},
+            EII_RESULTS, recv_timeout_ms=100)
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve",
+                 "--mode", "EII"], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+        try:
+            while (first := sub.recv()) is None:
+                if proc.poll() is not None or time.perf_counter() - t0 > 240:
+                    raise AssertionError(
+                        f"eii (c): no message (exit {proc.poll()}): "
+                        f"{log_path.read_text()[-2000:]}")
+            first_s = time.perf_counter() - t0
+            errors = _eii_message_errors(first[0], golden)
+            if errors:
+                raise AssertionError(f"eii (c): {errors[:3]}")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=30)
+            if code != 0:
+                raise AssertionError(f"eii (c): exit {code} on SIGTERM: "
+                                     f"{log_path.read_text()[-2000:]}")
+            out["c"] = {"first_message_s": first_s, "exit_code": code,
+                        "stop_s": time.perf_counter() - t1}
+        finally:
+            sub.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    _print(out)
+    return {v: launches_a[v] + launches_b[v] for v in ("aligned", "masked")}
+
+
 # ------------------------------------------------------------------ ir
 
 #: the manifest's IR models (``fetch-models --synthesize-omz --topology
@@ -3953,6 +4330,9 @@ def main(argv: list[str] | None = None) -> int:
         _memory(torch, "rest", t_start)
     if "serve" in phases:
         served.append(phase_serve())
+    if "eii" in phases:
+        served.append(phase_eii(torch, port))
+        _memory(torch, "eii", t_start)
     _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {

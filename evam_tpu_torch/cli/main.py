@@ -8,7 +8,9 @@ Counterpart of ``evam_tpu/cli/main.py``:
 
 ``serve`` runs on the card unless ``EVAM_PLATFORM=cpu`` asks for the
 CPU, and raises without a card. ``--mode EII`` (or ``RUN_MODE=EII``)
-raises, naming the slice that brings it. ``fetch-models`` keeps the
+runs the headless EII service instead of REST (``eii/manager.py``:
+config from ``EVAM_EII_CONFIG`` or etcd, results on the message bus),
+on the same device. ``fetch-models`` keeps the
 reference's modes, flags and exit codes: the zoo export (default),
 ``--from-ir``, ``--synthesize-omz [--topology ssd|attributes|
 manifest]`` and ``--download`` (mutually exclusive: 2); it builds
@@ -21,7 +23,6 @@ import argparse
 import json
 import sys
 
-from evam_tpu_torch import slices
 from evam_tpu_torch.config import get_settings
 
 
@@ -94,7 +95,9 @@ def cmd_serve(args) -> int:
     settings = get_settings()
     mode = (args.mode or settings.run_mode).upper()
     if mode == "EII":
-        raise NotImplementedError(f"EII mode comes with {slices.EII}")
+        from evam_tpu_torch.eii.manager import run_eii_service
+
+        return run_eii_service(settings)
     from evam_tpu_torch.server.app import run_server
 
     return run_server(settings)

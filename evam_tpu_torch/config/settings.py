@@ -32,19 +32,22 @@ them, and pass here; so do the IR importer's EVAM_IR_LAYOUT (``nhwc``
 unless set to another value; read by ``models/ir.py`` when it builds
 a model) and the depthwise-conv variant EVAM_DWCONV (``shift`` in any
 case, else the grouped conv; read by ``ops/depthwise.py`` when a
-module is built).
+module is built). EII mode's EVAM_EII_CONFIG, EVAM_ETCD_HOST (with
+ETCD_HOST, ETCD_CLIENT_PORT, ETCD_PREFIX and CONFIGMGR_*) and
+EVAM_SOCKET_DIR are read by ``eii/``, as the reference's modules read
+them.
 
-The scheduler is off unless EVAM_SCHED turns it on, where the
-reference's default turns it on: unset, the port serves through its
-single-FIFO engine path, as before the scheduler was ported. Each block
-records the fields its config-file keys and environment variables set
-(``fields_set``, the reference's pydantic ``model_fields_set``): the
-control plane keeps its hands off a knob the operator set.
+The scheduler is on unless EVAM_SCHED turns it off, as in the
+reference: admission, the per-class queues and staleness shedding run
+by default. Each block records the fields its config-file keys and
+environment variables set (``fields_set``, the reference's pydantic
+``model_fields_set``): the control plane keeps its hands off a knob
+the operator set.
 
 Every other knob of the reference's table belongs to a subsystem that
 comes with a later port slice. Set to anything but the value the port
 runs with — the reference's default, or "off" where the reference's
-default turns on a subsystem the port lacks (scheduler, tracing) — it
+default turns on a subsystem the port lacks (tracing) — it
 raises ``NotImplementedError`` at :meth:`Settings.from_env`, naming the
 slice. So do the other knobs the reference reads in its own modules
 (``_MODULE_KNOBS``): fault injection. None is silently ignored.
@@ -134,8 +137,8 @@ class SchedSettings:
     """QoS scheduling knobs (``evam_tpu_torch/sched/``): admission
     control, priority classes, load shedding."""
 
-    #: EVAM_SCHED (off here; on in the reference, see the module text)
-    enabled: bool = False
+    #: EVAM_SCHED (on, as in the reference)
+    enabled: bool = True
     #: projected-utilization ceiling for admission (0 disables it)
     admit_util: float = 0.85
     #: declared serving capacity in frames/s (0: derived from the

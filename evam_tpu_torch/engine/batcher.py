@@ -633,9 +633,10 @@ class BatchEngine:
                 return
             self._warming = True
         self.set_example(**example)
-        threading.Thread(target=self._warm_guarded,
-                         name=f"engine-{self.name}-warmup",
-                         daemon=True).start()
+        self._warm_thread = threading.Thread(
+            target=self._warm_guarded, name=f"engine-{self.name}-warmup",
+            daemon=True)
+        self._warm_thread.start()
 
     def _warm_guarded(self) -> None:
         try:
@@ -650,6 +651,8 @@ class BatchEngine:
 
     #: name → example array (no batch dim) for warmup
     _peek_shapes: dict[str, np.ndarray] | None = None
+    #: the background warmup (``warm_async``), joined by ``stop``
+    _warm_thread: threading.Thread | None = None
 
     def _example_item(self) -> dict[str, np.ndarray]:
         item = self._peek_shapes
@@ -659,7 +662,10 @@ class BatchEngine:
 
     def stop(self) -> None:
         """Stop every thread; futures not yet resolved fail; the graphs,
-        their pool and the staging buffers are freed."""
+        their pool and the staging buffers are freed — after a background
+        warmup has finished the bucket it is capturing (it checks the stop
+        flag between buckets), so no capture outlives the engine or runs
+        into the interpreter's exit."""
         self._stop.set()
         if self._classq is not None:
             self._classq.close()
@@ -685,6 +691,12 @@ class BatchEngine:
                 break
             if item is not None:
                 _safe_set_exception(item.future, exc)
+        warm = self._warm_thread
+        if warm is not None and warm is not threading.current_thread():
+            warm.join(timeout=60)
+            if warm.is_alive():
+                log.error("engine %s: warmup still running after 60 s",
+                          self.name)
         self._free_device()
 
     def abandon(self) -> None:

@@ -6,12 +6,15 @@ pacing), ``FileSource`` (file / RTSP / HTTP URIs through OpenCV, which
 is imported only when a stream opens — a machine without ``cv2``, such
 as the card's, fails that instance with an error naming ``cv2``), the
 audio sources of ``media/audio.py`` (``synthetic-audio://`` and
-``*.wav``), and :func:`create_source`. Webcam, GigE and application
-sources raise naming the slice that brings them.
+``*.wav``), the application source ``AppSource`` (frames an embedder
+pushes: the EII manager's message-bus ingest), and
+:func:`create_source`. Webcam and GigE sources raise naming the slice
+that brings them.
 """
 
 from __future__ import annotations
 
+import queue
 import time
 from dataclasses import dataclass
 from typing import Iterator, Protocol
@@ -155,12 +158,75 @@ class SyntheticSource:
         self._closed = True
 
 
+class AppSource:
+    """Application-injected frames (appsrc / message-bus source):
+    callers push numpy frames or raw BGR bytes."""
+
+    def __init__(self, maxsize: int = 64):
+        self._queue: queue.Queue = queue.Queue(maxsize=maxsize)
+        self._closed = False
+        self._seq = 0
+
+    def push(self, frame: np.ndarray, pts_ns: int | None = None) -> None:
+        """Never blocks: when the consumer stalls (or died), the oldest
+        queued frame is dropped — live-stream semantics, and it keeps
+        feeder threads (message-bus ingest) and shutdown deadlock-free."""
+        if self._closed:
+            raise RuntimeError("source closed")
+        if pts_ns is None:
+            pts_ns = time.monotonic_ns()
+        ev = FrameEvent(frame=frame, pts_ns=pts_ns, seq=self._seq)
+        while True:
+            try:
+                self._queue.put_nowait(ev)
+                break
+            except queue.Full:
+                try:
+                    self._queue.get_nowait()
+                except queue.Empty:
+                    pass
+        self._seq += 1
+
+    def push_raw(self, data: bytes, width: int, height: int,
+                 pts_ns: int | None = None) -> None:
+        frame = np.frombuffer(data, np.uint8).reshape(height, width, 3)
+        self.push(frame, pts_ns)
+
+    def end(self) -> None:
+        # _closed is the end-of-stream signal: frames() re-checks it on
+        # every queue timeout, so it cannot be lost even when a
+        # concurrent push()'s drop-oldest consumes the in-band None
+        # (the sentinel only wakes the reader sooner)
+        self._closed = True
+        try:
+            self._queue.put_nowait(None)
+        except queue.Full:
+            pass  # frames() sees _closed on its next timeout
+
+    def frames(self) -> Iterator[FrameEvent]:
+        while True:
+            try:
+                ev = self._queue.get(timeout=0.2)
+            except queue.Empty:
+                if self._closed:
+                    break
+                continue
+            if ev is None:
+                if self._closed:
+                    break
+                continue  # a stale sentinel displaced by a late push
+            yield ev
+
+    def close(self) -> None:
+        if not self._closed:
+            self.end()
+
+
 #: request source types the reference resolves that come with later
 #: slices
 _LATER_TYPES = {
     "webcam": slices.INGEST_EGRESS,
     "gige": slices.INGEST_EGRESS,
-    "application": slices.INGEST_EGRESS,
 }
 
 
@@ -204,4 +270,6 @@ def create_source(source_cfg: dict, realtime: bool = False) -> VideoSource:
             loop=bool(source_cfg.get("loop", False)),
             realtime=realtime or bool(source_cfg.get("realtime", False)),
         )
+    if stype == "application":
+        return AppSource(maxsize=int(source_cfg.get("queue-size", 64)))
     raise ValueError(f"unsupported source type '{stype}'")

@@ -1,6 +1,6 @@
 """Destination protocol + factory.
 
-Counterpart of ``evam_tpu/publish/base.py`` (a copy, less zmq).
+Counterpart of ``evam_tpu/publish/base.py`` (a copy).
 
 The reference request body selects the metadata destination
 (``destination: {metadata: {type: mqtt, host: ..., topic: ...}}``,
@@ -13,8 +13,6 @@ metadata dict per frame, and optionally the encoded frame bytes
 from __future__ import annotations
 
 from typing import Protocol, runtime_checkable
-
-from evam_tpu_torch import slices
 
 
 @runtime_checkable
@@ -36,11 +34,10 @@ class NullDestination:
 def create_destination(cfg: dict | None) -> Destination:
     """Resolve a request ``destination.metadata`` object.
 
-    Types: mqtt (host, topic, port), file (path, format), stdout,
-    null; zmq (endpoint, topic) raises until the slice that brings it
-    (the card's machine has no pyzmq). Unknown types raise ValueError —
-    surfaced as a 400 by the REST layer like the reference's bad
-    destination errors.
+    Types: mqtt (host, topic, port), file (path, format), zmq
+    (endpoint, topic; the port's own ZeroMQ wire), stdout, null.
+    Unknown types raise ValueError — surfaced as a 400 by the REST
+    layer like the reference's bad destination errors.
     """
     if not cfg:
         return NullDestination()
@@ -64,8 +61,12 @@ def create_destination(cfg: dict | None) -> Destination:
             fmt=cfg.get("format", "json-lines"),
         )
     if dtype == "zmq":
-        raise NotImplementedError(
-            f"destination type 'zmq' comes with {slices.INGEST_EGRESS}")
+        from evam_tpu_torch.publish.zmq_dest import ZmqDestination
+
+        return ZmqDestination(
+            endpoint=cfg.get("endpoint", "tcp://127.0.0.1:65114"),
+            topic=cfg.get("topic", "evam_tpu"),
+        )
     if dtype == "stdout":
         from evam_tpu_torch.publish.file_dest import StdoutDestination
 

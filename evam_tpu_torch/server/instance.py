@@ -69,6 +69,7 @@ class StreamInstance:
         max_backoff_s: float = 30.0,
         priority: str = "standard",
         on_finish: Callable[["StreamInstance"], None] | None = None,
+        source: Any | None = None,
     ):
         self.id = str(uuid.uuid4())
         self.pipeline_name = pipeline_name
@@ -84,6 +85,11 @@ class StreamInstance:
         self.max_retries = max_retries
         self.retry_backoff_s = retry_backoff_s
         self.max_backoff_s = max_backoff_s
+        # an injected source (the EII message-bus ingest) belongs to its
+        # caller: no retry recreates it, so a failure is permanent
+        self._injected_source = source
+        if source is not None:
+            self.max_retries = 0
 
         self.state = InstanceState.QUEUED
         self.error: str | None = None
@@ -175,7 +181,7 @@ class StreamInstance:
 
     def _run_once(self) -> None:
         src_cfg = self.request.get("source", {})
-        source = create_source(
+        source = self._injected_source or create_source(
             src_cfg, realtime=bool(src_cfg.get("realtime", False)))
         with self._src_lock:
             if self._stop.is_set():

@@ -172,15 +172,23 @@ class PipelineRegistry:
     # -------------------------------------------------------- instances
 
     def start_instance(self, name: str, version: str,
-                       request: dict[str, Any]) -> StreamInstance:
+                       request: dict[str, Any], publish_fn=None,
+                       source=None, sink_fn=None) -> StreamInstance:
+        """``publish_fn``, ``source`` and ``sink_fn`` are embedder
+        overrides: the EII manager publishes (meta, frame) over the
+        message bus from the publish stage (or from the sink of a
+        pipeline without one) and injects an ``AppSource`` its
+        subscriber feeds. With an injected source, ``request.source``
+        is not validated."""
         spec = self.loader.get(name, version)
         if spec is None:
             raise KeyError(f"pipeline {name}/{version} not found")
         src = request.get("source")
-        if not isinstance(src, dict):
-            raise RequestError("request.source must be an object")
-        if "uri" not in src and src.get("type", "uri") == "uri":
-            raise RequestError("request.source.uri is required")
+        if source is None:
+            if not isinstance(src, dict):
+                raise RequestError("request.source must be an object")
+            if "uri" not in src and src.get("type", "uri") == "uri":
+                raise RequestError("request.source.uri is required")
         # request body beats the pipeline spec's default beats
         # `standard` — a bad value is a 400, never a silent `standard`
         priority = request.get("priority")
@@ -202,15 +210,18 @@ class PipelineRegistry:
         ticket = self.admission.admit(priority, fps)
         try:
             return self._start_admitted(name, version, spec, src, request,
-                                        priority, ticket)
+                                        priority, ticket, publish_fn,
+                                        source, sink_fn)
         except BaseException:
             ticket.release()
             raise
 
     def _start_admitted(self, name: str, version: str, spec, src,
                         request: dict[str, Any], priority: str,
-                        ticket) -> StreamInstance:
-        check_source(src)
+                        ticket, publish_fn, source,
+                        sink_fn) -> StreamInstance:
+        if source is None:
+            check_source(src)
         frame_cfg = (request.get("destination") or {}).get("frame") or {}
         if frame_cfg.get("type"):
             raise NotImplementedError(
@@ -227,8 +238,11 @@ class PipelineRegistry:
             stages = build_stages(
                 stage_specs,
                 self.hub,
-                source_uri=src.get("uri", ""),
-                publish_fn=lambda ctx: destination.publish(ctx.metadata),
+                source_uri=(src.get("uri", "") if isinstance(src, dict)
+                            else ""),
+                publish_fn=publish_fn or (
+                    lambda ctx: destination.publish(ctx.metadata)),
+                sink_fn=sink_fn,
             )
         except BaseException:
             # the destination must not leak on a failed start
@@ -242,6 +256,7 @@ class PipelineRegistry:
             destination=destination,
             priority=priority,
             on_finish=lambda _inst: ticket.release(),
+            source=source,
         )
         with self._lock:
             self.instances[instance.id] = instance

@@ -7,7 +7,6 @@ silent fallback.
 """
 
 ENGINE_DEPTH = "port slice 7 (the AOT cache)"
-EII = "port slice 8 (EII mode)"
 PARALLEL = "port slice 9 (frozen parallel and training code)"
 TRACE_STATE = "port slice 10 (tracing and stream state)"
 INGEST_EGRESS = "port slice 11 (ingest and egress)"

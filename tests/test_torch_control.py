@@ -262,9 +262,13 @@ def test_knobs_off_leave_the_engine_as_it_was():
             np.testing.assert_array_equal(f.result(timeout=30), i + 1.0)
     finally:
         eng.stop()
+    # ragged packing and the control plane are off by default in both
+    # packages; the scheduler is on in both
     settings = port_settings.Settings.from_env(env={})
     assert (settings.engine.ragged, settings.sched.enabled,
-            settings.tune.enabled) == ("off", False, False)
+            settings.tune.enabled) == (
+        "off", ref_settings.SchedSettings().enabled, False)
+    assert settings.sched.enabled is True
 
 
 def test_operating_point_reaches_the_engine(monkeypatch):

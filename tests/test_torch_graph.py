@@ -261,7 +261,9 @@ _HONOURED = {
     **{var: (value, (lambda k: lambda s: getattr(s.sched, k))(key),
              (lambda k: lambda s: getattr(s.sched, k))(key))
        for var, value, key in [
-           ("EVAM_SCHED", "on", "enabled"),
+           # the scheduler is on by default in both packages: "off"
+           # is the value that differs from the default
+           ("EVAM_SCHED", "off", "enabled"),
            ("EVAM_SCHED_ADMIT_UTIL", "0.7", "admit_util"),
            ("EVAM_SCHED_CAPACITY_FPS", "120", "capacity_fps"),
            ("EVAM_SCHED_DEFAULT_FPS", "20", "default_fps"),

@@ -8,12 +8,15 @@ the bytes that reach the broker, the file or stdout compared exactly.
 * file (json-lines and json) and stdout: equal bytes; a write failure
   drops, counts, and recovers as the reference's does.
 * the factory: the same classes for the same configurations; an
-  unknown type raises ValueError in both; zmq raises naming its slice.
+  unknown type raises ValueError in both; zmq builds a ZmqDestination in
+  both, and one it cannot bind raises ValueError in both. The port's
+  counts a slow subscriber's drops and rebuilds a dead socket.
 """
 
 from __future__ import annotations
 
 import json
+import socket
 import time
 
 import pytest
@@ -165,9 +168,65 @@ def test_factory_picks_the_references_destination(cfg):
     ref.close()
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def test_factory_refusals():
+    """Unknown types raise ValueError in both; zmq builds a
+    ZmqDestination in both, and an endpoint it cannot bind (taken,
+    another transport, a bad port) raises ValueError, a 400."""
     for module in (ref_base, port_base):
         with pytest.raises(ValueError, match="carrier-pigeon"):
             module.create_destination({"type": "carrier-pigeon"})
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        port_base.create_destination({"type": "zmq", "endpoint": "tcp://x:1"})
+    endpoint = f"tcp://127.0.0.1:{_free_port()}"
+    for module in (ref_base, port_base):
+        dest = module.create_destination({"type": "zmq", "endpoint": endpoint})
+        try:
+            assert type(dest).__name__ == "ZmqDestination"
+            for bad in (endpoint, "bogus://x", "tcp://127.0.0.1:notaport"):
+                with pytest.raises(ValueError,
+                                   match="zmq destination endpoint"):
+                    module.create_destination({"type": "zmq",
+                                               "endpoint": bad})
+        finally:
+            dest.close()
+
+
+def test_zmq_destination_counts_drops_and_rebuilds():
+    """A subscriber that never reads costs counted drops, never a stall;
+    a socket whose I/O thread is gone is rebuilt after the backoff."""
+    from evam_tpu_torch.eii import zmtp
+    from evam_tpu_torch.publish.zmq_dest import ZmqDestination
+
+    port = _free_port()
+    dest = ZmqDestination(endpoint=f"tcp://127.0.0.1:{port}", send_hwm=10)
+    try:
+        peer = socket.create_connection(("127.0.0.1", port), timeout=5)
+        peer.sendall(zmtp.GREETING + b"".join(
+            zmtp._command(b"READY", zmtp._properties({b"Socket-Type": b"SUB"}))
+            + zmtp._frame(b"\x01")))
+        deadline = time.time() + 10
+        while not dest._sock.subscribed_peers():
+            assert time.time() < deadline
+            time.sleep(0.01)
+        before = metrics.get_counter("evam_publish_dropped", {"dest": "zmq"})
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            dest.publish(META[0], b"x" * 65536)
+        assert time.perf_counter() - t0 < 5.0
+        assert dest.dropped > 0
+        assert metrics.get_counter("evam_publish_dropped", {"dest": "zmq"}) \
+            == before + dest.dropped
+        peer.close()
+        dest._sock.close()  # the socket dies under the destination
+        dropped = dest.dropped
+        dest.publish(META[0])
+        assert dest.dropped == dropped + 1 and dest._sock is None
+        dest._next_retry = 0.0
+        dest.publish(META[0])
+        assert dest._sock is not None and dest.dropped == dropped + 1
+    finally:
+        dest.close()

@@ -24,8 +24,10 @@
 * ``GET /scheduler`` holds ``route_scheduler.json``, and a start past
   a declared capacity answers 503 with ``Retry-After`` in the shape of
   ``route_503_admission.json``.
-* DELETE reaches ABORTED; a request of a later slice (an application,
-  webcam source, ...) answers 501, every pipeline serves, and
+* DELETE reaches ABORTED; an application source and a zmq destination
+  answer as the reference's do (a pyzmq subscriber reads the zmq
+  destination's metadata); a request of a later slice (a webcam source,
+  ...) answers 501, every pipeline serves, and
   the requests slice 4 brought (tracking, zone count, the motion gate)
   serve; ``EVAM_GATE=on`` builds a gate in ``DetectStage`` and
   ``EVAM_GATE=off`` beats ``adaptive``; ``python -m
@@ -266,9 +268,7 @@ def test_error_routes_hold_their_goldens(server, tmp_path):
 
 
 @pytest.mark.parametrize("path,body_extra,needle", [
-    (PIPE, {"source": {"type": "application"}}, "slice 11"),
     (PIPE, {"source": {"type": "webcam", "device": 0}}, "slice 11"),
-    (PIPE, {"destination": {"metadata": {"type": "zmq"}}}, "slice 11"),
     (PIPE, {"destination": {"metadata": {"type": "null"},
                             "frame": {"type": "rtsp"}}}, "slice 11"),
     ("/traces", None, "slice 10"),
@@ -283,6 +283,122 @@ def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
     assert needle in data["error"]
     assert not (tmp_path / "o.jsonl").exists()
     assert server.registry.hub.stats() == {}
+
+
+APP_DST = "/pipelines/video_decode/app_dst"
+
+
+def _reference_requests(requests: list) -> list:
+    """(status, body) of each ``(method, path, body)`` in turn through
+    the reference's server (aiohttp TestClient); a ``path`` may name
+    ``{id}``, the id the first request answered. A pipeline without a
+    model builds no engine, so nothing compiles."""
+    jreg = JaxRegistry(input_overrides=SMALL, width_overrides=NARROW)
+    registry = JaxPipelineRegistry(
+        ref_settings.Settings(pipelines_dir=str(REPO / "pipelines")),
+        hub=JaxHub(jreg, plan=build_mesh(), max_batch=4, deadline_ms=4.0))
+
+    async def go():
+        out, iid = [], None
+        async with TestClient(TestServer(build_app(registry))) as client:
+            for method, path, body in requests:
+                resp = await client.request(
+                    method, path.format(id=iid), json=body)
+                out.append((resp.status, await resp.json()))
+                if iid is None and resp.status == 200:
+                    iid = out[-1][1]
+                    while registry.get_instance(iid).status()["state"] \
+                            == "QUEUED":
+                        await asyncio.sleep(0.05)
+        return out
+
+    try:
+        return asyncio.run(go())
+    finally:
+        registry.stop_all()
+
+
+def _port_requests(server, requests: list) -> list:
+    out, iid = [], None
+    for method, path, body in requests:
+        out.append(server.request(method, path.format(id=iid), body))
+        if iid is None and out[-1][0] == 200:
+            iid = out[-1][1]
+    return out
+
+
+def _zmq_body(endpoint: str) -> dict:
+    return {"source": {"uri": "synthetic://32x32@30", "type": "uri"},
+            "destination": {"metadata": {"type": "zmq",
+                                         "endpoint": endpoint}}}
+
+
+@pytest.mark.parametrize("kind", ["application-source", "zmq-destination"])
+def test_application_source_and_zmq_destination_serve_as_the_references(
+        server, kind):
+    """Slice 8 brought the application source and the zmq destination:
+    the same requests get the same answers from both servers. An
+    application source runs (nothing feeds it) until DELETE aborts it; a
+    zmq destination binds its endpoint, a second stream on the same
+    endpoint answers 400, and DELETE aborts the first."""
+    def requests():
+        if kind == "application-source":
+            return [("POST", APP_DST, {"source": {"type": "application"}}),
+                    ("GET", APP_DST + "/{id}/status", None),
+                    ("DELETE", APP_DST + "/{id}", None)]
+        # an endpoint of its own for each server: libzmq releases a
+        # closed socket's port in the background
+        endpoint = f"tcp://127.0.0.1:{_free_port()}"
+        return [("POST", APP_DST, _zmq_body(endpoint)),
+                ("POST", APP_DST, _zmq_body(endpoint)),
+                ("DELETE", APP_DST + "/{id}", None)]
+
+    ref = _reference_requests(requests())
+    got = _port_requests(server, requests())
+    assert [s for s, _ in got] == [s for s, _ in ref]
+    assert canonical([b for _, b in got]) == canonical([b for _, b in ref])
+    if kind == "application-source":
+        assert [s for s, _ in got] == [200, 200, 200]
+        assert got[1][1]["state"] == ref[1][1]["state"] == "RUNNING"
+    else:
+        assert [s for s, _ in got] == [200, 400, 200]
+        assert "zmq destination endpoint" in got[1][1]["error"]
+    assert server.wait(got[0][1], path=APP_DST)["state"] == "ABORTED"
+
+
+def test_zmq_destination_publishes_to_pyzmq(server):
+    """The detect pipeline into a zmq destination: a pyzmq subscriber
+    reads [topic, metadata] in the shape of the EVA metadata golden."""
+    import zmq
+
+    endpoint = f"tcp://127.0.0.1:{_free_port()}"
+    sub = zmq.Context.instance().socket(zmq.SUB)
+    sub.setsockopt(zmq.LINGER, 0)
+    sub.setsockopt(zmq.RCVTIMEO, 100)
+    sub.setsockopt(zmq.SUBSCRIBE, b"evam_tpu")
+    body = {"source": {"uri": "synthetic://96x96@30", "type": "uri"},
+            "destination": {"metadata": {"type": "zmq",
+                                         "endpoint": endpoint}}}
+    status, iid = server.request("POST", PIPE, body)
+    assert status == 200, iid
+    try:
+        sub.connect(endpoint)
+        deadline = time.time() + 60
+        while True:
+            try:
+                topic, meta = sub.recv_multipart()
+                break
+            except zmq.Again:
+                assert time.time() < deadline, "nothing reached pyzmq"
+        meta = json.loads(meta)
+        assert topic == b"evam_tpu"
+        golden = _golden("message_eva_metadata")
+        assert set(canonical(meta)) == set(golden)
+        assert meta["resolution"] == {"height": 96, "width": 96}
+    finally:
+        sub.close()
+        server.request("DELETE", f"{PIPE}/{iid}")
+    assert server.wait(iid)["state"] == "ABORTED"
 
 
 def test_scheduler_route_holds_its_golden(server):
@@ -704,6 +820,18 @@ def test_cli_serve_without_a_card_refuses_to_start():
     assert "no CUDA device" in res.stderr
 
 
+def test_cli_eii_mode_without_a_card_refuses_to_start(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: serve would start on it")
+    res = subprocess.run(
+        [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve", "--mode",
+         "EII"], cwd=REPO, env=_port_env(
+             EVAM_EII_CONFIG=str(tmp_path / "none.json"),
+             RUN_MODE="EII"), capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+
+
 def test_cli_serve_runs_packed_sched_tune_and_refuses_the_fleet():
     """``serve`` on the CPU with EVAM_RAGGED=packed, EVAM_SCHED=1 and
     EVAM_TUNE=1: /scheduler reports the scheduler and the controller on,
@@ -751,15 +879,54 @@ def test_cli_serve_runs_packed_sched_tune_and_refuses_the_fleet():
 
 
 def test_cli_eii_mode_and_fetch_models_name_their_slices(tmp_path):
-    """EII mode still names its slice; fetch-models, ported with real
-    model import, runs: it synthesizes an attributes IR the port's
-    registry lists, and refuses two modes at once with exit 2."""
-    res = subprocess.run(
+    """``serve --mode EII`` on the CPU runs the EII service: a pyzmq
+    subscriber reads a message of the pipeline the config file names,
+    and SIGTERM ends it with 0; fetch-models, ported with real model
+    import, runs: it synthesizes an attributes IR the port's registry
+    lists, and refuses two modes at once with exit 2."""
+    import zmq
+
+    port = _free_port()
+    config = tmp_path / "eii.json"
+    config.write_text(json.dumps({
+        "config": {"source": "gstreamer", "pipeline": "video_decode/app_dst",
+                   "source_parameters": {"type": "uri",
+                                         "uri": "synthetic://48x32@30"},
+                   "publish_frame": True},
+        "interfaces": {"Publishers": [{
+            "Name": "default", "Type": "zmq_tcp",
+            "EndPoint": f"127.0.0.1:{port}", "Topics": ["cli_results"],
+            "AllowedClients": ["*"]}]}}))
+    sub = zmq.Context.instance().socket(zmq.SUB)
+    sub.setsockopt(zmq.LINGER, 0)
+    sub.setsockopt(zmq.RCVTIMEO, 100)
+    sub.setsockopt(zmq.SUBSCRIBE, b"cli_results")
+    sub.connect(f"tcp://127.0.0.1:{port}")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve", "--mode",
-         "EII"], cwd=REPO, env=_port_env(EVAM_PLATFORM="cpu"),
-        capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0
-    assert "slice 8" in res.stderr
+         "EII"], cwd=REPO, env=_port_env(EVAM_PLATFORM="cpu",
+                                         EVAM_EII_CONFIG=str(config)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 60
+        while True:
+            try:
+                topic, meta, blob = sub.recv_multipart()
+                break
+            except zmq.Again:
+                assert proc.poll() is None, proc.stdout.read()
+                assert time.time() < deadline, "no EII message"
+        meta = json.loads(meta)
+        assert topic == b"cli_results"
+        assert (meta["width"], meta["height"], meta["gva_meta"]) == (48, 32, [])
+        assert len(blob) == 48 * 32 * 3
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        sub.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     out = tmp_path / "models"
     res = subprocess.run(
         [sys.executable, "-m", "evam_tpu_torch.cli.main", "fetch-models",
