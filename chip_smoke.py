@@ -276,8 +276,9 @@ memory the allocator holds once it has stopped its engines.
               packed classify engine), on engines their POSTs build, and
               a realtime unfused one once they are warm, objects carrying
               color and type; /scheduler holds the route golden; a
-              1000 fps start answers 503 with Retry-After; SIGTERM ends
-              the process with 0 in 30 s.
+              1000 fps start answers 503 with Retry-After; GET /traces
+              answers 200 in the shape of tests/golden/route_traces.json;
+              SIGTERM ends the process with 0 in 30 s.
 21. eii     — EII mode at the slice's configuration, on the default
               settings (the scheduler on, as in the reference): a
               registry's detect engine warmed, then the EVA path's
@@ -299,6 +300,46 @@ memory the allocator holds once it has stopped its engines.
               subscriber (a PUB drops what it sends before a
               subscription arrives). Prints messages/s of (a) and (b),
               the first-message seconds of (c) and the drops.
+22. trace   — person_vehicle_bike on hub A (the default engine), STREAMS
+              × TRACE_FRAMES (128) frames at 512², INT8, EVAM_QGEMM=pallas,
+              served six times in one process with EVAM_TRACE on, off,
+              on, off, on, off (set explicitly; the same seeds): objects
+              bit-equal; every
+              bucket captured with tracing on; 10 launches a forward;
+              the ring's ``traces_payload()`` in the shape of
+              tests/golden/route_traces.json, every retained frame with
+              ``stage.*``, ``sched.queue_wait`` and ``engine.dispatch``
+              spans, every batch record naming its engine, ``cuda:0``,
+              the eight stages and ``"launch": "host_issue"``; then with
+              PROFILING_MODE's ranges on, a torch.profiler capture
+              (every thread) of two served streams shows
+              ``evam.<stage>`` for the eight stages and ``evam.step``.
+              Prints each run's fps, p50/p99 and stage ms, the medians'
+              ratio and differences on against off, and the batch
+              records' mean launch and readback ms.
+23. chaos   — object_tracking/person_vehicle_bike (fused, 13 launches a
+              forward) through a ``PipelineRegistry`` built from
+              ``Settings`` with EVAM_CKPT=1, EVAM_CKPT_INTERVAL=4 and
+              EVAM_STALL_TIMEOUT_S=3: 4 streams at 30 fps; once each has
+              published 8 frames, EVAM_FAULT_INJECT=wedge=1,wedge_n=1,
+              wedge_s=8 with EVAM_FAULT_SEED=7 is armed and the next
+              batch wedges (its launcher asleep under the engine's
+              device lock). The watchdog trips; the supervisor writes
+              one flight artifact whose pending row for the wedged
+              batch names ``h2d_wait`` as its last stage (the wedge
+              sits in the launch), captures every stream at the
+              ``pre_rebuild`` barrier, rebuilds the engine and captures
+              its buckets again. The streams go down with the engine
+              and restart from their ``pre_rebuild`` checkpoints: every
+              id a restarted stream issues that was not a live track of
+              its checkpoint is above every id it published before.
+              Then ``serve`` as a child with EVAM_STATE_DIR and
+              EVAM_CKPT=1: one tracking stream, SIGTERM after 16
+              published frames, the child started again: ``resume()``
+              restarts the stream, its status carries
+              ``checkpoint.restored_from`` with barrier ``drain``, and
+              every new id is above the highest before. Prints the
+              rebuild and restore seconds and the phase's wall time.
 
 The rest phase runs the scheduler as the default has it (on), with a
 declared capacity (``EVAM_SCHED_CAPACITY_FPS``): the capacity model
@@ -306,10 +347,13 @@ reads the first batches' stage clock and can refuse streams the card
 serves (PERF.md §7). The phases before it build their hubs without a
 scheduler, as before it was ported.
 
+Tracing is on in every phase, as by default (the trace phase turns it
+off for its second run only).
+
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
 calls; ``launches`` sums the slice, classify, engine, track, gate,
-ragged, sched, tune, native, fleet, rest, serve and eii phases' served
-runs and their engines' warm runs, split by
+ragged, sched, tune, native, fleet, rest, serve, eii, trace and chaos
+phases' served runs and their engines' warm runs, split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action,
@@ -346,7 +390,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
-          "eii")
+          "eii", "trace", "chaos")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -470,6 +514,8 @@ def _import_port():
     from evam_tpu_torch.eii.manager import _gva_meta
     from evam_tpu_torch.obs.metrics import metrics
     from evam_tpu_torch.publish.encode import decode_frame
+    from evam_tpu_torch import state
+    from evam_tpu_torch.obs import faults, trace
 
     return dict(
         Settings=Settings, App=App, make_server=make_server,
@@ -499,7 +545,8 @@ def _import_port():
         conv_bias_relu=conv_bias_relu, ConfigMgr=ConfigMgr,
         EiiManager=EiiManager, MsgBusPublisher=MsgBusPublisher,
         MsgBusSubscriber=MsgBusSubscriber, eii_gva_meta=_gva_meta,
-        metrics=metrics, decode_frame=decode_frame)
+        metrics=metrics, decode_frame=decode_frame, trace=trace,
+        faults=faults, state=state)
 
 
 def _memory(torch, phase: str, t_start: float) -> None:
@@ -3465,6 +3512,11 @@ def phase_serve() -> dict[str, int]:
                     f"serve: qgemm launches {total} for {det_fwd} detect, "
                     f"{cls_fwd} fused and {pk_fwd} packed classify forwards, "
                     "expected 10, 13 and 3 per forward")
+            # /traces (tracing on by default) in the golden's shape
+            status, traces = _http(base, "GET", "/traces")
+            if status != 200 or not traces["enabled"]:
+                raise AssertionError(f"serve: /traces {status} {traces}")
+            _traces_shape(traces, "serve")
             # /scheduler in the golden's shape; a start past the pinned
             # capacity answers 503 with Retry-After
             _scheduler_shape(base, "serve")
@@ -3512,6 +3564,8 @@ def phase_serve() -> dict[str, int]:
                                "actions": len(after["tuning"]["actions"]),
                                "operating_point":
                                    after["tuning"]["operating_point"]},
+                    "traces": {k: traces[k] for k in (
+                        "retained", "dropped", "frames", "batches")},
                     "exit_code": code, "stop_s": time.perf_counter() - t1})
             return total
         finally:
@@ -4203,6 +4257,508 @@ def phase_ir(torch, port) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- trace
+
+#: the trace ring's /traces golden (read only)
+TRACES_GOLDEN = ROOT / "tests" / "golden" / "route_traces.json"
+#: frames per stream of each trace run (8 streams): a window long
+#: enough for an on/off difference of a few per cent to show
+TRACE_FRAMES = 128
+#: the ranges PROFILING_MODE wraps around the engine's work
+PROF_RANGES = tuple(f"evam.{s}" for s in (
+    "submit_wait", "slot_write", "seal", "h2d_issue", "h2d_wait",
+    "launch", "readback", "resolve", "step"))
+
+
+def _traces_shape(payload: dict, where: str) -> None:
+    """A /traces payload against tests/golden/route_traces.json: the
+    golden's keys and types (its ``traceEvents`` is the empty ring's
+    list), and Chrome "X" events."""
+    golden = json.loads(TRACES_GOLDEN.read_text())
+    got = canonical({**payload, "traceEvents": []})
+    bad = [e for e in payload["traceEvents"]
+           if e.get("ph") != "X" or not {"name", "cat", "ts", "dur", "pid",
+                                          "tid", "args"} <= set(e)]
+    if got != golden or not payload["traceEvents"] or bad:
+        raise AssertionError(f"{where}: /traces off the golden's shape: "
+                             f"{got}, {len(payload['traceEvents'])} events, "
+                             f"{bad[:2]}")
+
+
+def _set_env(port, **values) -> None:
+    """Set (a value) or unset (None) environment knobs and drop every
+    memo that read them: settings, the trace ring, the checkpoint store,
+    the fault injector."""
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    port["reset_settings"]()
+    port["trace"].reset_cache()
+    port["state"].reset_cache()
+    port["faults"].reset_cache()
+
+
+def _trace_run(torch, port, registry, mode: str, profile: bool) -> dict:
+    """person_vehicle_bike on a fresh hub A with EVAM_TRACE=``mode``:
+    every bucket captured, STREAMS × FRAMES frames, 10 launches a
+    forward; with tracing on, the ring's payload, frames and batch
+    records checked, and with ``profile`` PROFILING_MODE's ranges."""
+    qg, trace = port["qgemm"], port["trace"]
+    _set_env(port, EVAM_TRACE=mode)
+    ring = trace.active()
+    if (ring is not None) != (mode == "1"):
+        raise AssertionError(f"trace: EVAM_TRACE={mode} gave ring {ring}")
+    hub = _default_hub(port, registry)
+    try:
+        engine = _detect_stages(port, hub)("warm", None)[0].engine
+        (warm,) = _await_warm(f"trace {mode}", [engine])
+        fwd0 = _fwd(engine.stats_row())
+        _reset_launches(qg)
+        objects: dict[str, dict[int, list]] = {}
+        runners, published, wall, threads = _serve(
+            port, _detect_stages(port, hub), STREAMS, TRACE_FRAMES, 512,
+            512, objects)
+        variants = dict(qg.variant_launches)
+        stats = engine.stats_row()
+        forwards = _fwd(stats) - fwd0
+        _check_served(f"trace {mode}", runners, published, threads,
+                      TRACE_FRAMES)
+        if forwards == 0 or variants["aligned"] != 10 * forwards \
+                or variants["masked"]:
+            raise AssertionError(f"trace {mode}: qgemm launches {variants} "
+                                 f"for {forwards} forwards")
+        out = {"objects": objects, "variants": variants,
+               "row": {**_latency_row(runners, wall), "forwards": forwards,
+                       "graphs": warm["graphs"],
+                       "buckets": len(warm["buckets"]),
+                       "stage_ms": stats["stage_ms"]}}
+        if ring is None:
+            return out
+        # the completer retires a batch's record just after resolving it
+        deadline = time.perf_counter() + 30
+        while ring.snapshot()[2] and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        payload = trace.traces_payload()
+        _traces_shape(payload, "trace")
+        frames, done, pending = ring.snapshot()
+        if pending or len(done) != stats["batches"] or not frames:
+            raise AssertionError(
+                f"trace: {len(frames)} frames, {len(done)} batch records "
+                f"({len(pending)} pending) for {stats['batches']} batches")
+        for ft in frames:
+            names = {s[0] for s in ft.spans}
+            if not (any(n.startswith("stage.") for n in names)
+                    and {"sched.queue_wait", "engine.dispatch"} <= names):
+                raise AssertionError(f"trace: frame {ft.stream_id}#{ft.seq} "
+                                     f"has spans {sorted(names)}")
+        for rec in done:
+            if (rec["engine"] != engine.name or rec["device"] != "cuda:0"
+                    or set(rec["stages"]) != set(port["STAGES"])
+                    or rec.get("launch") != "host_issue"
+                    or rec["status"] != "ok"):
+                raise AssertionError(f"trace: batch record "
+                                     f"{ {k: v for k, v in rec.items() if k != 'clock'} }")
+        mean = lambda s: 1e3 * statistics.fmean(r["stages"][s] for r in done)
+        out["ring"] = {"retained": payload["retained"],
+                       "dropped": payload["dropped"],
+                       "frames": payload["frames"],
+                       "batches": payload["batches"],
+                       "events": len(payload["traceEvents"]),
+                       "launch_ms_mean": mean("launch"),
+                       "readback_ms_mean": mean("readback"),
+                       "spans_per_frame": statistics.fmean(
+                           len(ft.spans) for ft in frames)}
+        if not profile:
+            return out
+        # PROFILING_MODE: a torch.profiler capture of served batches
+        # shows the ranges of the engine's threads
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+
+        trace.maybe_start_profiler(True)
+        try:
+            try:
+                config = _ExperimentalConfig(profile_all_threads=True)
+            except TypeError as exc:
+                raise AssertionError(
+                    f"trace: this torch ({torch.__version__}) cannot "
+                    "profile every thread") from exc
+            _reset_launches(qg)
+            fwd1 = _fwd(engine.stats_row())
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         experimental_config=config) as prof:
+                prof_runners, prof_pub, _, prof_threads = _serve(
+                    port, _detect_stages(port, hub), 2, 8, 512, 512)
+                torch.cuda.synchronize()
+            _check_served("trace profile", prof_runners, prof_pub,
+                          prof_threads, 8)
+            names = {e.key for e in prof.key_averages()}
+            missing = sorted(set(PROF_RANGES) - names)
+            if missing:
+                raise AssertionError(f"trace: PROFILING_MODE ranges missing "
+                                     f"from the capture: {missing}")
+            prof_fwd = _fwd(engine.stats_row()) - fwd1
+            prof_variants = dict(qg.variant_launches)
+            if prof_variants["aligned"] != 10 * prof_fwd:
+                raise AssertionError(f"trace: profiled run {prof_variants} "
+                                     f"for {prof_fwd} forwards")
+            out["variants"] = {v: variants[v] + prof_variants[v]
+                               for v in variants}
+            out["profile"] = {"ranges": len(PROF_RANGES),
+                              "forwards": prof_fwd}
+        finally:
+            trace.stop_profiler()
+        return out
+    finally:
+        hub.stop()
+
+
+def phase_trace(torch, port) -> dict:
+    """person_vehicle_bike on hub A, served twice in one process with
+    EVAM_TRACE on and then off, the same seeds: objects bit-equal, fps
+    and p50/p99 of both, every bucket captured with tracing on, 10
+    launches a forward, the ring in the golden's shape with every
+    retained frame's spans and every batch record's engine, device and
+    eight stages, and PROFILING_MODE's ranges in a torch.profiler
+    capture. Returns the qgemm launches by variant."""
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    runs = []
+    try:
+        # on, off three times: a pair's difference against the spread
+        # of the same mode's runs
+        for i, mode in enumerate(("1", "0") * 3):
+            runs.append(_trace_run(torch, port, registry, mode, i == 0))
+    finally:
+        _set_env(port, EVAM_TRACE=None)
+    for run in runs[1:]:
+        if run["objects"] != runs[0]["objects"]:
+            raise AssertionError(
+                f"trace: objects differ with tracing on and off: "
+                f"{_objects_diff(runs[0]['objects'], run['objects'])}")
+    on, off = runs[0::2], runs[1::2]
+    med = lambda rs, k: statistics.median(r["row"][k] for r in rs)
+    _print({"phase": "trace", "streams": STREAMS,
+            "frames_per_stream": TRACE_FRAMES,
+            "runs": [{"trace": ("on", "off")[i % 2], **r["row"]}
+                     for i, r in enumerate(runs)],
+            "fps_on_over_off": med(on, "fps") / med(off, "fps"),
+            "p50_on_minus_off_ms": med(on, "p50_ms") - med(off, "p50_ms"),
+            "p99_on_minus_off_ms": med(on, "p99_ms") - med(off, "p99_ms"),
+            "ring": [r["ring"] for r in on], "profile": on[0]["profile"],
+            "objects": sum(len(o) for per in on[0]["objects"].values()
+                           for o in per.values())})
+    return {v: sum(r["variants"][v] for r in runs)
+            for v in ("aligned", "masked")}
+
+
+# ---------------------------------------------------------------- chaos
+
+CHAOS_STREAMS = 4
+#: the watchdog's budget in the chaos phase (EVAM_STALL_TIMEOUT_S), and
+#: the injected wedge, above it
+CHAOS_STALL_S = 3.0
+CHAOS_WEDGE_S = 8.0
+#: frames every stream publishes before the fault is armed, and frames
+#: a restored stream serves
+CHAOS_ARM_FRAMES = 8
+CHAOS_FRAMES = 16
+TRACK_PATH = "/pipelines/{}/{}".format(*TRACK_PIPELINE)
+
+
+def _lines(path: Path) -> list[dict]:
+    return ([json.loads(x) for x in path.read_text().splitlines()]
+            if path.exists() else [])
+
+
+def _await_lines(path: Path, n: int, where: str,
+                 timeout: float = 120.0) -> list[dict]:
+    deadline = time.perf_counter() + timeout
+    while True:
+        lines = _lines(path)
+        if len(lines) >= n:
+            return lines
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{where}: {path.name} has {len(lines)} of "
+                                 f"{n} lines")
+        time.sleep(0.02)
+
+
+def _ids(lines: list[dict]) -> list[int]:
+    return [o["id"] for m in lines for o in m["objects"]]
+
+
+def _ids_continue(where: str, before: list[int], after: list[int],
+                  blob: dict) -> dict:
+    """No tracker id issued twice on a stream: every id published after
+    the restore that was not a live track of the checkpoint (those keep
+    their ids) is above every id published before it."""
+    live = {t["track_id"] for st in blob["payload"]["stages"].values()
+            if isinstance(st, dict)
+            for t in (st.get("tracker") or {}).get("tracks", [])}
+    new = set(after) - live
+    top = max(before, default=0)
+    if not before or not new or min(new) <= top:
+        raise AssertionError(f"{where}: ids after the restore "
+                             f"{sorted(new)[:8]} not above {top} (live "
+                             f"{sorted(live)[:8]}, {len(before)} before)")
+    return {"max_before": top, "live_tracks": len(live),
+            "new_ids": len(new), "min_new": min(new)}
+
+
+def _track_stream(out: Path, seed: int, count: int | None) -> dict:
+    """A tracking stream into ``out``: unbounded ones at 30 fps
+    (realtime), so they are still running when the chaos strikes."""
+    body = _stream_body(out, count, seed, "detection-threshold")
+    if count is None:
+        body["source"]["realtime"] = True
+    return body
+
+
+def _chaos_rebuild(torch, port, tmp: Path) -> dict:
+    """The wedge drill in this process: 4 tracking streams through a
+    PipelineRegistry with EVAM_CKPT=1 (interval 4) and a 3 s watchdog;
+    once each has published CHAOS_ARM_FRAMES frames the fault is armed
+    (EVAM_FAULT_INJECT=wedge=1,wedge_n=1,wedge_s=8, EVAM_FAULT_SEED=7)
+    and the next batch wedges. The watchdog trips, the supervisor writes
+    one flight artifact whose pending row for the wedged batch stops at
+    h2d_wait and captures every stream at the pre_rebuild barrier; the
+    streams go down with the engine, it rebuilds and captures its
+    buckets again, and each stream restarts from its pre_rebuild
+    checkpoint: no tracker id issued twice. 13 launches a forward."""
+    qg = port["qgemm"]
+    flight_dir = tmp / "flight"
+    _set_env(port, EVAM_ALLOW_RANDOM_WEIGHTS=1,
+             PIPELINES_DIR=ROOT / "pipelines", MODELS_DIR=tmp / "models",
+             EVAM_SCHED_CAPACITY_FPS=REST_CAPACITY_FPS,
+             EVAM_STALL_TIMEOUT_S=CHAOS_STALL_S, EVAM_CKPT=1,
+             EVAM_CKPT_INTERVAL=4, EVAM_TRACE_FLIGHT_DIR=flight_dir,
+             EVAM_FAULT_INJECT=None, EVAM_FAULT_SEED=None)
+    store, ring = port["state"].active(), port["trace"].active()
+    if store is None or ring is None:
+        raise AssertionError(f"chaos: checkpoint store {store}, trace ring "
+                             f"{ring}: both must be on")
+    registry = port["PipelineRegistry"](port["Settings"].from_env())
+    try:
+        stages = _pipeline_stages(port, registry.hub,
+                                  {"detection-threshold": 0.2},
+                                  TRACK_PIPELINE)("warm", None)
+        engine = stages[0].engine
+        _await_warm("chaos", [engine])
+        fwd0 = _fwd(engine.stats_row())
+        _reset_launches(qg)
+        ids = [registry.start_instance(*TRACK_PIPELINE, _track_stream(
+            tmp / f"c{s}.jsonl", s, None)).id for s in range(CHAOS_STREAMS)]
+        for s in range(CHAOS_STREAMS):
+            _await_lines(tmp / f"c{s}.jsonl", CHAOS_ARM_FRAMES, "chaos")
+        os.environ["EVAM_FAULT_INJECT"] = (
+            f"wedge=1,wedge_n=1,wedge_s={CHAOS_WEDGE_S}")
+        os.environ["EVAM_FAULT_SEED"] = "7"
+        port["faults"].reset_cache()
+        t_arm = time.perf_counter()
+        # the flight dump and the pre_rebuild capture come before the
+        # handle turns "restarting"
+        while engine.state != "restarting":
+            if time.perf_counter() - t_arm > 60:
+                raise AssertionError("chaos: the armed wedge never "
+                                     f"quarantined the engine ({engine.state})")
+            time.sleep(0.005)
+        t_quarantine = time.perf_counter()
+        blobs = {iid: store.export(iid) for iid in ids}
+        for iid in ids:  # the streams go down with the engine
+            registry.stop_instance(iid)
+        for iid in ids:
+            registry.get_instance(iid).wait(30)
+        barriers = {iid[:8]: port["state"].decode(b).barrier if b else None
+                    for iid, b in blobs.items()}
+        if set(barriers.values()) != {"pre_rebuild"}:
+            raise AssertionError(f"chaos: checkpoints at {barriers}")
+        stalls = port["metrics"].get_counter("evam_engine_stalls",
+                                             labels={"engine": engine.name})
+        while engine.state != "running":
+            if engine.state == "degraded" or \
+                    time.perf_counter() - t_quarantine > 120:
+                raise AssertionError(f"chaos: no rebuild ({engine.state})")
+            time.sleep(0.01)
+        rebuild_s = time.perf_counter() - t_quarantine
+        (rebuilt,) = _await_warm("chaos rebuilt", [engine])
+        if engine.restarts != 1 or stalls < 1:
+            raise AssertionError(f"chaos: {engine.restarts} rebuilds, "
+                                 f"{stalls} watchdog trips")
+        # the flight recorder: one artifact, the wedged batch's row
+        # stopped where the wedge sits (after h2d_wait, in the launch)
+        flights = sorted(flight_dir.glob("flight-*.jsonl"))
+        if len(flights) != 1 or engine.last_flight != str(flights[0]):
+            raise AssertionError(f"chaos: flight artifacts {flights}, "
+                                 f"last {engine.last_flight}")
+        rows = [json.loads(x) for x in flights[0].read_text().splitlines()]
+        header = rows[0]
+        pending = sorted((r for r in rows if r["type"] == "batch"
+                          and r["pending"]), key=lambda r: r["bid"])
+        if (header["reason"] != "stall watchdog fired"
+                or header["state"].get("outstanding") != 1 or not pending
+                or pending[0]["last_stage"] != "h2d_wait"
+                or any(r["last_stage"] == "h2d_wait" for r in pending[1:])):
+            raise AssertionError(
+                f"chaos: flight header {header}, pending rows "
+                f"{[(r['bid'], r['last_stage']) for r in pending]}")
+        before = {iid: _ids(_lines(tmp / f"c{s}.jsonl"))
+                  for s, iid in enumerate(ids)}
+        # every stream restarts from its pre_rebuild checkpoint
+        t_restore = time.perf_counter()
+        restored = [registry.start_instance(
+            *TRACK_PIPELINE, _track_stream(tmp / f"r{s}.jsonl", s,
+                                           CHAOS_FRAMES),
+            saved_state=blobs[iid]) for s, iid in enumerate(ids)]
+        restore_s = time.perf_counter() - t_restore
+        summary = store.summary()
+        continued = []
+        for s, (iid, inst) in enumerate(zip(ids, restored)):
+            origin = inst.status()["checkpoint"].get("restored_from") or {}
+            inst.wait(120)
+            lines = _lines(tmp / f"r{s}.jsonl")
+            if (origin.get("barrier") != "pre_rebuild"
+                    or inst.state.value != "COMPLETED"
+                    or len(lines) != CHAOS_FRAMES):
+                raise AssertionError(f"chaos: restored stream {s}: {origin}, "
+                                     f"{inst.state.value}, {len(lines)} lines")
+            continued.append(_ids_continue(f"chaos stream {s}", before[iid],
+                                           _ids(lines), blobs[iid]))
+        variants = dict(qg.variant_launches)
+        forwards = _fwd(engine.stats_row()) - fwd0
+        if (forwards == 0 or sum(variants.values()) != 13 * forwards
+                or variants["masked"] > 3 * forwards):
+            raise AssertionError(f"chaos: qgemm launches {variants} for "
+                                 f"{forwards} fused forwards")
+        return {"variants": variants, "row": {
+            "arm_to_quarantine_s": t_quarantine - t_arm,
+            "rebuild_s": rebuild_s, "restore_s": restore_s,
+            "last_restore_ms": summary["last_restore_ms"],
+            "restored": summary["restored"], "captured": summary["captured"],
+            "rebuilt_graphs": rebuilt["graphs"],
+            "pending_rows": [(r["bid"], r["last_stage"]) for r in pending],
+            "forwards": forwards, "streams": continued}}
+    finally:
+        registry.stop_all()
+
+
+def _launches_per_forward(base: str, where: str,
+                          per_forward: int = 13) -> dict:
+    """A consistent (launches, forwards) pair from a serving child
+    (/metrics and /engines read back to back until they agree)."""
+    for _ in range(100):
+        _, engines = _http(base, "GET", "/engines")
+        launches = _kernel_launches(base)
+        forwards = sum(_fwd(v) for k, v in engines.items() if ":" in k)
+        if forwards and sum(launches.values()) == per_forward * forwards:
+            return {**launches, "forwards": forwards,
+                    "checkpoint": engines.get("checkpoint")}
+        time.sleep(0.05)
+    raise AssertionError(f"{where}: qgemm launches {launches} for {forwards} "
+                         f"forwards, expected {per_forward} per forward")
+
+
+def _chaos_resume(tmp: Path) -> dict:
+    """``serve`` with EVAM_STATE_DIR and EVAM_CKPT=1: one tracking
+    stream, SIGTERM after 16 published frames, and the child started
+    again: resume() restarts the stream from the drain checkpoint
+    (``checkpoint.restored_from``), and every new id is above the
+    highest before."""
+    rest_port = _free_port()
+    base = f"http://127.0.0.1:{rest_port}"
+    env = dict(os.environ, REST_PORT=str(rest_port), EVAM_PRECISION="int8",
+               EVAM_QGEMM="pallas", EVAM_ALLOW_RANDOM_WEIGHTS="1",
+               EVAM_PRELOAD="/".join(TRACK_PIPELINE),
+               MODELS_DIR=str(tmp / "models"),
+               EVAM_STATE_DIR=str(tmp / "state"), EVAM_CKPT="1",
+               EVAM_CKPT_INTERVAL="4",
+               EVAM_SCHED_CAPACITY_FPS=str(REST_CAPACITY_FPS))
+    for k in ("EVAM_FAULT_INJECT", "EVAM_FAULT_SEED", "EVAM_STALL_TIMEOUT_S",
+              "EVAM_TRACE_FLIGHT_DIR"):
+        env.pop(k, None)
+    out = tmp / "resume.jsonl"
+    lives = []
+    for life in (1, 2):
+        log_path = tmp / f"serve{life}.log"
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        try:
+            _await_health(base, proc, log_path, t0)
+            up_s = time.perf_counter() - t0
+            if life == 1:
+                status, iid = _http(base, "POST", TRACK_PATH,
+                                    _track_stream(out, 5, None))
+                if status != 200:
+                    raise AssertionError(f"chaos: POST gave {status} {iid}")
+                origin = None
+            else:
+                _, rows = _http(base, "GET", "/pipelines/status")
+                if len(rows) != 1 or rows[0]["state"] != "RUNNING":
+                    raise AssertionError(f"chaos: resumed {rows}")
+                origin = rows[0]["checkpoint"].get("restored_from")
+            first = _await_lines(out, 1, f"chaos life {life}")
+            first_s = time.perf_counter() - t0
+            lines = _await_lines(out, CHAOS_FRAMES, f"chaos life {life}")
+            counts = _launches_per_forward(base, f"chaos life {life}")
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=60)
+            if code != 0:
+                raise AssertionError(f"chaos: serve exit {code} on SIGTERM: "
+                                     f"{log_path.read_text()[-2000:]}")
+            lives.append({"up_s": up_s, "first_line_s": first_s,
+                          "stop_s": time.perf_counter() - t_term,
+                          "restored_from": origin, **counts,
+                          "lines": len(lines), "first": bool(first)})
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if life == 1:
+            before = _ids(_lines(out))
+            out.rename(tmp / "resume.before.jsonl")
+            (entry,) = json.loads((tmp / "state" / "streams.json").read_text())
+            blob = entry["state"]
+            if blob.get("payload", {}).get("barrier") != "drain":
+                raise AssertionError(f"chaos: streams.json holds "
+                                     f"{str(blob)[:300]}")
+    origin = lives[1]["restored_from"] or {}
+    if origin.get("barrier") != "drain":
+        raise AssertionError(f"chaos: resumed from {origin}")
+    ids = _ids_continue("chaos resume", before, _ids(_lines(out)), blob)
+    return {"lives": lives, "ids": ids,
+            "variants": {v: lives[0][v] + lives[1][v]
+                         for v in ("aligned", "masked")}}
+
+
+def phase_chaos(torch, port) -> dict:
+    """The tracking pipeline through a real wedge and a restart (see
+    ``_chaos_rebuild`` and ``_chaos_resume``). Returns the qgemm
+    launches by variant."""
+    t0 = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in (
+        "EVAM_ALLOW_RANDOM_WEIGHTS", "PIPELINES_DIR", "MODELS_DIR",
+        "EVAM_SCHED_CAPACITY_FPS", "EVAM_STALL_TIMEOUT_S", "EVAM_CKPT",
+        "EVAM_CKPT_INTERVAL", "EVAM_TRACE_FLIGHT_DIR", "EVAM_FAULT_INJECT",
+        "EVAM_FAULT_SEED")}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        try:
+            rebuild = _chaos_rebuild(torch, port, tmp)
+        finally:
+            _set_env(port, **saved)
+        resume = _chaos_resume(tmp)
+    _print({"phase": "chaos", **rebuild["row"], "resume": resume["lives"],
+            "resume_ids": resume["ids"], "wall_s": time.perf_counter() - t0})
+    return {v: rebuild["variants"][v] + resume["variants"][v]
+            for v in ("aligned", "masked")}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4333,6 +4889,12 @@ def main(argv: list[str] | None = None) -> int:
     if "eii" in phases:
         served.append(phase_eii(torch, port))
         _memory(torch, "eii", t_start)
+    if "trace" in phases:
+        served.append(phase_trace(torch, port))
+        _memory(torch, "trace", t_start)
+    if "chaos" in phases:
+        served.append(phase_chaos(torch, port))
+        _memory(torch, "chaos", t_start)
     _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {

@@ -18,7 +18,12 @@ reference's env names and parse rules:
     EVAM_FLEET_MAX_SHARDS (0), and the config file's ``tpu.mesh_shape``
     ([-1]) and ``tpu.mesh_axes`` (["data"]); the scheduler's EVAM_SCHED
     and its nine EVAM_SCHED_* (``SchedSettings``), and the control
-    plane's EVAM_TUNE and its eight EVAM_TUNE_* (``TuneSettings``)
+    plane's EVAM_TUNE and its eight EVAM_TUNE_* (``TuneSettings``);
+    tracing's EVAM_TRACE (on) and its seven EVAM_TRACE_*
+    (``TraceSettings``), the stream checkpoints' EVAM_CKPT (off),
+    EVAM_CKPT_INTERVAL and EVAM_CKPT_RESTORE_TIMEOUT_S
+    (``CkptSettings``), PROFILING_MODE and EVAM_STATE_DIR, with the
+    config file's ``trace`` and ``ckpt`` blocks
 
 and ``EVAM_PLATFORM`` keeps the reference CLI's meaning: ``cpu`` runs
 the port on the CPU, unset means the card (``cuda``). Three knobs the
@@ -35,7 +40,8 @@ case, else the grouped conv; read by ``ops/depthwise.py`` when a
 module is built). EII mode's EVAM_EII_CONFIG, EVAM_ETCD_HOST (with
 ETCD_HOST, ETCD_CLIENT_PORT, ETCD_PREFIX and CONFIGMGR_*) and
 EVAM_SOCKET_DIR are read by ``eii/``, as the reference's modules read
-them.
+them; fault injection's EVAM_FAULT_INJECT and EVAM_FAULT_SEED by
+``obs/faults.py``.
 
 The scheduler is on unless EVAM_SCHED turns it off, as in the
 reference: admission, the per-class queues and staleness shedding run
@@ -46,11 +52,9 @@ the operator set.
 
 Every other knob of the reference's table belongs to a subsystem that
 comes with a later port slice. Set to anything but the value the port
-runs with — the reference's default, or "off" where the reference's
-default turns on a subsystem the port lacks (tracing) — it
-raises ``NotImplementedError`` at :meth:`Settings.from_env`, naming the
-slice. So do the other knobs the reference reads in its own modules
-(``_MODULE_KNOBS``): fault injection. None is silently ignored.
+runs with (the reference's default), it raises ``NotImplementedError``
+at :meth:`Settings.from_env`, naming the slice. None is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -184,6 +188,50 @@ class TuneSettings:
 
 
 @dataclass
+class TraceSettings:
+    """Per-frame tracing knobs (``obs/trace.py``): trace ids minted at
+    ingest, span trees through engine dispatch, a bounded ring with
+    tail-based sampling, and the quarantine flight recorder.
+    ``EVAM_TRACE=off`` disables the whole layer."""
+
+    enabled: bool = True
+    #: healthy-frame retention: keep 1-in-N (error, shed and
+    #: deadline-miss frames and the slow tail are always retained)
+    sample_n: int = 16
+    #: ring capacity: retained frame traces and completed batch
+    #: records each
+    ring: int = 1024
+    #: frames slower than this end to end are always retained
+    slow_ms: float = 250.0
+    #: flight-recorder directory; empty = <tmpdir>/evam_flight
+    flight_dir: str = ""
+    #: most recent records of each kind written per flight dump
+    flight_n: int = 256
+    #: flight-recorder disk bounds (oldest dumps rotated out after
+    #: every dump; 0 = unbounded)
+    flight_max_files: int = 64
+    flight_max_bytes: int = 67108864
+    fields_set: set[str] = field(default_factory=set, repr=False,
+                                 compare=False)
+
+
+@dataclass
+class CkptSettings:
+    """Crash-consistent stream checkpoints (``state/``): captured at
+    the post-resolve and pre-rebalance barriers, restored before the
+    first frame after a rebuild, migration or restart. Off by default,
+    as in the reference."""
+
+    enabled: bool = False
+    #: post-resolve capture every N resolved frames
+    interval: int = 30
+    #: a restore slower than this cold-starts (loudly)
+    restore_timeout_s: float = 2.0
+    fields_set: set[str] = field(default_factory=set, repr=False,
+                                 compare=False)
+
+
+@dataclass
 class Settings:
     """Flat service settings resolved from env + optional config file."""
 
@@ -203,11 +251,19 @@ class Settings:
     #: EVAM_ALLOW_RANDOM_WEIGHTS: serve seeded random weights when a
     #: model has none on disk (the reference's registry reads it)
     allow_random_weights: bool = False
+    #: PROFILING_MODE: named ranges around the engine's stages
+    #: (``obs/trace.py`` ``prof_range``)
+    profiling_mode: bool = False
+    #: EVAM_STATE_DIR: the registry persists its streams to
+    #: ``streams.json`` here and resumes them at the next start
+    state_dir: str = ""
     #: EVAM_PLATFORM: "cuda" (default) or "cpu"
     device: str = "cuda"
     engine: EngineSettings = field(default_factory=EngineSettings)
     sched: SchedSettings = field(default_factory=SchedSettings)
     tune: TuneSettings = field(default_factory=TuneSettings)
+    trace: TraceSettings = field(default_factory=TraceSettings)
+    ckpt: CkptSettings = field(default_factory=CkptSettings)
 
     @classmethod
     def from_env(cls, config_file: str | os.PathLike | None = None,
@@ -220,7 +276,9 @@ class Settings:
 
         settings = cls()
         blocks = {"tpu": (settings.engine, _ENGINE_KEYS),
-                  "sched": (settings.sched, _SCHED_KEYS)}
+                  "sched": (settings.sched, _SCHED_KEYS),
+                  "trace": (settings.trace, _TRACE_KEYS),
+                  "ckpt": (settings.ckpt, _CKPT_KEYS)}
         for key, value in data.items():
             if key in blocks:
                 block, keys = blocks[key]
@@ -233,7 +291,9 @@ class Settings:
                 setattr(settings, key, conv(env[var]))
         for table, block in ((_ENGINE_ENV, settings.engine),
                              (_MODULE_ENV, settings.engine),
-                             (_SCHED_ENV, settings.sched)):
+                             (_SCHED_ENV, settings.sched),
+                             (_TRACE_ENV, settings.trace),
+                             (_CKPT_ENV, settings.ckpt)):
             for var, (key, conv) in table.items():
                 if var in env:
                     _assign(block, key, conv(env[var]))
@@ -298,6 +358,8 @@ _TOP_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_DRAIN_TIMEOUT_S": ("drain_timeout_s", float),
     "EVAM_PRELOAD": ("preload", str),
     "EVAM_ALLOW_RANDOM_WEIGHTS": ("allow_random_weights", _parse_bool),
+    "PROFILING_MODE": ("profiling_mode", _parse_bool),
+    "EVAM_STATE_DIR": ("state_dir", str),
 }
 _ENGINE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_MAX_BATCH": ("max_batch", int),
@@ -342,6 +404,21 @@ _TUNE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_TUNE_SCALE_UP_UTIL": ("scale_up_util", float),
     "EVAM_TUNE_SCALE_DOWN_UTIL": ("scale_down_util", float),
 }
+_TRACE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
+    "EVAM_TRACE": ("enabled", _parse_bool),
+    "EVAM_TRACE_SAMPLE_N": ("sample_n", int),
+    "EVAM_TRACE_RING": ("ring", int),
+    "EVAM_TRACE_SLOW_MS": ("slow_ms", float),
+    "EVAM_TRACE_FLIGHT_DIR": ("flight_dir", str),
+    "EVAM_TRACE_FLIGHT_N": ("flight_n", int),
+    "EVAM_TRACE_FLIGHT_MAX_FILES": ("flight_max_files", int),
+    "EVAM_TRACE_FLIGHT_MAX_BYTES": ("flight_max_bytes", int),
+}
+_CKPT_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
+    "EVAM_CKPT": ("enabled", _parse_bool),
+    "EVAM_CKPT_INTERVAL": ("interval", int),
+    "EVAM_CKPT_RESTORE_TIMEOUT_S": ("restore_timeout_s", float),
+}
 #: knobs the reference's engine modules read from os.environ (never a
 #: config-file key there, nor here)
 _MODULE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
@@ -357,9 +434,10 @@ _ENGINE_KEYS = {key for key, _ in _ENGINE_ENV.values()} | {
     "mesh_shape", "mesh_axes"}
 _SCHED_KEYS = {key for key, _ in _SCHED_ENV.values()}
 _TUNE_KEYS = {key for key, _ in _TUNE_ENV.values()}
+_TRACE_KEYS = {key for key, _ in _TRACE_ENV.values()}
+_CKPT_KEYS = {key for key, _ in _CKPT_ENV.values()}
 
 _S7 = slices.ENGINE_DEPTH
-_S10 = slices.TRACE_STATE
 _S11 = slices.INGEST_EGRESS
 
 #: unported knobs: (env var, or None for a config-file-only key;
@@ -372,44 +450,14 @@ _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
     ("ENABLE_WEBRTC", "", "enable_webrtc", _parse_bool, False, _S11),
     ("WEBRTC_SIGNALING_SERVER", "", "webrtc_signaling_server", str, "", _S11),
     ("EVAM_WEBRTC_VIDEO_MODE", "", "webrtc_video_mode", str, "key", _S11),
-    ("PROFILING_MODE", "", "profiling_mode", _parse_bool, False, _S10),
-    ("EVAM_STATE_DIR", "", "state_dir", str, "", _S10),
     ("EVAM_DECODE_POOL_WORKERS", "", "decode_pool_workers", int, 0, _S11),
     ("EVAM_RTSP_DEMUX_WORKERS", "", "rtsp_demux_workers", int, 0, _S11),
     ("EVAM_COMPILE_CACHE_DIR", "tpu", "compile_cache_dir", str, "", _S7),
-    ("EVAM_TRACE", "trace", "enabled", _parse_bool, False, _S10),
-    ("EVAM_TRACE_SAMPLE_N", "trace", "sample_n", int, 16, _S10),
-    ("EVAM_TRACE_RING", "trace", "ring", int, 1024, _S10),
-    ("EVAM_TRACE_SLOW_MS", "trace", "slow_ms", float, 250.0, _S10),
-    ("EVAM_TRACE_FLIGHT_DIR", "trace", "flight_dir", str, "", _S10),
-    ("EVAM_TRACE_FLIGHT_N", "trace", "flight_n", int, 256, _S10),
-    ("EVAM_TRACE_FLIGHT_MAX_FILES", "trace", "flight_max_files",
-     int, 64, _S10),
-    ("EVAM_TRACE_FLIGHT_MAX_BYTES", "trace", "flight_max_bytes",
-     int, 67108864, _S10),
-    ("EVAM_CKPT", "ckpt", "enabled", _parse_bool, False, _S10),
-    ("EVAM_CKPT_INTERVAL", "ckpt", "interval", int, 30, _S10),
-    ("EVAM_CKPT_RESTORE_TIMEOUT_S", "ckpt", "restore_timeout_s",
-     float, 2.0, _S10),
     ("EVAM_AOT", "aot", "enabled", _parse_bool, False, _S7),
     ("EVAM_AOT_DIR", "aot", "dir", str, "", _S7),
     ("EVAM_AOT_MAX_BYTES", "aot", "max_bytes", int, 1073741824, _S7),
     (None, "tpu", "donate_buffers", None, True, _S7),
 ]
-
-def _unset(value: str) -> bool:
-    return not value.strip()
-
-
-#: knobs the reference reads from ``os.environ`` in its modules: env
-#: var → (does the reference, given this value, run what the port
-#: runs?, the port's value, the slice that brings the rest). Each test
-#: follows the reference's own parse at the line named.
-_MODULE_KNOBS: dict[str, tuple[Callable[[str], bool], str, str]] = {
-    # obs/faults.py:275-276 — no fault is injected
-    "EVAM_FAULT_INJECT": (_unset, "unset", _S10),
-    "EVAM_FAULT_SEED": (_unset, "unset", _S10),
-}
 
 #: reference settings blocks the config file may carry
 _BLOCKS = ("tpu", "sched", "trace", "ckpt", "tune", "aot")
@@ -429,11 +477,6 @@ def _refuse_unported(data: dict[str, Any], env: Mapping[str, str]) -> None:
             raise NotImplementedError(
                 f"{var}={env[var]!r}: comes with {slice_}; the port runs "
                 f"with {port_value!r}")
-    for var, (runs_the_port, port_value, slice_) in _MODULE_KNOBS.items():
-        if var in env and not runs_the_port(env[var]):
-            raise NotImplementedError(
-                f"{var}={env[var]!r}: comes with {slice_}; the port runs "
-                f"with {port_value}")
     known = _TOP_KEYS | set(_BLOCKS) | {
         key for _, block, key, *_ in _UNPORTED if not block}
     unknown = set(data) - known
@@ -443,7 +486,8 @@ def _refuse_unported(data: dict[str, Any], env: Mapping[str, str]) -> None:
         keys = set(data.get(block, {}))
         keys -= {key for _, b, key, *_ in _UNPORTED if b == block}
         keys -= {"tpu": _ENGINE_KEYS, "sched": _SCHED_KEYS,
-                 "tune": _TUNE_KEYS}.get(block, set())
+                 "tune": _TUNE_KEYS, "trace": _TRACE_KEYS,
+                 "ckpt": _CKPT_KEYS}.get(block, set())
         if keys:
             raise ValueError(f"unknown settings keys {block}.{sorted(keys)}")
 

@@ -37,9 +37,11 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 
 from evam_tpu_torch.config.settings import Settings, get_settings
 from evam_tpu_torch.control.state import OperatingPoint, TuneState, ZERO_SIGNALS
+from evam_tpu_torch.obs import trace
 from evam_tpu_torch.obs.metrics import metrics
 
 log = logging.getLogger("evam_tpu_torch.control.controller")
@@ -217,7 +219,9 @@ class TuneController:
     def tick(self) -> dict:
         """One iteration: read the signals, run every law through the
         damping, cooldown and pin clamps, publish the new operating
-        point and push it to the hub. Returns the signals read."""
+        point and push it to the hub (the tick is a ``control.tick``
+        span on a ``control`` trace). Returns the signals read."""
+        t0 = time.perf_counter()
         self._ticks += 1
         sig = self.signals()
         old = self.state.op
@@ -261,6 +265,12 @@ class TuneController:
             self.hub.retune(op)
         except Exception:  # noqa: BLE001 — the next tick pushes again
             log.exception("hub retune failed")
+        ft = trace.start_frame("control", self._ticks, "standard")
+        if ft is not None:
+            ft.add_span("control.tick", t0, time.perf_counter() - t0,
+                        attrs={"applied": ",".join(applied) or "none",
+                               "utilization": round(sig["utilization"], 4)})
+            trace.finish_frame(ft, "ok")
         return sig
 
     def _propose(self, sig: dict, old: OperatingPoint) -> list[tuple]:

@@ -303,14 +303,16 @@ def run_eii_service(settings: Settings) -> int:
     """Blocking entry point of ``serve --mode EII`` (``RUN_MODE=EII``).
 
     Runs on ``settings.device``: the card unless ``EVAM_PLATFORM=cpu``,
-    raising without one, as ``serve`` in EVA mode does. Unlike the
-    reference it does not call ``init_observability``: tracing comes
-    with a later slice and the port runs with it off, as ``serve``
-    does. SIGTERM (a container stop) drains the pipeline and closes the
-    bus sockets; the process then returns 0.
+    raising without one, as ``serve`` in EVA mode does, after
+    ``init_observability`` (PROFILING_MODE's ranges). SIGTERM (a
+    container stop) drains the pipeline and closes the bus sockets; the
+    process then returns 0.
     """
     import signal
 
+    from evam_tpu_torch.obs.trace import init_observability
+
+    init_observability(settings)
     manager = EiiManager(settings)
 
     def _on_term(signum, frame):  # noqa: ARG001 — signal API

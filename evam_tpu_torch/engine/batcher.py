@@ -61,6 +61,18 @@ batch deadlines and caps the batch in the dispatch loops, and
 its ladder is aligned to N, with the rungs under N in front (the
 reference's ``fleet_local`` bypass). The reference's AOT cache comes
 with a later slice.
+
+Tracing (``obs/trace.py``): every item carries its frame's trace; the
+dispatcher registers each batch (``batch_begin``) before the launcher
+can take it, with the batch's own clock dict, so a pending record reads
+the stages done so far, and exactly one ``batch_complete`` retires it
+on whichever exit the batch takes: resolved (ok), a failed upload,
+launch or readback or a stopped engine (error), or a quarantine
+(abandoned). The fault injector's ``maybe_wedge`` is consulted per
+batch on the launching thread, under the engine's device lock, just
+before the replay: a woken wedge finds the engine stopped and never
+replays a graph the quarantine freed. With PROFILING_MODE on, the
+stages and the step run inside named ranges (``trace.prof_range``).
 """
 
 from __future__ import annotations
@@ -91,7 +103,10 @@ from evam_tpu_torch.engine.ringbuf import (
     numpy_alloc,
     pinned_alloc,
 )
+from evam_tpu_torch.obs import trace
+from evam_tpu_torch.obs.faults import current as active_faults
 from evam_tpu_torch.obs.metrics import metrics
+from evam_tpu_torch.obs.trace import prof_range
 from evam_tpu_torch.sched.classes import (
     DEFAULT_PRIORITY,
     PRIORITIES,
@@ -113,6 +128,8 @@ class _WorkItem:
     priority: str = DEFAULT_PRIORITY
     #: real unit rows the item carries (None: the whole budget)
     units: int | None = None
+    #: the submitting frame's trace (``obs/trace.py`` FrameTrace), or None
+    trace: object | None = None
 
 
 class _TunableQueue(queue.Queue):
@@ -336,16 +353,26 @@ class BatchEngine:
         #: set when a batch exceeded its stall deadline; submit() then
         #: fails fast. Cleared if the stalled call later completes.
         self.stalled = threading.Event()
-        #: dispatched-but-not-completed batches: id → (t_dispatch,
-        #: items, bucket, stall deadline)
+        #: dispatched-but-not-completed batches in dispatch order: id →
+        #: (t_dispatch, items, bucket, stall budget)
         self._outstanding: dict[
             int, tuple[float, list[_WorkItem], int, float]] = {}
+        #: when a dispatched batch last left the device queue (completed
+        #: or failed): the head batch's device work starts no earlier
+        self._last_done = 0.0
         self._next_batch_id = 0
         self._exec_lock = threading.Lock()
+        #: batches with a trace record still pending: the first exit to
+        #: take one out retires it (``_trace_end``), so each batch is
+        #: completed exactly once whichever thread gets there first
+        self._traced: set[int] = set()
+        #: the device a batch record names ("cuda:0", "cpu")
+        self._trace_device = str(self.device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self._trace_device = f"cuda:{torch.cuda.current_device()}"
         #: test seam: called on the launching thread before each
-        #: batch's device work, where the reference consults its fault
-        #: injector (which comes with a later slice) — a stub wedge
-        #: blocks here
+        #: batch's device work (outside the device lock) — a stub
+        #: wedge blocks here
         self.pre_launch: Callable[[], None] | None = None
 
         #: the mesh twin's device count (``fleet/engine.py``
@@ -461,6 +488,7 @@ class BatchEngine:
 
     def submit(self, priority: str = DEFAULT_PRIORITY,
                units: int | None = None, stream: str | None = None,
+               trace: object | None = None,
                **inputs: np.ndarray) -> Future:
         """Enqueue one item (no batch dim); resolves to its packed row
         (on the packed engine: its own unit rows).
@@ -471,10 +499,13 @@ class BatchEngine:
         the fleet (``fleet/engine.py``) pins a stream to a shard by it,
         and the stages pass it whatever the hub serves. ``units`` is
         the item's real unit rows, for the accounting only (the packed
-        engine reads them off the ragged input). On the slot path this
-        call copies the item into the staging block on the calling
-        thread, and blocks while every slot is in flight; on the sched
-        path the dispatcher copies it once its class is picked."""
+        engine reads them off the ragged input). ``trace`` is the
+        submitting frame's trace handle (or None): the batch record
+        names it and its completion adds the queue-wait and dispatch
+        spans to it. On the slot path this call copies the item into
+        the staging block on the calling thread, and blocks while every
+        slot is in flight; on the sched path the dispatcher copies it
+        once its class is picked."""
         if self._stop.is_set():
             raise RuntimeError(f"engine {self.name} is stopped")
         if self.stalled.is_set():
@@ -494,13 +525,14 @@ class BatchEngine:
                     f"unknown priority {priority!r}; valid: "
                     f"{'|'.join(PRIORITIES)}")
             item = _WorkItem(inputs, fut, time.perf_counter(), priority,
-                             units)
+                             units, trace)
             try:
                 self._classq.put(priority, item)
             except RuntimeError:
                 raise RuntimeError(f"engine {self.name} is stopped") from None
             return fut
-        item = _WorkItem(inputs, fut, time.perf_counter(), units=units)
+        item = _WorkItem(inputs, fut, time.perf_counter(), units=units,
+                         trace=trace)
         if self._ring is not None:
             try:
                 self._ring.write(inputs, item)
@@ -717,7 +749,7 @@ class BatchEngine:
         self._drain_queued(exc)
         self._queue.put(None)
         self._done.put(None)
-        self._drain_upload_q(exc)
+        self._drain_upload_q(exc, "abandoned")
         while True:
             try:
                 item = self._queue.get_nowait()
@@ -726,11 +758,12 @@ class BatchEngine:
             if item is not None:
                 _safe_set_exception(item.future, exc)
         with self._exec_lock:
-            stranded = [it for entry in self._outstanding.values()
-                        for it in entry[1]]
+            stranded = list(self._outstanding.items())
             self._outstanding.clear()
-        for it in stranded:
-            _safe_set_exception(it.future, exc)
+        for bid, (_t0, items, _b, _budget) in stranded:
+            for it in items:
+                _safe_set_exception(it.future, exc)
+            self._trace_end(bid, items, "abandoned")
         threading.Thread(target=self._free_device,
                          name=f"engine-{self.name}-free",
                          daemon=True).start()
@@ -778,25 +811,43 @@ class BatchEngine:
                 return b
         return self.buckets[-1]
 
-    def _track_dispatch(self, t0: float, items: list[_WorkItem],
-                        bucket: int) -> int:
-        """Register a dispatched batch with the watchdog, its stall
-        deadline fixed here: stall_timeout_s, × first_batch_grace for a
-        bucket that never completed a batch, and no earlier than the
-        latest outstanding deadline + one plain budget (device work is
-        ordered)."""
+    def _trace_begin(self, items: list[_WorkItem], n: int, b: int,
+                     clock: dict[str, float]) -> int:
+        """A new batch id; with tracing on, the batch's pending record
+        (holding ``clock`` itself, which the engine goes on filling)."""
         with self._exec_lock:
-            if bucket not in self._buckets_done:
-                deadline = t0 + self.stall_timeout_s * self.first_batch_grace
-            else:
-                deadline = t0 + self.stall_timeout_s
-            if self._outstanding:
-                queue_ahead = max(e[3] for e in self._outstanding.values())
-                deadline = max(deadline, queue_ahead + self.stall_timeout_s)
             bid = self._next_batch_id
             self._next_batch_id += 1
-            self._outstanding[bid] = (t0, items, bucket, deadline)
+            if trace.active() is not None:
+                self._traced.add(bid)
+        trace.batch_begin(self.name, bid, items, b, n, clock,
+                          self._trace_device)
         return bid
+
+    def _trace_end(self, bid: int, items: list[_WorkItem], status: str,
+                   readback_s: float | None = None,
+                   resolve_s: float | None = None) -> None:
+        """Retire batch ``bid``'s trace record once, whichever exit
+        gets here first."""
+        with self._exec_lock:
+            if bid not in self._traced:
+                return
+            self._traced.discard(bid)
+        trace.batch_complete(self.name, bid, items, status=status,
+                             readback_s=readback_s, resolve_s=resolve_s)
+
+    def _track_dispatch(self, t0: float, items: list[_WorkItem],
+                        bucket: int, bid: int) -> None:
+        """Register dispatched batch ``bid`` with the watchdog, with its
+        stall budget: stall_timeout_s, × first_batch_grace for a bucket
+        that never completed a batch. Device work is ordered, so the
+        watchdog holds only the head of the queue to its budget, from
+        when it could start (``_watchdog_loop``)."""
+        with self._exec_lock:
+            budget = self.stall_timeout_s
+            if bucket not in self._buckets_done:
+                budget *= self.first_batch_grace
+            self._outstanding[bid] = (t0, items, bucket, budget)
 
     def refresh_queue_gauges(self) -> None:
         """Push the backlog gauges (on dispatch and on watchdog and
@@ -869,19 +920,35 @@ class BatchEngine:
                 out.append(dst)
             return out
 
+    def _wedge_point(self) -> None:
+        """The fault injector's per-batch consult (EVAM_FAULT_INJECT
+        ``wedge``): a wedge blocks here, on the launching thread, where
+        the device call would hang; a woken wedge finds a quarantined
+        engine stopped and launches nothing."""
+        inj = active_faults()
+        if inj is not None:
+            inj.maybe_wedge(self.name)
+            if self._stop.is_set():
+                raise RuntimeError(f"engine {self.name} is stopped")
+
     def _execute(self, dev: list[torch.Tensor], b: int,
                  sealed: SealedBatch | None):
         """Launch one batch; returns what the completer reads back.
-        CUDA: on the compute stream, the bucket's graph replay (or the
-        eager step), then the device→host copy into page-locked memory
-        put in flight, and an event the completer waits on. CPU: the
-        step's output."""
+        CUDA: under the device lock (the wedge consult first, so a
+        quarantine frees nothing a woken wedge could still replay), on
+        the compute stream, the bucket's graph replay (or the eager
+        step), then the device→host copy into page-locked memory put in
+        flight, and an event the completer waits on. CPU: the step's
+        output."""
         if not self._cuda:
-            return self.step_fn(*dev)
+            self._wedge_point()
+            with prof_range("step"):
+                return self.step_fn(*dev)
         with self._device_lock:
+            self._wedge_point()
             if self._device_freed:
                 raise RuntimeError(f"engine {self.name} stopped")
-            with torch.cuda.stream(self._compute):
+            with torch.cuda.stream(self._compute), prof_range("step"):
                 bg = self._graphs.get(b)
                 out = (self._graphs.replay(bg, dev) if bg is not None
                        else self.step_fn(*dev))
@@ -929,11 +996,15 @@ class BatchEngine:
         self._before_launch()
         with devlock.device_call(f"{self.name}:launch"):
             t0 = time.perf_counter()
-            dev = self._upload(batch, b, sealed, self._compute)
+            with prof_range("h2d_issue"):
+                dev = self._upload(batch, b, sealed, self._compute)
             t1 = time.perf_counter()
-            pending = self._execute(dev, b, sealed)
+            # written before the launch: a wedged batch's record reads
+            # every stage up to the launch
             clock["h2d_issue"] = t1 - t0
             clock["h2d_wait"] = 0.0
+            with prof_range("launch"):
+                pending = self._execute(dev, b, sealed)
             clock["launch"] = time.perf_counter() - t1
             return pending
 
@@ -944,10 +1015,13 @@ class BatchEngine:
         """Common tail of both dispatch loops. Inline: upload and launch
         here. Pipelined: issue the upload on the copy stream
         (h2d_issue) and queue the batch for the launcher."""
+        # the batch's trace record, before any device work and before
+        # the launcher can touch the clock
+        bid = self._trace_begin(items, n, b, clock)
         if not self._pipelined:
             self._in_flight.acquire()
             t0 = time.perf_counter()
-            bid = self._track_dispatch(t0, items, b)
+            self._track_dispatch(t0, items, b, bid)
             try:
                 pending = self._run(batch, b, sealed, clock)
             except Exception as exc:  # noqa: BLE001 — surface to every caller
@@ -957,7 +1031,8 @@ class BatchEngine:
             self._done.put((pending, items, t0, bid, sealed, n))
             return
         try:
-            with devlock.device_call(f"{self.name}:h2d"):
+            with devlock.device_call(f"{self.name}:h2d"), \
+                    prof_range("h2d_issue"):
                 t0 = time.perf_counter()
                 dev = self._upload(batch, b, sealed, self._copy)
                 uploaded = None
@@ -970,9 +1045,10 @@ class BatchEngine:
                 _safe_set_exception(it.future, exc)
             if sealed is not None:
                 self._ring.release(sealed)
+            self._trace_end(bid, items, "error")
             log.exception("engine %s H2D upload failed", self.name)
             return
-        entry = (dev, uploaded, items, n, b, clock, sealed)
+        entry = (dev, uploaded, items, n, b, clock, sealed, bid)
         while True:
             try:
                 self._upload_q.put(entry, timeout=0.1)
@@ -984,6 +1060,7 @@ class BatchEngine:
                         _safe_set_exception(it.future, exc)
                     if sealed is not None:
                         self._ring.release(sealed)
+                    self._trace_end(bid, items, "error")
                     return
 
     def _fail_launch(self, exc: Exception, bid: int, items: list[_WorkItem],
@@ -991,10 +1068,12 @@ class BatchEngine:
         self._in_flight.release()
         with self._exec_lock:
             self._outstanding.pop(bid, None)
+            self._last_done = time.perf_counter()
         for it in items:
             _safe_set_exception(it.future, exc)
         if sealed is not None:
             self._ring.release(sealed)
+        self._trace_end(bid, items, "error")
         if not self._stop.is_set():
             log.error("engine %s step failed", self.name, exc_info=exc)
 
@@ -1006,12 +1085,16 @@ class BatchEngine:
         self._before_launch()
         with devlock.device_call(f"{self.name}:launch"):
             t0 = time.perf_counter()
-            if uploaded is not None:
-                uploaded.synchronize()
-                self._compute.wait_event(uploaded)
+            with prof_range("h2d_wait"):
+                if uploaded is not None:
+                    uploaded.synchronize()
+                    self._compute.wait_event(uploaded)
             t1 = time.perf_counter()
-            pending = self._execute(dev, b, sealed)
+            # written before the launch: a wedged batch's record reads
+            # every stage up to the launch
             clock["h2d_wait"] = t1 - t0
+            with prof_range("launch"):
+                pending = self._execute(dev, b, sealed)
             clock["launch"] = time.perf_counter() - t1
         return pending
 
@@ -1028,17 +1111,18 @@ class BatchEngine:
                 continue
             if entry is None:
                 break
-            dev, uploaded, items, n, b, clock, sealed = entry
+            dev, uploaded, items, n, b, clock, sealed, bid = entry
             if self._stop.is_set():
                 exc = RuntimeError(f"engine {self.name} is stopped")
                 for it in items:
                     _safe_set_exception(it.future, exc)
                 if sealed is not None:
                     self._ring.release(sealed)
+                self._trace_end(bid, items, "error")
                 continue
             self._in_flight.acquire()
             t0 = time.perf_counter()
-            bid = self._track_dispatch(t0, items, b)
+            self._track_dispatch(t0, items, b, bid)
             try:
                 pending = self._launch(dev, uploaded, b, sealed, clock)
             except Exception as exc:  # noqa: BLE001 — surface to every caller
@@ -1047,9 +1131,10 @@ class BatchEngine:
             self._record_batch(n, b, clock, items, sealed)
             self._done.put((pending, items, t0, bid, sealed, n))
 
-    def _drain_upload_q(self, exc: Exception) -> None:
+    def _drain_upload_q(self, exc: Exception,
+                        status: str = "error") -> None:
         """Fail every uploaded-but-unlaunched batch (stop, abandon,
-        stall)."""
+        stall); ``status`` retires their trace records."""
         while True:
             try:
                 entry = self._upload_q.get_nowait()
@@ -1057,11 +1142,12 @@ class BatchEngine:
                 return
             if entry is None:
                 continue
-            items, sealed = entry[2], entry[6]
+            items, sealed, bid = entry[2], entry[6], entry[7]
             for it in items:
                 _safe_set_exception(it.future, exc)
             if sealed is not None:
                 self._ring.release(sealed)
+            self._trace_end(bid, items, status)
 
     # ------------------------------------------------- dispatch loops
 
@@ -1090,7 +1176,8 @@ class BatchEngine:
                 if op.batch_cap:
                     cap = min(cap, op.batch_cap)
                 deadline *= op.deadline_scale
-            items = cq.collect(cls, cap, deadline)
+            with prof_range("submit_wait"):
+                items = cq.collect(cls, cap, deadline)
             # the formation wait itself can age items past budget
             items = shedder.shed(cls, items)
             if not items:
@@ -1212,7 +1299,8 @@ class BatchEngine:
             pending, items, t0, bid, sealed, n = entry
             t_rb = time.perf_counter()
             try:
-                with devlock.device_call(f"{self.name}:readback"):
+                with devlock.device_call(f"{self.name}:readback"), \
+                        prof_range("readback"):
                     host = self._readback(pending)
                 # each row copied out: the slot's output block, and the
                 # step's own output where it aliases the staged input,
@@ -1225,11 +1313,14 @@ class BatchEngine:
                 self._in_flight.release()
                 with self._exec_lock:
                     self._outstanding.pop(bid, None)
+                    self._last_done = time.perf_counter()
                 if sealed is not None:
                     self._ring.release(sealed)
+                self._trace_end(bid, items, "error")
                 continue
             with self._exec_lock:
                 done = self._outstanding.pop(bid, None)
+                self._last_done = time.perf_counter()
                 if done is not None:
                     self._buckets_done.add(done[2])
             self._in_flight.release()
@@ -1245,18 +1336,24 @@ class BatchEngine:
                             {"engine": self.name})
             readback_s = now - t_rb
             t_res = time.perf_counter()
-            for i, it in enumerate(items):
-                metrics.observe("evam_item_latency_seconds",
-                                now - it.t_submit, {"engine": self.name})
-                if ragged:
-                    # item i owns its packed unit rows (none: an empty
-                    # slice)
-                    off = int(sealed.row_offset[i])
-                    _safe_set_result(
-                        it.future, rows[off:off + int(sealed.row_len[i])])
-                else:
-                    _safe_set_result(it.future, rows[i])
+            with prof_range("resolve"):
+                for i, it in enumerate(items):
+                    metrics.observe("evam_item_latency_seconds",
+                                    now - it.t_submit, {"engine": self.name})
+                    if ragged:
+                        # item i owns its packed unit rows (none: an
+                        # empty slice)
+                        off = int(sealed.row_offset[i])
+                        _safe_set_result(
+                            it.future,
+                            rows[off:off + int(sealed.row_len[i])])
+                    else:
+                        _safe_set_result(it.future, rows[i])
             resolve_s = time.perf_counter() - t_res
+            # retire the batch record: the queue-wait and dispatch spans
+            # of every member frame, and the completion-side stages
+            self._trace_end(bid, items, "ok", readback_s=readback_s,
+                            resolve_s=resolve_s)
             with self._exec_lock:
                 self.stats.add_stage("readback", readback_s)
                 self.stats.add_stage("resolve", resolve_s)
@@ -1267,7 +1364,14 @@ class BatchEngine:
 
     def _watchdog_loop(self) -> None:
         """Fail futures stranded behind a stalled device call and flag
-        the engine (the wedged thread itself cannot be unblocked)."""
+        the engine (the wedged thread itself cannot be unblocked). The
+        head of the ordered device queue is stalled once it has run its
+        budget past the later of its dispatch and the last batch that
+        left the queue; everything behind it is stranded with it. (A
+        deadline fixed at dispatch and floored at the batch ahead's
+        deadline plus a budget, the reference's rule, ratchets up by a
+        budget with every batch dispatched while another is in flight:
+        under steady load a wedge would go unseen.)"""
         # floor 0.2 s: tests run sub-second stall budgets
         interval = max(self.stall_timeout_s / 4.0, 0.2)
         while not self._stop.wait(interval):
@@ -1275,12 +1379,13 @@ class BatchEngine:
             now = time.perf_counter()
             with self._exec_lock:
                 slots = list(self._outstanding.values())
-            stuck: list[_WorkItem] = []
-            for _t0, items, _b, deadline in slots:
-                if now > deadline:
-                    stuck.extend(items)
-            if not stuck:
+                last_done = self._last_done
+            if not slots:
                 continue
+            t0, _items, _b, budget = slots[0]
+            if now <= max(t0, last_done) + budget:
+                continue
+            stuck = [it for _t0, items, _b, _budget in slots for it in items]
             self.stalled.set()
             log.error(
                 "engine %s stalled: device call exceeded %.0fs; failing "

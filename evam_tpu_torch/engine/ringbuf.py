@@ -51,6 +51,7 @@ from typing import Any, Callable
 import numpy as np
 
 from evam_tpu_torch.engine.ragged import RaggedSpec
+from evam_tpu_torch.obs.trace import prof_range
 
 #: stage names of the per-batch host clock, in pipeline order.
 #: submit_wait covers slot backpressure and the deadline-batching wait;
@@ -245,13 +246,14 @@ class SlotRing:
                 self._cv.notify_all()
         t1 = time.perf_counter()
         try:
-            for name, a in arrays.items():
-                if spec is not None and name == spec.input:
-                    if k:  # the packed span is exclusively owned
-                        slot.arrays[name][off:off + k] = a
-                        slot.seg[off:off + k] = row
-                else:
-                    slot.arrays[name][row] = a  # row exclusively owned
+            with prof_range("slot_write"):
+                for name, a in arrays.items():
+                    if spec is not None and name == spec.input:
+                        if k:  # the packed span is exclusively owned
+                            slot.arrays[name][off:off + k] = a
+                            slot.seg[off:off + k] = row
+                    else:
+                        slot.arrays[name][row] = a  # row exclusively owned
         finally:
             with self._cv:
                 slot.write_sum += time.perf_counter() - t1
@@ -268,7 +270,7 @@ class SlotRing:
         views. On a ragged ring ``bucket_fn`` takes ``(n, units)`` and
         the packed block's and seg's tails are masked too. None once the
         ring is closed and drained."""
-        with self._cv:
+        with prof_range("submit_wait"), self._cv:
             while True:
                 if self._full:
                     slot = self._full.popleft()
@@ -314,7 +316,8 @@ class SlotRing:
                 write_sum = slot.write_sum
                 break
         t0 = time.perf_counter()
-        sealed = self._seal(slot, items, n, bucket_fn)
+        with prof_range("seal"):
+            sealed = self._seal(slot, items, n, bucket_fn)
         sealed.clock.update({
             "submit_wait": submit_wait,
             "slot_write": write_sum,
@@ -480,38 +483,39 @@ class SlotRing:
         remaining: list = []
         row = 0
         off = 0
-        for idx, (inputs, item) in enumerate(staged):
-            if row >= self.capacity:
-                remaining = list(staged[idx:])
-                break
-            try:
-                arrays = {k: np.asarray(v) for k, v in inputs.items()}
-                self._check_shapes(arrays)
-            except Exception as exc:  # noqa: BLE001 — fail only this item
-                try:
-                    item.future.set_exception(exc)
-                except Exception:  # noqa: BLE001 — already resolved
-                    pass
-                continue
-            if spec is not None:
-                k = int(arrays[spec.input].shape[0])
-                if off + k > self.unit_capacity:
+        with prof_range("slot_write"):
+            for idx, (inputs, item) in enumerate(staged):
+                if row >= self.capacity:
                     remaining = list(staged[idx:])
                     break
-                for name, a in arrays.items():
-                    if name == spec.input:
-                        if k:
-                            slot.arrays[name][off:off + k] = a
-                            slot.seg[off:off + k] = row
-                    else:
+                try:
+                    arrays = {k: np.asarray(v) for k, v in inputs.items()}
+                    self._check_shapes(arrays)
+                except Exception as exc:  # noqa: BLE001 — fail only this item
+                    try:
+                        item.future.set_exception(exc)
+                    except Exception:  # noqa: BLE001 — already resolved
+                        pass
+                    continue
+                if spec is not None:
+                    k = int(arrays[spec.input].shape[0])
+                    if off + k > self.unit_capacity:
+                        remaining = list(staged[idx:])
+                        break
+                    for name, a in arrays.items():
+                        if name == spec.input:
+                            if k:
+                                slot.arrays[name][off:off + k] = a
+                                slot.seg[off:off + k] = row
+                        else:
+                            slot.arrays[name][row] = a
+                    slot.row_len[row] = k
+                    off += k
+                else:
+                    for name, a in arrays.items():
                         slot.arrays[name][row] = a
-                slot.row_len[row] = k
-                off += k
-            else:
-                for name, a in arrays.items():
-                    slot.arrays[name][row] = a
-            ok_items.append(item)
-            row += 1
+                ok_items.append(item)
+                row += 1
         clock["slot_write"] = time.perf_counter() - t0
         if not ok_items:
             with self._cv:
@@ -526,7 +530,8 @@ class SlotRing:
         t1 = time.perf_counter()
         slot.count = row
         slot.unit_count = off
-        sealed = self._seal(slot, ok_items, row, bucket_fn)
+        with prof_range("seal"):
+            sealed = self._seal(slot, ok_items, row, bucket_fn)
         sealed.clock.update(clock)
         sealed.clock["seal"] = time.perf_counter() - t1
         return sealed, remaining

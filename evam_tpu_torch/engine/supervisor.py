@@ -9,19 +9,27 @@ then recovers in process:
   rebuild is invisible to every holder;
 * a **monitor thread** watches the live engine (the ``stalled`` flag, or
   a dead dispatcher, launcher or completer thread) and, on a trip,
-  **quarantines** it (``BatchEngine.abandon()``: fail everything
+  writes a **flight-recorder** artifact (``obs/trace.py``
+  ``flight_dump``: the ring's last batch and frame records, the wedged
+  batch's row naming its last completed stage, and the engine's queue
+  state), captures every registered stream's checkpoint at the
+  ``pre_rebuild`` barrier (EVAM_CKPT on), then **quarantines** it
+  (``BatchEngine.abandon()``: fail everything
   failable, never join the wedged threads; its graphs and staging
   buffers are freed), waits an exponential backoff, **rebuilds** it with
   the factory — fresh CUDA graphs and a fresh staging ring — re-warms
   it from the captured example, and swaps it in;
 * a **restart budget**: at most ``max_restarts`` rebuilds within a
   sliding ``restart_window_s``. Exhausting it is the terminal
-  ``degraded`` state: /healthz answers 503 "degraded" (against the
-  transient 503 "restarting") and the process needs a restart.
+  ``degraded`` state (a second flight dump): /healthz answers 503
+  "degraded" (against the transient 503 "restarting") and the process
+  needs a restart.
 
 A sticky CUDA error poisons the whole context, so a real device fault
 cannot be recovered in process; what the supervisor recovers from is a
-host-side wedge (tests stub one with a launch that blocks on an event).
+host-side wedge: EVAM_FAULT_INJECT's ``wedge`` (the launching thread
+sleeps under the engine's device lock), or a test's stub launch that
+blocks on an event.
 
 States ride ``evam_engine_state`` (0 running, 1 restarting, 2
 degraded) and rebuilds ``evam_engine_restarts``.
@@ -37,12 +45,30 @@ from concurrent.futures import Future
 from typing import Callable
 
 from evam_tpu_torch.engine.batcher import BatchEngine, EngineStats, stats_row
+from evam_tpu_torch.obs import trace
 from evam_tpu_torch.obs.metrics import metrics
 
 log = logging.getLogger("evam_tpu_torch.engine.supervisor")
 
 #: gauge encoding for evam_engine_state, index = value
 ENGINE_STATES = ("running", "restarting", "degraded")
+
+
+def _engine_snapshot(eng) -> dict:
+    """Queue and in-flight state of a wedged engine for the flight
+    recorder's header, taken before abandon() fails the stranded
+    futures."""
+    try:
+        return {
+            "queue_depth": eng.queue_depth(),
+            "class_depths": eng.class_depths(),
+            "shed_counts": eng.shed_counts(),
+            "outstanding": len(eng._outstanding),
+            "stalled": eng.stalled.is_set(),
+            "batches": eng.stats.batches,
+        }
+    except Exception:  # noqa: BLE001 — engine mid-teardown
+        return {}
 
 
 class SupervisedEngine:
@@ -72,6 +98,9 @@ class SupervisedEngine:
         self.poll_interval_s = poll_interval_s
         self.restarts = 0
         self.last_stall_ts: float | None = None
+        #: path of the last flight-recorder artifact (None: none
+        #: written, or tracing off)
+        self.last_flight: str | None = None
         self._restart_times: deque[float] = deque()
         #: cumulative counters of quarantined engines, so /healthz and
         #: /engines stay monotonic across a rebuild
@@ -94,7 +123,8 @@ class SupervisedEngine:
     # ------------------------------------------------------------- API
 
     def submit(self, priority: str = "standard", units: int | None = None,
-               stream: str | None = None, **inputs) -> Future:
+               stream: str | None = None, trace: object | None = None,
+               **inputs) -> Future:
         with self._lock:
             state = self.state
             eng = self._engine
@@ -110,7 +140,7 @@ class SupervisedEngine:
                 f"engine {self.name} is restarting after a wedge; "
                 "retry shortly")
         return eng.submit(priority=priority, units=units, stream=stream,
-                          **inputs)
+                          trace=trace, **inputs)
 
     def warm_async(self, **example) -> None:
         with self._lock:
@@ -229,6 +259,17 @@ class SupervisedEngine:
         with self._lock:
             self.last_stall_ts = time.time()
         log.error("engine %s wedged (%s); quarantining", self.name, reason)
+        # the flight recorder first: abandon() fails the stranded
+        # futures and retires the wedged batch's pending record
+        self.last_flight = trace.flight_dump(
+            self.name, reason, state=_engine_snapshot(eng))
+        # the crash-consistency barrier: every registered stream's
+        # state, no older than the wedge, before the swap
+        from evam_tpu_torch.state import active as ckpt_active
+
+        ckpt = ckpt_active()
+        if ckpt is not None:
+            ckpt.capture_all(barrier="pre_rebuild")
         self._absorb_counters(eng)
         eng.abandon()
         while not self._stop_evt.is_set():
@@ -239,6 +280,9 @@ class SupervisedEngine:
             if len(self._restart_times) >= self.max_restarts:
                 with self._lock:
                     self._set_state("degraded")
+                self.last_flight = trace.flight_dump(
+                    self.name, "restart budget exhausted; degraded",
+                    state=_engine_snapshot(eng))
                 log.error(
                     "engine %s restart budget exhausted (%d rebuilds in "
                     "%.0fs); entering terminal degraded state — process "

@@ -32,10 +32,12 @@ state, queue depths, shed counts) is a fleet-wide aggregate, so
 /healthz, /engines and admission read a FleetEngine as they read one
 engine — with Σ-shard capacity.
 
-Left out until slice 10 (tracing, faults and stream state): the
-reference's fault drill (``faults.current()`` injecting a shard loss
-between placement and submit) and the pre-rebalance checkpoint of each
-migrating stream's gate, coaster and tracker state.
+The fault drill: with EVAM_FAULT_INJECT's ``shard_loss``, a submit
+retires the shard its stream was just placed on (never the last live
+one) and re-places the stream. Before any pin moves — a retirement, a
+scale-down or a scale-up's rebalance — each migrating stream's gate,
+coaster and tracker state is captured at the ``pre_rebalance`` barrier
+(EVAM_CKPT on, ``state/``).
 """
 
 from __future__ import annotations
@@ -49,7 +51,9 @@ import torch
 
 from evam_tpu_torch.engine.batcher import EngineStats, stats_row
 from evam_tpu_torch.fleet.placer import ConsistentHashPlacer
+from evam_tpu_torch.obs import faults
 from evam_tpu_torch.obs.metrics import metrics
+from evam_tpu_torch.state import active as ckpt_active
 
 log = logging.getLogger("evam_tpu_torch.fleet.engine")
 
@@ -186,14 +190,25 @@ class FleetEngine:
     # ------------------------------------------------------------- API
 
     def submit(self, priority: str = "standard", units: int | None = None,
-               stream: str | None = None, **inputs):
+               stream: str | None = None, trace: object | None = None,
+               **inputs):
         """Route one item: batch class → the mesh twin (big buckets),
         everything else → the stream's pinned shard."""
         self._sweep_degraded()
         if priority == "batch" and self._mesh_factory is not None:
             return self._mesh().submit(priority=priority, units=units,
-                                       stream=stream, **inputs)
+                                       stream=stream, trace=trace, **inputs)
         label = self._place(stream or "")
+        # the shard-loss drill (one None check with no fault injected)
+        inj = faults.current()
+        if inj is not None:
+            with self._lock:
+                survivors = len(self.shards) > 1
+            if survivors and inj.maybe_shard_loss(label):
+                # the placed shard dies between placement and submit —
+                # the window the checkpoint and migration path covers
+                self._retire(label, reason="shard_loss")
+                label = self._place(stream or "")
         with self._lock:
             eng = self.shards.get(label)
         if eng is None:  # retired between place and lookup
@@ -201,7 +216,7 @@ class FleetEngine:
             with self._lock:
                 eng = self.shards[label]
         return eng.submit(priority=priority, units=units, stream=stream,
-                          **inputs)
+                          trace=trace, **inputs)
 
     def placement(self, stream: str) -> str:
         """The shard label a stream is pinned to (placing it now if it
@@ -230,8 +245,17 @@ class FleetEngine:
             self._retire(label)
 
     def _retire(self, label: str, reason: str = "shard_loss") -> None:
-        """Drain-and-rebalance one shard: absorb its counters, migrate
-        its streams, fail its in-flight work via stop()."""
+        """Drain-and-rebalance one shard: checkpoint its streams, absorb
+        its counters, migrate its streams, fail its in-flight work via
+        stop()."""
+        # the pre-rebalance barrier before the pins move, outside _lock
+        # (a capture takes the instance's and the store's locks)
+        store = ckpt_active()
+        if store is not None:
+            with self._lock:
+                doomed = [s for s, cur in self._pins.items() if cur == label]
+            for s in doomed:
+                store.capture(s, barrier="pre_rebalance", reason=reason)
         with self._lock:
             eng = self.shards.pop(label, None)
             if eng is None:
@@ -348,9 +372,20 @@ class FleetEngine:
                 self._placer.add(label)
                 self.scale_ups += 1
                 self._last_spinup_s = time.perf_counter() - t0
+                # the pinned streams the grown ring now owns: their pins
+                # move after the checkpoint below
+                moving = [s for s, cur in self._pins.items()
+                          if cur != label and self._placer.place(s) == label]
+            store = ckpt_active()
+            if store is not None:
+                for s in moving:
+                    store.capture(s, barrier="pre_rebalance",
+                                  reason="scale_up")
+            with self._lock:
                 moved = 0
-                for s, cur in list(self._pins.items()):
-                    if cur != label and self._placer.place(s) == label:
+                for s in moving:
+                    if (self._pins.get(s) != label
+                            and self._placer.place(s) == label):
                         self._pins[s] = label
                         self.rebalances += 1
                         moved += 1

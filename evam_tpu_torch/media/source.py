@@ -34,6 +34,9 @@ class FrameEvent:
     pts_ns: int        # presentation timestamp, ns
     seq: int
     audio: np.ndarray | None = None  # S16LE mono 16 kHz chunk
+    #: seconds the source spent decoding this frame, where it measures
+    #: them (the runner backdates a ``decode`` span by it)
+    decode_s: float | None = None
 
 
 class VideoSource(Protocol):

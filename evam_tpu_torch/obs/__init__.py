@@ -1,5 +1,6 @@
-"""Logging and metrics (counterpart of ``evam_tpu/obs``; tracing,
-fault injection and the flight recorder come with a later slice)."""
+"""Logging, metrics, tracing and the flight recorder (``obs/trace.py``),
+and fault injection (``obs/faults.py``): the counterpart of
+``evam_tpu/obs``."""
 
 from evam_tpu_torch.obs.log import configure_logging
 from evam_tpu_torch.obs.metrics import MetricsRegistry, metrics

@@ -7,7 +7,7 @@
     GET    /pipelines/{name}/{version}/{id}
     GET    /pipelines/{name}/{version}/{id}/status
     DELETE /pipelines/{name}/{version}/{id}
-    GET    /models, /engines, /scheduler, /metrics, /healthz
+    GET    /models, /engines, /scheduler, /metrics, /traces, /healthz
 
 ``/metrics`` also carries ``evam_kernel_launches{kernel, variant}``,
 the hand kernels' launch counts since the process started.
@@ -22,7 +22,10 @@ that is not an object → 400, ``KeyError`` → 404, ``MissingWeightsError``
 destination that waits for a later slice (``NotImplementedError``) →
 501 with the slice in the error; a start over the admission ceiling
 (``AdmissionError``) → 503 with ``Retry-After`` and ``{"error",
-"retry_after_s"}``. ``/traces`` answers 501 until its slice.
+"retry_after_s"}``. ``/traces`` serves the trace ring
+(``obs/trace.py`` ``traces_payload``: the ring's counters and its
+frames and batches as Chrome trace events); ``/engines`` carries the
+checkpoint store's ``checkpoint`` block with EVAM_CKPT on.
 """
 
 from __future__ import annotations
@@ -36,9 +39,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable
 from urllib.parse import unquote, urlsplit
 
-from evam_tpu_torch import slices
 from evam_tpu_torch.config.settings import Settings
 from evam_tpu_torch.models.registry import MissingWeightsError
+from evam_tpu_torch.obs import trace
 from evam_tpu_torch.obs.metrics import metrics
 from evam_tpu_torch.ops import qgemm
 from evam_tpu_torch.sched import AdmissionError
@@ -97,7 +100,7 @@ class App:
             ("GET", "/engines", self.engines),
             ("GET", "/scheduler", self.scheduler),
             ("GET", "/metrics", self.metrics_endpoint),
-            ("GET", "/traces", self.later(slices.TRACE_STATE)),
+            ("GET", "/traces", self.traces),
             ("GET", "/healthz", self.healthz),
         ]:
             pattern = re.compile(
@@ -200,7 +203,16 @@ class App:
         return Response(200, self.registry.hub.registry.describe())
 
     def engines(self, params, body) -> Response:
-        return Response(200, self.registry.hub.stats())
+        payload = self.registry.hub.stats()
+        # the checkpoint store's counters beside the engine rows (an
+        # engine key always holds ':', so the key cannot collide);
+        # absent with EVAM_CKPT off
+        from evam_tpu_torch.state import active as ckpt_active
+
+        store = ckpt_active()
+        if store is not None:
+            payload["checkpoint"] = store.summary()
+        return Response(200, payload)
 
     def scheduler(self, params, body) -> Response:
         return Response(200, self.registry.scheduler_status())
@@ -213,11 +225,10 @@ class App:
                         labels={"kernel": "qgemm", "variant": variant})
         return Response(200, text=metrics.render())
 
-    @staticmethod
-    def later(slice_: str) -> Handler:
-        def handler(params, body) -> Response:
-            return _error(501, f"this route comes with {slice_}")
-        return handler
+    def traces(self, params, body) -> Response:
+        # each request has its own thread: the snapshot never holds up
+        # another route
+        return Response(200, trace.traces_payload())
 
     def healthz(self, params, body) -> Response:
         hub = self.registry.hub
@@ -286,8 +297,12 @@ def make_server(app: App, host: str = "0.0.0.0",
 
 def run_server(settings: Settings) -> int:
     """Blocking entry point of ``serve``: answers until SIGINT or
-    SIGTERM, then stops every instance and the engines, and returns 0."""
+    SIGTERM, then stops every instance and the engines, and returns 0.
+    The streams a previous run left in ``EVAM_STATE_DIR`` are resumed
+    before the port opens."""
+    trace.init_observability(settings)
     registry = PipelineRegistry(settings)
+    registry.resume()
     if settings.preload:
         n = registry.preload(settings.preload)
         log.info("preloaded %d pipeline(s) before opening the port", n)

@@ -1,8 +1,8 @@
 """StreamInstance: one running pipeline instance.
 
 Counterpart of ``evam_tpu/server/instance.py`` (a copy, less the
-decode-pool, RTSP-demux and checkpoint blocks, whose knobs raise until
-their slices). The instance owns only light host work: a thread
+decode-pool and RTSP-demux blocks, whose knobs raise until their
+slice). The instance owns only light host work: a thread
 walking its frames through the stage chain via StreamRunner; all
 inference rides the shared EngineHub batch queues. A dying stream
 never takes the engine down.
@@ -10,6 +10,12 @@ never takes the engine down.
 Lifecycle (the reference pipeline server's states): QUEUED → RUNNING →
 COMPLETED | ERROR | ABORTED, with a capped, jittered reconnect between
 failed attempts.
+
+Stream state: ``stage_state`` / ``restore_stage_state`` round-trip the
+stages' cross-frame state through the registry's ``streams.json``;
+``checkpoint_payload`` / ``restore_checkpoint`` are the two sides of a
+``StreamCheckpoint`` (``state/``, EVAM_CKPT), restored before the
+first frame; with ckpt on, the status carries a ``checkpoint`` block.
 """
 
 from __future__ import annotations
@@ -101,6 +107,11 @@ class StreamInstance:
         self._stop = threading.Event()
         # Guards _source against the stop()-vs-retry-reassignment race.
         self._src_lock = threading.Lock()
+        #: a DELETE: never resumed, whatever the drain finds
+        self.deleted = False
+        #: set by restore_checkpoint: where this instance's serving
+        #: state came from (in the status with ckpt on)
+        self._restored_from: dict[str, Any] | None = None
 
     # ------------------------------------------------------- lifecycle
 
@@ -214,6 +225,85 @@ class StreamInstance:
         dt = max(end - self.start_time, 1e-9)
         return self._runner.frames_out / dt
 
+    def stage_state(self) -> dict[str, dict]:
+        """Snapshot of every stateful stage (keyed by stage name) for
+        streams.json persistence."""
+        out: dict[str, dict] = {}
+        for stage in self.stages:
+            try:
+                snap = stage.snapshot()
+            except Exception:  # noqa: BLE001 — state capture is best-effort
+                snap = None
+            if snap is not None:
+                out[stage.name] = snap
+        return out
+
+    def restore_stage_state(self, state: dict[str, dict]) -> None:
+        for stage in self.stages:
+            if stage.name in state:
+                try:
+                    stage.restore(state[stage.name])
+                except Exception as exc:  # noqa: BLE001
+                    log.warning("stage %s state restore failed: %s",
+                                stage.name, exc)
+
+    # ------------------------------------- crash-consistent checkpoints
+
+    def _gate(self):
+        """The first gating stage's MotionGate, or None."""
+        for stage in self.stages:
+            gate = getattr(stage, "gate", None)
+            if gate is not None:
+                return gate
+        return None
+
+    def checkpoint_payload(self) -> dict[str, Any] | None:
+        """StreamCheckpoint field values less the envelope's own
+        stream_id, captured_at and barrier — the capture side. Called
+        from capture barriers on stream, fleet and supervisor threads;
+        a torn read is tolerated (a checkpoint is a snapshot, not a
+        transaction)."""
+        runner = self._runner
+        gate = self._gate()
+        return {
+            "sched_class": self.priority,
+            "trace_marker": runner.last_trace_id if runner else "",
+            "frame_seq": runner.frames_out if runner else 0,
+            "max_skip": gate.cfg.max_skip if gate is not None else 0,
+            "skips_at_capture": (gate.consecutive_skips
+                                 if gate is not None else 0),
+            "fps": round(self.avg_fps, 3) or 30.0,
+            "stages": self.stage_state(),
+        }
+
+    def restore_checkpoint(self, ck, stale: bool = False) -> None:
+        """Apply a decoded StreamCheckpoint before start(). ``stale``
+        (older than the gate's max-skip bound) keeps only what never
+        goes stale — the tracker's next id — and forces the gate to
+        refresh; detections and the gate's anchor are dropped."""
+        from evam_tpu_torch.sched.classes import coerce_priority
+
+        self.priority = coerce_priority(ck.sched_class, self.priority)
+        state = ck.stages
+        if stale:
+            pruned: dict[str, dict] = {}
+            for name, st in state.items():
+                if not isinstance(st, dict):
+                    continue
+                if "next_id" in st:
+                    pruned[name] = {"next_id": st["next_id"]}
+                elif "count" in st or "coaster" in st or "gate" in st:
+                    pruned[name] = {"count": st.get("count", 0),
+                                    "stale": True}
+            state = pruned
+        self.restore_stage_state(state)
+        self._restored_from = {
+            "barrier": ck.barrier,
+            "frame_seq": ck.frame_seq,
+            "trace_marker": ck.trace_marker,
+            "stale": stale,
+        }
+
     def status(self) -> dict[str, Any]:
         """Reference status payload shape: id, state, avg_fps,
         start_time, elapsed_time, priority (+ error message when failed,
@@ -239,6 +329,18 @@ class StreamInstance:
                  if getattr(stage, "gate", None) is not None}
         if gates:
             out["gate"] = gates
+        # the checkpoint block, present only with EVAM_CKPT on
+        from evam_tpu_torch.state import active as ckpt_active
+
+        store = ckpt_active()
+        if store is not None:
+            ck: dict[str, Any] = {"held": False}
+            info = store.stream_info(self.id)
+            if info is not None:
+                ck.update(info)
+            if self._restored_from is not None:
+                ck["restored_from"] = self._restored_from
+            out["checkpoint"] = ck
         return out
 
     def _weight_provenance(self) -> dict[str, Any]:

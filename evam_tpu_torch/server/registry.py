@@ -18,15 +18,27 @@ The hub's device list comes from ``tpu.mesh_shape`` / ``tpu.mesh_axes``
 EVAM_FLEET_MAX_SHARDS with the fleet on, as the reference narrows its
 mesh.
 
+Stream persistence: with ``EVAM_STATE_DIR`` the registry keeps
+``streams.json`` there (each active stream's pipeline, request and
+stage state; written atomically on every start, stop and finish, and
+every 30 s while a stream runs), and ``resume()`` restarts the streams
+a previous process left. With ``EVAM_CKPT`` on a stream's state is its
+CRC-guarded ``StreamCheckpoint`` blob (``state/``), restored through
+the store's degradation ladder before its first frame; ``stop_all``
+captures every live stream at the ``drain`` barrier and keeps
+``streams.json`` (a DELETE removes its stream from it).
+
 Left out until their slices (ROADMAP.md): the RTSP and WebRTC frame
-destinations, the decode pool and RTSP demux, checkpoints, and
-persistence (``_persist`` / ``resume``).
+destinations, the decode pool and the RTSP demux.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import threading
+from pathlib import Path
 from typing import Any
 
 from evam_tpu_torch import slices
@@ -45,8 +57,10 @@ from evam_tpu_torch.sched import (
     SchedConfig,
     validate_priority,
 )
-from evam_tpu_torch.server.instance import StreamInstance
+from evam_tpu_torch.server.instance import InstanceState, StreamInstance
 from evam_tpu_torch.stages.build import build_stages
+from evam_tpu_torch.state import active as ckpt_active
+from evam_tpu_torch.state import is_checkpoint_blob
 
 log = logging.getLogger("evam_tpu_torch.server.registry")
 
@@ -122,6 +136,21 @@ class PipelineRegistry:
             self.tuner.start()
         self.instances: dict[str, StreamInstance] = {}
         self._lock = threading.Lock()
+        self._draining = False
+        #: the checkpoint store (EVAM_CKPT), resolved once: None when
+        #: off, and every hook below is one None check
+        self._ckpt = ckpt_active()
+        self._state_file = (Path(settings.state_dir) / "streams.json"
+                            if settings.state_dir else None)
+        self._persist_lock = threading.Lock()
+        #: persists fire on start, stop and finish; a quiet stream's
+        #: stage state (the tracker's next id) is re-persisted this
+        #: often, bounding what a SIGKILL loses
+        self._persist_interval_s = 30.0
+        self._persist_stop = threading.Event()
+        if self._state_file is not None:
+            threading.Thread(target=self._periodic_persist,
+                             name="registry-persist", daemon=True).start()
 
     # ------------------------------------------------------- preload
 
@@ -173,13 +202,16 @@ class PipelineRegistry:
 
     def start_instance(self, name: str, version: str,
                        request: dict[str, Any], publish_fn=None,
-                       source=None, sink_fn=None) -> StreamInstance:
+                       source=None, sink_fn=None,
+                       saved_state: dict | None = None) -> StreamInstance:
         """``publish_fn``, ``source`` and ``sink_fn`` are embedder
         overrides: the EII manager publishes (meta, frame) over the
         message bus from the publish stage (or from the sink of a
         pipeline without one) and injects an ``AppSource`` its
         subscriber feeds. With an injected source, ``request.source``
-        is not validated."""
+        is not validated. ``saved_state`` (``resume``) is a stream's
+        persisted stage state or checkpoint blob, restored before its
+        first frame."""
         spec = self.loader.get(name, version)
         if spec is None:
             raise KeyError(f"pipeline {name}/{version} not found")
@@ -211,15 +243,15 @@ class PipelineRegistry:
         try:
             return self._start_admitted(name, version, spec, src, request,
                                         priority, ticket, publish_fn,
-                                        source, sink_fn)
+                                        source, sink_fn, saved_state)
         except BaseException:
             ticket.release()
             raise
 
     def _start_admitted(self, name: str, version: str, spec, src,
                         request: dict[str, Any], priority: str,
-                        ticket, publish_fn, source,
-                        sink_fn) -> StreamInstance:
+                        ticket, publish_fn, source, sink_fn,
+                        saved_state: dict | None) -> StreamInstance:
         if source is None:
             check_source(src)
         frame_cfg = (request.get("destination") or {}).get("frame") or {}
@@ -255,14 +287,33 @@ class PipelineRegistry:
             request=request,
             destination=destination,
             priority=priority,
-            on_finish=lambda _inst: ticket.release(),
+            on_finish=lambda _inst: self._on_instance_finish(ticket),
             source=source,
         )
+        if saved_state:
+            # before start(): the first resumed frame must already see
+            # the restored state (the tracker's next id)
+            if self._ckpt is not None and is_checkpoint_blob(saved_state):
+                # a checkpoint blob: restored through the store's
+                # degradation ladder (corrupt, stale or slow → a loud
+                # cold start, never a failed start)
+                self._ckpt.restore_into(saved_state, instance)
+            else:
+                instance.restore_stage_state(saved_state)
+        if self._ckpt is not None:
+            # before start(): the runner's first post-resolve capture
+            # must find the instance
+            self._ckpt.register(instance.id, instance)
         with self._lock:
             self.instances[instance.id] = instance
         instance.start()
         log.info("started %s/%s instance %s", name, version, instance.id)
+        self._persist()
         return instance
+
+    def _on_instance_finish(self, ticket) -> None:
+        ticket.release()
+        self._persist()
 
     def get_instance(self, instance_id: str) -> StreamInstance | None:
         return self.instances.get(instance_id)
@@ -270,7 +321,13 @@ class PipelineRegistry:
     def stop_instance(self, instance_id: str) -> StreamInstance | None:
         inst = self.instances.get(instance_id)
         if inst is not None:
+            inst.deleted = True  # survives the drain's filter
+            if self._ckpt is not None:
+                # a DELETE must not leave a checkpoint that could
+                # resurrect the stream at the next start
+                self._ckpt.unregister(instance_id)
             inst.stop()
+            self._persist()
         return inst
 
     def scheduler_status(self) -> dict[str, Any]:
@@ -297,17 +354,47 @@ class PipelineRegistry:
         """Drain every instance and shut the engines down. Returns the
         number of LEAKED instances — worker threads still alive after
         the per-instance drain budget (``settings.drain_timeout_s``),
-        logged and counted in ``evam_shutdown_leaked_streams``."""
+        logged and counted in ``evam_shutdown_leaked_streams``; with
+        EVAM_CKPT on a straggler is checkpointed at the ``drain``
+        barrier instead, and so is every stream that stopped cleanly.
+        ``streams.json`` keeps the streams that were live (not the
+        deleted, completed or failed ones), for the next start's
+        ``resume()``."""
         if self.tuner is not None:
             self.tuner.stop()
         with self._lock:
             instances = list(self.instances.values())
+        # which streams were live before stop() flips their intent;
+        # their state is read after the drain, so no id assigned
+        # mid-drain is lost
+        active = [i for i in instances if self._is_active(i)]
+        self._draining = True
+        self._persist_stop.set()
         for inst in instances:
             inst.stop()
         for inst in instances:
             inst.wait(timeout=self.settings.drain_timeout_s)
-        leaked = sum(1 for inst in instances
-                     if inst._thread is not None and inst._thread.is_alive())
+        leaked = 0
+        for inst in instances:
+            if inst._thread is None or not inst._thread.is_alive():
+                continue
+            if (self._ckpt is not None
+                    and self._ckpt.capture(inst.id, barrier="drain",
+                                           reason="drain") is not None):
+                # banked for the next start's resume(): a migration,
+                # not a loss
+                log.warning("stream %s still draining at shutdown; "
+                            "checkpointed for resume", inst.id[:8])
+                continue
+            leaked += 1
+            log.warning("stream %s still draining at shutdown; persisted "
+                        "state may lag", inst.id[:8])
+        if self._ckpt is not None:
+            # the drain barrier of the cleanly stopped streams: their
+            # workers are quiesced, so this is their last frame's state
+            for inst in active:
+                if inst._thread is None or not inst._thread.is_alive():
+                    self._ckpt.capture(inst.id, barrier="drain")
         metrics.set("evam_shutdown_leaked_streams", leaked)
         if leaked:
             log.error(
@@ -315,5 +402,92 @@ class PipelineRegistry:
                 "%.1fs each (daemon threads; the process exit reaps "
                 "them)", leaked, self.settings.drain_timeout_s,
             )
+        # a DELETE racing the shutdown stays deleted, and a stream that
+        # finished during the drain is not replayed
+        self._write_state([
+            self._entry(i) for i in active
+            if not i.deleted
+            and i.state not in (InstanceState.COMPLETED, InstanceState.ERROR)
+        ])
         self.hub.stop()
         return leaked
+
+    # ------------------------------------------------- restart/resume
+
+    def _persist(self) -> None:
+        """Write the active streams to streams.json (with
+        EVAM_STATE_DIR), so a restarted server can re-attach them."""
+        if self._state_file is None or self._draining:
+            return
+        with self._lock:
+            instances = list(self.instances.values())
+        self._write_state([self._entry(i) for i in instances
+                           if self._is_active(i)])
+
+    def _entry(self, inst: StreamInstance) -> dict:
+        """One streams.json record (the drain and the event persists
+        write the same schema)."""
+        state: dict = inst.stage_state()
+        if self._ckpt is not None:
+            # the barrier-consistent, CRC-guarded checkpoint blob over
+            # the live read; resume() feeds it back through the
+            # store's degradation ladder
+            blob = self._ckpt.export(inst.id)
+            if blob is not None:
+                state = blob
+        return {"pipeline": inst.pipeline_name, "version": inst.version,
+                "request": inst.request, "state": state}
+
+    @staticmethod
+    def _is_active(inst: StreamInstance) -> bool:
+        # _stop records the intent at once; the worker flips the state
+        # to ABORTED later, so the state alone would resurrect a
+        # deliberately stopped stream
+        return (inst.state in (InstanceState.QUEUED, InstanceState.RUNNING)
+                and not inst._stop.is_set())
+
+    def _periodic_persist(self) -> None:
+        while not self._persist_stop.wait(self._persist_interval_s):
+            if self._draining:
+                return
+            with self._lock:
+                any_active = any(self._is_active(i)
+                                 for i in self.instances.values())
+            if any_active:
+                self._persist()
+
+    def _write_state(self, entries: list[dict]) -> None:
+        """Atomic replace under a lock: a finishing stream's persist
+        races a DELETE's, and a torn file would poison the next
+        resume()."""
+        if self._state_file is None:
+            return
+        with self._persist_lock:
+            self._state_file.parent.mkdir(parents=True, exist_ok=True)
+            tmp = self._state_file.with_suffix(".tmp")
+            tmp.write_text(json.dumps(entries, indent=2))
+            os.replace(tmp, self._state_file)
+
+    def resume(self) -> int:
+        """Restart the streams a previous run recorded. Returns the
+        count."""
+        if self._state_file is None or not self._state_file.exists():
+            return 0
+        try:
+            entries = json.loads(self._state_file.read_text())
+        except (OSError, json.JSONDecodeError) as exc:
+            log.warning("stream state file unreadable (%s); skipping resume",
+                        exc)
+            return 0
+        n = 0
+        for e in entries:
+            try:
+                self.start_instance(e["pipeline"], e["version"], e["request"],
+                                    saved_state=e.get("state") or None)
+                n += 1
+            except Exception as exc:  # noqa: BLE001 — one bad entry is not fatal
+                log.warning("resume of %s/%s failed: %s",
+                            e.get("pipeline"), e.get("version"), exc)
+        if n:
+            log.info("resumed %d stream(s) from %s", n, self._state_file)
+        return n

@@ -23,6 +23,18 @@ class Stage:
     def process(self, ctx: FrameContext) -> list[FrameContext]:
         raise NotImplementedError
 
+    # stream state: a stage with cross-frame state round-trips a
+    # JSON-serializable snapshot through a stream checkpoint and the
+    # registry's streams.json, so a resumed stream keeps its
+    # invariants (tracker id monotonicity)
+
+    def snapshot(self) -> dict | None:
+        """JSON-serializable cross-frame state, or None (stateless)."""
+        return None
+
+    def restore(self, state: dict) -> None:
+        """Re-apply a snapshot() on a freshly built stage."""
+
 
 class AsyncStage(Stage):
     """Engine-backed stage: submit() returns a Future (or None to skip

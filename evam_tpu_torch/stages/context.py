@@ -1,7 +1,6 @@
 """Per-frame context flowing through a stream's stage chain.
 
-Counterpart of ``evam_tpu/stages/context.py`` (a copy, less the trace
-handle, whose layer comes with a later slice).
+Counterpart of ``evam_tpu/stages/context.py`` (a copy).
 """
 
 from __future__ import annotations
@@ -78,6 +77,10 @@ class FrameContext:
     scratch: dict[str, Any] = field(default_factory=dict)
     #: the stream's QoS class (``sched/``), carried into every submit
     priority: str = "standard"
+    #: per-frame trace handle (``obs/trace.py`` FrameTrace), minted at
+    #: ingest and threaded into engine submits for the batch↔frame
+    #: link; None when EVAM_TRACE=off
+    trace: Any | None = None
 
     @property
     def height(self) -> int:

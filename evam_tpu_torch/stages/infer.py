@@ -25,12 +25,18 @@ static interval: the gate scores the host frame at submit time, a
 skipped frame never reaches the engine, and its ``complete`` coasts the
 last detections forward by the number of skips the gate had counted at
 that frame's submit (kept in ``ctx.scratch["gate_coast"]``: frames in
-flight would read a later count off the gate).
+flight would read a later count off the gate). The gate's decision is a
+``gate.decide`` span on the frame's trace, and every submit carries the
+frame's trace handle (the batch it lands in links back to it). With
+EVAM_CKPT on, the detect-class stages' ``snapshot``/``restore`` carry
+the interval counter, the coaster's regions and velocities and the
+gate's state through a stream checkpoint.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from collections import deque
 from concurrent.futures import Future
 
@@ -99,13 +105,61 @@ def _parse_interval(properties: dict) -> int:
     return max(1, int(iv))
 
 
+def _timed_gate_decide(gate, ctx: FrameContext) -> bool:
+    """The motion gate's decision, as a ``gate.decide`` span on the
+    frame's trace (the verdict rides as an attr, so a skipped frame's
+    tree explains itself)."""
+    if ctx.trace is None:
+        return gate.decide(ctx.frame)
+    t_g = time.perf_counter()
+    go = gate.decide(ctx.frame)
+    ctx.trace.add_span("gate.decide", t_g, time.perf_counter() - t_g,
+                       {"go": bool(go)})
+    return go
+
+
+def _detect_state_snapshot(stage) -> dict | None:
+    """``snapshot()`` of the detect-class stages (DetectStage,
+    FusedDetectClassifyStage): the interval counter, the coaster's
+    regions and velocities and the gate's state. None with EVAM_CKPT
+    off (the base class's answer)."""
+    from evam_tpu_torch import state as stream_state
+
+    if stream_state.active() is None:
+        return None
+    out: dict = {
+        "count": int(stage._count),
+        "coaster": stage._coaster.state_dict(),
+    }
+    if stage.gate is not None:
+        out["gate"] = stage.gate.state_dict()
+    return out
+
+
+def _detect_state_restore(stage, state: dict) -> None:
+    """Re-apply a ``_detect_state_snapshot`` on a fresh stage. A
+    ``stale`` marker (``StreamInstance.restore_checkpoint`` prunes a
+    checkpoint older than the gate's max-skip bound to it) drops the
+    detections and the gate's anchor and forces a refresh; the track
+    stage's identities survive regardless."""
+    stage._count = int(state.get("count", 0))
+    if state.get("stale"):
+        if stage.gate is not None:
+            stage.gate.force_refresh()
+        return
+    if state.get("coaster"):
+        stage._coaster.load_state(state["coaster"])
+    if stage.gate is not None and state.get("gate"):
+        stage.gate.load_state(state["gate"])
+
+
 def _skip(stage, ctx: FrameContext) -> bool:
     """The detect stages' skip rule at submit: the motion gate where
     the stage has one (recording how far a skipped frame coasts), else
     the static interval."""
     stage._count += 1
     if stage.gate is not None:
-        if ctx.frame is not None and not stage.gate.decide(ctx.frame):
+        if ctx.frame is not None and not _timed_gate_decide(stage.gate, ctx):
             ctx.scratch["gate_coast"] = stage.gate.consecutive_skips
             return True
         return False
@@ -154,6 +208,7 @@ class DetectStage(AsyncStage):
         return self.engine.submit(
             priority=ctx.priority,
             stream=ctx.stream_id,
+            trace=ctx.trace,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
 
     def complete(self, ctx: FrameContext,
@@ -165,6 +220,12 @@ class DetectStage(AsyncStage):
         self._coaster.observe(regions)
         ctx.regions.extend(regions)
         return [ctx]
+
+    def snapshot(self) -> dict | None:
+        return _detect_state_snapshot(self)
+
+    def restore(self, state: dict) -> None:
+        _detect_state_restore(self, state)
 
 
 def _region(row: np.ndarray, labels: list[str]) -> Region:
@@ -260,6 +321,7 @@ class ClassifyStage(AsyncStage):
             priority=ctx.priority,
             units=len(regions),
             stream=ctx.stream_id,
+            trace=ctx.trace,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire),
             boxes=boxes)
 
@@ -321,6 +383,7 @@ class FusedDetectClassifyStage(AsyncStage):
         return self.engine.submit(
             priority=ctx.priority,
             stream=ctx.stream_id,
+            trace=ctx.trace,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
 
     def complete(self, ctx: FrameContext,
@@ -341,6 +404,12 @@ class FusedDetectClassifyStage(AsyncStage):
         self._coaster.observe(regions)
         ctx.regions.extend(regions)
         return [ctx]
+
+    def snapshot(self) -> dict | None:
+        return _detect_state_snapshot(self)
+
+    def restore(self, state: dict) -> None:
+        _detect_state_restore(self, state)
 
 
 def _frame_tensor(name: str, probs: np.ndarray, labels: list[str],
@@ -393,9 +462,11 @@ class ActionStage(AsyncStage):
         decoder batch is pending."""
         prio = ctx.priority
         stream_id = ctx.stream_id
+        tr = ctx.trace
         enc_fut = self.enc_engine.submit(
             priority=prio,
             stream=stream_id,
+            trace=tr,
             frames=_wire_frame(ctx.frame, self.ingest_size, self.wire))
         outer: Future = Future()
 
@@ -413,6 +484,7 @@ class ActionStage(AsyncStage):
                 # raises RuntimeError when the engine is stopping
                 dec_fut = self.dec_engine.submit(priority=prio,
                                                  stream=stream_id,
+                                                 trace=tr,
                                                  clips=np.stack(self.clip))
             except Exception as exc:  # noqa: BLE001 — propagate to the runner
                 outer.set_exception(exc)
@@ -471,6 +543,7 @@ class AudioDetectStage(AsyncStage):
         self._since_last = 0
         return self.engine.submit(priority=ctx.priority,
                                   stream=ctx.stream_id,
+                                  trace=ctx.trace,
                                   windows=self._buffer.copy())
 
     def complete(self, ctx: FrameContext,

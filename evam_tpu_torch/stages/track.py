@@ -303,3 +303,19 @@ class TrackStage(Stage):
     def process(self, ctx: FrameContext) -> list[FrameContext]:
         self.tracker.update(ctx.regions)
         return [ctx]
+
+    def snapshot(self) -> dict | None:
+        # id monotonicity is the invariant across restarts; the live
+        # tracks re-associate within a few frames and ride along only
+        # with EVAM_CKPT on, where a migration resumes mid-scene
+        from evam_tpu_torch import state as stream_state
+
+        if stream_state.active() is not None:
+            return {"next_id": self.tracker._next_id,
+                    "tracker": self.tracker.state_dict()}
+        return {"next_id": self.tracker._next_id}
+
+    def restore(self, state: dict) -> None:
+        self.tracker._next_id = int(state.get("next_id", 1))
+        if state.get("tracker"):
+            self.tracker.load_state(state["tracker"])

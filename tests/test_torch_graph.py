@@ -12,10 +12,13 @@
   modules read from ``os.environ`` (batch assembly, staging depth,
   compile serialization), read there through a reference engine; the
   native host library's EVAM_NO_NATIVE / EVAM_NATIVE / EVAM_NATIVE_LIB
-  as the reference's ``native`` module decides on them — and raises
-  ``NotImplementedError`` naming a slice for each unported knob set to
-  a value the port does not run with (the rest of the table, and the
-  depthwise conv and faults its modules read).
+  as the reference's ``native`` module decides on them; tracing's,
+  the stream checkpoints', PROFILING_MODE and EVAM_STATE_DIR from the
+  environment and the config file, with the same defaults (trace on,
+  ckpt off); the fault injector's EVAM_FAULT_INJECT / EVAM_FAULT_SEED
+  into the same injector — and raises ``NotImplementedError`` naming a
+  slice for each unported knob set to a value the port does not run
+  with (the rest of the table).
 
 Exact equality throughout: these layers are copies.
 """
@@ -414,20 +417,17 @@ def _other_value(var: str, conv, port_value) -> str:
 
 
 _ENV_UNPORTED = [u for u in port_settings._UNPORTED if u[0] is not None]
-#: knobs whose reference default turns on a subsystem the port lacks
-_ON_IN_THE_REFERENCE = {"EVAM_TRACE"}
 
 
 @pytest.mark.parametrize("knob", _ENV_UNPORTED, ids=[u[0] for u in _ENV_UNPORTED])
 def test_unported_knob_raises_naming_its_slice(knob, monkeypatch):
     var, block, key, conv, port_value, slice_ = knob
     # the port's own value is accepted, and it is what the reference
-    # runs with unless the reference's default turns on a subsystem
-    # the port lacks
+    # runs with
     port_settings.Settings.from_env(env={var: str(port_value)})
     ref_default = getattr(getattr(ref_settings.Settings(), block)
                           if block else ref_settings.Settings(), key)
-    assert ref_default == port_value or var in _ON_IN_THE_REFERENCE
+    assert ref_default == port_value
     value = _other_value(var, conv, port_value)
     monkeypatch.setenv(var, value)
     ref_settings.Settings.from_env()  # a value the reference accepts
@@ -442,22 +442,75 @@ def test_unported_config_file_keys_raise(tmp_path):
     path.write_text(json.dumps({"tpu": {"donate_buffers": False}}))
     with pytest.raises(NotImplementedError, match="tpu.donate_buffers"):
         port_settings.Settings.from_env(path, env={})
-    path.write_text(json.dumps({"trace": {"enabled": True}}))
-    with pytest.raises(NotImplementedError, match="trace.enabled"):
+    path.write_text(json.dumps({"aot": {"enabled": True}}))
+    with pytest.raises(NotImplementedError, match="aot.enabled"):
         port_settings.Settings.from_env(path, env={})
     path.write_text(json.dumps({"no_such_key": 1}))
     with pytest.raises(ValueError, match="no_such_key"):
         port_settings.Settings.from_env(path, env={})
 
 
-#: knobs the reference's modules read: (var, a value the port refuses —
-#: or, where the port honours the knob, a value it now runs — values it
-#: accepts, the slice named; None: honoured)
+#: the tracing, checkpoint, profiling and state-dir knobs, honoured
+#: since slice 10: (env var, config-file block or "" for top level, key)
+_SLICE10_KNOBS = (
+    [(var, "trace", key) for var, (key, _) in port_settings._TRACE_ENV.items()]
+    + [(var, "ckpt", key) for var, (key, _) in port_settings._CKPT_ENV.items()]
+    + [("PROFILING_MODE", "", "profiling_mode"),
+       ("EVAM_STATE_DIR", "", "state_dir")])
+
+
+def _field(settings, block: str, key: str):
+    return getattr(getattr(settings, block) if block else settings, key)
+
+
+def _conv(var: str):
+    for table in (port_settings._TOP_ENV, port_settings._TRACE_ENV,
+                  port_settings._CKPT_ENV):
+        if var in table:
+            return table[var][1]
+    raise KeyError(var)
+
+
+@pytest.mark.parametrize("var,block,key", _SLICE10_KNOBS,
+                         ids=[k[0] for k in _SLICE10_KNOBS])
+def test_slice10_knob_parses_as_the_reference(var, block, key, monkeypatch):
+    """Each knob has the reference's default (trace on, ckpt off), and
+    a value the reference accepts reaches the same field with the same
+    value in the port."""
+    default = _field(port_settings.Settings.from_env(env={}), block, key)
+    assert default == _field(ref_settings.Settings(), block, key)
+    value = _other_value(var, _conv(var), default)
+    monkeypatch.setenv(var, value)
+    want = _field(ref_settings.Settings.from_env(), block, key)
+    got = _field(port_settings.Settings.from_env(env={var: value}), block,
+                 key)
+    assert got == want != default
+
+
+@pytest.mark.parametrize("var,block,key", _SLICE10_KNOBS,
+                         ids=[k[0] for k in _SLICE10_KNOBS])
+def test_slice10_config_file_key_parses_as_the_reference(var, block, key,
+                                                         tmp_path):
+    """The config file's ``trace`` and ``ckpt`` blocks and its top-level
+    keys reach the same fields as the reference's."""
+    default = _field(port_settings.Settings(), block, key)
+    value = _conv(var)(_other_value(var, _conv(var), default))
+    data = {block: {key: value}} if block else {key: value}
+    path = tmp_path / "evam.json"
+    path.write_text(json.dumps(data))
+    want = _field(ref_settings.Settings.from_env(path), block, key)
+    got = _field(port_settings.Settings.from_env(path, env={}), block, key)
+    assert got == want == value
+
+
+#: knobs the reference's modules read: (var, a value the port now runs
+#: with, other values it accepts, and what it once raised naming — None
+#: for all since slice 10)
 _MODULE_CASES = [
     ("EVAM_DWCONV", "shift", ["lax", "LAX"], None),  # since slice 6
     ("EVAM_DWCONV", "SHIFT", ["lax"], None),
-    ("EVAM_FAULT_INJECT", "drop=0.1", [""], "slice 10"),
-    ("EVAM_FAULT_SEED", "7", [""], "slice 10"),
+    ("EVAM_FAULT_INJECT", "drop=0.1", [""], None),  # since slice 10
+    ("EVAM_FAULT_SEED", "7", [""], None),
 ]
 
 
@@ -465,15 +518,15 @@ _MODULE_CASES = [
                          ids=[f"{c[0]}={c[1]}" for c in _MODULE_CASES])
 def test_module_read_knob_raises_naming_its_slice(var, refused, accepted,
                                                   slice_, monkeypatch):
-    for value in accepted:
+    """Every module-read knob is honoured now: the settings pass each
+    value, and the port's module parses it as the reference's does."""
+    assert slice_ is None
+    for value in [refused, *accepted]:
         port_settings.Settings.from_env(env={var: value})
-    if slice_ is None:
-        # honoured: the settings pass it, and the port's module parses
-        # it as the reference's does (ops/depthwise.py)
+    if var == "EVAM_DWCONV":
         from evam_tpu.ops import depthwise as ref_dw
         from evam_tpu_torch.ops import depthwise as port_dw
 
-        port_settings.Settings.from_env(env={var: refused})
         for value in [refused, *accepted]:
             monkeypatch.setenv(var, value)
             assert port_dw.use_shift_depthwise() \
@@ -481,12 +534,28 @@ def test_module_read_knob_raises_naming_its_slice(var, refused, accepted,
         assert port_dw.use_shift_depthwise() is False
         monkeypatch.setenv(var, refused)
         assert port_dw.use_shift_depthwise() is True
-    else:
-        with pytest.raises(NotImplementedError, match=slice_) as info:
-            port_settings.Settings.from_env(env={var: refused})
-        assert var in str(info.value)
-    assert set(port_settings._MODULE_KNOBS) == {
-        c[0] for c in _MODULE_CASES if c[3] is not None}
+        return
+    # the fault knobs: obs/faults.py's from_env, the same injector
+    from evam_tpu.obs import faults as ref_faults
+    from evam_tpu_torch.obs import faults as port_faults
+
+    other = {"EVAM_FAULT_INJECT": ("EVAM_FAULT_SEED", "3"),
+             "EVAM_FAULT_SEED": ("EVAM_FAULT_INJECT", "error=0.5")}[var]
+    monkeypatch.setenv(*other)
+    for value in [refused, *accepted]:
+        monkeypatch.setenv(var, value)
+        ref_faults.reset_cache()
+        port_faults.reset_cache()
+        want, got = ref_faults.from_env(), port_faults.from_env()
+        assert (want is None) == (got is None)
+        if want is not None:
+            assert vars(got).keys() == vars(want).keys()
+            for k in ("drop_p", "stall_p", "error_p", "corrupt_p"):
+                assert getattr(got, k) == getattr(want, k)
+            if value or var != "EVAM_FAULT_SEED":  # seeded: one stream
+                assert got._rng.getstate() == want._rng.getstate()
+    ref_faults.reset_cache()
+    port_faults.reset_cache()
 
 
 #: the native host library's knobs, honoured since slice 7c: (var, value,
@@ -511,7 +580,6 @@ def test_module_read_knob_is_honoured(var, value, mode, monkeypatch):
     from evam_tpu_torch import native as port_native
 
     port_settings.Settings.from_env(env={var: value})
-    assert var not in port_settings._MODULE_KNOBS
     assert port_native.native_mode({var: value}) == mode
     monkeypatch.setenv(var, value)
     monkeypatch.setattr("os.cpu_count", lambda: 2)

@@ -72,6 +72,7 @@ from evam_tpu.server.instance import _retry_delay as ref_retry_delay
 from evam_tpu.server.registry import PipelineRegistry as JaxPipelineRegistry
 from evam_tpu_torch.config.settings import Settings
 from evam_tpu_torch.engine.hub import EngineHub
+from evam_tpu_torch.engine.ringbuf import STAGES
 from evam_tpu_torch.graph import PipelineLoader
 from evam_tpu_torch.models.registry import ModelRegistry
 from evam_tpu_torch.ops import qgemm as tqg
@@ -271,7 +272,6 @@ def test_error_routes_hold_their_goldens(server, tmp_path):
     (PIPE, {"source": {"type": "webcam", "device": 0}}, "slice 11"),
     (PIPE, {"destination": {"metadata": {"type": "null"},
                             "frame": {"type": "rtsp"}}}, "slice 11"),
-    ("/traces", None, "slice 10"),
 ])
 def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
     if body_extra is None:
@@ -283,6 +283,63 @@ def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
     assert needle in data["error"]
     assert not (tmp_path / "o.jsonl").exists()
     assert server.registry.hub.stats() == {}
+
+
+@pytest.mark.parametrize("ring", ["empty", "served", "off"])
+def test_traces_route_holds_its_golden(server, tmp_path, ring, monkeypatch):
+    """GET /traces answers 200 in the shape of route_traces.json: the
+    empty ring exactly (as the reference's golden test reads it), a
+    ring after a served stream with the same keys and types, its frames
+    carrying stage, queue-wait and dispatch spans and its batches the
+    eight stages, and with EVAM_TRACE=0 the disabled payload."""
+    from evam_tpu_torch.config.settings import reset_settings
+    from evam_tpu_torch.obs import trace
+
+    if ring == "off":
+        monkeypatch.setenv("EVAM_TRACE", "0")
+    reset_settings()
+    trace.reset_cache()
+    try:
+        if ring == "served":
+            # keep every frame: the stream is short
+            trace.active().sample_n = 1
+            status, iid = server.request(
+                "POST", PIPE, _body(tmp_path / "o.jsonl",
+                                    "synthetic://96x96@30?count=4"))
+            assert status == 200
+            assert server.wait(iid)["state"] == "COMPLETED"
+        deadline = time.time() + 10
+        while True:
+            # the completer retires a batch's record just after it
+            # resolves the batch's futures
+            status, data = server.request("GET", "/traces")
+            if not data["pending"] or time.time() > deadline:
+                break
+            time.sleep(0.05)
+        assert status == 200
+        assert data["enabled"] is (ring != "off")
+        if ring != "served":
+            _assert_golden("route_traces", data)
+            return
+        golden = _golden("route_traces")
+        assert canonical({**data, "traceEvents": []}) == golden
+        assert data["pending"] == 0 and data["batches"] >= 1
+        frames = [e for e in data["traceEvents"]
+                  if e["cat"] == "frame" and e["tid"] == iid]
+        assert len({e["args"]["trace_id"] for e in frames}) == 4
+        names = {e["name"] for e in frames}
+        assert {"sched.queue_wait", "engine.dispatch"} <= names
+        assert any(n.startswith("stage.") and n.endswith(".complete")
+                   for n in names), names
+        batches = [e for e in data["traceEvents"] if e["cat"] == "batch"]
+        for ev in batches:
+            assert set(ev["args"]["stages"]) == set(STAGES)
+            assert ev["args"]["device"] == "cpu"
+            assert ev["args"]["last_stage"] == "resolve"
+    finally:
+        monkeypatch.delenv("EVAM_TRACE", raising=False)
+        reset_settings()
+        trace.reset_cache()
 
 
 APP_DST = "/pipelines/video_decode/app_dst"
