@@ -341,6 +341,29 @@ memory the allocator holds once it has stopped its engines.
               every new id is above the highest before. Prints the
               rebuild and restore seconds and the phase's wall time.
 
+24. ingest  — person_vehicle_bike (hub A, INT8, pallas, 512², width 32)
+              fed by RTSP cameras and files, with no cv2 on the path:
+              (a) the JPEG codec's and the I_PCM reader's ms a frame
+              (1080p q80 encode and decode, 720p I_PCM, on one thread),
+              the codec deterministic and its round trip above a PSNR
+              floor (JPEG_PSNR_FLOOR, IPCM_PSNR_FLOOR), one annotate +
+              encode of a relay frame; (b) 8 emulated cameras on the
+              port's RtspServer (INGEST_CAMS: 6 MJPEG 1920×1080 q80, 2
+              I_PCM H.264 1280×720; 30 fps, INGEST_FRAMES each, encoded
+              before the clock) served through a PipelineRegistry with
+              EVAM_RTSP_DEMUX_WORKERS=4: fps, p50/p99 and drops by stage
+              per codec, the demux's threads (1 + workers), the stage
+              clock, 10 launches a forward, and the first INGEST_KEEP
+              decoded frames of every camera pushed again through
+              AppSources: the same objects (equal, else ≥ 0.99 matched
+              at IoU 0.9); with ``--profile`` the device-busy share;
+              (c) ``serve`` as a child with ENABLE_RTSP=1 and the shared
+              demux and pool (2 workers each): two camera streams, the
+              first re-streamed annotated at ``cam0-out`` and read back
+              with the port's RtspDemux (RESTREAM_FRAMES frames), lines
+              in the golden's shape, an ``.h264`` and an ``.mjpeg`` file
+              COMPLETED through the pool, SIGTERM → exit 0.
+
 The rest phase runs the scheduler as the default has it (on), with a
 declared capacity (``EVAM_SCHED_CAPACITY_FPS``): the capacity model
 reads the first batches' stage clock and can refuse streams the card
@@ -352,8 +375,10 @@ off for its second run only).
 
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
 calls; ``launches`` sums the slice, classify, engine, track, gate,
-ragged, sched, tune, native, fleet, rest, serve, eii, trace and chaos
-phases' served runs and their engines' warm runs, split by
+ragged, sched, tune, native, fleet, rest, serve, eii, trace, chaos and
+ingest phases' served runs (ingest: the demux run, its AppSource
+replay and the serve child's streams and files) and their engines'
+warm runs, split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action,
@@ -390,7 +415,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
-          "eii", "trace", "chaos")
+          "eii", "trace", "chaos", "ingest")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -516,6 +541,12 @@ def _import_port():
     from evam_tpu_torch.publish.encode import decode_frame
     from evam_tpu_torch import state
     from evam_tpu_torch.obs import faults, trace
+    from evam_tpu_torch.media import h264, jpeg
+    from evam_tpu_torch.media.demux import RtspDemux
+    from evam_tpu_torch.media.source import AppSource
+    from evam_tpu_torch.publish.annotate import annotate_frame
+    from evam_tpu_torch.publish.rtsp import FrameRelay, RtspServer
+    from evam_tpu_torch.stages.context import FrameContext, Region
 
     return dict(
         Settings=Settings, App=App, make_server=make_server,
@@ -546,7 +577,10 @@ def _import_port():
         EiiManager=EiiManager, MsgBusPublisher=MsgBusPublisher,
         MsgBusSubscriber=MsgBusSubscriber, eii_gva_meta=_gva_meta,
         metrics=metrics, decode_frame=decode_frame, trace=trace,
-        faults=faults, state=state)
+        faults=faults, state=state, h264=h264, jpeg=jpeg,
+        RtspDemux=RtspDemux, AppSource=AppSource,
+        annotate_frame=annotate_frame, FrameRelay=FrameRelay,
+        RtspServer=RtspServer, FrameContext=FrameContext, Region=Region)
 
 
 def _memory(torch, phase: str, t_start: float) -> None:
@@ -2597,18 +2631,20 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
             errors = {
                 "404": _http(base, "GET", "/pipelines/object_detection/nope"),
                 "400": _http(base, "POST", PIPELINE, {"destination": {}}),
-                # a webcam source comes with a later slice
+                # the WebRTC frame destination comes with a later slice
                 "501": _http(base, "POST", PIPELINE,
-                             {"source": {"type": "webcam", "device": 0},
-                              "destination": {"metadata": {
-                                  "type": "file",
-                                  "path": str(tmp / "webcam.jsonl")}}}),
+                             {"source": {"uri": "synthetic://64x64@30?count=1",
+                                         "type": "uri"},
+                              "destination": {
+                                  "metadata": {"type": "file", "path": str(
+                                      tmp / "webrtc.jsonl")},
+                                  "frame": {"type": "webrtc"}}}),
             }
             for want, (status, body) in errors.items():
                 if str(status) != want or "error" not in body:
                     raise AssertionError(f"rest: expected {want}, got "
                                          f"{status} {body}")
-            if "slice 11" not in errors["501"][1]["error"]:
+            if "slice 11b" not in errors["501"][1]["error"]:
                 raise AssertionError(f"rest: 501 {errors['501'][1]}")
             _, engines_after = _http(base, "GET", "/engines")
             if sorted(engines_after) != sorted([
@@ -4759,6 +4795,583 @@ def phase_chaos(torch, port) -> dict:
             for v in ("aligned", "masked")}
 
 
+# --------------------------------------------------------------- ingest
+
+#: the ingest phase's cameras (codec, width, height): 6 MJPEG at 1080p,
+#: 2 I_PCM H.264 at 720p, INGEST_FRAMES frames each at INGEST_FPS
+INGEST_CAMS = [("jpeg", 1920, 1080)] * 6 + [("h264", 1280, 720)] * 2
+INGEST_FPS = 30.0
+INGEST_FRAMES = 256
+#: the JPEG quality of the cameras and of the re-stream (push_bgr's)
+INGEST_QUALITY = 80
+#: frames per camera the demux run keeps to push again through an
+#: AppSource (the objects of both paths compared frame by frame); every
+#: camera must publish at least this many of its INGEST_FRAMES, a floor
+#: of 5.6 fps a camera over the 8.5 s the cameras send
+INGEST_KEEP = 48
+#: decode workers of the shared demux in (b), and of the serve child's
+#: demux and pool in (c)
+INGEST_DEMUX_WORKERS = 4
+#: round-trip PSNR floors (dB): the codec at q80 on the textured 1080p
+#: frame, and the I_PCM writer and reader (4:2:0 chroma) at 720p
+JPEG_PSNR_FLOOR = 30.0
+IPCM_PSNR_FLOOR = 30.0
+#: annotated frames the REST child's re-stream must give back
+RESTREAM_FRAMES = 32
+#: frames of each file stream the REST child decodes through its pool
+FILE_FRAMES = 16
+
+
+def _textured(h: int, w: int, seed: int):
+    """A frame with detail everywhere (gradients and noise), where a
+    codec works as on a camera's picture."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    f = np.stack([x * 255 // w, y * 255 // h, (x + y) * 255 // (w + h)], -1)
+    return np.clip(f + rng.integers(-8, 9, (h, w, 3)), 0, 255).astype(
+        np.uint8)
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    return math.inf if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def _median_ms(fn, n: int = 9) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def _check_detect_launches(where: str, variants: dict, forwards: int) -> None:
+    """10 aligned qgemm launches per detect forward, none masked."""
+    if forwards == 0 or variants["aligned"] != 10 * forwards \
+            or variants["masked"]:
+        raise AssertionError(f"{where}: qgemm launches {variants} for "
+                             f"{forwards} forwards, expected 10 aligned per "
+                             "forward")
+
+
+def _ingest_codec(port) -> dict:
+    """(a): the codec's and the I_PCM reader's ms a frame on one thread,
+    determinism and round-trip PSNR, and one annotate + encode of a
+    relay frame."""
+    import numpy as np
+
+    jpeg, h264 = port["jpeg"], port["h264"]
+    tex = _textured(1080, 1920, 0)
+    blob = jpeg.encode(tex, INGEST_QUALITY)
+    cam = next(iter(port["SyntheticSource"](1920, 1080, count=1).frames())).frame
+    cam_blob = jpeg.encode(cam, INGEST_QUALITY)
+    tex720 = _textured(720, 1280, 1)
+    au = h264.encode_frames([tex720])
+    row = {"phase": "ingest-codec", "quality": INGEST_QUALITY,
+           "threads": 1,
+           "encode_1080p_ms": _median_ms(lambda: jpeg.encode(tex, INGEST_QUALITY)),
+           "decode_1080p_ms": _median_ms(lambda: jpeg.decode(blob)),
+           "bytes_1080p": len(blob),
+           "camera_encode_1080p_ms": _median_ms(
+               lambda: jpeg.encode(cam, INGEST_QUALITY)),
+           "camera_decode_1080p_ms": _median_ms(lambda: jpeg.decode(cam_blob)),
+           "camera_bytes_1080p": len(cam_blob),
+           "ipcm_decode_720p_ms": _median_ms(lambda: h264.decode_ipcm_au(au)),
+           "ipcm_encode_720p_ms": _median_ms(
+               lambda: h264.encode_frames([tex720]), 3),
+           "ipcm_bytes_720p": len(au)}
+    # deterministic: the same bytes decode to the same frame, the same
+    # frame encodes to the same bytes
+    back = jpeg.decode(blob)
+    if (jpeg.encode(tex, INGEST_QUALITY) != blob
+            or not np.array_equal(jpeg.decode(blob), back)
+            or back.shape != tex.shape):
+        raise AssertionError("ingest: the JPEG codec is not deterministic")
+    ipcm = h264.decode_ipcm_au(au)
+    if ipcm is None or ipcm.shape != tex720.shape \
+            or not np.array_equal(h264.decode_ipcm_au(au), ipcm):
+        raise AssertionError("ingest: decode_ipcm_au did not read its own AU")
+    row["jpeg_psnr_db"] = _psnr(tex, back)
+    row["ipcm_psnr_db"] = _psnr(tex720, ipcm)
+    if row["jpeg_psnr_db"] < JPEG_PSNR_FLOOR or \
+            row["ipcm_psnr_db"] < IPCM_PSNR_FLOOR:
+        raise AssertionError(f"ingest: round trip under its floor: {row}")
+    # one relay frame: annotate (a few labelled boxes) and encode
+    ctx = port["FrameContext"](frame=cam, pts_ns=0, seq=0, stream_id="probe")
+    for i in range(8):
+        x0, y0 = 0.1 * i, 0.05 * i
+        ctx.regions.append(port["Region"](x0, y0, x0 + 0.08, y0 + 0.2, 0.9, 1,
+                                          "vehicle", object_id=i))
+    relay = port["FrameRelay"]("probe")
+    row["annotate_encode_1080p_ms"] = _median_ms(
+        lambda: relay.push_bgr(port["annotate_frame"](ctx)))
+    return row
+
+
+def _encode_camera(port, codec: str, w: int, h: int, seed: int,
+                   n: int) -> list[bytes]:
+    """A camera's ``n`` frames, encoded: the synthetic moving square at
+    ``w``×``h`` as q80 JPEGs or self-contained I_PCM access units."""
+    frames = port["SyntheticSource"](w, h, count=n, seed=seed).frames()
+    if codec == "jpeg":
+        return [port["jpeg"].encode(ev.frame, INGEST_QUALITY) for ev in frames]
+    return [port["h264"].encode_frames([ev.frame]) for ev in frames]
+
+
+class _Cameras:
+    """Emulated cameras on the port's RtspServer: mount ``cam<i>`` plays
+    its pre-encoded frames at INGEST_FPS (``loop``: round and round)
+    once :meth:`play` is called."""
+
+    def __init__(self, port, cams, blobs, loop: bool = False):
+        self.srv = port["RtspServer"](port=0, host="127.0.0.1")
+        self.srv.start()
+        self.relays = [self.srv.mount(f"cam{i}", codec=c)
+                       for i, (c, _, _) in enumerate(cams)]
+        self._go, self._stop = threading.Event(), threading.Event()
+        self.threads = [threading.Thread(
+            target=self._feed, args=(r, b, loop), daemon=True)
+            for r, b in zip(self.relays, blobs)]
+        for t in self.threads:
+            t.start()
+
+    def url(self, i: int) -> str:
+        return f"rtsp://127.0.0.1:{self.srv.port}/cam{i}"
+
+    def _feed(self, relay, blobs, loop: bool) -> None:
+        self._go.wait()
+        t = time.perf_counter()
+        k = 0
+        while not self._stop.is_set() and (loop or k < len(blobs)):
+            relay.push_jpeg(blobs[k % len(blobs)])
+            k += 1
+            t += 1.0 / INGEST_FPS
+            delay = t - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+
+    def await_clients(self, timeout: float = 60.0) -> None:
+        deadline = time.perf_counter() + timeout
+        while not all(r.has_clients for r in self.relays):
+            if time.perf_counter() > deadline:
+                raise AssertionError("ingest: a camera got no client")
+            time.sleep(0.01)
+
+    def play(self) -> float:
+        self._go.set()
+        return time.perf_counter()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._go.set()
+        for t in self.threads:
+            t.join(timeout=10)
+        self.srv.stop()
+
+
+def _start_streams(registry, sources, publish) -> list[str]:
+    """person_vehicle_bike instances on ``sources`` (a URI, or an
+    injected source); their ids in order."""
+    ids = []
+    for src in sources:
+        request = {"source": ({"uri": src, "type": "uri"}
+                              if isinstance(src, str) else
+                              {"type": "application"}),
+                   "destination": {"metadata": {"type": "null"}},
+                   "parameters": {"threshold": 0.2}}
+        inst = registry.start_instance(
+            *DETECT_PIPELINE, request, publish_fn=publish,
+            source=None if isinstance(src, str) else src)
+        ids.append(inst.id)
+    return ids
+
+
+def _ingest_cameras(torch, port, profile: bool) -> dict:
+    """(b): INGEST_CAMS cameras through a PipelineRegistry with the
+    shared demux (EVAM_RTSP_DEMUX_WORKERS=INGEST_DEMUX_WORKERS), then the
+    frames it kept through AppSources: the same objects."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    qg = port["qgemm"]
+    t_enc = time.perf_counter()
+    with ThreadPoolExecutor(len(INGEST_CAMS)) as pool:
+        blobs = list(pool.map(
+            lambda a: _encode_camera(port, *a[1], seed=a[0], n=INGEST_FRAMES),
+            enumerate(INGEST_CAMS)))
+    encode_s = time.perf_counter() - t_enc
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hub = _default_hub(port, registry)
+    settings = port["Settings"](pipelines_dir=str(ROOT / "pipelines"),
+                                device="cuda",
+                                rtsp_demux_workers=INGEST_DEMUX_WORKERS)
+    preg = port["PipelineRegistry"](settings, hub=hub)
+    cams = _Cameras(port, INGEST_CAMS, blobs)
+    try:
+        preg.preload("/".join(DETECT_PIPELINE))
+        engine = hub.engine("detect", KEY)
+        (warm,) = _await_warm("ingest", [engine])
+        demux = preg.rtsp_demux
+        threads = demux.stats()["threads"]
+        if threads != 1 + INGEST_DEMUX_WORKERS:
+            raise AssertionError(f"ingest: demux runs {threads} threads")
+
+        lock = threading.Lock()
+        seen: dict[str, list] = {}   # stream → [(objects, frame | None)]
+        lat: dict[str, list[float]] = {}
+        last = [0.0]
+
+        def publish(ctx):
+            now = time.perf_counter()
+            with lock:
+                rows = seen.setdefault(ctx.stream_id, [])
+                rows.append((ctx.metadata["objects"],
+                             ctx.frame if len(rows) < INGEST_KEEP else None))
+                lat.setdefault(ctx.stream_id, []).append(now - ctx.ingest_t)
+                last[0] = now
+
+        _reset_launches(qg)
+        fwd0 = _fwd(engine.stats_row())
+        stage0 = engine.stats_row()
+        # the seconds the demux's decode workers spend inside the decode
+        # call, by codec (its stats()): their busy share says whether
+        # they or the interpreter lock hold the frames back
+        decode0 = demux.stats()["decode_s"]
+        ids = _start_streams(preg, [cams.url(i) for i in range(len(INGEST_CAMS))],
+                             publish)
+        cams.await_clients()
+        prof = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as tprofile
+
+            prof = tprofile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = cams.play()
+        for t in cams.threads:
+            t.join(timeout=INGEST_FRAMES / INGEST_FPS + 60)
+        # the cameras have sent everything: wait for the last publishes
+        t_sent = time.perf_counter()
+        while True:
+            with lock:
+                quiet = time.perf_counter() - max(last[0], t_sent)
+            if quiet > 2.0:
+                break
+            time.sleep(0.1)
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+        # the window ends here: a stream's last frame stays in flight
+        # until the stream ends (the runner releases a frame when a later
+        # one arrives), so what stopping the streams publishes is left out
+        with lock:
+            window_lat = {k: list(v) for k, v in lat.items()}
+            published = {k: len(v) for k, v in seen.items()}
+        wall = last[0] - t0
+        dstats = demux.stats()
+        window_decode_s = {k: v - decode0[k]
+                           for k, v in dstats["decode_s"].items()}
+        # each stream's drops by stage (the demux names a stream by its
+        # instance id's first 8 characters)
+        drops = {ps.stream_id: (ps.frames_dropped_decode,
+                                ps.frames_dropped_downstream)
+                 for ps in list(demux._streams)}
+        stats = engine.stats_row()
+        for iid in ids:
+            preg.stop_instance(iid)
+        for iid in ids:
+            preg.get_instance(iid).wait(30)
+
+        by_codec: dict[str, dict] = {}
+        for i, (codec, w, h) in enumerate(INGEST_CAMS):
+            d = by_codec.setdefault(codec, {
+                "cameras": 0, "frames": 0, "lat": [], "size": f"{w}x{h}",
+                "dropped_decode": 0, "dropped_downstream": 0})
+            d["cameras"] += 1
+            d["frames"] += published.get(ids[i], 0)
+            d["lat"] += window_lat.get(ids[i], [])
+            dec, down = drops.get(ids[i][:8], (0, 0))
+            d["dropped_decode"] += dec
+            d["dropped_downstream"] += down
+        per_codec = {}
+        for codec, d in by_codec.items():
+            q = sorted(d.pop("lat"))
+            if not q:
+                raise AssertionError(f"ingest: no {codec} frame published")
+            per_codec[codec] = {
+                **d, "fps": d["frames"] / wall,
+                "fps_per_camera": d["frames"] / wall / d["cameras"],
+                "p50_ms": 1e3 * q[len(q) // 2],
+                "p99_ms": 1e3 * q[min(len(q) - 1, int(0.99 * len(q)))]}
+        short = [i for i in range(len(INGEST_CAMS))
+                 if len(seen.get(ids[i], [])) < INGEST_KEEP]
+        if short:
+            _print({"phase": "ingest-cameras-short", "per_codec": per_codec,
+                    "demux": dstats, "decode_s": window_decode_s,
+                    "wall_s": wall})
+            raise AssertionError(f"ingest: cameras {short} published under "
+                                 f"{INGEST_KEEP} frames: "
+                                 f"{[len(seen.get(ids[i], [])) for i in short]}")
+        if dstats["decoded"] < sum(len(seen[i]) for i in ids):
+            raise AssertionError(f"ingest: demux decoded {dstats}")
+
+        # the same decoded frames through AppSources: the same objects
+        apps = [port["AppSource"](maxsize=INGEST_KEEP + 1) for _ in ids]
+        replay: dict[str, list] = {}
+
+        def publish_app(ctx):
+            with lock:
+                replay.setdefault(ctx.stream_id, []).append(
+                    ctx.metadata["objects"])
+
+        app_ids = _start_streams(preg, apps, publish_app)
+        for app, iid in zip(apps, ids):
+            for objects, frame in seen[iid][:INGEST_KEEP]:
+                app.push(frame)
+            app.end()
+        for iid in app_ids:
+            inst = preg.get_instance(iid)
+            inst.wait(120)
+            if inst.state.value != "COMPLETED":
+                raise AssertionError(f"ingest: AppSource stream {inst.status()}")
+        pairs = [(seen[a][j][0], replay.get(b, [None] * INGEST_KEEP)[j])
+                 for a, b in zip(ids, app_ids) for j in range(INGEST_KEEP)]
+        if any(len(replay.get(b, [])) != INGEST_KEEP for b in app_ids):
+            raise AssertionError("ingest: an AppSource stream published "
+                                 f"{[len(replay.get(b, [])) for b in app_ids]}")
+        equal = all(x == y for x, y in pairs)
+        match = 1.0
+        if not equal:
+            # batch composition may move a bit: each demux object must
+            # have a same-label AppSource object at IoU ≥ 0.9
+            match = _objects_match_rate(pairs)
+            if match < 0.99:
+                raise AssertionError(f"ingest: AppSource objects match "
+                                     f"{match:.4f} of the demux's")
+
+        variants = dict(qg.variant_launches)
+        forwards = _fwd(engine.stats_row()) - fwd0
+        _check_detect_launches("ingest", variants, forwards)
+        row = {"phase": "ingest-cameras", "encode_s": encode_s,
+               "wall_s": wall, "per_codec": per_codec,
+               "fps": sum(d["frames"] for d in per_codec.values()) / wall,
+               "demux": dstats, "demux_threads": threads,
+               "decode_s": window_decode_s,
+               "decode_workers_busy": sum(window_decode_s.values())
+               / (wall * INGEST_DEMUX_WORKERS),
+               "forwards": forwards, "launches_per_forward":
+                   variants["aligned"] / forwards,
+               "stage_ms": stats["stage_ms"],
+               "batches": stats["batches"] - stage0["batches"],
+               "mean_occupancy": stats["mean_occupancy"],
+               "graphs": warm["graphs"],
+               "appsource_objects_equal": equal,
+               "appsource_match_rate": match,
+               "compared_frames": len(pairs)}
+        if prof is not None:
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kernels) / 1e6
+            row["device_busy_share"] = busy / wall
+        _print(row)
+        return variants
+    finally:
+        cams.stop()
+        preg.stop_all()
+
+
+def _objects_match_rate(pairs) -> float:
+    """Of the objects on the left of each pair, the share that a
+    same-label object on the right meets at IoU ≥ 0.9."""
+    def box(o):
+        b = o["detection"]["bounding_box"]
+        return (b["x_min"], b["y_min"], b["x_max"], b["y_max"])
+
+    def iou(a, b):
+        ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+        iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+        inter = ix * iy
+        union = ((a[2] - a[0]) * (a[3] - a[1])
+                 + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+        return inter / union if union > 0 else float(a == b)
+
+    total = hit = 0
+    for left, right in pairs:
+        for o in left:
+            total += 1
+            hit += any(r["detection"]["label"] == o["detection"]["label"]
+                       and iou(box(o), box(r)) >= 0.9 for r in right or [])
+    return hit / total if total else 1.0
+
+
+def _write_files(port, tmp: Path) -> dict[str, Path]:
+    """An I_PCM ``.h264`` and an ``.mjpeg`` file of FILE_FRAMES synthetic
+    frames each, written by the port."""
+    h264_path = tmp / "cam.h264"
+    port["h264"].write_annexb(str(h264_path), [
+        ev.frame for ev in port["SyntheticSource"](
+            1280, 720, count=FILE_FRAMES, seed=5).frames()])
+    mjpeg_path = tmp / "cam.mjpeg"
+    mjpeg_path.write_bytes(b"".join(
+        port["jpeg"].encode(ev.frame, INGEST_QUALITY)
+        for ev in port["SyntheticSource"](1920, 1080, count=FILE_FRAMES,
+                                          seed=6).frames()))
+    return {"h264": h264_path, "mjpeg": mjpeg_path}
+
+
+def _ingest_serve(port) -> dict[str, int]:
+    """(c): ``serve`` with ENABLE_RTSP, the shared demux and the decode
+    pool: two camera streams, the first re-streamed annotated at
+    ``cam0-out`` and read back with the port's RtspDemux; an ``.h264``
+    and an ``.mjpeg`` file through the pool; SIGTERM. Returns the
+    child's qgemm launches by variant."""
+    import numpy as np
+
+    golden = json.loads(GOLDEN.read_text())
+    cams_spec = [INGEST_CAMS[0], INGEST_CAMS[-1]]
+    blobs = [_encode_camera(port, c, w, h, seed=10 + i, n=32)
+             for i, (c, w, h) in enumerate(cams_spec)]
+    cams = _Cameras(port, cams_spec, blobs, loop=True)
+    cams.play()
+    rest_port, rtsp_port = _free_port(), _free_port()
+    base = f"http://127.0.0.1:{rest_port}"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files = _write_files(port, tmp)
+        env = dict(os.environ, REST_PORT=str(rest_port), ENABLE_RTSP="1",
+                   RTSP_PORT=str(rtsp_port),
+                   EVAM_RTSP_DEMUX_WORKERS="2", EVAM_DECODE_POOL_WORKERS="2",
+                   EVAM_PRECISION="int8", EVAM_QGEMM="pallas",
+                   EVAM_ALLOW_RANDOM_WEIGHTS="1",
+                   EVAM_PRELOAD="/".join(DETECT_PIPELINE),
+                   MODELS_DIR=str(tmp / "models"),
+                   EVAM_SCHED_CAPACITY_FPS=str(REST_CAPACITY_FPS))
+        log_path = tmp / "serve.log"
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        reader = None
+        try:
+            _await_health(base, proc, log_path, t0)
+            up_s = time.perf_counter() - t0
+            if f"rtsp://0.0.0.0:{rtsp_port}" not in log_path.read_text():
+                raise AssertionError("ingest: serve's start-up line names "
+                                     "no RTSP server")
+            ids, outs = [], []
+            for i in range(2):
+                out = tmp / f"cam{i}.jsonl"
+                body = {"source": {"uri": cams.url(i), "type": "uri"},
+                        "destination": {"metadata": {"type": "file",
+                                                     "path": str(out)}},
+                        "parameters": {"threshold": 0.2}}
+                if i == 0:
+                    body["destination"]["frame"] = {"type": "rtsp",
+                                                    "path": "cam0-out"}
+                status, iid = _http(base, "POST", PIPELINE, body)
+                if status != 200:
+                    raise AssertionError(f"ingest: POST gave {status} {iid}")
+                ids.append(iid)
+                outs.append(out)
+            # the annotated re-stream, read back over RTSP
+            reader = port["RtspDemux"](decode_workers=1)
+            stream = reader.add_stream(
+                f"rtsp://127.0.0.1:{rtsp_port}/cam0-out")
+            got, shapes = 0, set()
+            t_rs = time.perf_counter()
+            for ev in stream.frames():
+                got += 1
+                shapes.add(ev.frame.shape)
+                if got >= RESTREAM_FRAMES:
+                    break
+            restream_fps = got / (time.perf_counter() - t_rs)
+            stream.close()
+            _, w0, h0 = cams_spec[0]
+            if got < RESTREAM_FRAMES or shapes != {(h0, w0, 3)}:
+                raise AssertionError(f"ingest: re-stream gave {got} frames "
+                                     f"{shapes}")
+            # the file streams through the decode pool
+            file_ids = {}
+            for kind, path in files.items():
+                status, iid = _http(base, "POST", PIPELINE, {
+                    "source": {"uri": str(path), "type": "uri"},
+                    "destination": {"metadata": {
+                        "type": "file", "path": str(tmp / f"{kind}.jsonl")}},
+                    "parameters": {"threshold": 0.2}})
+                if status != 200:
+                    raise AssertionError(f"ingest: POST {kind} {status} {iid}")
+                file_ids[kind] = iid
+            done = _wait_states(base, list(file_ids.values()),
+                                ("COMPLETED", "ERROR", "ABORTED"), 300)
+            for kind, iid in file_ids.items():
+                lines = (tmp / f"{kind}.jsonl").read_text().splitlines()
+                if done[iid]["state"] != "COMPLETED" or \
+                        len(lines) != FILE_FRAMES:
+                    raise AssertionError(f"ingest: {kind} file {done[iid]}, "
+                                         f"{len(lines)} lines")
+            # the camera streams' lines in the golden's shape
+            n_lines = []
+            for out in outs:
+                lines = [json.loads(x) for x in out.read_text().splitlines()]
+                errors = [e for msg in lines for e in _line_errors(msg, golden)]
+                if not lines or errors:
+                    raise AssertionError(f"ingest: {out.name}: {len(lines)} "
+                                         f"lines, {errors[:3]}")
+                n_lines.append(len(lines))
+            _, health = _http(base, "GET", "/healthz")
+            if health["decode_pool"]["decoded"] < 2 * FILE_FRAMES or \
+                    health["rtsp_demux"]["streams"] != 2:
+                raise AssertionError(f"ingest: /healthz {health}")
+            # stop the live streams, so no forward runs between reading
+            # the forwards and reading the launches
+            for iid in ids:
+                _http(base, "DELETE", f"{PIPELINE}/{iid}")
+            _wait_states(base, ids, ("ABORTED", "ERROR", "COMPLETED"), 60)
+            _, engines = _http(base, "GET", "/engines")
+            forwards = sum(_fwd(v) for v in engines.values())
+            launches = _kernel_launches(base)
+            _check_detect_launches("ingest serve", launches, forwards)
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=60)
+            if code != 0:
+                raise AssertionError(f"ingest: serve exit {code} on SIGTERM: "
+                                     f"{log_path.read_text()[-2000:]}")
+            _print({"phase": "ingest-serve", "up_s": up_s,
+                    "camera_lines": n_lines, "restream_frames": got,
+                    "restream_fps": restream_fps,
+                    "file_frames": {k: FILE_FRAMES for k in files},
+                    "decode_pool": health["decode_pool"],
+                    "rtsp_demux": health["rtsp_demux"],
+                    "forwards": forwards, "qgemm_launches": launches,
+                    "exit_code": code, "stop_s": time.perf_counter() - t1})
+            return launches
+        finally:
+            if reader is not None:
+                reader.stop()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            cams.stop()
+
+
+def phase_ingest(torch, port, profile: bool = False) -> dict:
+    """The main path fed by RTSP cameras and files (see ``_ingest_codec``,
+    ``_ingest_cameras`` and ``_ingest_serve``). Returns the qgemm
+    launches by variant."""
+    t0 = time.perf_counter()
+    _print(_ingest_codec(port))
+    cams = _ingest_cameras(torch, port, profile)
+    serve = _ingest_serve(port)
+    _print({"phase": "ingest", "wall_s": time.perf_counter() - t0})
+    return {v: cams[v] + serve[v] for v in ("aligned", "masked")}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4895,6 +5508,9 @@ def main(argv: list[str] | None = None) -> int:
     if "chaos" in phases:
         served.append(phase_chaos(torch, port))
         _memory(torch, "chaos", t_start)
+    if "ingest" in phases:
+        served.append(phase_ingest(torch, port, profile=args.profile))
+        _memory(torch, "ingest", t_start)
     _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {

@@ -259,6 +259,17 @@ class Settings:
     state_dir: str = ""
     #: EVAM_PLATFORM: "cuda" (default) or "cpu"
     device: str = "cuda"
+    #: ENABLE_RTSP: ``serve`` starts the RTSP re-stream server on
+    #: RTSP_PORT (``destination.frame {"type": "rtsp"}``)
+    enable_rtsp: bool = False
+    rtsp_port: int = 8554
+    #: >0 routes free-running file sources through a shared DecodePool
+    #: of this many workers (``media/pool.py``); 0 decodes per stream
+    decode_pool_workers: int = 0
+    #: >0 routes rtsp:// sources through the shared RtspDemux (one
+    #: selector thread + this many decode workers, ``media/demux.py``);
+    #: 0 gives each its own blocking reader
+    rtsp_demux_workers: int = 0
     engine: EngineSettings = field(default_factory=EngineSettings)
     sched: SchedSettings = field(default_factory=SchedSettings)
     tune: TuneSettings = field(default_factory=TuneSettings)
@@ -360,6 +371,10 @@ _TOP_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_ALLOW_RANDOM_WEIGHTS": ("allow_random_weights", _parse_bool),
     "PROFILING_MODE": ("profiling_mode", _parse_bool),
     "EVAM_STATE_DIR": ("state_dir", str),
+    "ENABLE_RTSP": ("enable_rtsp", _parse_bool),
+    "RTSP_PORT": ("rtsp_port", int),
+    "EVAM_DECODE_POOL_WORKERS": ("decode_pool_workers", int),
+    "EVAM_RTSP_DEMUX_WORKERS": ("rtsp_demux_workers", int),
 }
 _ENGINE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_MAX_BATCH": ("max_batch", int),
@@ -438,20 +453,16 @@ _TRACE_KEYS = {key for key, _ in _TRACE_ENV.values()}
 _CKPT_KEYS = {key for key, _ in _CKPT_ENV.values()}
 
 _S7 = slices.ENGINE_DEPTH
-_S11 = slices.INGEST_EGRESS
+_S11 = slices.WEBRTC_EGRESS
 
 #: unported knobs: (env var, or None for a config-file-only key;
 #: config-file block, "" for top level; key; parser; the value the port
 #: runs with; the slice that brings it)
 _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
                       Any, str]] = [
-    ("ENABLE_RTSP", "", "enable_rtsp", _parse_bool, False, _S11),
-    ("RTSP_PORT", "", "rtsp_port", int, 8554, _S11),
     ("ENABLE_WEBRTC", "", "enable_webrtc", _parse_bool, False, _S11),
     ("WEBRTC_SIGNALING_SERVER", "", "webrtc_signaling_server", str, "", _S11),
     ("EVAM_WEBRTC_VIDEO_MODE", "", "webrtc_video_mode", str, "key", _S11),
-    ("EVAM_DECODE_POOL_WORKERS", "", "decode_pool_workers", int, 0, _S11),
-    ("EVAM_RTSP_DEMUX_WORKERS", "", "rtsp_demux_workers", int, 0, _S11),
     ("EVAM_COMPILE_CACHE_DIR", "tpu", "compile_cache_dir", str, "", _S7),
     ("EVAM_AOT", "aot", "enabled", _parse_bool, False, _S7),
     ("EVAM_AOT_DIR", "aot", "dir", str, "", _S7),

@@ -2,18 +2,32 @@
 (counterpart of ``evam_tpu/media/source.py``).
 
 Ported: the deterministic ``synthetic://`` source (with its real-time
-pacing), ``FileSource`` (file / RTSP / HTTP URIs through OpenCV, which
-is imported only when a stream opens — a machine without ``cv2``, such
-as the card's, fails that instance with an error naming ``cv2``), the
-audio sources of ``media/audio.py`` (``synthetic-audio://`` and
-``*.wav``), the application source ``AppSource`` (frames an embedder
-pushes: the EII manager's message-bus ingest), and
-:func:`create_source`. Webcam and GigE sources raise naming the slice
-that brings them.
+pacing); ``FileSource``; the audio sources of ``media/audio.py``
+(``synthetic-audio://`` and ``*.wav``); ``rtsp://`` URIs through
+:class:`~evam_tpu_torch.media.demux.RtspSource` (the demux with one
+stream and one decode worker: the reference reads them with cv2); the
+application source ``AppSource`` (frames an embedder pushes: the EII
+manager's message-bus ingest); ``WebcamSource`` and ``GigeSource``
+(with cv2, and harvesters where installed, imported when the stream
+opens); and :func:`create_source`.
+
+``FileSource`` decodes two kinds of file without cv2: Annex-B H.264
+(``.h264``, ``.264``) in the I_PCM dialect ``media/h264.py`` writes, and
+MJPEG (``.mjpeg``, ``.mjpg``: concatenated JFIF) through the port's JPEG
+codec. Any other file, and an H.264 access unit that is not I_PCM, goes
+through ``cv2.VideoCapture`` as in the reference, and fails naming
+``cv2`` where it is missing. A port note: those two kinds give the
+pixels of the reference's demux path (``cv2.cvtColor``,
+``cv2.imdecode``), not of FFmpeg's converter behind
+``cv2.VideoCapture``; their rate is 25 fps, the rate FFmpeg reports for
+a raw stream without timing.
 """
 
 from __future__ import annotations
 
+import logging
+import mmap
+import os
 import queue
 import time
 from dataclasses import dataclass
@@ -21,7 +35,7 @@ from typing import Iterator, Protocol
 
 import numpy as np
 
-from evam_tpu_torch import slices
+log = logging.getLogger("evam_tpu_torch.media.source")
 
 NS = 1_000_000_000
 
@@ -44,57 +58,190 @@ class VideoSource(Protocol):
     def close(self) -> None: ...
 
 
-class FileSource:
-    """File / RTSP / HTTP source via OpenCV (FFmpeg-backed).
+#: file suffixes FileSource decodes without cv2
+_ANNEXB = (".h264", ".264")
+_MJPEG = (".mjpeg", ".mjpg")
+#: FFmpeg's rate for a raw elementary stream without timing (what
+#: ``cv2.VideoCapture`` reports for these files)
+RAW_STREAM_FPS = 25.0
 
-    Counterpart of uridecodebin/decodebin in every reference template
-    (e.g. pipelines/object_detection/person/pipeline.json:4).
-    """
+
+def _split_jfif(data) -> Iterator[bytes]:
+    """Concatenated JFIF images → one bytes object each, one at a time
+    (``data`` is ``bytes`` or an ``mmap``). Walks each image's marker
+    segments (an APP segment may hold a whole thumbnail JPEG) and its
+    entropy-coded data (where a 0xFF byte is stuffed or starts a restart
+    marker) to its EOI."""
+    start = data.find(b"\xff\xd8")
+    while start >= 0:
+        pos = start + 2
+        while pos + 4 <= len(data) and data[pos] == 0xFF:
+            marker = data[pos + 1]
+            if marker == 0xD9:                      # EOI
+                pos += 2
+                break
+            if marker == 0xFF or 0xD0 <= marker <= 0xD7 or marker == 0x01:
+                pos += 1 if marker == 0xFF else 2   # fill, RSTn, TEM
+                continue
+            pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+            if marker == 0xDA:                      # SOS: to the next marker
+                while True:
+                    pos = data.find(b"\xff", pos)
+                    if pos < 0 or pos + 1 >= len(data):
+                        pos = len(data)
+                        break
+                    if data[pos + 1] == 0 or 0xD0 <= data[pos + 1] <= 0xD7:
+                        pos += 2
+                        continue
+                    break
+        else:
+            pos = len(data)                         # cut short: keep it
+        yield data[start:pos]
+        start = data.find(b"\xff\xd8", pos)
+
+
+def _access_units(data) -> Iterator[bytes]:
+    """An Annex-B stream (``bytes`` or an ``mmap``) → self-contained
+    access units, one at a time: each picture's slice NAL led by the
+    latest SPS and PPS."""
+    from evam_tpu_torch.media.h264 import iter_annexb
+
+    sps = pps = b""
+    for nal in iter_annexb(data):
+        kind = nal[0] & 0x1F
+        if kind == 7:
+            sps = b"\x00\x00\x00\x01" + nal
+        elif kind == 8:
+            pps = b"\x00\x00\x00\x01" + nal
+        elif kind in (1, 5):
+            yield sps + pps + b"\x00\x00\x00\x01" + nal
+
+
+def _map_file(path: str):
+    """The file's bytes as a read-only ``mmap`` (``b""`` when empty):
+    its pages come and go with the page cache, so a long recording is
+    read one frame at a time and never held whole."""
+    with open(path, "rb") as fh:
+        if os.fstat(fh.fileno()).st_size == 0:
+            return b""
+        return mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+
+
+class FileSource:
+    """File / HTTP source (counterpart of uridecodebin/decodebin in
+    every reference template, e.g.
+    pipelines/object_detection/person/pipeline.json:4): Annex-B I_PCM
+    H.264 and MJPEG files without cv2, anything else through OpenCV
+    (FFmpeg-backed), imported when the stream opens."""
 
     def __init__(self, uri: str, loop: bool = False, realtime: bool = False):
         self.uri = uri
         self.loop = loop
         self.realtime = realtime
         self._cap = None
+        self._map = None
         self._closed = False
 
-    def _open(self):
-        import cv2
-
+    def _path(self) -> str:
         path = self.uri
         for prefix in ("file://",):
             if path.startswith(prefix):
                 path = path[len(prefix):]
-        cap = cv2.VideoCapture(path)
+        return path
+
+    def _open(self):
+        import cv2
+
+        cap = cv2.VideoCapture(self._path())
         if not cap.isOpened():
             raise IOError(f"cannot open source {self.uri}")
         return cap
 
-    def frames(self) -> Iterator[FrameEvent]:
+    def _decoded(self):
+        """Frames of an Annex-B or MJPEG file decoded here, or None for
+        a file that is neither. An access unit that is not I_PCM hands
+        the rest of the file to cv2, from the frame it stopped at."""
+        path = self._path().lower()
+        if not path.endswith(_ANNEXB + _MJPEG):
+            return None
+        self._map = data = _map_file(self._path())
+        if path.endswith(_MJPEG):
+            from evam_tpu_torch.media import jpeg
+
+            return (jpeg.decode(j) for j in _split_jfif(data))
+        return self._annexb_frames(data)
+
+    def _annexb_frames(self, data: bytes):
+        from evam_tpu_torch.media.h264 import decode_ipcm_au
+
+        done = 0
+        for au in _access_units(data):
+            frame = decode_ipcm_au(au)
+            if frame is None:
+                break
+            yield frame
+            done += 1
+        else:
+            return
+        self._cap = self._open()
+        for _ in range(done):
+            self._cap.read()
+        while not self._closed:
+            ok, frame = self._cap.read()
+            if not ok:
+                break
+            yield frame
+
+    def _read_all(self):
+        """One pass over the file: (frames iterator, fps)."""
+        decoded = self._decoded()
+        if decoded is not None:
+            return decoded, RAW_STREAM_FPS
         self._cap = self._open()
         fps = self._cap.get(5) or 30.0  # CAP_PROP_FPS
         if fps <= 0 or fps > 1000:
             fps = 30.0
-        frame_ns = int(NS / fps)
-        seq = 0
-        t_wall = time.perf_counter()
-        while not self._closed:
-            ok, frame = self._cap.read()
-            if not ok:
-                if self.loop and not self._closed:
-                    self._cap.release()
-                    self._cap = self._open()
-                    continue
-                break
-            yield FrameEvent(frame=frame, pts_ns=seq * frame_ns, seq=seq)
-            seq += 1
-            if self.realtime:
-                t_wall += 1.0 / fps
-                delay = t_wall - time.perf_counter()
-                if delay > 0:
-                    time.sleep(delay)
+
+        def read():
+            while not self._closed:
+                ok, frame = self._cap.read()
+                if not ok:
+                    return
+                yield frame
+
+        return read(), fps
+
+    def frames(self) -> Iterator[FrameEvent]:
+        try:
+            it, fps = self._read_all()
+            frame_ns = int(NS / fps)
+            seq = 0
+            t_wall = time.perf_counter()
+            while not self._closed:
+                frame = next(it, None)
+                if frame is None:
+                    if self.loop and not self._closed:
+                        self._release()
+                        it, _ = self._read_all()
+                        continue
+                    break
+                yield FrameEvent(frame=frame, pts_ns=seq * frame_ns, seq=seq)
+                seq += 1
+                if self.realtime:
+                    t_wall += 1.0 / fps
+                    delay = t_wall - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+        finally:  # an abandoned iterator lets go of its file too
+            self._release()
+
+    def _release(self) -> None:
         if self._cap is not None:
             self._cap.release()
+            self._cap = None
+        if isinstance(self._map, mmap.mmap):
+            self._map.close()
+        self._map = None
 
     def close(self) -> None:
         self._closed = True
@@ -161,6 +308,157 @@ class SyntheticSource:
         self._closed = True
 
 
+class WebcamSource(FileSource):
+    """Live camera source (reference docker/run.sh webcam probe,
+    :107-113): a cv2 camera index instead of a URI; cv2 is imported
+    when the stream opens."""
+
+    def __init__(self, index: int = 0):
+        super().__init__(uri=str(index), realtime=False)
+        self.index = index
+
+    def _open(self):
+        import cv2
+
+        cap = cv2.VideoCapture(self.index)
+        if not cap.isOpened():
+            raise IOError(f"cannot open camera {self.index}")
+        return cap
+
+
+def gige_frame_to_bgr(data: np.ndarray, pixel_format: str) -> np.ndarray:
+    """GenICam pixel-format → BGR uint8 (pure helper, unit-testable
+    without camera hardware)."""
+    import cv2
+
+    fmt = pixel_format.lower()
+    if fmt in ("mono8", "mono"):
+        return cv2.cvtColor(data, cv2.COLOR_GRAY2BGR)
+    if fmt.startswith("bayerrg"):
+        return cv2.cvtColor(data, cv2.COLOR_BAYER_RG2BGR)
+    if fmt.startswith("bayergb"):
+        return cv2.cvtColor(data, cv2.COLOR_BAYER_GB2BGR)
+    if fmt.startswith("bayergr"):
+        return cv2.cvtColor(data, cv2.COLOR_BAYER_GR2BGR)
+    if fmt.startswith("bayerbg"):
+        return cv2.cvtColor(data, cv2.COLOR_BAYER_BG2BGR)
+    if fmt in ("rgb8", "rgb"):
+        return cv2.cvtColor(data, cv2.COLOR_RGB2BGR)
+    if fmt in ("bgr8", "bgr"):
+        return data
+    raise ValueError(f"unsupported GenICam pixel format {pixel_format!r}")
+
+
+class GigeSource:
+    """GenICam / GigE Vision camera source — the gencamsrc counterpart
+    (reference resolves ``{auto_source}`` to gencamsrc for gige
+    cameras; EII compose wires GENICAM + ``GST_DEBUG gencamsrc``,
+    reference eii/docker-compose.yml:59).
+
+    Backends, tried in order:
+
+    1. **harvesters** (GenICam GenTL consumer; needs a ``.cti``
+       producer from the camera vendor, path via ``cti`` property or
+       ``GENICAM_GENTL64_PATH``);
+    2. **cv2 + GStreamer** (``aravissrc``/``gencamsrc`` pipeline
+       string) when OpenCV is built with GStreamer.
+
+    Both are imported when the stream opens, and ``frames()`` raises
+    an error naming both options where neither is there (the card's
+    machine has neither) — the request contract (``source.type:
+    "gige"`` + serial/pixel-format properties) is stable either way.
+    """
+
+    def __init__(self, serial: str | None = None,
+                 pixel_format: str = "BayerRG8",
+                 cti: str | None = None):
+        self.serial = serial
+        self.pixel_format = pixel_format
+        self.cti = cti
+        self._ia = None        # harvesters image acquirer
+        self._cap = None       # cv2 GStreamer capture
+        self._closed = False
+
+    def _open(self) -> None:
+        import os as _os
+
+        h = None
+        try:
+            from harvesters.core import Harvester  # type: ignore
+
+            h = Harvester()
+            cti = self.cti or _os.environ.get("GENICAM_GENTL64_PATH")
+            if cti:
+                for p in cti.split(":"):
+                    h.add_file(p)
+            h.update()
+            self._ia = h.create_image_acquirer(
+                serial_number=self.serial) if self.serial else \
+                h.create_image_acquirer(0)
+            self._harvester = h
+            self._ia.start_acquisition()
+            return
+        except Exception as exc:  # noqa: BLE001 — installed-but-no-device
+            # falls through to GStreamer: harvesters without a .cti
+            # producer or with no camera raises here, not ImportError
+            if h is not None:
+                h.reset()
+            if not isinstance(exc, ImportError):
+                log.info("harvesters backend unavailable: %s", exc)
+
+        import cv2
+
+        if "GStreamer" in cv2.getBuildInformation():
+            sel = f"serial={self.serial} " if self.serial else ""
+            gst = (
+                f"aravissrc {sel}! videoconvert ! "
+                "video/x-raw,format=BGR ! appsink"
+            )
+            cap = cv2.VideoCapture(gst, cv2.CAP_GSTREAMER)
+            if cap.isOpened():
+                self._cap = cap
+                return
+        raise RuntimeError(
+            "no GigE backend available: install a GenICam GenTL "
+            "producer (.cti) + the 'harvesters' package, or an OpenCV "
+            "build with GStreamer and aravissrc (reference parity: "
+            "gencamsrc in the DL Streamer image)"
+        )
+
+    def frames(self) -> Iterator[FrameEvent]:
+        self._open()
+        seq = 0
+        packed = self.pixel_format.lower() in ("rgb8", "rgb", "bgr8", "bgr")
+        while not self._closed:
+            if self._ia is not None:
+                with self._ia.fetch_buffer() as buf:
+                    comp = buf.payload.components[0]
+                    shape = (
+                        (comp.height, comp.width, 3) if packed
+                        else (comp.height, comp.width)
+                    )
+                    # copy INSIDE the with-block: fetch_buffer requeues
+                    # the GenTL buffer on exit, so a zero-copy view
+                    # would be overwritten by the next capture
+                    data = np.array(comp.data.reshape(shape), copy=True)
+                frame = gige_frame_to_bgr(data, self.pixel_format)
+            else:
+                ok, frame = self._cap.read()
+                if not ok:
+                    break
+            yield FrameEvent(frame=frame, pts_ns=time.monotonic_ns(), seq=seq)
+            seq += 1
+
+    def close(self) -> None:
+        self._closed = True
+        if self._ia is not None:
+            self._ia.stop_acquisition()
+            self._ia.destroy()
+            self._harvester.reset()
+        if self._cap is not None:
+            self._cap.release()
+
+
 class AppSource:
     """Application-injected frames (appsrc / message-bus source):
     callers push numpy frames or raw BGR bytes."""
@@ -225,24 +523,6 @@ class AppSource:
             self.end()
 
 
-#: request source types the reference resolves that come with later
-#: slices
-_LATER_TYPES = {
-    "webcam": slices.INGEST_EGRESS,
-    "gige": slices.INGEST_EGRESS,
-}
-
-
-def check_source(source_cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for a source that comes with a
-    later slice — called when a start request arrives, so the request
-    fails (501) before any resource is opened."""
-    stype = source_cfg.get("type", "uri")
-    if stype in _LATER_TYPES:
-        raise NotImplementedError(
-            f"source type '{stype}' comes with {_LATER_TYPES[stype]}")
-
-
 def create_source(source_cfg: dict, realtime: bool = False) -> VideoSource:
     """Resolve a request ``source`` object into a VideoSource.
 
@@ -250,7 +530,6 @@ def create_source(source_cfg: dict, realtime: bool = False) -> VideoSource:
     ``{"source": {"uri": ..., "type": "uri"}}``
     (charts/templates/NOTES.txt:9-13).
     """
-    check_source(source_cfg)
     stype = source_cfg.get("type", "uri")
     if stype in ("uri", "file"):
         uri = source_cfg["uri"]
@@ -268,11 +547,29 @@ def create_source(source_cfg: dict, realtime: bool = False) -> VideoSource:
                 loop=bool(source_cfg.get("loop", False)),
                 realtime=realtime,
             )
+        if uri.startswith("rtsp://"):
+            # the per-stream blocking reader: the demux with one stream
+            # and one decode worker (the reference reads it with cv2)
+            from evam_tpu_torch.media.demux import RtspSource
+
+            return RtspSource(uri)
         return FileSource(
             uri,
             loop=bool(source_cfg.get("loop", False)),
             realtime=realtime or bool(source_cfg.get("realtime", False)),
         )
+    if stype == "webcam":
+        # cv2 needs an int index for camera devices, not a string path
+        device = source_cfg.get("device", 0)
+        return WebcamSource(int(device))
     if stype == "application":
         return AppSource(maxsize=int(source_cfg.get("queue-size", 64)))
+    if stype == "gige":
+        # reference {auto_source} resolves gige → gencamsrc
+        # (eii/docker-compose.yml:59); properties mirror gencamsrc's
+        return GigeSource(
+            serial=source_cfg.get("serial"),
+            pixel_format=source_cfg.get("pixel-format", "BayerRG8"),
+            cti=source_cfg.get("cti"),
+        )
     raise ValueError(f"unsupported source type '{stype}'")

@@ -1,4 +1,5 @@
-"""ctypes bindings for the port's host media kernels (``csrc/evam_media.cpp``).
+"""ctypes bindings for the port's host media kernels (``csrc/evam_media.cpp``
+and the codecs of ``csrc/evam_codec.cpp``).
 
 Counterpart of ``evam_tpu/native.py``. The per-frame host work of a
 stream thread — the fused bilinear resize + BGR→I420 wire encode, the
@@ -8,11 +9,16 @@ the interpreter lock for the length of each call: the stream threads
 encode in parallel, and each encode spreads its rows over the cores.
 
 The library is built from the port's own copy of the reference's
-source, the first time it is used: ``g++ -O3 -fPIC -fopenmp -Wall
--std=c++17 -shared`` (the flags of ``native/Makefile``) into
-``build/native/`` at the root of the checkout, named by a digest of the
-source and the flags, written to a temporary name and renamed (parallel
-processes may build it at once). :func:`build` builds it ahead of use.
+source and the port's codecs (one library, both sources), the first
+time it is used: ``g++ -O3 -fPIC -fopenmp -Wall -std=c++17 -shared``
+(the flags of ``native/Makefile``) into ``build/native/`` at the root
+of the checkout, named by a digest of the sources and the flags,
+written to a temporary name and renamed (parallel processes may build
+it at once). :func:`build` builds it ahead of use.
+
+The codecs (``media/jpeg.py``, and :func:`i420_to_bgr` for the I_PCM
+reader) have no numpy or cv2 copy: they load the library whatever the
+policy below says, and a failed build raises.
 
 The policy is the reference's (``evam_tpu/native.py:42, :98-106``),
 read on every call:
@@ -58,12 +64,16 @@ from evam_tpu_torch.ops.color import (
 log = logging.getLogger("evam_tpu_torch.native")
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "evam_media.cpp"
+#: the codecs (JPEG, I420 → BGR), compiled into the same library
+CODEC_SOURCE = SOURCE.with_name("evam_codec.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 #: the compiler (tests point it elsewhere to see a failed build raise)
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-Wall", "-std=c++17", "-shared")
 #: the source's ``evam_native_version()``
 VERSION = 2
+#: the codecs' ``evam_codec_version()``
+CODEC_VERSION = 1
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _lock = threading.Lock()
@@ -82,10 +92,16 @@ def native_mode(env) -> str:
     return "auto"
 
 
+def _sources() -> tuple[Path, ...]:
+    """Every source of the library (the digest covers them all)."""
+    return (SOURCE, CODEC_SOURCE)
+
+
 def library_path() -> Path:
-    """Where the library of this source and these flags is built."""
+    """Where the library of these sources and these flags is built."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join((CXX, *CXX_FLAGS)).encode()
+        b"".join(src.read_bytes() for src in _sources())
+        + " ".join((CXX, *CXX_FLAGS)).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"libevam_media_{digest}.so"
 
@@ -103,7 +119,7 @@ def build() -> dict:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [CXX, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [CXX, *CXX_FLAGS, "-o", str(tmp), *map(str, _sources())],
             capture_output=True, text=True)
     except OSError as exc:
         raise RuntimeError(
@@ -113,7 +129,8 @@ def build() -> dict:
     output = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"native build of {SOURCE} failed:\n{output}")
+        raise RuntimeError(f"native build of {', '.join(map(str, _sources()))} "
+                           f"failed:\n{output}")
     os.replace(tmp, target)
     return {"path": str(target), "seconds": time.perf_counter() - t0,
             "log": output}
@@ -133,6 +150,42 @@ def _bind(path: str) -> ctypes.CDLL:
     if version != VERSION:
         raise RuntimeError(f"native library {path} is version {version}, "
                            f"the bindings need {VERSION}")
+    if not hasattr(lib, "evam_codec_version"):
+        return lib  # a prebuilt library without the codecs (EVAM_NATIVE_LIB)
+    lib.evam_i420_to_bgr.argtypes = [_U8P, _U8P, _U8P, _U8P, ctypes.c_int,
+                                     ctypes.c_int]
+    lib.evam_i420_to_bgr.restype = None
+    lib.evam_jpeg_info.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+    lib.evam_jpeg_info.restype = ctypes.c_int
+    lib.evam_jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, _U8P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_int]
+    lib.evam_jpeg_decode.restype = ctypes.c_int
+    lib.evam_jpeg_encode.argtypes = [
+        _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P, ctypes.c_long,
+        ctypes.c_char_p, ctypes.c_int]
+    lib.evam_jpeg_encode.restype = ctypes.c_long
+    lib.evam_codec_version.restype = ctypes.c_int
+    version = lib.evam_codec_version()
+    if version != CODEC_VERSION:
+        raise RuntimeError(f"native library {path}: its codecs are "
+                           f"version {version}, the bindings need "
+                           f"{CODEC_VERSION}")
+    return lib
+
+
+def jpeg_library() -> ctypes.CDLL:
+    """The loaded library whatever the policy (the codecs' entry):
+    built now on first use; a failed build or load raises, and so does
+    a prebuilt ``EVAM_NATIVE_LIB`` without the codec."""
+    lib = _load()
+    if not hasattr(lib, "evam_codec_version"):
+        raise RuntimeError(
+            f"native library {os.environ.get('EVAM_NATIVE_LIB', '')} has no "
+            "JPEG codec (csrc/evam_codec.cpp); unset EVAM_NATIVE_LIB to "
+            "build the port's own")
     return lib
 
 
@@ -224,6 +277,22 @@ def resize_bgr(frame: np.ndarray, dh: int, dw: int) -> np.ndarray:
     sh, sw = frame.shape[:2]
     out = np.empty((dh, dw, 3), np.uint8)
     _lib.resize_bgr(_ptr(frame), sh, sw, _ptr(out), dh, dw)
+    return out
+
+
+def i420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """I420 planes (uint8 ``[H, W]``, ``[H/2, W/2]`` twice; H and W even)
+    → BGR uint8 ``[H, W, 3]``, the pixels of ``cv2.cvtColor(planar,
+    COLOR_YUV2BGR_I420)``. One thread; a codec, so no numpy copy."""
+    h, w = y.shape
+    if (h % 2 or w % 2 or u.shape != (h // 2, w // 2) or v.shape != u.shape
+            or not all(p.dtype == np.uint8 for p in (y, u, v))):
+        raise ValueError(f"expected uint8 I420 planes, got {y.shape} "
+                         f"{u.shape} {v.shape}")
+    lib = jpeg_library()
+    y, u, v = (np.ascontiguousarray(p) for p in (y, u, v))
+    out = np.empty((h, w, 3), np.uint8)
+    lib.evam_i420_to_bgr(_ptr(y), _ptr(u), _ptr(v), _ptr(out), h, w)
     return out
 
 

@@ -10,8 +10,10 @@ with ``cv2.imencode`` (JPEG or PNG, ``encoding.type`` /
   truecolour, the rows Sub-filtered), and :func:`decode_frame` reads
   8-bit truecolour PNGs with any of the five row filters, cv2's output
   included; pixels, not bytes, equal cv2's (cv2 picks its own filters);
-* ``jpeg`` imports cv2 inside the function, as the reference does, and
-  fails naming ``cv2`` where it is missing.
+* ``jpeg`` goes through the port's own codec (``media/jpeg.py``, C++
+  in the native library), which writes the bytes ``cv2.imencode`` writes
+  and reads what ``cv2.imdecode`` reads, pixel for pixel; the quality
+  range and default (95) are the reference's.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from evam_tpu_torch.media import jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -65,16 +69,10 @@ def encode_frame(
             raise ValueError(f"png compression {c} outside [0, 9]")
         return _png(frame_bgr, c)
     if enc_type == "jpeg":
-        import cv2
-
         q = 95 if level is None else int(level)
         if not 0 <= q <= 100:
             raise ValueError(f"jpeg quality {q} outside [0, 100]")
-        ok, buf = cv2.imencode(".jpg", frame_bgr,
-                               [cv2.IMWRITE_JPEG_QUALITY, q])
-        if not ok:
-            raise RuntimeError("jpeg encode failed")
-        return bytes(buf.tobytes())
+        return jpeg.encode(frame_bgr, q)
     raise ValueError(f"unsupported encoding type '{enc_type}'")
 
 
@@ -152,14 +150,10 @@ def _unpng(blob: bytes) -> np.ndarray:
 
 def decode_frame(blob: bytes, enc_type: str) -> np.ndarray:
     """Encoded bytes → BGR uint8 frame (``cv2.imdecode``'s
-    ``IMREAD_COLOR`` result): ``png`` here, ``jpeg`` through cv2."""
+    ``IMREAD_COLOR`` result): ``png`` here, ``jpeg`` through the port's
+    codec. An undecodable blob raises ``ValueError``."""
     if enc_type == "png":
         return _unpng(bytes(blob))
     if enc_type == "jpeg":
-        import cv2
-
-        frame = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
-        if frame is None:
-            raise ValueError("jpeg decode failed")
-        return frame
+        return jpeg.decode(bytes(blob))
     raise ValueError(f"unsupported encoding type '{enc_type}'")

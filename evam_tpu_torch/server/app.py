@@ -44,6 +44,7 @@ from evam_tpu_torch.models.registry import MissingWeightsError
 from evam_tpu_torch.obs import trace
 from evam_tpu_torch.obs.metrics import metrics
 from evam_tpu_torch.ops import qgemm
+from evam_tpu_torch.publish.rtsp import RtspServer
 from evam_tpu_torch.sched import AdmissionError
 from evam_tpu_torch.server.registry import PipelineRegistry, RequestError
 from evam_tpu_torch.stages.gate import registry as gate_registry
@@ -251,6 +252,12 @@ class App:
                         "max_bytes": 0, "hits": 0,
                         "misses": dict.fromkeys(_AOT_MISS_REASONS, 0),
                         "evictions": 0}
+        # the shared ingest serves every live stream: its frame
+        # counters beside the engines' readiness
+        if self.registry.rtsp_demux is not None:
+            ready["rtsp_demux"] = self.registry.rtsp_demux.stats()
+        if self.registry.decode_pool is not None:
+            ready["decode_pool"] = self.registry.decode_pool.stats()
         # the engine-failure ladder, most severe first, all 503 so a
         # readiness probe takes the process out of rotation: degraded
         # is terminal (restart budget spent), restarting transient (a
@@ -298,10 +305,18 @@ def make_server(app: App, host: str = "0.0.0.0",
 def run_server(settings: Settings) -> int:
     """Blocking entry point of ``serve``: answers until SIGINT or
     SIGTERM, then stops every instance and the engines, and returns 0.
-    The streams a previous run left in ``EVAM_STATE_DIR`` are resumed
-    before the port opens."""
+    With ENABLE_RTSP the RTSP re-stream server listens on RTSP_PORT
+    first; then the streams a previous run left in ``EVAM_STATE_DIR``
+    are resumed (a resumed ``destination.frame`` mounts again), before
+    the port opens."""
     trace.init_observability(settings)
     registry = PipelineRegistry(settings)
+    extras = []
+    if settings.enable_rtsp:
+        rtsp = RtspServer(port=settings.rtsp_port)
+        rtsp.start()
+        registry.rtsp = rtsp
+        extras.append(f"rtsp://0.0.0.0:{rtsp.port}")
     registry.resume()
     if settings.preload:
         n = registry.preload(settings.preload)
@@ -313,8 +328,8 @@ def run_server(settings: Settings) -> int:
     thread = threading.Thread(target=server.serve_forever,
                               name="rest-server", daemon=True)
     thread.start()
-    log.info("REST serving on :%d (device %s)", settings.rest_port,
-             settings.device)
+    log.info("REST serving on :%d (device %s)%s", settings.rest_port,
+             settings.device, f" + {', '.join(extras)}" if extras else "")
     try:
         while not stop.wait(0.5):
             pass
@@ -323,4 +338,6 @@ def run_server(settings: Settings) -> int:
         server.shutdown()
         server.server_close()
         registry.stop_all()
+        if registry.rtsp is not None:
+            registry.rtsp.stop()
     return 0

@@ -1,11 +1,12 @@
 """StreamInstance: one running pipeline instance.
 
-Counterpart of ``evam_tpu/server/instance.py`` (a copy, less the
-decode-pool and RTSP-demux blocks, whose knobs raise until their
-slice). The instance owns only light host work: a thread
-walking its frames through the stage chain via StreamRunner; all
-inference rides the shared EngineHub batch queues. A dying stream
-never takes the engine down.
+Counterpart of ``evam_tpu/server/instance.py`` (a copy). The instance
+owns only light host work: a thread walking its frames through the
+stage chain via StreamRunner; all inference rides the shared EngineHub
+batch queues. A dying stream never takes the engine down. With the
+registry's shared ``RtspDemux`` an ``rtsp://`` source is read by the
+demux (no reader of its own); with its shared ``DecodePool`` a
+free-running file source is decoded by the pool's workers.
 
 Lifecycle (the reference pipeline server's states): QUEUED → RUNNING →
 COMPLETED | ERROR | ABORTED, with a capped, jittered reconnect between
@@ -76,6 +77,8 @@ class StreamInstance:
         priority: str = "standard",
         on_finish: Callable[["StreamInstance"], None] | None = None,
         source: Any | None = None,
+        decode_pool: Any | None = None,
+        rtsp_demux: Any | None = None,
     ):
         self.id = str(uuid.uuid4())
         self.pipeline_name = pipeline_name
@@ -96,6 +99,10 @@ class StreamInstance:
         self._injected_source = source
         if source is not None:
             self.max_retries = 0
+        #: shared DecodePool (registry-owned) or None = decode inline
+        self._decode_pool = decode_pool
+        #: shared RtspDemux (registry-owned) or None = blocking reader
+        self._rtsp_demux = rtsp_demux
 
         self.state = InstanceState.QUEUED
         self.error: str | None = None
@@ -192,6 +199,15 @@ class StreamInstance:
 
     def _run_once(self) -> None:
         src_cfg = self.request.get("source", {})
+        live_rtsp = (self._injected_source is None
+                     and src_cfg.get("type", "uri") == "uri"
+                     and str(src_cfg.get("uri", "")).startswith("rtsp://"))
+        # Live RTSP through the shared demux: one selector thread and
+        # shared decode workers for every rtsp:// source; the demux owns
+        # the socket, so no source is created here.
+        if self._rtsp_demux is not None and live_rtsp:
+            self._run_once_demux(src_cfg["uri"])
+            return
         source = self._injected_source or create_source(
             src_cfg, realtime=bool(src_cfg.get("realtime", False)))
         with self._src_lock:
@@ -205,14 +221,63 @@ class StreamInstance:
             source_uri=src_cfg.get("uri", ""),
             priority=self.priority,
         )
+        pooled = None
+        # The shared decode pool takes only free-running uri sources
+        # (file replay): a source whose frames() blocks between frames
+        # (realtime pacing, live RTSP, AppSource) would pin a shared
+        # worker, so it keeps its own reader.
+        if (self._decode_pool is not None
+                and self._injected_source is None
+                and src_cfg.get("type", "uri") == "uri"
+                and not src_cfg.get("realtime", False)
+                and not live_rtsp):
+            # restart supervision stays HERE (max_restarts=0 in the
+            # pool: its error surfaces below and the retry loop
+            # recreates everything); lossless backpressure, as the
+            # inline pull-based read
+            pooled = self._decode_pool.add_stream(
+                self.id[:8], lambda: source, max_restarts=0,
+                drop_when_full=False)
+            frames = pooled.frames()
+        else:
+            frames = source.frames()
         try:
-            self._runner.run(source.frames())
+            self._runner.run(frames)
+            if pooled is not None and pooled.error:
+                raise IOError(pooled.error)
         finally:
             # Each attempt owns its source: close it here so retries
-            # never leak capture handles.
+            # never leak capture handles (RTSP cameras commonly allow
+            # a single connection).
+            if pooled is not None:
+                pooled.close()
             with self._src_lock:
                 source.close()
                 if self._source is source:
+                    self._source = None
+
+    def _run_once_demux(self, uri: str) -> None:
+        """One attempt over the shared demux: it owns socket,
+        depacketizing and decode; this thread only consumes the bounded
+        frame queue. A handshake or socket error surfaces as IOError and
+        the retry loop reconnects."""
+        stream = self._rtsp_demux.add_stream(uri, stream_id=self.id[:8])
+        with self._src_lock:
+            if self._stop.is_set():
+                stream.close()
+                return
+            self._source = stream
+        self._runner = StreamRunner(
+            stream_id=self.id, stages=self.stages, source_uri=uri,
+            priority=self.priority)
+        try:
+            self._runner.run(stream.frames())
+            if stream.error:
+                raise IOError(stream.error)
+        finally:
+            with self._src_lock:
+                stream.close()
+                if self._source is stream:
                     self._source = None
 
     # --------------------------------------------------------- status

@@ -28,8 +28,17 @@ the store's degradation ladder before its first frame; ``stop_all``
 captures every live stream at the ``drain`` barrier and keeps
 ``streams.json`` (a DELETE removes its stream from it).
 
-Left out until their slices (ROADMAP.md): the RTSP and WebRTC frame
-destinations, the decode pool and the RTSP demux.
+Ingest and the re-stream (slice 11a): with EVAM_DECODE_POOL_WORKERS the
+registry owns a shared ``DecodePool`` for free-running file sources,
+with EVAM_RTSP_DEMUX_WORKERS a shared ``RtspDemux`` for every
+``rtsp://`` source, and ``serve`` hands it the ``RtspServer``
+(ENABLE_RTSP) as ``rtsp``; ``stop_all`` stops the pool and the demux. A
+start with ``destination.frame {"type": "rtsp", "path": ...}`` mounts a
+relay on that server (unmounted when the instance ends or its start
+fails) whose frames are annotated and encoded only while a client
+watches; ``resume()`` runs after the server exists, so a resumed stream
+mounts its relay again. The WebRTC frame destination comes with slice
+11b.
 """
 
 from __future__ import annotations
@@ -47,9 +56,11 @@ from evam_tpu_torch.control import state as control_state
 from evam_tpu_torch.device import mesh_devices
 from evam_tpu_torch.engine.hub import EngineHub
 from evam_tpu_torch.graph import PipelineLoader, resolve_parameters
-from evam_tpu_torch.media.source import check_source
+from evam_tpu_torch.media.demux import RtspDemux
+from evam_tpu_torch.media.pool import DecodePool
 from evam_tpu_torch.models.registry import ModelRegistry
 from evam_tpu_torch.obs.metrics import metrics
+from evam_tpu_torch.publish.annotate import annotate_frame
 from evam_tpu_torch.publish.base import create_destination
 from evam_tpu_torch.sched import (
     DEFAULT_PRIORITY,
@@ -134,6 +145,17 @@ class PipelineRegistry:
             self.tuner = TuneController(hub, tune_state,
                                         admission=self.admission)
             self.tuner.start()
+        #: shared decode pool (EVAM_DECODE_POOL_WORKERS > 0): bounds the
+        #: decode threads of every free-running file source
+        self.decode_pool = (DecodePool(workers=settings.decode_pool_workers)
+                            if settings.decode_pool_workers > 0 else None)
+        #: shared RTSP demux (EVAM_RTSP_DEMUX_WORKERS > 0): one selector
+        #: thread and this many decode workers for every rtsp:// source
+        self.rtsp_demux = (RtspDemux(decode_workers=settings.rtsp_demux_workers)
+                           if settings.rtsp_demux_workers > 0 else None)
+        #: the RtspServer of destination.frame re-streams (``serve`` sets
+        #: it with ENABLE_RTSP)
+        self.rtsp = None
         self.instances: dict[str, StreamInstance] = {}
         self._lock = threading.Lock()
         self._draining = False
@@ -252,13 +274,11 @@ class PipelineRegistry:
                         request: dict[str, Any], priority: str,
                         ticket, publish_fn, source, sink_fn,
                         saved_state: dict | None) -> StreamInstance:
-        if source is None:
-            check_source(src)
         frame_cfg = (request.get("destination") or {}).get("frame") or {}
-        if frame_cfg.get("type"):
+        if frame_cfg.get("type") == "webrtc":
             raise NotImplementedError(
-                f"frame destination '{frame_cfg['type']}' comes with "
-                f"{slices.INGEST_EGRESS}")
+                f"frame destination 'webrtc' comes with "
+                f"{slices.WEBRTC_EGRESS}")
 
         params = request.get("parameters") or {}
         # Resolve stages BEFORE opening the destination: a bad
@@ -266,19 +286,38 @@ class PipelineRegistry:
         stage_specs, _ = resolve_parameters(spec, params)
         dest_cfg = (request.get("destination") or {}).get("metadata")
         destination = create_destination(dest_cfg)
+        meta_fn = publish_fn or (lambda ctx: destination.publish(ctx.metadata))
+        unmount = None
+        if frame_cfg.get("type") == "rtsp" and self.rtsp is not None:
+            # the annotated re-stream at rtsp://host:RTSP_PORT/<path>
+            # (as in the reference, ignored without ENABLE_RTSP)
+            rtsp = self.rtsp
+            relay = rtsp.mount(frame_cfg.get("path") or name)
+            unmount = lambda: rtsp.unmount(relay.path)  # noqa: E731
+            base_fn = meta_fn
+
+            def meta_fn(ctx, _base=base_fn, _relay=relay):  # noqa: F811
+                _base(ctx)
+                # annotate and encode only while someone watches: a
+                # full-frame host cost per frame
+                if ctx.frame is not None and _relay.has_clients:
+                    _relay.push_bgr(annotate_frame(ctx))
+
         try:
             stages = build_stages(
                 stage_specs,
                 self.hub,
                 source_uri=(src.get("uri", "") if isinstance(src, dict)
                             else ""),
-                publish_fn=publish_fn or (
-                    lambda ctx: destination.publish(ctx.metadata)),
+                publish_fn=meta_fn,
                 sink_fn=sink_fn,
             )
         except BaseException:
-            # the destination must not leak on a failed start
+            # the destination and the mount must not leak on a failed
+            # start
             destination.close()
+            if unmount is not None:
+                unmount()
             raise
         instance = StreamInstance(
             pipeline_name=name,
@@ -287,8 +326,11 @@ class PipelineRegistry:
             request=request,
             destination=destination,
             priority=priority,
-            on_finish=lambda _inst: self._on_instance_finish(ticket),
+            on_finish=lambda _inst: self._on_instance_finish(ticket,
+                                                             unmount),
             source=source,
+            decode_pool=self.decode_pool,
+            rtsp_demux=self.rtsp_demux,
         )
         if saved_state:
             # before start(): the first resumed frame must already see
@@ -311,8 +353,10 @@ class PipelineRegistry:
         self._persist()
         return instance
 
-    def _on_instance_finish(self, ticket) -> None:
+    def _on_instance_finish(self, ticket, unmount=None) -> None:
         ticket.release()
+        if unmount is not None:
+            unmount()
         self._persist()
 
     def get_instance(self, instance_id: str) -> StreamInstance | None:
@@ -374,6 +418,10 @@ class PipelineRegistry:
             inst.stop()
         for inst in instances:
             inst.wait(timeout=self.settings.drain_timeout_s)
+        if self.decode_pool is not None:
+            self.decode_pool.stop()
+        if self.rtsp_demux is not None:
+            self.rtsp_demux.stop()
         leaked = 0
         for inst in instances:
             if inst._thread is None or not inst._thread.is_alive():

@@ -8,4 +8,4 @@ silent fallback.
 
 ENGINE_DEPTH = "port slice 7 (the AOT cache)"
 PARALLEL = "port slice 9 (frozen parallel and training code)"
-INGEST_EGRESS = "port slice 11 (ingest and egress)"
+WEBRTC_EGRESS = "port slice 11b (WebRTC egress)"

@@ -215,6 +215,14 @@ _HONOURED = {
     "DEV_MODE": ("no", lambda s: s.dev_mode, lambda s: s.dev_mode),
     "EVAM_DRAIN_TIMEOUT_S": ("2.5", lambda s: s.drain_timeout_s,
                              lambda s: s.drain_timeout_s),
+    # slice 11a's ingest and re-stream knobs
+    "ENABLE_RTSP": ("true", lambda s: s.enable_rtsp,
+                    lambda s: s.enable_rtsp),
+    "RTSP_PORT": ("18554", lambda s: s.rtsp_port, lambda s: s.rtsp_port),
+    "EVAM_DECODE_POOL_WORKERS": ("3", lambda s: s.decode_pool_workers,
+                                 lambda s: s.decode_pool_workers),
+    "EVAM_RTSP_DEMUX_WORKERS": ("2", lambda s: s.rtsp_demux_workers,
+                                lambda s: s.rtsp_demux_workers),
     "EVAM_MAX_BATCH": ("64", lambda s: s.tpu.max_batch,
                        lambda s: s.engine.max_batch),
     "EVAM_BATCH_DEADLINE_MS": ("12.5", lambda s: s.tpu.batch_deadline_ms,

@@ -137,7 +137,8 @@ def test_the_scan_covers_every_module_of_the_port():
     """The checks above walk the package, so a new module is covered by
     being in it: the slice modules among them (slice 8's EII modules
     and its ZeroMQ wire too, so none imports ``zmq`` or ``cv2`` at its
-    top level)."""
+    top level, and slice 11a's codec, sources, pool, demux, re-stream
+    and painter)."""
     names = {_module_name(p) for p in _port_files()}
     assert {"evam_tpu_torch.modelproc", "evam_tpu_torch.modelproc.proc",
             "evam_tpu_torch.stages.track",
@@ -154,4 +155,11 @@ def test_the_scan_covers_every_module_of_the_port():
             "evam_tpu_torch.eii.zmtp", "evam_tpu_torch.eii.msgbus",
             "evam_tpu_torch.eii.configmgr", "evam_tpu_torch.eii.manager",
             "evam_tpu_torch.publish.encode",
-            "evam_tpu_torch.publish.zmq_dest"} <= names
+            "evam_tpu_torch.publish.zmq_dest",
+            # slice 11a's ingest and re-stream: cv2 only inside the
+            # functions that fall back to it
+            "evam_tpu_torch.media.jpeg", "evam_tpu_torch.media.h264",
+            "evam_tpu_torch.media.decode", "evam_tpu_torch.media.pool",
+            "evam_tpu_torch.media.demux", "evam_tpu_torch.media.source",
+            "evam_tpu_torch.publish.rtsp",
+            "evam_tpu_torch.publish.annotate"} <= names

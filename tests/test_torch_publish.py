@@ -181,8 +181,10 @@ def test_factory_refusals():
     for module in (ref_base, port_base):
         with pytest.raises(ValueError, match="carrier-pigeon"):
             module.create_destination({"type": "carrier-pigeon"})
-    endpoint = f"tcp://127.0.0.1:{_free_port()}"
     for module in (ref_base, port_base):
+        # an endpoint each: libzmq unbinds a closed socket on its I/O
+        # thread, after close() has returned
+        endpoint = f"tcp://127.0.0.1:{_free_port()}"
         dest = module.create_destination({"type": "zmq", "endpoint": endpoint})
         try:
             assert type(dest).__name__ == "ZmqDestination"

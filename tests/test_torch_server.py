@@ -26,8 +26,8 @@
   ``route_503_admission.json``.
 * DELETE reaches ABORTED; an application source and a zmq destination
   answer as the reference's do (a pyzmq subscriber reads the zmq
-  destination's metadata); a request of a later slice (a webcam source,
-  ...) answers 501, every pipeline serves, and
+  destination's metadata); a request of a later slice (the WebRTC
+  frame destination) answers 501, every pipeline serves, and
   the requests slice 4 brought (tracking, zone count, the motion gate)
   serve; ``EVAM_GATE=on`` builds a gate in ``DetectStage`` and
   ``EVAM_GATE=off`` beats ``adaptive``; ``python -m
@@ -269,9 +269,14 @@ def test_error_routes_hold_their_goldens(server, tmp_path):
 
 
 @pytest.mark.parametrize("path,body_extra,needle", [
-    (PIPE, {"source": {"type": "webcam", "device": 0}}, "slice 11"),
+    # a webcam source and the rtsp frame destination came with slice
+    # 11a (tests/test_torch_ingest.py); the WebRTC destination, bare and
+    # with the reference's peer id, waits for slice 11b
     (PIPE, {"destination": {"metadata": {"type": "null"},
-                            "frame": {"type": "rtsp"}}}, "slice 11"),
+                            "frame": {"type": "webrtc"}}}, "slice 11"),
+    (PIPE, {"destination": {"metadata": {"type": "null"},
+                            "frame": {"type": "webrtc",
+                                      "peer-id": "cam0"}}}, "slice 11"),
 ])
 def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
     if body_extra is None:
