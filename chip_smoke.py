@@ -257,9 +257,10 @@ memory the allocator holds once it has stopped its engines.
               must complete with lines of the golden's shape, action
               tensors from frame 16 and detections on the replayed
               windows, and no qgemm launch; DELETE on a long stream
-              must give ABORTED; an unknown pipeline, a body without a
-              source and a request of a later slice (a webcam source)
-              must answer 404, 400 and 501.
+              must give ABORTED; an unknown pipeline and a body without
+              a source must answer 404 and 400; a stream with a
+              ``webrtc`` frame destination and ENABLE_WEBRTC off must
+              be served, the destination ignored, as in the reference.
               The engine is built (``PipelineRegistry.preload``, the
               EVAM_PRELOAD path) and warmed before the clock starts.
 20. serve   — the real entry point, ``python3 -m
@@ -363,6 +364,32 @@ memory the allocator holds once it has stopped its engines.
               with the port's RtspDemux (RESTREAM_FRAMES frames), lines
               in the golden's shape, an ``.h264`` and an ``.mjpeg`` file
               COMPLETED through the pool, SIGTERM → exit 0.
+25. webrtc  — person_vehicle_bike (hub A, INT8, pallas, 512², width 32)
+              published to WebRTC viewers, with no cv2, cryptography or
+              websockets on the path: (a) the port's VP8 encoder's ms a
+              frame (keyframe, and an inter frame of the same scene) at
+              640×360 and 1280×720 on one thread, bytes a frame, the
+              reconstruction's PSNR above VP8_PSNR_FLOOR, SRTP protect µs
+              a packet, one DTLS handshake's ms, and which libssl and
+              libcrypto were loaded (and whether ``openssl`` is on
+              PATH); (b) a PipelineRegistry with ENABLE_WEBRTC and the
+              port's signalling server on 127.0.0.1, one stream with
+              ``frame: {type: webrtc, peer-id: cam0}``: two key-mode
+              viewers (the port's primitives in the client role) and one
+              ``play`` viewer join through the relay; each media viewer
+              completes ICE and DTLS, verifies every SRTP tag and gets
+              WEBRTC_FRAMES 640×360 keyframes, each byte-equal to the
+              port's encoder run again on a relay frame; the shared
+              encoder encodes at most once per relay frame; the play
+              viewer's JPEGs decode with the port's codec; bye and stop
+              return the relay's clients to 0; lines in the golden's
+              shape; then EVAM_WEBRTC_VIDEO_MODE=delta with one viewer:
+              inter frames after the keyframe, a PLI answered by a
+              forced keyframe; 10 launches a forward over both; (c)
+              ``serve`` as a child with ENABLE_WEBRTC and the relay: one
+              viewer receives frames, 10 launches a forward, SIGTERM →
+              exit 0. Prints frames/s per viewer, bytes a frame and the
+              seconds from offer to first frame.
 
 The rest phase runs the scheduler as the default has it (on), with a
 declared capacity (``EVAM_SCHED_CAPACITY_FPS``): the capacity model
@@ -375,9 +402,10 @@ off for its second run only).
 
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
 calls; ``launches`` sums the slice, classify, engine, track, gate,
-ragged, sched, tune, native, fleet, rest, serve, eii, trace, chaos and
-ingest phases' served runs (ingest: the demux run, its AppSource
-replay and the serve child's streams and files) and their engines'
+ragged, sched, tune, native, fleet, rest, serve, eii, trace, chaos,
+ingest and webrtc phases' served runs (ingest: the demux run, its
+AppSource replay and the serve child's streams and files; webrtc: the
+key and delta streams and the serve child's stream) and their engines'
 warm runs, split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
@@ -415,7 +443,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
-          "eii", "trace", "chaos", "ingest")
+          "eii", "trace", "chaos", "ingest", "webrtc")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -2631,21 +2659,29 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
             errors = {
                 "404": _http(base, "GET", "/pipelines/object_detection/nope"),
                 "400": _http(base, "POST", PIPELINE, {"destination": {}}),
-                # the WebRTC frame destination comes with a later slice
-                "501": _http(base, "POST", PIPELINE,
-                             {"source": {"uri": "synthetic://64x64@30?count=1",
-                                         "type": "uri"},
-                              "destination": {
-                                  "metadata": {"type": "file", "path": str(
-                                      tmp / "webrtc.jsonl")},
-                                  "frame": {"type": "webrtc"}}}),
             }
             for want, (status, body) in errors.items():
                 if str(status) != want or "error" not in body:
                     raise AssertionError(f"rest: expected {want}, got "
                                          f"{status} {body}")
-            if "slice 11b" not in errors["501"][1]["error"]:
-                raise AssertionError(f"rest: 501 {errors['501'][1]}")
+            # the WebRTC frame destination without ENABLE_WEBRTC: ignored,
+            # the stream served, as in the reference
+            status, webrtc_id = _http(
+                base, "POST", PIPELINE,
+                {"source": {"uri": "synthetic://64x64@30?count=1",
+                            "type": "uri"},
+                 "destination": {
+                     "metadata": {"type": "file",
+                                  "path": str(tmp / "webrtc.jsonl")},
+                     "frame": {"type": "webrtc", "peer-id": "cam0"}}})
+            if status != 200:
+                raise AssertionError(f"rest: webrtc POST gave {status} "
+                                     f"{webrtc_id}")
+            state = _wait_states(base, [webrtc_id],
+                                 ("COMPLETED", "ERROR", "ABORTED"), 60)
+            if state[webrtc_id]["state"] != "COMPLETED" or len(
+                    (tmp / "webrtc.jsonl").read_text().splitlines()) != 1:
+                raise AssertionError(f"rest: webrtc stream {state}")
             _, engines_after = _http(base, "GET", "/engines")
             if sorted(engines_after) != sorted([
                     f"detect:{KEY}", fused, f"action_encode:{ENC_KEY}",
@@ -2669,7 +2705,8 @@ def phase_rest(torch, port, slice_objects: dict[int, list]) -> dict[str, int]:
                     "occupancy": engines[fused]["mean_occupancy"]},
                 "udf": {**udf, "forwards": udf_fwd, "variants": udf_variants},
                 "frame_level": frame_level,
-                "errors": {k: v[1]["error"] for k, v in errors.items()}}
+                "errors": {k: v[1]["error"] for k, v in errors.items()},
+                "webrtc_off": "served"}
             _print(result)
             return {"aligned": launches + cls_variants["aligned"]
                     + udf_variants["aligned"],
@@ -5372,6 +5409,418 @@ def phase_ingest(torch, port, profile: bool = False) -> dict:
     return {v: cams[v] + serve[v] for v in ("aligned", "masked")}
 
 
+# --------------------------------------------------------------- webrtc
+
+#: VP8 frames each media viewer of the webrtc phase must receive
+WEBRTC_FRAMES = 24
+#: JPEGs the ``play`` viewer must receive
+WEBRTC_PLAY_FRAMES = 8
+#: the reconstruction's PSNR floor (dB) on the textured frame at the
+#: encoder's Q_INDEX (the CPU tests measure 38.9 dB at 640×360)
+VP8_PSNR_FLOOR = 35.0
+#: the webrtc phase's camera: 512² synthetic frames paced at 30 fps
+WEBRTC_SOURCE = {"uri": "synthetic://512x512@30?count=1000000", "type": "uri",
+                 "realtime": True}
+
+
+def _openssl_info() -> dict:
+    """Which libssl and libcrypto the media plane loaded, what
+    ``find_library`` answers, ``ldd`` of Python's ``_ssl`` where it
+    answers None, and whether the ``openssl`` CLI is on PATH."""
+    import ctypes.util
+    import shutil
+
+    from evam_tpu_torch.publish.rtc import openssl
+
+    openssl.ssl()
+    row = {"find_library_ssl": ctypes.util.find_library("ssl"),
+           "find_library_crypto": ctypes.util.find_library("crypto"),
+           "loaded": dict(openssl.loaded),
+           "openssl_cli": shutil.which("openssl")}
+    if None in (row["find_library_ssl"], row["find_library_crypto"]):
+        import _ssl
+
+        out = subprocess.run(["ldd", _ssl.__file__], capture_output=True,
+                             text=True, timeout=60).stdout
+        row["ldd__ssl"] = [x.strip() for x in out.splitlines()
+                           if "ssl" in x or "crypto" in x]
+    return row
+
+
+def _planes_psnr(a, b) -> float:
+    import numpy as np
+
+    return _psnr(np.concatenate([p.reshape(-1) for p in a]),
+                 np.concatenate([p.reshape(-1) for p in b]))
+
+
+def _webrtc_host() -> dict:
+    """(a): the VP8 encoder's ms and bytes a frame (keyframe, and an
+    inter frame of the same scene) at 640×360 and 1280×720 on one
+    thread, the reconstruction's PSNR, SRTP protect µs a packet, one
+    in-memory DTLS handshake's ms, and the OpenSSL the machine has."""
+    from evam_tpu_torch.publish.rtc import dtls, srtp, vp8
+
+    row = {"phase": "webrtc-host", "threads": 1, "q_index": vp8.Q_INDEX,
+           "openssl": _openssl_info()}
+    for w, h in ((640, 360), (1280, 720)):
+        tex = _textured(h, w, 2)
+        enc = vp8.Vp8Encoder(w, h)
+        key = enc.encode(tex)
+        psnr = _planes_psnr(enc.source_planes(tex), enc.reconstruction())
+        delta = enc.encode_frame(tex, keyframe=False)
+        row[f"{w}x{h}"] = {
+            "key_ms": _median_ms(lambda: enc.encode(tex)),
+            "delta_ms": _median_ms(lambda: enc.encode_frame(tex, False)),
+            "key_bytes": len(key), "delta_bytes": len(delta),
+            "psnr_db": psnr}
+        enc.close()
+        if psnr < VP8_PSNR_FLOOR:
+            raise AssertionError(f"webrtc: VP8 PSNR {psnr:.2f} dB at {w}x{h} "
+                                 f"under {VP8_PSNR_FLOOR}")
+    tx = srtp.SrtpSender(os.urandom(16), os.urandom(14))
+    rtp = bytes([0x80, 96]) + bytes(10) + os.urandom(1188)
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tx.protect(rtp)
+    row["srtp_protect_us"] = 1e6 * (time.perf_counter() - t0) / n
+    row["srtp_packet_bytes"] = len(rtp)
+    with tempfile.TemporaryDirectory() as d:
+        cert, key_pem, _ = dtls.generate_certificate(d)
+        t0 = time.perf_counter()
+        srv = dtls.DtlsEndpoint(cert, key_pem, server=True)
+        cli = dtls.DtlsEndpoint(cert, key_pem, server=False)
+        for _ in range(60):
+            cli.handshake_step()
+            srv.handshake_step()
+            for x in cli.take_datagrams():
+                srv.put_datagram(x)
+            for x in srv.take_datagrams():
+                cli.put_datagram(x)
+            if srv.finished and cli.finished:
+                break
+        row["dtls_handshake_ms"] = 1e3 * (time.perf_counter() - t0)
+        if not (srv.finished and cli.finished) or \
+                srv.srtp_keys()[:2] != cli.srtp_keys()[2:]:
+            raise AssertionError("webrtc: the DTLS handshake failed")
+        srv.close()
+        cli.close()
+    return row
+
+
+def _join(url: str, stream: str, cert_dir: Path):
+    """A media viewer (the port's primitives in the client role) that
+    watches ``stream`` through the relay: (viewer, its websocket, the
+    offer's perf_counter)."""
+    from evam_tpu_torch.publish.rtc import ws as wslib
+    from evam_tpu_torch.publish.rtc.viewer import Viewer
+
+    viewer = Viewer(cert_dir)
+    conn = wslib.connect(url)
+    t_offer = time.perf_counter()
+    conn.send(json.dumps({"type": "watch", "stream": stream,
+                          "sdp": viewer.offer}))
+    msg = json.loads(conn.recv(60))
+    if msg.get("type") != "answer":
+        raise AssertionError(f"webrtc: watch {stream} answered {msg}")
+    viewer.accept(msg["sdp"])
+    viewer.connect()
+    return viewer, conn, t_offer
+
+
+def _receive(viewers, frames: int, timeout: float = 60.0) -> None:
+    """Each viewer polls on a thread of its own until it holds
+    ``frames`` whole frames."""
+    errors = []
+
+    def run(v):
+        deadline = time.perf_counter() + timeout
+        while len(v.frames()) < frames:
+            if time.perf_counter() > deadline:
+                errors.append(f"{len(v.frames())} frames")
+                return
+            v.recv_for(0.25)
+
+    threads = [threading.Thread(target=run, args=(v,)) for v in viewers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout + 30)
+    if errors:
+        raise AssertionError(f"webrtc: viewers got {errors} of {frames}")
+
+
+def _viewer_row(viewer, t_offer: float) -> dict:
+    got = viewer.frames()
+    span = viewer.arrivals[-1] - viewer.arrivals[0]
+    return {"frames": len(got), "fps": (len(got) - 1) / span if span else None,
+            "bytes_per_frame": sum(len(p) for _, p in got) / len(got),
+            "offer_to_first_frame_s": viewer.arrivals[0] - t_offer,
+            "rejected_srtp": viewer.rejected}
+
+
+def _await(pred, timeout: float, what: str) -> None:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"webrtc: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def _webrtc_request(out: Path, peer: str) -> dict:
+    return {"source": dict(WEBRTC_SOURCE),
+            "destination": {"metadata": {"type": "file", "path": str(out)},
+                            "frame": {"type": "webrtc", "peer-id": peer}},
+            "parameters": {"threshold": 0.2}}
+
+
+def _webrtc_key(port, preg, srv, tmp: Path, golden: dict) -> dict:
+    """(b), key mode: two media viewers and one ``play`` viewer on one
+    stream through the relay."""
+    import numpy as np
+
+    from evam_tpu_torch.publish.rtc import vp8
+    from evam_tpu_torch.publish.rtc import ws as wslib
+
+    url = f"ws://127.0.0.1:{srv.port}"
+    out = tmp / "cam0.jsonl"
+    iid = preg.start_instance(*DETECT_PIPELINE, _webrtc_request(out, "cam0")).id
+    _await(lambda: "cam0" in srv.services and "cam0" in preg.webrtc_signalers,
+           30, "cam0's registration")
+    sig = preg.webrtc_signalers["cam0"]
+    relay = sig.relay
+    pushed: list[bytes] = []
+    push_jpeg = relay.push_jpeg
+
+    def record(blob):
+        pushed.append(blob)
+        push_jpeg(blob)
+
+    relay.push_jpeg = record
+    joined = [_join(url, "cam0", tmp / f"v{i}") for i in range(2)]
+    viewers = [v for v, _, _ in joined]
+    player = wslib.connect(url)
+    player.send(json.dumps({"type": "play", "stream": "cam0"}))
+    jpegs: list[bytes] = []
+
+    def play():
+        deadline = time.perf_counter() + 60
+        while len(jpegs) < WEBRTC_PLAY_FRAMES and time.perf_counter() < deadline:
+            msg = player.recv(1.0)
+            if isinstance(msg, bytes):
+                jpegs.append(msg)
+
+    play_thread = threading.Thread(target=play)
+    play_thread.start()
+    _receive(viewers, WEBRTC_FRAMES)
+    play_thread.join(90)
+    if len(jpegs) < WEBRTC_PLAY_FRAMES:
+        raise AssertionError(f"webrtc: the play viewer got {len(jpegs)} JPEGs")
+    shapes = {port["jpeg"].decode(b).shape for b in jpegs}
+    if shapes != {(512, 512, 3)}:
+        raise AssertionError(f"webrtc: play JPEGs decode to {shapes}")
+    clients = relay._clients
+    encodes = sig._vp8.encodes
+    n_pushed = len(pushed)
+    rows = [_viewer_row(v, t) for v, _, t in joined]
+    got = [[p for _, p in v.frames()] for v in viewers]
+    # bye (the media viewers leave) and stop (the player's) release the
+    # relay's three clients
+    player.send(json.dumps({"type": "stop", "stream": "cam0"}))
+    for _, conn, _ in joined:
+        conn.close()
+    _await(lambda: relay._clients == 0, 30, "the relay's clients to go")
+    player.close()
+    for v in viewers:
+        v.close()
+    preg.stop_instance(iid)
+    preg.get_instance(iid).wait(30)
+    if clients != 3 or any(r["rejected_srtp"] for r in rows):
+        raise AssertionError(f"webrtc: {clients} relay clients, {rows}")
+    info = [vp8.parse_vp8_header(p) for g in got for p in g]
+    if not all(i["keyframe"] and (i["width"], i["height"]) == (640, 360)
+               for i in info):
+        raise AssertionError("webrtc: key mode sent a frame that is not a "
+                             "640×360 keyframe")
+    # each payload is the port's encoder run again on a frame the relay
+    # carried (its JPEG decoded by the port's codec)
+    want = {p for g in got for p in g}
+    enc = vp8.Vp8Encoder(640, 360)
+    for blob in pushed:
+        want.discard(enc.encode(port["jpeg"].decode(blob)))
+        if not want:
+            break
+    if want:
+        raise AssertionError(f"webrtc: {len(want)} payloads match no "
+                             "re-encoded relay frame")
+    # one shared encode per relay frame, whatever the viewers
+    if not 0 < encodes <= n_pushed:
+        raise AssertionError(f"webrtc: {encodes} encodes for {n_pushed} "
+                             "relay frames")
+    lines = [json.loads(x) for x in out.read_text().splitlines()]
+    errors = [e for m in lines for e in _line_errors(m, golden)]
+    if not lines or errors:
+        raise AssertionError(f"webrtc: {len(lines)} lines, {errors[:3]}")
+    return {"viewers": rows, "play_jpegs": len(jpegs),
+            "shared_encodes": encodes, "relay_frames": n_pushed,
+            "delivered_frames": sum(len(g) for g in got),
+            "distinct_payloads": len({p for g in got for p in g}),
+            "lines": len(lines),
+            "mean_payload_bytes": float(np.mean([len(p) for g in got for p in g]))}
+
+
+def _webrtc_delta(port, preg, srv, tmp: Path) -> dict:
+    """(b), delta mode: one viewer; delta frames after the keyframe, and
+    a PLI answered by a forced keyframe."""
+    from evam_tpu_torch.publish.rtc import rtcp, vp8
+    from evam_tpu_torch.publish.rtc.viewer import SSRC
+
+    url = f"ws://127.0.0.1:{srv.port}"
+    preg.settings.webrtc_video_mode = "delta"
+    iid = preg.start_instance(*DETECT_PIPELINE,
+                              _webrtc_request(tmp / "cam1.jsonl", "cam1")).id
+    _await(lambda: "cam1" in srv.services and "cam1" in preg.webrtc_signalers,
+           30, "cam1's registration")
+    sig = preg.webrtc_signalers["cam1"]
+    viewer, conn, t_offer = _join(url, "cam1", tmp / "v-delta")
+    _receive([viewer], WEBRTC_FRAMES)
+    flags = [vp8.parse_vp8_header(p)["keyframe"] for _, p in viewer.frames()]
+    if not flags[0] or all(flags):
+        raise AssertionError(f"webrtc: delta mode sent {flags}")
+    (sess,) = sig.sessions.values()
+    n0 = len(flags)
+    viewer.send_feedback(rtcp.pli(SSRC, sess.ssrc))
+    t_pli = time.perf_counter()
+    deadline = t_pli + 30
+    while sess.keyframes_forced < 1 or not any(
+            vp8.parse_vp8_header(p)["keyframe"]
+            for _, p in viewer.frames()[n0:]):
+        if time.perf_counter() > deadline:
+            raise AssertionError("webrtc: no keyframe after the PLI")
+        viewer.recv_for(0.1)
+    pli_key_s = time.perf_counter() - t_pli
+    row = _viewer_row(viewer, t_offer)
+    got = [p for _, p in viewer.frames()]
+    conn.close()
+    _await(lambda: sig.relay._clients == 0, 30, "the delta viewer's bye")
+    viewer.close()
+    preg.stop_instance(iid)
+    preg.get_instance(iid).wait(30)
+    preg.settings.webrtc_video_mode = "key"
+    return {"viewer": row, "keyframes": sum(flags), "frames": len(flags),
+            "plis": sess.plis_received, "keyframes_forced": sess.keyframes_forced,
+            "pli_to_keyframe_s": pli_key_s,
+            "key_bytes": [len(p) for p, k in zip(got, flags) if k][:1],
+            "mean_delta_bytes": (sum(len(p) for p, k in zip(got, flags) if not k)
+                                 / max(1, len(flags) - sum(flags)))}
+
+
+def _webrtc_serve(port, srv) -> dict[str, int]:
+    """(c): ``serve`` as a child with ENABLE_WEBRTC and the relay; one
+    viewer receives frames; SIGTERM → exit 0. Returns the child's qgemm
+    launches by variant."""
+    url = f"ws://127.0.0.1:{srv.port}"
+    rest_port = _free_port()
+    base = f"http://127.0.0.1:{rest_port}"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        env = dict(os.environ, REST_PORT=str(rest_port), ENABLE_WEBRTC="1",
+                   WEBRTC_SIGNALING_SERVER=url, EVAM_PRECISION="int8",
+                   EVAM_QGEMM="pallas", EVAM_ALLOW_RANDOM_WEIGHTS="1",
+                   EVAM_PRELOAD="/".join(DETECT_PIPELINE),
+                   MODELS_DIR=str(tmp / "models"),
+                   EVAM_SCHED_CAPACITY_FPS=str(REST_CAPACITY_FPS))
+        log_path = tmp / "serve.log"
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        viewer = conn = None
+        try:
+            _await_health(base, proc, log_path, t0)
+            up_s = time.perf_counter() - t0
+            status, iid = _http(base, "POST", PIPELINE,
+                                _webrtc_request(tmp / "cam2.jsonl", "cam2"))
+            if status != 200:
+                raise AssertionError(f"webrtc: serve POST gave {status} {iid}")
+            _await(lambda: "cam2" in srv.services, 30, "serve's registration")
+            viewer, conn, t_offer = _join(url, "cam2", tmp / "v")
+            _receive([viewer], WEBRTC_FRAMES)
+            row = _viewer_row(viewer, t_offer)
+            _http(base, "DELETE", f"{PIPELINE}/{iid}")
+            _wait_states(base, [iid], ("ABORTED", "ERROR", "COMPLETED"), 60)
+            _, engines = _http(base, "GET", "/engines")
+            forwards = sum(_fwd(v) for v in engines.values())
+            launches = _kernel_launches(base)
+            _check_detect_launches("webrtc serve", launches, forwards)
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=60)
+            if code != 0:
+                raise AssertionError(f"webrtc: serve exit {code} on SIGTERM: "
+                                     f"{log_path.read_text()[-2000:]}")
+            _print({"phase": "webrtc-serve", "up_s": up_s, "viewer": row,
+                    "forwards": forwards, "qgemm_launches": launches,
+                    "exit_code": code, "stop_s": time.perf_counter() - t1})
+            return launches
+        finally:
+            if conn is not None:
+                conn.close()
+            if viewer is not None:
+                viewer.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_webrtc(torch, port) -> dict:
+    """WebRTC egress of person_vehicle_bike (hub A, INT8, pallas, 512²,
+    width 32): (a) ``_webrtc_host``; (b) a PipelineRegistry with
+    ENABLE_WEBRTC and the port's signalling server on 127.0.0.1, in key
+    mode (``_webrtc_key``) and delta mode (``_webrtc_delta``); (c)
+    ``_webrtc_serve``. Returns the qgemm launches by variant."""
+    from evam_tpu_torch.publish.rtc.signaling import SignalingServer
+
+    t0 = time.perf_counter()
+    _print(_webrtc_host())
+    qg = port["qgemm"]
+    golden = json.loads(GOLDEN.read_text())
+    srv = SignalingServer("127.0.0.1", 0).start()
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hub = _default_hub(port, registry)
+    settings = port["Settings"](
+        pipelines_dir=str(ROOT / "pipelines"), device="cuda",
+        enable_webrtc=True, webrtc_signaling_server=f"ws://127.0.0.1:{srv.port}")
+    preg = port["PipelineRegistry"](settings, hub=hub)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            preg.preload("/".join(DETECT_PIPELINE))
+            engine = hub.engine("detect", KEY)
+            _await_warm("webrtc", [engine])
+            _reset_launches(qg)
+            fwd0 = _fwd(engine.stats_row())
+            key = _webrtc_key(port, preg, srv, tmp, golden)
+            delta = _webrtc_delta(port, preg, srv, tmp)
+            variants = dict(qg.variant_launches)
+            forwards = _fwd(engine.stats_row()) - fwd0
+            _check_detect_launches("webrtc", variants, forwards)
+            if preg.webrtc_signalers:
+                raise AssertionError(f"webrtc: signalers left running: "
+                                     f"{list(preg.webrtc_signalers)}")
+            _print({"phase": "webrtc-registry", "key": key, "delta": delta,
+                    "forwards": forwards, "launches_per_forward":
+                        variants["aligned"] / forwards})
+        serve = _webrtc_serve(port, srv)
+    finally:
+        preg.stop_all()
+        srv.stop()
+    _print({"phase": "webrtc", "wall_s": time.perf_counter() - t0})
+    return {v: variants[v] + serve[v] for v in ("aligned", "masked")}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5511,6 +5960,9 @@ def main(argv: list[str] | None = None) -> int:
     if "ingest" in phases:
         served.append(phase_ingest(torch, port, profile=args.profile))
         _memory(torch, "ingest", t_start)
+    if "webrtc" in phases:
+        served.append(phase_webrtc(torch, port))
+        _memory(torch, "webrtc", t_start)
     _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {

@@ -23,7 +23,10 @@ reference's env names and parse rules:
     (``TraceSettings``), the stream checkpoints' EVAM_CKPT (off),
     EVAM_CKPT_INTERVAL and EVAM_CKPT_RESTORE_TIMEOUT_S
     (``CkptSettings``), PROFILING_MODE and EVAM_STATE_DIR, with the
-    config file's ``trace`` and ``ckpt`` blocks
+    config file's ``trace`` and ``ckpt`` blocks; the ingest and egress
+    knobs ENABLE_RTSP, RTSP_PORT, EVAM_DECODE_POOL_WORKERS,
+    EVAM_RTSP_DEMUX_WORKERS, ENABLE_WEBRTC, WEBRTC_SIGNALING_SERVER and
+    EVAM_WEBRTC_VIDEO_MODE (``key`` or ``delta``)
 
 and ``EVAM_PLATFORM`` keeps the reference CLI's meaning: ``cpu`` runs
 the port on the CPU, unset means the card (``cuda``). Three knobs the
@@ -263,6 +266,15 @@ class Settings:
     #: RTSP_PORT (``destination.frame {"type": "rtsp"}``)
     enable_rtsp: bool = False
     rtsp_port: int = 8554
+    #: ENABLE_WEBRTC and WEBRTC_SIGNALING_SERVER (a ws:// URL): a start
+    #: with ``destination.frame {"type": "webrtc"}`` registers its stream
+    #: with that signalling server; without both, the destination is
+    #: ignored, as in the reference
+    enable_webrtc: bool = False
+    webrtc_signaling_server: str = ""
+    #: EVAM_WEBRTC_VIDEO_MODE: "key" (one shared keyframe-only VP8
+    #: encoder per stream) or "delta" (a GOP encoder per viewer)
+    webrtc_video_mode: str = "key"
     #: >0 routes free-running file sources through a shared DecodePool
     #: of this many workers (``media/pool.py``); 0 decodes per stream
     decode_pool_workers: int = 0
@@ -309,6 +321,9 @@ class Settings:
                 if var in env:
                     _assign(block, key, conv(env[var]))
         settings.tune = tune_from_env(config_file, env)
+        if settings.webrtc_video_mode not in ("key", "delta"):
+            raise ValueError(f"EVAM_WEBRTC_VIDEO_MODE must be 'key' or "
+                             f"'delta', got {settings.webrtc_video_mode!r}")
         _check_engine(settings.engine)
         settings.device = _parse_platform(env.get("EVAM_PLATFORM", ""))
         return settings
@@ -373,6 +388,9 @@ _TOP_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_STATE_DIR": ("state_dir", str),
     "ENABLE_RTSP": ("enable_rtsp", _parse_bool),
     "RTSP_PORT": ("rtsp_port", int),
+    "ENABLE_WEBRTC": ("enable_webrtc", _parse_bool),
+    "WEBRTC_SIGNALING_SERVER": ("webrtc_signaling_server", str),
+    "EVAM_WEBRTC_VIDEO_MODE": ("webrtc_video_mode", str),
     "EVAM_DECODE_POOL_WORKERS": ("decode_pool_workers", int),
     "EVAM_RTSP_DEMUX_WORKERS": ("rtsp_demux_workers", int),
 }
@@ -453,16 +471,12 @@ _TRACE_KEYS = {key for key, _ in _TRACE_ENV.values()}
 _CKPT_KEYS = {key for key, _ in _CKPT_ENV.values()}
 
 _S7 = slices.ENGINE_DEPTH
-_S11 = slices.WEBRTC_EGRESS
 
 #: unported knobs: (env var, or None for a config-file-only key;
 #: config-file block, "" for top level; key; parser; the value the port
 #: runs with; the slice that brings it)
 _UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
                       Any, str]] = [
-    ("ENABLE_WEBRTC", "", "enable_webrtc", _parse_bool, False, _S11),
-    ("WEBRTC_SIGNALING_SERVER", "", "webrtc_signaling_server", str, "", _S11),
-    ("EVAM_WEBRTC_VIDEO_MODE", "", "webrtc_video_mode", str, "key", _S11),
     ("EVAM_COMPILE_CACHE_DIR", "tpu", "compile_cache_dir", str, "", _S7),
     ("EVAM_AOT", "aot", "enabled", _parse_bool, False, _S7),
     ("EVAM_AOT_DIR", "aot", "dir", str, "", _S7),

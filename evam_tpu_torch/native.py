@@ -1,5 +1,6 @@
-"""ctypes bindings for the port's host media kernels (``csrc/evam_media.cpp``
-and the codecs of ``csrc/evam_codec.cpp``).
+"""ctypes bindings for the port's host media kernels (``csrc/evam_media.cpp``,
+the codecs of ``csrc/evam_codec.cpp`` and the VP8 encoder of
+``csrc/evam_vp8.cpp``).
 
 Counterpart of ``evam_tpu/native.py``. The per-frame host work of a
 stream thread — the fused bilinear resize + BGR→I420 wire encode, the
@@ -16,9 +17,10 @@ of the checkout, named by a digest of the sources and the flags,
 written to a temporary name and renamed (parallel processes may build
 it at once). :func:`build` builds it ahead of use.
 
-The codecs (``media/jpeg.py``, and :func:`i420_to_bgr` for the I_PCM
-reader) have no numpy or cv2 copy: they load the library whatever the
-policy below says, and a failed build raises.
+The codecs (``media/jpeg.py``, :func:`i420_to_bgr` for the I_PCM
+reader, and the VP8 encoder of ``publish/rtc/vp8.py``) have no numpy or
+cv2 copy: they load the library whatever the policy below says, and a
+failed build raises.
 
 The policy is the reference's (``evam_tpu/native.py:42, :98-106``),
 read on every call:
@@ -66,6 +68,8 @@ log = logging.getLogger("evam_tpu_torch.native")
 SOURCE = Path(__file__).resolve().parent / "csrc" / "evam_media.cpp"
 #: the codecs (JPEG, I420 → BGR), compiled into the same library
 CODEC_SOURCE = SOURCE.with_name("evam_codec.cpp")
+#: the VP8 encoder (WebRTC egress), compiled into the same library
+VP8_SOURCE = SOURCE.with_name("evam_vp8.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 #: the compiler (tests point it elsewhere to see a failed build raise)
 CXX = "g++"
@@ -74,6 +78,8 @@ CXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-Wall", "-std=c++17", "-shared")
 VERSION = 2
 #: the codecs' ``evam_codec_version()``
 CODEC_VERSION = 1
+#: the VP8 encoder's ``evam_vp8_version()``
+VP8_VERSION = 1
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _lock = threading.Lock()
@@ -94,7 +100,7 @@ def native_mode(env) -> str:
 
 def _sources() -> tuple[Path, ...]:
     """Every source of the library (the digest covers them all)."""
-    return (SOURCE, CODEC_SOURCE)
+    return (SOURCE, CODEC_SOURCE, VP8_SOURCE)
 
 
 def library_path() -> Path:
@@ -173,6 +179,26 @@ def _bind(path: str) -> ctypes.CDLL:
         raise RuntimeError(f"native library {path}: its codecs are "
                            f"version {version}, the bindings need "
                            f"{CODEC_VERSION}")
+    if not hasattr(lib, "evam_vp8_version"):
+        return lib  # a prebuilt library without the VP8 encoder
+    lib.evam_vp8_new.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_char_p, ctypes.c_int]
+    lib.evam_vp8_new.restype = ctypes.c_void_p
+    lib.evam_vp8_free.argtypes = [ctypes.c_void_p]
+    lib.evam_vp8_free.restype = None
+    lib.evam_vp8_encode.argtypes = [ctypes.c_void_p, _U8P, ctypes.c_int,
+                                    ctypes.c_char_p, ctypes.c_int]
+    lib.evam_vp8_encode.restype = ctypes.c_long
+    lib.evam_vp8_payload.argtypes = [ctypes.c_void_p, _U8P]
+    lib.evam_vp8_payload.restype = None
+    lib.evam_vp8_reconstruction.argtypes = [ctypes.c_void_p, _U8P]
+    lib.evam_vp8_reconstruction.restype = None
+    lib.evam_vp8_version.restype = ctypes.c_int
+    version = lib.evam_vp8_version()
+    if version != VP8_VERSION:
+        raise RuntimeError(f"native library {path}: its VP8 encoder is "
+                           f"version {version}, the bindings need "
+                           f"{VP8_VERSION}")
     return lib
 
 
@@ -185,6 +211,19 @@ def jpeg_library() -> ctypes.CDLL:
         raise RuntimeError(
             f"native library {os.environ.get('EVAM_NATIVE_LIB', '')} has no "
             "JPEG codec (csrc/evam_codec.cpp); unset EVAM_NATIVE_LIB to "
+            "build the port's own")
+    return lib
+
+
+def vp8_library() -> ctypes.CDLL:
+    """The loaded library whatever the policy (the VP8 encoder's entry),
+    as :func:`jpeg_library`; a prebuilt ``EVAM_NATIVE_LIB`` without the
+    encoder raises."""
+    lib = jpeg_library()
+    if not hasattr(lib, "evam_vp8_version"):
+        raise RuntimeError(
+            f"native library {os.environ.get('EVAM_NATIVE_LIB', '')} has no "
+            "VP8 encoder (csrc/evam_vp8.cpp); unset EVAM_NATIVE_LIB to "
             "build the port's own")
     return lib
 

@@ -1,7 +1,7 @@
 """Result destinations — the gvametapublish counterpart (counterpart
 of ``evam_tpu/publish``: file, stdout, mqtt, zmq and null, the frame
-encoding, and the RTSP re-stream in ``publish/rtsp.py``; the WebRTC
-frame destination comes with a later slice)."""
+encoding, the RTSP re-stream in ``publish/rtsp.py`` and the WebRTC
+egress in ``publish/webrtc.py`` over ``publish/rtc/``)."""
 
 from evam_tpu_torch.publish.base import Destination, create_destination
 from evam_tpu_torch.publish.encode import encode_frame

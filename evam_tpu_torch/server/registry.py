@@ -37,8 +37,16 @@ start with ``destination.frame {"type": "rtsp", "path": ...}`` mounts a
 relay on that server (unmounted when the instance ends or its start
 fails) whose frames are annotated and encoded only while a client
 watches; ``resume()`` runs after the server exists, so a resumed stream
-mounts its relay again. The WebRTC frame destination comes with slice
-11b.
+mounts its relay again.
+
+WebRTC egress (slice 11b): with ENABLE_WEBRTC and
+WEBRTC_SIGNALING_SERVER, a start with ``destination.frame {"type":
+"webrtc", "peer-id": ...}`` makes a ``FrameRelay`` named by the peer id
+(else the pipeline's name) and a started ``WebRtcSignaler`` that
+registers it with the signalling server (stopped when the instance ends
+or its start fails); its frames are annotated and encoded only while a
+viewer watches. Without both settings the destination is ignored, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -50,7 +58,6 @@ import threading
 from pathlib import Path
 from typing import Any
 
-from evam_tpu_torch import slices
 from evam_tpu_torch.config.settings import Settings
 from evam_tpu_torch.control import state as control_state
 from evam_tpu_torch.device import mesh_devices
@@ -62,6 +69,8 @@ from evam_tpu_torch.models.registry import ModelRegistry
 from evam_tpu_torch.obs.metrics import metrics
 from evam_tpu_torch.publish.annotate import annotate_frame
 from evam_tpu_torch.publish.base import create_destination
+from evam_tpu_torch.publish.rtsp import FrameRelay
+from evam_tpu_torch.publish.webrtc import WebRtcSignaler
 from evam_tpu_torch.sched import (
     DEFAULT_PRIORITY,
     AdmissionController,
@@ -156,6 +165,8 @@ class PipelineRegistry:
         #: the RtspServer of destination.frame re-streams (``serve`` sets
         #: it with ENABLE_RTSP)
         self.rtsp = None
+        #: the running WebRTC signalers (ENABLE_WEBRTC), by relay name
+        self.webrtc_signalers: dict[str, WebRtcSignaler] = {}
         self.instances: dict[str, StreamInstance] = {}
         self._lock = threading.Lock()
         self._draining = False
@@ -275,11 +286,6 @@ class PipelineRegistry:
                         ticket, publish_fn, source, sink_fn,
                         saved_state: dict | None) -> StreamInstance:
         frame_cfg = (request.get("destination") or {}).get("frame") or {}
-        if frame_cfg.get("type") == "webrtc":
-            raise NotImplementedError(
-                f"frame destination 'webrtc' comes with "
-                f"{slices.WEBRTC_EGRESS}")
-
         params = request.get("parameters") or {}
         # Resolve stages BEFORE opening the destination: a bad
         # parameter must not truncate/leak the operator's output file.
@@ -287,13 +293,30 @@ class PipelineRegistry:
         dest_cfg = (request.get("destination") or {}).get("metadata")
         destination = create_destination(dest_cfg)
         meta_fn = publish_fn or (lambda ctx: destination.publish(ctx.metadata))
-        unmount = None
+        relay, release = None, None
         if frame_cfg.get("type") == "rtsp" and self.rtsp is not None:
             # the annotated re-stream at rtsp://host:RTSP_PORT/<path>
             # (as in the reference, ignored without ENABLE_RTSP)
             rtsp = self.rtsp
             relay = rtsp.mount(frame_cfg.get("path") or name)
-            unmount = lambda: rtsp.unmount(relay.path)  # noqa: E731
+            release = lambda: rtsp.unmount(relay.path)  # noqa: E731
+        elif (frame_cfg.get("type") == "webrtc"
+              and self.settings.enable_webrtc
+              and self.settings.webrtc_signaling_server):
+            # registered with the signalling server (as in the reference,
+            # ignored without ENABLE_WEBRTC and WEBRTC_SIGNALING_SERVER)
+            relay = FrameRelay(frame_cfg.get("peer-id") or name)
+            signaler = WebRtcSignaler(
+                self.settings.webrtc_signaling_server, relay.path, relay,
+                video_mode=self.settings.webrtc_video_mode)
+            signaler.start()
+            self.webrtc_signalers[relay.path] = signaler
+
+            def release(_sig=signaler):
+                if self.webrtc_signalers.get(_sig.stream) is _sig:
+                    del self.webrtc_signalers[_sig.stream]
+                _sig.stop()
+        if relay is not None:
             base_fn = meta_fn
 
             def meta_fn(ctx, _base=base_fn, _relay=relay):  # noqa: F811
@@ -313,11 +336,11 @@ class PipelineRegistry:
                 sink_fn=sink_fn,
             )
         except BaseException:
-            # the destination and the mount must not leak on a failed
-            # start
+            # the destination, the mount and the signaler must not leak
+            # on a failed start
             destination.close()
-            if unmount is not None:
-                unmount()
+            if release is not None:
+                release()
             raise
         instance = StreamInstance(
             pipeline_name=name,
@@ -327,7 +350,7 @@ class PipelineRegistry:
             destination=destination,
             priority=priority,
             on_finish=lambda _inst: self._on_instance_finish(ticket,
-                                                             unmount),
+                                                             release),
             source=source,
             decode_pool=self.decode_pool,
             rtsp_demux=self.rtsp_demux,
@@ -353,10 +376,10 @@ class PipelineRegistry:
         self._persist()
         return instance
 
-    def _on_instance_finish(self, ticket, unmount=None) -> None:
+    def _on_instance_finish(self, ticket, release=None) -> None:
         ticket.release()
-        if unmount is not None:
-            unmount()
+        if release is not None:
+            release()
         self._persist()
 
     def get_instance(self, instance_id: str) -> StreamInstance | None:

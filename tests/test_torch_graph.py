@@ -412,7 +412,7 @@ def test_platform_selects_the_device(monkeypatch):
 
 
 def _other_value(var: str, conv, port_value) -> str:
-    special = {"EVAM_FLEET": "sharded", "EVAM_WEBRTC_VIDEO_MODE": "delta"}
+    special = {"EVAM_FLEET": "sharded"}
     if var in special:
         return special[var]
     if conv is port_settings._parse_bool:
@@ -443,6 +443,31 @@ def test_unported_knob_raises_naming_its_slice(knob, monkeypatch):
         port_settings.Settings.from_env()
     assert var in str(info.value)
     assert slice_ in str(info.value)
+
+
+@pytest.mark.parametrize("var,values", [
+    ("ENABLE_WEBRTC", ["1", "true", "0", "off"]),
+    ("WEBRTC_SIGNALING_SERVER", ["ws://127.0.0.1:8443", ""]),
+    ("EVAM_WEBRTC_VIDEO_MODE", ["key", "delta"]),
+])
+def test_webrtc_knobs_parse_as_the_reference(var, values, monkeypatch):
+    """The three WebRTC knobs (slice 11b) are honoured: each value gives
+    the reference's setting, and the defaults are the reference's."""
+    key = port_settings._TOP_ENV[var][0]
+    assert getattr(port_settings.Settings.from_env(env={}), key) == \
+        getattr(ref_settings.Settings(), key)
+    for value in values:
+        monkeypatch.setenv(var, value)
+        assert getattr(port_settings.Settings.from_env(), key) == \
+            getattr(ref_settings.Settings.from_env(), key)
+
+
+def test_webrtc_video_mode_refuses_what_the_reference_refuses(monkeypatch):
+    monkeypatch.setenv("EVAM_WEBRTC_VIDEO_MODE", "gop")
+    with pytest.raises(ValueError):
+        ref_settings.Settings.from_env()
+    with pytest.raises(ValueError, match="EVAM_WEBRTC_VIDEO_MODE"):
+        port_settings.Settings.from_env()
 
 
 def test_unported_config_file_keys_raise(tmp_path):

@@ -3,7 +3,7 @@ and needs none of the packages the card's machine lacks.
 
 ``evam_tpu_torch``, ``chip_smoke.py`` and ``tools/cuda_qgemm_bench.py``
 must run on a machine that has neither JAX nor flax, nor aiohttp,
-pydantic, msgpack, cv2 or zmq. Checks: every module imports in a
+pydantic, msgpack, cv2, zmq, cryptography or websockets. Checks: every module imports in a
 subprocess where all of those are blocked (and the server's route table
 and the CLI's parser build there); an AST scan finds no import of
 ``jax``, ``flax`` or ``evam_tpu`` anywhere (``evam_tpu_torch`` itself
@@ -11,7 +11,9 @@ starts with ``evam_tpu``, so names are matched exactly, not by prefix)
 and no import of the machine's missing packages at a module's top level
 (``cv2`` is imported inside the function that uses it), nor of
 ``msgpack`` anywhere: the port reads and writes weights files with the
-standard library.
+standard library; and the WebRTC egress (``publish/webrtc.py``,
+``publish/rtc/``) imports none of ``cv2``, ``cryptography`` and
+``websockets`` anywhere, not even inside a function.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "evam_tpu_torch"
 BLOCKED = ("jax", "flax", "evam_tpu")
 #: not installed on the card's machine
-ABSENT = ("aiohttp", "pydantic", "msgpack", "cv2", "zmq")
+ABSENT = ("aiohttp", "pydantic", "msgpack", "cv2", "zmq", "cryptography",
+          "websockets")
+#: what the reference's WebRTC media plane and signalling stand on
+WEBRTC_ABSENT = ("cv2", "cryptography", "websockets")
 
 
 def _port_files() -> list[Path]:
@@ -128,6 +133,29 @@ def test_no_module_imports_msgpack_anywhere():
     assert not offenders, offenders
 
 
+def _webrtc_files() -> list[Path]:
+    return [PKG / "publish" / "webrtc.py",
+            *sorted((PKG / "publish" / "rtc").rglob("*.py"))]
+
+
+def test_webrtc_modules_import_no_cv2_cryptography_or_websockets():
+    files = _webrtc_files()
+    assert len(files) >= 11
+    offenders = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):  # inside functions too
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                          for n in names if _blocked(n, WEBRTC_ABSENT)]
+    assert not offenders, offenders
+
+
 def test_scan_matches_names_exactly():
     assert _blocked("evam_tpu.ops") and _blocked("jax.numpy")
     assert not _blocked("evam_tpu_torch.ops") and not _blocked("jaxlib_free")
@@ -137,8 +165,8 @@ def test_the_scan_covers_every_module_of_the_port():
     """The checks above walk the package, so a new module is covered by
     being in it: the slice modules among them (slice 8's EII modules
     and its ZeroMQ wire too, so none imports ``zmq`` or ``cv2`` at its
-    top level, and slice 11a's codec, sources, pool, demux, re-stream
-    and painter)."""
+    top level, slice 11a's codec, sources, pool, demux, re-stream and
+    painter, and slice 11b's WebRTC modules)."""
     names = {_module_name(p) for p in _port_files()}
     assert {"evam_tpu_torch.modelproc", "evam_tpu_torch.modelproc.proc",
             "evam_tpu_torch.stages.track",
@@ -162,4 +190,16 @@ def test_the_scan_covers_every_module_of_the_port():
             "evam_tpu_torch.media.decode", "evam_tpu_torch.media.pool",
             "evam_tpu_torch.media.demux", "evam_tpu_torch.media.source",
             "evam_tpu_torch.publish.rtsp",
-            "evam_tpu_torch.publish.annotate"} <= names
+            "evam_tpu_torch.publish.annotate",
+            # slice 11b's WebRTC egress
+            "evam_tpu_torch.publish.webrtc", "evam_tpu_torch.publish.rtc",
+            "evam_tpu_torch.publish.rtc.openssl",
+            "evam_tpu_torch.publish.rtc.stun",
+            "evam_tpu_torch.publish.rtc.srtp",
+            "evam_tpu_torch.publish.rtc.rtcp",
+            "evam_tpu_torch.publish.rtc.dtls",
+            "evam_tpu_torch.publish.rtc.vp8",
+            "evam_tpu_torch.publish.rtc.session",
+            "evam_tpu_torch.publish.rtc.ws",
+            "evam_tpu_torch.publish.rtc.signaling",
+            "evam_tpu_torch.publish.rtc.viewer"} <= names

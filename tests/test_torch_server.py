@@ -26,8 +26,9 @@
   ``route_503_admission.json``.
 * DELETE reaches ABORTED; an application source and a zmq destination
   answer as the reference's do (a pyzmq subscriber reads the zmq
-  destination's metadata); a request of a later slice (the WebRTC
-  frame destination) answers 501, every pipeline serves, and
+  destination's metadata); the WebRTC frame destination is ignored
+  without ENABLE_WEBRTC, as in the reference, and registers its stream
+  with a signalling server with it; every pipeline serves, and
   the requests slice 4 brought (tracking, zone count, the motion gate)
   serve; ``EVAM_GATE=on`` builds a gate in ``DetectStage`` and
   ``EVAM_GATE=off`` beats ``adaptive``; ``python -m
@@ -268,26 +269,58 @@ def test_error_routes_hold_their_goldens(server, tmp_path):
     assert not (tmp_path / "o.jsonl").exists()
 
 
-@pytest.mark.parametrize("path,body_extra,needle", [
-    # a webcam source and the rtsp frame destination came with slice
-    # 11a (tests/test_torch_ingest.py); the WebRTC destination, bare and
-    # with the reference's peer id, waits for slice 11b
-    (PIPE, {"destination": {"metadata": {"type": "null"},
-                            "frame": {"type": "webrtc"}}}, "slice 11"),
-    (PIPE, {"destination": {"metadata": {"type": "null"},
-                            "frame": {"type": "webrtc",
-                                      "peer-id": "cam0"}}}, "slice 11"),
-])
-def test_later_slices_answer_501(server, tmp_path, path, body_extra, needle):
-    if body_extra is None:
-        status, data = server.request("GET", path)
-    else:
-        status, data = server.request(
-            "POST", path, {**_body(tmp_path / "o.jsonl"), **body_extra})
-    assert status == 501, data
-    assert needle in data["error"]
-    assert not (tmp_path / "o.jsonl").exists()
-    assert server.registry.hub.stats() == {}
+@pytest.mark.parametrize("frame", [{"type": "webrtc"},
+                                   {"type": "webrtc", "peer-id": "cam0"}],
+                         ids=["bare", "peer-id"])
+def test_webrtc_destination_without_enable_webrtc_serves(server, tmp_path,
+                                                         frame):
+    """As in the reference (``evam_tpu/server/registry.py:334-336``): a
+    ``webrtc`` frame destination while ENABLE_WEBRTC is off (no
+    signalling server either) is ignored; the stream serves and
+    publishes its metadata."""
+    out = tmp_path / "o.jsonl"
+    body = _body(out)
+    body["destination"]["frame"] = frame
+    status, iid = server.request("POST", PIPE, body)
+    assert status == 200, iid
+    assert server.wait(iid)["state"] == "COMPLETED"
+    lines = [json.loads(x) for x in out.read_text().splitlines()]
+    assert len(lines) == 6
+    assert all("objects" in m for m in lines)
+
+
+def test_webrtc_destination_registers_with_the_signaling_server(tmp_path):
+    """With ENABLE_WEBRTC and a signalling server on 127.0.0.1, a start
+    with ``frame: {type: webrtc, peer-id: cam0}`` registers its stream
+    as ``cam0`` while it runs; its end stops the signaler, which leaves
+    the server."""
+    from evam_tpu_torch.publish.rtc.signaling import SignalingServer
+
+    relay_srv = SignalingServer("127.0.0.1", 0).start()
+    registry = _port_registry()
+    registry.settings.enable_webrtc = True
+    registry.settings.webrtc_signaling_server = \
+        f"ws://127.0.0.1:{relay_srv.port}"
+    srv = PortServer(registry)
+    try:
+        out = tmp_path / "o.jsonl"
+        body = _body(out, "synthetic://96x96@30?count=100000")
+        body["destination"]["frame"] = {"type": "webrtc", "peer-id": "cam0"}
+        status, iid = srv.request("POST", PIPE, body)
+        assert status == 200, iid
+        deadline = time.time() + 30
+        while "cam0" not in relay_srv.services and time.time() < deadline:
+            time.sleep(0.02)
+        assert list(relay_srv.services) == ["cam0"]
+        srv.request("DELETE", f"{PIPE}/{iid}")
+        assert srv.wait(iid)["state"] == "ABORTED"
+        deadline = time.time() + 30
+        while relay_srv.services and time.time() < deadline:
+            time.sleep(0.02)
+        assert relay_srv.services == {}
+    finally:
+        srv.close()
+        relay_srv.stop()
 
 
 @pytest.mark.parametrize("ring", ["empty", "served", "off"])
