@@ -106,7 +106,11 @@ memory the allocator holds once it has stopped its engines.
               eager step and of its graph capture (the slice phase's
               engine, the first of the process; hub A's; and a second
               detect engine built after them): the input of the AOT
-              cache's design.
+              cache's design. Last, a capture's cuBLAS workspaces: a
+              GEMM step captured by ``StepGraphs``, then run eagerly on
+              the capture's thread and stream, allocates workspaces of
+              its own (it shares none with the graph's replays), and a
+              replay agrees with it within 1e-5 × its largest value.
 9. track    — the tracking pipeline (pipelines/object_tracking/
               person_vehicle_bike: detect+classify fused into one
               engine, then the IoU tracker) at the same full width, INT8,
@@ -142,7 +146,14 @@ memory the allocator holds once it has stopped its engines.
               top-2 margin exceeds the tolerance, pad rows exactly 0);
               a packed bucket's replay bit-equal to its eager step.
               Prints, per hub and engine, fps, p50/p99, occupancy, unit
-              occupancy, graph-pool bytes and the eight stage ms.
+              occupancy, graph-pool bytes and the eight stage ms. Then
+              two oversize batches on the card: a legacy-assembly
+              engine whose ladder is shrunk to [2, 4] under max_batch
+              16 (10 items), and a packed scheduler engine whose class
+              pick (8 items of 8 units) overflows the top unit block
+              (32 rows): every result equal to the step run once on the
+              unsplit batch, oversize_splits >= 1 in the engine's stats
+              and its /engines row, the dispatch thread alive.
 12. sched   — the detect path on the default engine with EVAM_SCHED=1,
               4 realtime and 4 batch streams: every frame published in
               order; then a batch staleness budget of SHED_BATCH_MS:
@@ -422,6 +433,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import itertools
 import json
 import math
@@ -519,7 +531,10 @@ def _nvidia_smi() -> str:
 
 def _import_port():
     """The port's modules this script drives (imports nothing of JAX)."""
+    from evam_tpu_torch.engine.batcher import BatchEngine
+    from evam_tpu_torch.engine.graphs import StepGraphs
     from evam_tpu_torch.engine.hub import EngineHub
+    from evam_tpu_torch.engine.ragged import RaggedSpec
     from evam_tpu_torch.engine.ringbuf import STAGES
     from evam_tpu_torch.engine.steps import (
         build_action_decode_step,
@@ -581,7 +596,8 @@ def _import_port():
         reset_settings=reset_settings, control_state=control_state,
         PipelineRegistry=PipelineRegistry, PipelineLoader=PipelineLoader,
         resolve_parameters=resolve_parameters, build_stages=build_stages,
-        EngineHub=EngineHub, STAGES=STAGES,
+        EngineHub=EngineHub, BatchEngine=BatchEngine, RaggedSpec=RaggedSpec,
+        StepGraphs=StepGraphs, STAGES=STAGES,
         build_detect_step=build_detect_step,
         build_classify_step=build_classify_step,
         build_classify_step_ragged=build_classify_step_ragged,
@@ -644,7 +660,7 @@ def _time_ms(torch, fn, calls: int = 20, rounds: int = 7) -> tuple[float, float]
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     device_us = 0.0
-    for _ in range(3):  # the profiler now and then records no kernel
+    for _ in range(8):  # the profiler now and then records no kernel
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -667,7 +683,7 @@ def _flushed_device_ms(torch, fn, flush, calls: int = 20) -> float:
     for _ in range(3):
         flush()
         fn()
-    for _ in range(3):  # the profiler now and then records no kernel
+    for _ in range(8):  # the profiler now and then records no kernel
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 flush()
@@ -1400,25 +1416,33 @@ def _replay_vs_eager(torch, port, engine, per_forward: int) -> dict:
     # K1's device time per forward, inside the replay and eager
     from torch.profiler import ProfilerActivity, profile
 
-    k1_ms = {}
+    k1_ms, seen = {}, {}
     for how, fn in (("replay", lambda: live._graphs.replay(bg, [batch])),
                     ("eager", lambda: live.step_fn(batch))):
-        with torch.cuda.stream(stream):
-            fn()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    fn()
+        seen[how] = []
+        # the profiler now and then loses kernel records: a capture
+        # counts only if it saw every kernel of the 10 forwards
+        for _ in range(3):
+            with torch.cuda.stream(stream):
+                fn()
                 torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if "qgemm" in e.key
-                  and e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(e.count for e in events) != 10 * per_forward:
-            raise AssertionError(f"engine: the profiler saw "
-                                 f"{sum(e.count for e in events)} qgemm "
-                                 f"kernels in 10 {how} forwards")
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        fn()
+                    torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if "qgemm" in e.key
+                      and e.device_type == torch.autograd.DeviceType.CUDA]
+            seen[how].append(sum(e.count for e in events))
+            if seen[how][-1] == 10 * per_forward:
+                break
+        else:
+            raise AssertionError(f"engine: the profiler saw {seen[how]} "
+                                 f"qgemm kernels in 10 {how} forwards, "
+                                 f"want {10 * per_forward}")
         k1_ms[how] = sum(e.self_device_time_total for e in events) / 1e4
     return {"bucket": IMAGES, "replay_equals_eager": True,
             "replay_launches": launched,
-            "k1_device_ms_per_forward": k1_ms}
+            "k1_device_ms_per_forward": k1_ms, "profiler_counts": seen}
 
 
 def _wedge_and_recover(torch, port, hub, engine) -> dict:
@@ -1476,6 +1500,51 @@ def _wedge_and_recover(torch, port, hub, engine) -> dict:
             "ladder": ladder, "restarts": engine.restarts,
             "recaptured_graphs": new.graphs_captured(),
             "same_result": True}
+
+
+def _graph_workspaces(torch, port) -> dict:
+    """A capture's cuBLAS workspaces are its own. A float32 GEMM step
+    (a biased linear, the cuBLASLt path, then a matmul, the cuBLAS
+    path) is captured by ``StepGraphs`` and then run eagerly on the
+    capture's thread and stream, as a background warmup runs the next
+    bucket while the engine replays the last: the eager run must
+    allocate fresh workspaces (device memory grows by more than its
+    output), not reuse the ones baked into the graph, which a replay on
+    the compute stream would use at the same time. A replay agrees with
+    the eager run within 1e-5 × its largest magnitude."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(16)
+    w = torch.randn((1024, 1024), generator=gen).to(dev)
+    bias = torch.randn((1024,), generator=gen).to(dev)
+
+    def step(x):
+        return torch.nn.functional.linear(x, w, bias) @ w
+
+    x = torch.randn((8, 1024), generator=gen).numpy()
+    graphs = port["StepGraphs"](step, dev)
+    try:
+        bg = graphs.capture(8, [x], threading.Lock())
+        with torch.cuda.stream(graphs.stream):
+            xs = torch.from_numpy(x).to(dev)
+            graphs.stream.synchronize()
+            before = torch.cuda.memory_allocated()
+            eager = step(xs)
+            graphs.stream.synchronize()
+            grown = torch.cuda.memory_allocated() - before
+            replay = graphs.replay(bg, [xs]).clone()
+            graphs.stream.synchronize()
+        out_bytes = eager.numel() * eager.element_size()
+        err = float((replay - eager).abs().max())
+        scale = float(eager.abs().max())
+        out = {"eager_alloc_bytes": grown, "output_bytes": out_bytes,
+               "pool_bytes": graphs.pool_bytes(),
+               "replay_max_abs_err": err, "max_abs": scale}
+        if grown <= out_bytes or err > 1e-5 * scale:
+            raise AssertionError(f"graph workspaces: {out}")
+        return out
+    finally:
+        torch.cuda.synchronize()
+        graphs.free()
 
 
 def phase_engine(torch, port) -> dict:
@@ -1573,6 +1642,7 @@ def phase_engine(torch, port) -> dict:
             torch, port, hubs["A"],
             hubs["A"].engine("detect", KEY,
                              score_threshold=port["ENGINE_SCORE_FLOOR"]))
+        out["graph_workspaces"] = _graph_workspaces(torch, port)
         _print(out)
         return {**out, "variants": variants}
     finally:
@@ -1989,6 +2059,90 @@ def _engine_summary(stages, row: dict, row0: dict) -> dict:
             "stage_ms": _stage_delta(stages, row0, row)}
 
 
+def _oversize_split(torch, port, registry) -> dict:
+    """Batches past the top bucket on the card, as in the reference's
+    oversize tests: a legacy-assembly engine whose ladder is shrunk to
+    [2, 4] under max_batch 16 takes 10 items in one deadline, and a
+    packed scheduler engine takes one class pick of 8 items of 8 units,
+    past its top unit block (32 rows). Every result equals the step run
+    once on the whole unsplit batch (the values are integers, so any
+    reduction order gives the same bits); ``oversize_splits`` >= 1 in
+    the engine's stats and in its ``/engines`` row; the dispatch thread
+    is alive afterwards."""
+    import types
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+
+    def affine(x):
+        return x * 2 + 1
+
+    def packed(frames, boxes, seg):
+        src = torch.clamp(seg, 0, frames.shape[0] - 1).long()
+        a = boxes.sum(-1)[:, None] + frames[src][:, :1].float()
+        return torch.cat([a, a * 3], -1) * (seg >= 0).float()[:, None]
+
+    rng = np.random.default_rng(16)
+    spec = port["RaggedSpec"]("boxes", (4,), max_units=8, unit_budget=4)
+    sched = port["SchedConfig"](
+        deadline_ms={"realtime": 1.0, "standard": 30.0, "batch": 4.0})
+    legacy = port["BatchEngine"](
+        "oversize-legacy", affine, dev, max_batch=16, deadline_ms=50.0,
+        input_names=("x",), stall_timeout_s=0, assembly="legacy")
+    legacy.buckets = [2, 4]
+    ragged = port["BatchEngine"](
+        "oversize-packed", packed, dev, max_batch=8, deadline_ms=30.0,
+        input_names=("frames", "boxes"), stall_timeout_s=0,
+        ragged="packed", ragged_spec=spec, sched=sched, transfer="inline")
+    cases = {
+        "legacy": (legacy, [{"x": np.full((3,), i, np.uint8)}
+                            for i in range(10)]),
+        "packed": (ragged, [
+            {"frames": rng.integers(0, 200, (6,), np.uint8),
+             "boxes": rng.integers(0, 50, (8, 4)).astype(np.float32)}
+            for _ in range(8)]),
+    }
+    hub = port["EngineHub"](registry, device="cuda")
+    app = port["App"](types.SimpleNamespace(hub=hub))
+    out: dict = {}
+    try:
+        for name, (eng, items) in cases.items():
+            hub._engines[f"oversize:{name}"] = eng
+            futs = [eng.submit(**it) for it in items]
+            got = [np.asarray(f.result(timeout=60)) for f in futs]
+            if name == "legacy":
+                x = torch.from_numpy(np.stack([it["x"] for it in items]))
+                plain = list(affine(x.to(dev)).cpu().numpy())
+            else:
+                frames = torch.from_numpy(
+                    np.stack([it["frames"] for it in items])).to(dev)
+                boxes = torch.from_numpy(
+                    np.concatenate([it["boxes"] for it in items])).to(dev)
+                seg = torch.arange(len(items), device=dev).repeat_interleave(
+                    spec.max_units).to(torch.int32)
+                rows = packed(frames, boxes, seg).cpu().numpy()
+                plain = [rows[i * 8:(i + 1) * 8] for i in range(len(items))]
+            equal = all(np.array_equal(g, p) for g, p in zip(got, plain))
+            resp = app.handle("GET", "/engines", b"")
+            row = json.loads(resp.body)[f"oversize:{name}"]
+            st = eng.stats_row()
+            alive = eng._dispatcher.is_alive()
+            out[name] = {"items": len(items), "buckets": list(eng.buckets),
+                         "batches": st["batches"],
+                         "oversize_splits": st["oversize_splits"],
+                         "engines_oversize_splits": row["oversize_splits"],
+                         "equal_to_unsplit": equal, "dispatcher_alive": alive}
+            if not equal or st["oversize_splits"] < 1 \
+                    or row["oversize_splits"] != st["oversize_splits"] \
+                    or not alive:
+                raise AssertionError(f"ragged oversize {name}: {out[name]}")
+    finally:
+        legacy.stop()
+        ragged.stop()
+    return out
+
+
 def phase_ragged(torch, port) -> dict:
     """vehicle_attributes unfused (a detect and a classify engine), the
     same STREAMS × FRAMES traffic on hub "dense" (EVAM_RAGGED off) and
@@ -2059,6 +2213,7 @@ def phase_ragged(torch, port) -> dict:
                                     allow_random_weights=True).get(CLS_KEY)
         out["step"] = _packed_vs_dense_step(
             torch, port, {"float32": f32, "int8": hubs["dense"].model(CLS_KEY)})
+        out["oversize"] = _oversize_split(torch, port, registry)
         _print(out)
         return {"variants": variants, "packed": out["packed"]}
     finally:
@@ -5844,6 +5999,9 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 1
+    # a hang says where it is: every thread's stack on stderr, then exit
+    # 1, inside the 1200 s the script is given
+    faulthandler.dump_traceback_later(1140, exit=True)
     sys.path.insert(0, str(ROOT))
     # the slice's configuration, set before the port reads its knobs
     os.environ["EVAM_PRECISION"] = "int8"

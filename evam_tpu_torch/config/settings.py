@@ -519,11 +519,8 @@ def _refuse_unported(data: dict[str, Any], env: Mapping[str, str]) -> None:
 
 def tune_from_env(config_file: str | os.PathLike | None,
                   env: Mapping[str, str] | None = None) -> TuneSettings:
-    """The control plane's block alone (``Settings.from_env`` reads it
-    here too): the config file's ``tune`` keys, then the EVAM_TUNE*
-    variables. ``control/state.py`` resolves it from hot paths, which
-    must not fail on a knob of another block (``Settings.from_env``
-    refuses the unported ones)."""
+    """The control plane's block (``Settings.from_env`` reads it here):
+    the config file's ``tune`` keys, then the EVAM_TUNE* variables."""
     env = os.environ if env is None else env
     tune = TuneSettings()
     if config_file and Path(config_file).exists():
@@ -539,10 +536,17 @@ def tune_from_env(config_file: str | os.PathLike | None,
 _settings: Settings | None = None
 
 
+def fresh_settings() -> Settings:
+    """Settings read now from ``EVAM_CONFIG_FILE`` and the environment,
+    past the memo: for a value read once when an object is built, which
+    a caller may change between two builds."""
+    return Settings.from_env(os.environ.get("EVAM_CONFIG_FILE"))
+
+
 def get_settings() -> Settings:
     global _settings
     if _settings is None:
-        _settings = Settings.from_env(os.environ.get("EVAM_CONFIG_FILE"))
+        _settings = fresh_settings()
     return _settings
 
 

@@ -19,7 +19,6 @@ tick. Configuration comes from ``config/settings.py`` only.
 
 from __future__ import annotations
 
-import os
 import threading
 from collections import deque
 from dataclasses import dataclass
@@ -85,6 +84,15 @@ class TuneState:
     swapped whole (readers take no lock); the rest changes under the
     lock."""
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "op": "_lock",
+        "ticks": "_lock",
+        "signals": "_lock",
+        "_actions": "_lock",
+    }
+
     def __init__(self, cfg) -> None:
         self.cfg = cfg
         self._lock = threading.Lock()
@@ -146,9 +154,9 @@ def active() -> TuneState | None:
 
 def _resolve() -> TuneState | None:
     global _resolved
-    from evam_tpu_torch.config.settings import tune_from_env
+    from evam_tpu_torch.config.settings import get_settings
 
-    cfg = tune_from_env(os.environ.get("EVAM_CONFIG_FILE"))
+    cfg = get_settings().tune
     state = TuneState(cfg) if cfg.enabled else None
     _resolved = (state,)
     return state

@@ -181,6 +181,9 @@ class EngineStats:
     #: device bytes of the graphs' memory pool after warmup (None:
     #: the allocator's snapshot names no pools)
     graph_pool_bytes: int | None = 0
+    #: extra batches made by splitting a formed batch past the top
+    #: bucket (or, packed, past the top unit block) in order
+    oversize_splits: int = 0
     #: cumulative per-stage host clock (seconds), keyed by STAGES
     stage_seconds: dict[str, float] = dataclasses.field(default_factory=dict)
 
@@ -199,7 +202,8 @@ class EngineStats:
         supervisor's rebuild carry)."""
         for f in ("batches", "items", "occupancy_sum", "units",
                   "unit_slots", "compiled_programs", "compile_seconds",
-                  "capture_failures", "warm_forwards"):
+                  "capture_failures", "warm_forwards",
+                  "oversize_splits"):
             setattr(self, f, getattr(self, f) + getattr(other, f))
         self.graph_pool_bytes = other.graph_pool_bytes or self.graph_pool_bytes
         for b, c in other.bucket_batches.items():
@@ -242,6 +246,7 @@ def stats_row(e, st: EngineStats) -> dict:
         "graph_pool_bytes": st.graph_pool_bytes,
         "capture_failures": st.capture_failures,
         "warm_forwards": st.warm_forwards,
+        "oversize_splits": st.oversize_splits,
         "stage_ms": st.stage_ms_per_batch(),
         "state": getattr(e, "state", "running"),
         "restarts": getattr(e, "restarts", 0),
@@ -265,6 +270,15 @@ class BatchEngine:
     (``pipelined``), as in the reference. ``ragged="packed"`` with a
     ``ragged_spec`` builds the packed engine (its step takes ``seg``
     after its inputs); an enabled ``sched`` the scheduler's dispatch."""
+
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "stats": "_exec_lock",
+        "_buckets_done": "_exec_lock",
+        "_outstanding": "_exec_lock",
+        "_next_batch_id": "_exec_lock",
+    }
 
     def __init__(
         self,
@@ -811,6 +825,23 @@ class BatchEngine:
                 return b
         return self.buckets[-1]
 
+    def _count_oversize_split(self, extra: int) -> None:
+        with self._exec_lock:
+            self.stats.oversize_splits += extra
+        metrics.inc("evam_engine_oversize_splits", float(extra),
+                    labels={"engine": self.name})
+
+    def _split_oversize(self, items: list[_WorkItem]) -> list[list[_WorkItem]]:
+        """Chunk a formed batch at the top bucket, in order (a batch
+        formed under ``max_batch`` can outgrow a ladder shrunk under
+        it); each extra chunk counts on ``evam_engine_oversize_splits``."""
+        top = self.buckets[-1]
+        if len(items) <= top:
+            return [items]
+        chunks = [items[i:i + top] for i in range(0, len(items), top)]
+        self._count_oversize_split(len(chunks) - 1)
+        return chunks
+
     def _trace_begin(self, items: list[_WorkItem], n: int, b: int,
                      clock: dict[str, float]) -> int:
         """A new batch id; with tracing on, the batch's pending record
@@ -1188,10 +1219,12 @@ class BatchEngine:
         """Assemble and dispatch one class-ordered batch: through the
         staging ring (the copies on this thread), or stacked when
         EVAM_BATCH_ASSEMBLY=legacy. A pick past the slot's rows — or,
-        packed, its unit block — is split across batches in order."""
+        packed, its unit block — is split across batches in order, and
+        each extra batch counts as an oversize split."""
         if self._ring is not None:
             bucket_fn = self._bucket_ragged if self._packed else self._bucket
             staged = [(it.inputs, it) for it in items]
+            dispatched = 0
             while staged:
                 clock: dict[str, float] = {
                     "submit_wait": time.perf_counter() - staged[0][1].t_submit,
@@ -1206,10 +1239,14 @@ class BatchEngine:
                     return
                 if sealed is None:
                     continue  # every staged row failed its shape check
+                dispatched += 1
                 self._dispatch_batch(sealed.arrays, sealed.items, sealed.n,
                                      sealed.bucket, sealed.clock, sealed)
+            if dispatched > 1:
+                self._count_oversize_split(dispatched - 1)
             return
-        self._dispatch_stacked(items)
+        for chunk in self._split_oversize(items):
+            self._dispatch_stacked(chunk)
 
     def _dispatch_loop_slot(self) -> None:
         """Seal staged slots at the batch deadline and dispatch them —
@@ -1264,16 +1301,18 @@ class BatchEngine:
                     self._stop.set()
                     break
                 items.append(nxt)
-            self._dispatch_stacked(items)
+            for chunk in self._split_oversize(items):
+                self._dispatch_stacked(chunk)
 
     def _dispatch_stacked(self, items: list[_WorkItem]) -> None:
-        """The legacy assembly: stack and zero-pad on the dispatcher
-        thread, then dispatch."""
+        """The legacy assembly of one batch no larger than the top
+        bucket: stack and zero-pad on the dispatcher thread, then
+        dispatch. A failure fails the batch's items, never the thread."""
         n = len(items)
-        b = self._bucket(n)
         clock = {"submit_wait": time.perf_counter() - items[0].t_submit}
         t_asm = time.perf_counter()
         try:
+            b = self._bucket(n)
             batch = {}
             for name in self.input_names:
                 stacked = np.stack([it.inputs[name] for it in items])

@@ -21,6 +21,17 @@ per batch bucket of one engine:
 * All buckets of one engine share one graph memory pool; they replay
   one after another on the engine's one compute stream, never
   concurrently.
+* Every capture gets cuBLAS workspaces of its own. PyTorch keeps one
+  cuBLAS (and one cuBLASLt) workspace per (handle, stream) and a
+  capture bakes the current one into the graph, so without care the
+  next eager GEMM on the warm thread's stream (the next bucket's warm
+  run) shares scratch memory with the replays of the graph before it
+  on the compute stream. Two GEMM kernels running at once on one
+  workspace can corrupt its reduction flags and spin forever (seen on
+  the H100: a warm run's stream that never drained). So the workspace
+  map is cleared just before ``capture_begin`` (the capture allocates
+  its workspaces on the capturing stream, hence in the graph's private
+  pool) and just after ``capture_end`` (no eager call reuses them).
 
 The int8 GEMM wrapper launches nothing while a graph is captured: the
 capture records its calls by variant (``ops/qgemm.py``
@@ -95,12 +106,14 @@ class StepGraphs:
                     raise RuntimeError("graphs were freed")
                 t1 = time.perf_counter()
                 with qgemm.recording() as launches:
+                    torch._C._cuda_clearCublasWorkspaces()
                     graph.capture_begin(pool=self.pool,
                                         capture_error_mode="thread_local")
                     try:
                         output = self.step_fn(*inputs)
                     finally:
                         graph.capture_end()
+                        torch._C._cuda_clearCublasWorkspaces()
                 bg = BucketGraph(graph, inputs, output, dict(launches))
                 self._graphs[b] = bg
                 self.timings[b] = (eager_s, time.perf_counter() - t1)

@@ -44,6 +44,7 @@ from collections import deque
 from concurrent.futures import Future
 from typing import Callable
 
+from evam_tpu_torch.analysis.annotations import locked_by
 from evam_tpu_torch.engine.batcher import BatchEngine, EngineStats, stats_row
 from evam_tpu_torch.obs import trace
 from evam_tpu_torch.obs.metrics import metrics
@@ -78,6 +79,19 @@ class SupervisedEngine:
     (``submit``, ``warm_async``, ``set_example``, ``stats``, ``warmed``,
     ``stalled``, ...): unknown attributes delegate to the live engine.
     """
+
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "state": "_lock",
+        "restarts": "_lock",
+        "last_stall_ts": "_lock",
+        "_shed_carry": "_lock",
+        "_stats_carry": "_lock",
+        "_example": "_lock",
+        "_warm_requested": "_lock",
+        "_engine": "_lock",
+    }
 
     def __init__(
         self,
@@ -225,6 +239,7 @@ class SupervisedEngine:
 
     # ------------------------------------------------------- internals
 
+    @locked_by("_lock")
     def _set_state(self, state: str) -> None:
         self.state = state
         metrics.set("evam_engine_state", float(ENGINE_STATES.index(state)),

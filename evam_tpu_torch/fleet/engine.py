@@ -139,6 +139,27 @@ class FleetEngine:
     first n and leaves the rest for :meth:`scale_up`.
     """
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "shards": "_lock",
+        "_pins": "_lock",
+        "_degraded": "_lock",
+        "_retired_planned": "_lock",
+        "_devices": "_lock",
+        "rebalances": "_lock",
+        "scale_ups": "_lock",
+        "scale_downs": "_lock",
+        "_scaling": "_lock",
+        "_last_spinup_s": "_lock",
+        "_stats_carry": "_lock",
+        "_shed_carry": "_lock",
+        "_restarts_carry": "_lock",
+        "_drains": "_lock",
+        "_example": "_lock",
+        "_mesh_eng": "_mesh_lock",
+    }
+
     def __init__(self, name: str, shard_factory, devices,
                  mesh_factory=None, initial: int = 0):
         if not devices:

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from evam_tpu_torch.config.settings import fresh_settings
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.models import labels as L
 from evam_tpu_torch.modelproc import ModelProc, load_model_proc
@@ -323,7 +324,7 @@ class ModelRegistry:
     """Builds and caches models, resolving weights from disk.
 
     ``dtype`` is the serving precision (``EVAM_PRECISION``; None reads
-    the environment, default ``bfloat16``); ``device`` is where the
+    it through the settings, default ``bfloat16``); ``device`` is where the
     model runs (None → ``cuda``, which must exist)."""
 
     def __init__(
@@ -342,7 +343,7 @@ class ModelRegistry:
             else bool(allow_random_weights)
         )
         if dtype is None:
-            dtype = os.environ.get("EVAM_PRECISION", "bfloat16")
+            dtype = fresh_settings().engine.precision
         if dtype.lower() in _INT8_ALIASES:
             precision = "INT8"
             dtype = "bfloat16"

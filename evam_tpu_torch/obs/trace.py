@@ -144,6 +144,17 @@ class TraceRing:
     tail-based sampling. One per process, memoized like the fault
     injector (``active()``)."""
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "_frames": "_lock",
+        "_batches": "_lock",
+        "_pending": "_lock",
+        "_tick": "_lock",
+        "retained_count": "_lock",
+        "dropped_count": "_lock",
+    }
+
     #: in-flight batch records awaiting completion; bounded so an
     #: abandoned (wedged) engine's orphans can't grow the map forever
     PENDING_MAX = 256

@@ -19,6 +19,7 @@ import sys
 import threading
 import time
 
+from evam_tpu_torch.analysis.annotations import locked_by
 from evam_tpu_torch.obs.metrics import metrics
 
 log = logging.getLogger("evam_tpu_torch.publish.file")
@@ -26,6 +27,10 @@ log = logging.getLogger("evam_tpu_torch.publish.file")
 
 class FileDestination:
     """JSON-lines (default) or JSON-array metadata file."""
+
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {"_dropped": "_lock"}
 
     def __init__(self, path: str, fmt: str = "json-lines",
                  retry_backoff_s: float = 0.5, max_backoff_s: float = 10.0):
@@ -60,9 +65,8 @@ class FileDestination:
             self._opened_once = True
         return self._fh
 
+    @locked_by("_lock")
     def _drop(self, exc: OSError | None = None) -> None:
-        # callers hold ``_lock`` (the reference marks this with its
-        # lock-discipline annotation ``@locked_by("_lock")``)
         self._dropped += 1
         metrics.inc("evam_publish_dropped", labels={"dest": "file"})
         if exc is not None:

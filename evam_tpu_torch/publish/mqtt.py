@@ -148,6 +148,10 @@ class MqttDestination:
     """Destination publishing metadata JSON (and optional frame blob on
     ``<topic>/frames``) with automatic reconnect."""
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {"_dropped": "_lock"}
+
     def __init__(
         self,
         host: str,

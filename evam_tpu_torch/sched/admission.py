@@ -92,6 +92,14 @@ class AdmissionController:
     but still counts admissions per class for /scheduler and /healthz.
     """
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "_streams": "_lock",
+        "_admitted": "_lock",
+        "_rejected": "_lock",
+    }
+
     def __init__(self, hub, cfg: SchedConfig):
         self.hub = hub
         self.cfg = cfg

@@ -132,6 +132,14 @@ class ClassQueues:
     starve behind a starving ``standard``).
     """
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "_q": "_cv",
+        "_starve": "_cv",
+        "_closed": "_cv",
+    }
+
     def __init__(self, starvation_limits: dict[str, int] | None = None):
         self._limits = dict(starvation_limits or STARVATION_LIMITS)
         self._cv = threading.Condition()

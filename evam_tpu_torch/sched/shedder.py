@@ -51,6 +51,10 @@ class Shedder:
     (items can expire during the formation wait). Both drop oldest
     first: FIFO queues age from head to tail."""
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {"counts": "_lock"}
+
     def __init__(self, engine_name: str, staleness_s: dict[str, float]):
         self.engine_name = engine_name
         self.staleness_s = dict(staleness_s)

@@ -276,6 +276,14 @@ class GateRegistry:
     that survive stream churn (the /healthz totals stay monotonic), and
     a weak set of live gates whose recent skip rates it sums."""
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "_gates": "_lock",
+        "_ran": "_lock",
+        "_skipped": "_lock",
+    }
+
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._gates: "weakref.WeakSet[MotionGate]" = weakref.WeakSet()

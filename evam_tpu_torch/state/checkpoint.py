@@ -203,6 +203,18 @@ class CheckpointStore:
     on the server's: every mutation holds ``_lock``.
     """
 
+    #: thread-shared attributes and the lock that guards each (the
+    #: ``locks`` pass of ``evam_tpu_torch.analysis`` checks them)
+    SHARED_UNDER = {
+        "_ckpts": "_lock",
+        "_instances": "_lock",
+        "_captured": "_lock",
+        "_restored": "_lock",
+        "_failures": "_lock",
+        "_migrations": "_lock",
+        "_last_restore_ms": "_lock",
+    }
+
     def __init__(self, interval: int = 30,
                  restore_timeout_s: float = 2.0) -> None:
         self.interval = max(1, int(interval))
