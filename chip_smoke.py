@@ -402,6 +402,35 @@ memory the allocator holds once it has stopped its engines.
               exit 0. Prints frames/s per viewer, bytes a frame and the
               seconds from offer to first frame.
 
+26. train   — the parallel training path (``evam_tpu_torch/parallel``)
+              on cuda:0 at one rank: ``ActionTrainConfig()`` at full width
+              (400 classes, embed 512, depth 4, heads 8, encoder width
+              32, 224×224, 16-frame clips, the encoder rematerialized),
+              TRAIN_STEPS AdamW steps on one seeded batch of
+              TRAIN_CLIPS clips, once with the ring strategy (a seq axis
+              of one: plain attention) and once with MoE (4 experts):
+              finite losses that fall; ms a step (median of the steps
+              after the first), clips/s and peak allocated memory, with
+              the card's name and power limit. Then the small config
+              (embed 32, depth 1, heads 4, 32×32, 4-frame clips) from
+              one seed on the card and on the CPU: the loss within
+              TRAIN_LOSS_ATOL, every gradient within TRAIN_GRAD_RTOL of
+              its tensor's largest magnitude plus TRAIN_GRAD_ATOL (the
+              key biases' exact gradient is zero). K1 is not on this path:
+              0 qgemm launches, asserted. No collective runs on the
+              card: NCCL takes one GPU a rank, and the machine has one.
+27. dryrun  — ``dryrun_multichip(8)``: 8 gloo ranks on the CPU (the
+              trainer dp × sp (ring) × tp with 4 MoE experts, Ulysses
+              against plain attention, one SGD step through 8 pipeline
+              stages), then the fused detect+classify BatchEngine over
+              an 8-entry data mesh on the CPU. A CPU run, labelled so.
+
+The engine phase also checks ``own_streams``: OWN_STREAM_ENGINES CUDA
+engines alive at once (3 streams each, past torch's pool of 32 a
+device) hold pairwise distinct stream handles, all alive; two of them
+replay their captured graphs from two threads at once, every result
+equal to its step run eagerly; ``stop()`` destroys every stream.
+
 The rest phase runs the scheduler as the default has it (on), with a
 declared capacity (``EVAM_SCHED_CAPACITY_FPS``): the capacity model
 reads the first batches' stage clock and can refuse streams the card
@@ -421,7 +450,7 @@ warm runs, split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action,
-audio and ir phases launch it zero times), the nvidia-smi line, and last
+audio, ir and train phases launch it zero times), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for a quick first check of a new kernel);
@@ -455,7 +484,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
-          "eii", "trace", "chaos", "ingest", "webrtc")
+          "eii", "trace", "chaos", "ingest", "webrtc", "train", "dryrun")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -531,8 +560,11 @@ def _nvidia_smi() -> str:
 
 def _import_port():
     """The port's modules this script drives (imports nothing of JAX)."""
+    from evam_tpu_torch.engine import streams
     from evam_tpu_torch.engine.batcher import BatchEngine
     from evam_tpu_torch.engine.graphs import StepGraphs
+    from evam_tpu_torch.parallel import dryrun, train
+    from evam_tpu_torch.parallel.mesh import build_train_mesh
     from evam_tpu_torch.engine.hub import EngineHub
     from evam_tpu_torch.engine.ragged import RaggedSpec
     from evam_tpu_torch.engine.ringbuf import STAGES
@@ -624,7 +656,9 @@ def _import_port():
         faults=faults, state=state, h264=h264, jpeg=jpeg,
         RtspDemux=RtspDemux, AppSource=AppSource,
         annotate_frame=annotate_frame, FrameRelay=FrameRelay,
-        RtspServer=RtspServer, FrameContext=FrameContext, Region=Region)
+        RtspServer=RtspServer, FrameContext=FrameContext, Region=Region,
+        streams=streams, train=train, dryrun=dryrun,
+        build_train_mesh=build_train_mesh)
 
 
 def _memory(torch, phase: str, t_start: float) -> None:
@@ -1547,6 +1581,96 @@ def _graph_workspaces(torch, port) -> dict:
         graphs.free()
 
 
+#: engines alive at once in the own_streams check: 3 streams each, past
+#: torch's pool of 32 streams a device
+OWN_STREAM_ENGINES = 12
+#: the own_streams step: width of its square matmuls, their count
+OWN_STREAM_WIDTH, OWN_STREAM_DEPTH = 512, 16
+OWN_STREAM_ITEMS = 64
+
+
+def _own_streams(torch, port) -> dict:
+    """OWN_STREAM_ENGINES CUDA engines alive at once: their streams
+    pairwise distinct and alive; engines 0 and 1 serving from two
+    threads at once through their captured graphs, each result equal to
+    the step run eagerly; stop() destroys every stream."""
+    import numpy as np
+
+    streams = port["streams"]
+    before = streams.live("cuda")
+    gen = torch.Generator().manual_seed(11)
+
+    def make_step(w):
+        def step(x):
+            y = x
+            for _ in range(OWN_STREAM_DEPTH):
+                y = torch.tanh(y @ w)
+            return y
+        return step
+
+    weights = [(torch.randn(OWN_STREAM_WIDTH, OWN_STREAM_WIDTH, generator=gen)
+                / OWN_STREAM_WIDTH ** 0.5).cuda()
+               for _ in range(OWN_STREAM_ENGINES)]
+    engines = [port["BatchEngine"](f"own-streams-{i}", make_step(w), "cuda",
+                                   max_batch=8, deadline_ms=2.0)
+               for i, w in enumerate(weights)]
+    try:
+        handles = [h for e in engines for h in e.owned_streams()]
+        if len(set(handles)) != len(handles) or \
+                len(handles) != 3 * OWN_STREAM_ENGINES:
+            raise AssertionError(f"own_streams: {len(set(handles))} distinct "
+                                 f"of {len(handles)} stream handles")
+        if streams.live("cuda") - before != len(handles):
+            raise AssertionError("own_streams: streams not all alive")
+        example = np.zeros(OWN_STREAM_WIDTH, np.float32)
+        for e in engines[:2]:
+            e.set_example(frames=example)
+            e.warmup()
+            if e.graphs_captured() != len(e.buckets):
+                raise AssertionError(f"own_streams: {e.name} captured "
+                                     f"{e.graphs_captured()} graphs")
+        items = np.random.default_rng(12).standard_normal(
+            (OWN_STREAM_ITEMS, OWN_STREAM_WIDTH)).astype(np.float32)
+        results: dict = {}
+
+        def serve(i):
+            futs = [engines[i].submit(frames=x) for x in items]
+            results[i] = np.stack([f.result(timeout=60) for f in futs])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=serve, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        wall = time.perf_counter() - t0
+        worst = 0.0
+        for i in (0, 1):
+            rows = engines[i].stats_row()
+            with torch.inference_mode():
+                want = engines[i].step_fn(
+                    torch.from_numpy(items).cuda()).cpu().numpy()
+            if i not in results:
+                raise AssertionError(f"own_streams: engine {i} hung")
+            worst = max(worst, float(np.abs(results[i] - want).max()))
+            if rows["batches"] == 0:
+                raise AssertionError(f"own_streams: engine {i} ran no batch")
+        if worst > 1e-5:
+            raise AssertionError(f"own_streams: replayed results differ from "
+                                 f"eager by {worst}")
+    finally:
+        for e in engines:
+            e.stop()
+    alive = streams.live("cuda") - before
+    if alive:
+        raise AssertionError(f"own_streams: {alive} streams alive after "
+                             "stop()")
+    return {"engines": OWN_STREAM_ENGINES, "streams": len(handles),
+            "distinct": len(set(handles)), "replayed_concurrently": 2,
+            "items_each": OWN_STREAM_ITEMS, "wall_s": wall,
+            "max_abs_diff_vs_eager": worst, "alive_after_stop": 0}
+
+
 def phase_engine(torch, port) -> dict:
     """The reference's default engine against today's eager one: hub A
     (slot staging, pipelined transfer, every bucket captured as a CUDA
@@ -1643,6 +1767,7 @@ def phase_engine(torch, port) -> dict:
             hubs["A"].engine("detect", KEY,
                              score_threshold=port["ENGINE_SCORE_FLOOR"]))
         out["graph_workspaces"] = _graph_workspaces(torch, port)
+        out["own_streams"] = _own_streams(torch, port)
         _print(out)
         return {**out, "variants": variants}
     finally:
@@ -5976,6 +6101,127 @@ def phase_webrtc(torch, port) -> dict:
     return {v: variants[v] + serve[v] for v in ("aligned", "masked")}
 
 
+#: the train phase: steps per run, clips in its batch (16 frames each),
+#: the small config's card-vs-CPU tolerances (float32, TF32 off: cuDNN
+#: and cuBLAS sum in other orders than the CPU)
+TRAIN_STEPS, TRAIN_CLIPS = 10, 4
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-3, 1e-6
+TRAIN_SMALL = dict(num_classes=8, embed_dim=32, depth=1, heads=4,
+                   encoder_width=4, frame_size=(32, 32), clip_len=4)
+
+
+def _train_run(torch, port, cfg, clips, labels) -> dict:
+    """TRAIN_STEPS steps of one trainer on cuda:0 at one rank."""
+    import numpy as np
+
+    tr = port["train"]
+    mesh = port["build_train_mesh"]((1, 1, 1))
+    trainer = tr.build_action_trainer(mesh, cfg, device="cuda")
+    state = trainer.init_state(0)
+    c, lbl = trainer.shard_batch(clips, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, c, lbl)
+        losses.append(float(m["loss"]))  # synchronizes
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} do not fall")
+    step_ms = statistics.median(ms[1:])
+    return {"losses": losses, "first_step_ms": ms[0], "ms_per_step": step_ms,
+            "clips_per_s": len(clips) / (step_ms / 1e3),
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "params": sum(p.numel() for p in state.model.parameters())}
+
+
+def phase_train(torch, port, smi: str) -> dict:
+    """The parallel training path at full width on the card (one rank),
+    and the small config on the card against the CPU."""
+    import numpy as np
+
+    tr = port["train"]
+    qg = port["qgemm"]
+    _reset_launches(qg)
+    full = tr.ActionTrainConfig()
+    if (full.num_classes, full.embed_dim, full.depth, full.heads,
+            full.encoder_width, full.frame_size, full.clip_len,
+            full.remat_encoder) != (400, 512, 4, 8, 32, (224, 224), 16, True):
+        raise AssertionError(f"train: not the full-width config: {full}")
+    rng = np.random.default_rng(0)
+    clips = rng.integers(0, 255, (TRAIN_CLIPS, full.clip_len, 224, 224, 3),
+                         np.uint8)
+    labels = rng.integers(0, full.num_classes, (TRAIN_CLIPS,))
+    row = {"phase": "train", "card": smi, "clips": TRAIN_CLIPS,
+           "frames_per_clip": full.clip_len, "steps": TRAIN_STEPS}
+    row["ring"] = _train_run(torch, port, full, clips, labels)
+    row["moe"] = _train_run(torch, port,
+                            dataclasses.replace(full, moe_experts=4),
+                            clips, labels)
+    _print({"phase": "train-full-width", "card": smi, "ring": row["ring"],
+            "moe": row["moe"]})
+    torch.cuda.empty_cache()
+
+    # the small config from one seed on the card and on the CPU
+    cfg = tr.ActionTrainConfig(**TRAIN_SMALL)
+    small_clips = rng.integers(0, 255, (4, 4, 32, 32, 3), np.uint8)
+    small_labels = rng.integers(0, 8, (4,))
+    mesh = port["build_train_mesh"]((1, 1, 1))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        trainer = tr.build_action_trainer(mesh, cfg, device=dev)
+        state = trainer.init_state(0)
+        m = trainer.loss_and_grads(
+            state, *trainer.shard_batch(small_clips, small_labels))
+        got[dev] = (float(m["loss"]),
+                    {n: p.grad.detach().cpu()
+                     for n, p in state.model.named_parameters()})
+    loss_diff = abs(got["cpu"][0] - got["cuda"][0])
+    # each tensor's gradient within TRAIN_GRAD_RTOL of its largest
+    # magnitude, plus TRAIN_GRAD_ATOL for the attention's key biases,
+    # whose exact gradient is zero (rounding noise on both sides)
+    worst, worst_name = -1.0, None
+    for n, g in got["cpu"][1].items():
+        excess = float((got["cuda"][1][n] - g).abs().max()) / (
+            TRAIN_GRAD_RTOL * float(g.abs().max()) + TRAIN_GRAD_ATOL)
+        if excess > worst:
+            worst, worst_name = excess, n
+    row["small_card_vs_cpu"] = {
+        "loss_cpu": got["cpu"][0], "loss_card": got["cuda"][0],
+        "loss_abs_diff": loss_diff, "loss_atol": TRAIN_LOSS_ATOL,
+        "grad_rtol": TRAIN_GRAD_RTOL, "grad_atol": TRAIN_GRAD_ATOL,
+        "worst_grad_over_tolerance": worst, "worst_grad": worst_name,
+        "tensors": len(got["cpu"][1])}
+    if loss_diff > TRAIN_LOSS_ATOL or worst > 1.0:
+        raise AssertionError(f"train: card and CPU disagree: "
+                             f"{row['small_card_vs_cpu']}")
+    row["qgemm_launches"] = qg.launches
+    if qg.launches:
+        raise AssertionError(f"train: {qg.launches} qgemm launches; K1 is "
+                             "not on the training path")
+    row["collectives"] = ("none on the card: NCCL takes one GPU a rank and "
+                          "this machine has one; the dryrun phase runs them "
+                          "on CPU gloo ranks")
+    _print(row)
+    return row
+
+
+def phase_dryrun() -> dict:
+    """``dryrun_multichip(8)`` on CPU gloo ranks (not a card result)."""
+    from evam_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    lines = dryrun_multichip(8)
+    if len(lines) != 4 or not all(ln.startswith("dryrun_multichip:")
+                                  for ln in lines):
+        raise AssertionError(f"dryrun: {lines}")
+    row = {"phase": "dryrun", "platform": "cpu (8 gloo ranks; no card)",
+           "seconds": time.perf_counter() - t0, "lines": lines}
+    _print(row)
+    return row
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -6121,6 +6367,12 @@ def main(argv: list[str] | None = None) -> int:
     if "webrtc" in phases:
         served.append(phase_webrtc(torch, port))
         _memory(torch, "webrtc", t_start)
+    # the training path launches K1 zero times (asserted inside)
+    if "train" in phases:
+        phase_train(torch, port, smi)
+        _memory(torch, "train", t_start)
+    if "dryrun" in phases:
+        phase_dryrun()
     _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {

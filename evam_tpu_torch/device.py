@@ -8,6 +8,8 @@ and a missing card is an error, never a silent fallback.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -44,34 +46,35 @@ def same_device(a: str | torch.device, b: str | torch.device) -> bool:
 
 
 def mesh_devices(device: str | torch.device, shape=(-1,),
-                 axes=("data",)) -> list[torch.device]:
+                 axes=("data",), count: int | None = None
+                 ) -> list[torch.device]:
     """The hub's device list from the reference's ``tpu.mesh_shape`` and
-    ``tpu.mesh_axes`` (``evam_tpu/parallel/mesh.py::build_mesh``): a
-    data mesh over the visible devices of ``device``'s type, one entry
-    per device. ``[-1]`` takes every visible CUDA device (the CPU counts
-    as one device); ``[n]`` the first n (on the CPU, n entries of one
-    device). A ``model`` axis wider than 1 is tensor parallelism, which
-    comes with a later slice."""
-    from evam_tpu_torch import slices
-
+    ``tpu.mesh_axes``, sized and checked as ``evam_tpu/parallel/mesh.py::
+    build_mesh`` sizes and checks them over ``count`` devices (default:
+    the visible CUDA devices; the CPU is one device). One shape entry may
+    be -1. The batch splits over ``data`` only: one entry per data
+    shard, the first device of its row; a ``model`` axis replicates the
+    models over the rest of the row (the serving zoo has no tensor
+    parallelism to use it)."""
     shape, axes = list(shape), list(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} does not match axes {axes}")
-    if shape.count(-1) > 1:
-        raise ValueError(f"mesh shape {shape} has more than one -1")
-    sizes = dict(zip(axes, shape))
-    if sizes.pop("model", 1) not in (1, -1) or set(sizes) - {"data"}:
-        raise NotImplementedError(
-            f"mesh axes {dict(zip(axes, shape))}: a model axis comes with "
-            f"{slices.PARALLEL}; the port shards the data axis only")
+    if set(axes) - {"data", "model"}:
+        raise ValueError(f"mesh axes {axes}: serving shards the data axis "
+                         "and replicates over the model axis only")
     dev = resolve_device(device)
-    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    n = sizes.get("data", 1)
-    if n == -1:
-        n = visible
-    if dev.type == "cuda":
-        if n > visible:
-            raise ValueError(f"mesh shape {shape} needs {n} CUDA devices, "
-                             f"{visible} visible")
-        return [torch.device("cuda", i) for i in range(n)]
-    return [dev] * n
+    n = count if count is not None else (
+        torch.cuda.device_count() if dev.type == "cuda" else 1)
+    if -1 in shape:
+        known = math.prod(s for s in shape if s != -1) if len(shape) > 1 \
+            else 1
+        if n % known:
+            raise ValueError(f"{n} devices not divisible by {known}")
+        shape[shape.index(-1)] = n // known
+    if math.prod(shape) != n:
+        raise ValueError(f"mesh shape {shape} != device count {n}")
+    sizes = dict(zip(axes, shape))
+    data, model = sizes.get("data", 1), sizes.get("model", 1)
+    if dev.type == "cpu":
+        return [dev] * data
+    return [torch.device("cuda", i * model) for i in range(data)]

@@ -90,7 +90,7 @@ import numpy as np
 import torch
 
 from evam_tpu_torch.control.state import current_op
-from evam_tpu_torch.engine import devlock
+from evam_tpu_torch.engine import devlock, streams
 from evam_tpu_torch.engine.ragged import (
     RaggedSpec,
     consolidate_buckets,
@@ -434,15 +434,17 @@ class BatchEngine:
         #: one engine's device work: the compute stream every batch
         #: launches on (in order), the copy stream pipelined uploads
         #: ride, and the per-bucket graphs. The device lock serializes
-        #: a bucket's capture against this engine's own launches.
+        #: a bucket's capture against this engine's own launches. The
+        #: streams are the engine's own (``engine/streams.py``): created
+        #: here, destroyed once its threads have exited.
         self._device_lock = threading.Lock()
         self._graphs = None
         self._compute = self._copy = None
         if self._cuda:
             from evam_tpu_torch.engine.graphs import StepGraphs
 
-            self._compute = torch.cuda.Stream(self.device)
-            self._copy = torch.cuda.Stream(self.device)
+            self._compute = streams.create(self.device)
+            self._copy = streams.create(self.device)
             self._graphs = StepGraphs(step_fn, self.device)
         self._device_freed = False
 
@@ -744,6 +746,13 @@ class BatchEngine:
                 log.error("engine %s: warmup still running after 60 s",
                           self.name)
         self._free_device()
+        alive = [t.name for t in self._threads() if t.is_alive()]
+        if alive:
+            # a thread that outlived its join may still touch a stream
+            log.error("engine %s: %s still running; its streams are "
+                      "left alive", self.name, alive)
+        else:
+            self._destroy_streams()
 
     def abandon(self) -> None:
         """Quarantine teardown (supervisor): fail every failable caller
@@ -778,9 +787,43 @@ class BatchEngine:
             for it in items:
                 _safe_set_exception(it.future, exc)
             self._trace_end(bid, items, "abandoned")
-        threading.Thread(target=self._free_device,
+        threading.Thread(target=self._free_after_exit,
                          name=f"engine-{self.name}-free",
                          daemon=True).start()
+
+    def _threads(self) -> list[threading.Thread]:
+        """The engine's worker threads (those the caller is not)."""
+        return [t for t in (self._dispatcher, self._launcher,
+                            self._completer, self._warm_thread)
+                if t is not None and t is not threading.current_thread()]
+
+    def _free_after_exit(self) -> None:
+        """Quarantine: free the device state once no device call of the
+        engine runs, and destroy its streams once every one of its
+        threads has exited (a wedged one wakes and exits on the stop
+        flag; until then the streams stay)."""
+        self._free_device()
+        for t in self._threads():
+            t.join()
+        self._destroy_streams()
+
+    def _destroy_streams(self) -> None:
+        """Destroy the engine's streams, after :meth:`_free_device` and
+        once no thread of the engine can launch on them."""
+        if not self._cuda:
+            return
+        self._graphs.close()
+        torch.cuda.synchronize(self.device)
+        streams.destroy(self._copy)
+        streams.destroy(self._compute)
+
+    def owned_streams(self) -> list[int]:
+        """The handles of the engine's own streams (compute, copy,
+        capture)."""
+        if not self._cuda:
+            return []
+        return [self._compute.cuda_stream, self._copy.cuda_stream,
+                self._graphs.stream.cuda_stream]
 
     def _free_device(self) -> None:
         """Free the graphs, their pool and the per-slot device and
@@ -995,9 +1038,9 @@ class BatchEngine:
                     if "readback" not in slot:
                         # sized for the top bucket's output rows: its
                         # unit rows on the packed engine
-                        slot["readback"] = torch.empty(
+                        slot["readback"] = streams.pinned_tensor(
                             (self._out_rows,) + tuple(out.shape[1:]),
-                            dtype=out.dtype, pin_memory=True)
+                            out.dtype)
                     host = slot["readback"][:out.shape[0]]
                 host.copy_(out, non_blocking=True)
                 done = torch.cuda.Event()

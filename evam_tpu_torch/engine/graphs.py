@@ -21,6 +21,9 @@ per batch bucket of one engine:
 * All buckets of one engine share one graph memory pool; they replay
   one after another on the engine's one compute stream, never
   concurrently.
+* The capture stream is the engine's own (``engine/streams.py``), never
+  one of torch's pooled streams, which another engine could be handed
+  too; :meth:`StepGraphs.close` destroys it once no capture runs.
 * Every capture gets cuBLAS workspaces of its own. PyTorch keeps one
   cuBLAS (and one cuBLASLt) workspace per (handle, stream) and a
   capture bakes the current one into the graph, so without care the
@@ -51,6 +54,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from evam_tpu_torch.engine import streams
 from evam_tpu_torch.ops import qgemm
 
 #: one capture at a time in the process (captures happen at warmup only)
@@ -73,7 +77,9 @@ class StepGraphs:
         self.step_fn = step_fn
         self.device = torch.device(device)
         self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(self.device)
+        self.stream = streams.create(self.device)
+        #: held while a capture uses the stream, and by close()
+        self._stream_lock = threading.Lock()
         self._graphs: dict[int, BucketGraph] = {}
         #: bucket → (seconds of its eager warm step, synchronized;
         #: seconds of its capture, lock waits excluded): what a cache of
@@ -93,6 +99,13 @@ class StepGraphs:
         it holding ``lock`` (the engine's device lock: no launch of the
         engine meanwhile). ``batch``: one host array per step input,
         leading dim b."""
+        with self._stream_lock:
+            if self.freed:
+                raise RuntimeError("graphs were freed")
+            return self._capture(b, batch, lock)
+
+    def _capture(self, b: int, batch: list[np.ndarray],
+                 lock: threading.Lock) -> BucketGraph:
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                       for a in batch]
@@ -147,3 +160,13 @@ class StepGraphs:
             bg.graph.reset()
         self._graphs.clear()
         torch.cuda.empty_cache()
+
+    def close(self) -> None:
+        """Destroy the capture stream, once a capture that is running
+        has finished (it then finds the graphs freed). Call it after
+        :meth:`free`, without holding the engine's device lock, which a
+        capture takes."""
+        with self._stream_lock:
+            if streams.is_live(self.stream):
+                self.stream.synchronize()
+                streams.destroy(self.stream)

@@ -73,13 +73,12 @@ def numpy_alloc(shape: tuple[int, ...], dtype: np.dtype) -> np.ndarray:
 
 
 def pinned_alloc(shape: tuple[int, ...], dtype: np.dtype) -> np.ndarray:
-    """A zeroed numpy view of page-locked host memory (the view keeps
-    its torch tensor alive)."""
-    import torch
+    """A zeroed numpy array in page-locked host memory the engine owns
+    (``engine/streams.py``: not torch's pinned memory, which would name
+    the engine's streams after they are destroyed)."""
+    from evam_tpu_torch.engine import streams
 
-    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
-    t = torch.zeros(shape, dtype=tdtype, pin_memory=True)
-    return t.numpy()
+    return streams.pinned_array(shape, dtype)
 
 
 class _Slot:

@@ -13,7 +13,11 @@ carry the same names, so each leaf maps to one ``state_dict`` entry:
   kernel ``[H, hd, D]`` (the port's attention contracts them with
   einsum, ``models/zoo/action.py``);
 * ``kernel`` → ``weight``, LayerNorm ``scale`` → ``weight``; ``bias``
-  and the decoder's ``pos_embed`` unchanged.
+  and the decoder's ``pos_embed`` unchanged;
+* a MoE MLP's expert tensors (``experts_up`` ``[E, D, H]``,
+  ``experts_up_bias``, ``experts_down``, ``experts_down_bias``) keep
+  their names and shapes (``parallel/moe.py``); its ``router`` is a
+  Dense.
 
 :func:`params_to_jax` is the inverse (a rank-1 ``weight`` is a
 LayerNorm scale; ranks 2, 3 and 4 are Dense, attention and conv
@@ -238,6 +242,10 @@ def packb(obj: Any) -> bytes:
 
 # ------------------------------------------------------- the mapping
 
+#: leaves that keep their flax name and layout (the MoE experts)
+AS_IS = ("pos_embed", "experts_up", "experts_up_bias", "experts_down",
+         "experts_down_bias")
+
 
 def _to_tensor(arr: Any) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
@@ -283,7 +291,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             if t.dim() != 1:
                 raise ValueError(f"unexpected scale rank at {where}")
             name = "weight"
-        elif name not in ("bias", "pos_embed"):
+        elif name != "bias" and name not in AS_IS:
             raise ValueError(f"unexpected leaf {where}")
         out[".".join(path[:-1] + (name,))] = t.contiguous()
     return out
@@ -308,7 +316,7 @@ def params_to_jax(state: dict[str, torch.Tensor]) -> dict:
                     t = t.T
                 elif t.dim() != 3:
                     raise ValueError(f"unexpected weight rank at {key}")
-        elif name not in ("bias", "pos_embed"):
+        elif name != "bias" and name not in AS_IS:
             raise ValueError(f"unexpected state_dict entry {key}")
         node = tree
         for p in parents:

@@ -74,6 +74,7 @@ from evam_tpu_torch.models.zoo.classifier import MultiHeadClassifier
 from evam_tpu_torch.models.zoo.layers import Conv, quantize_model
 from evam_tpu_torch.models.zoo.ssd import SSDDetector
 from evam_tpu_torch.ops.preprocess import PreprocessSpec
+from evam_tpu_torch.parallel.moe import MoeMlp
 
 log = logging.getLogger("evam_tpu_torch.models.registry")
 
@@ -297,9 +298,9 @@ def _seed_for(key: str) -> int:
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """flax's defaults: lecun-normal kernels (truncated normal, variance
-    1/fan_in) for convs, dense layers and attention projections, zero
-    biases, unit LayerNorm scales, a normal(0.02) ``pos_embed`` — drawn
-    from ``generator``."""
+    1/fan_in) for convs, dense layers, attention projections and MoE
+    experts, zero biases, unit LayerNorm scales, a normal(0.02)
+    ``pos_embed`` — drawn from ``generator``."""
     for m in module.modules():
         if isinstance(m, (Conv, nn.Linear, _DenseGeneral)):
             if isinstance(m, _DenseGeneral):
@@ -318,6 +319,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
         if isinstance(m, ActionDecoder):
             m.pos_embed.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, MoeMlp):
+            m.reset_experts(generator)
 
 
 class ModelRegistry:

@@ -24,8 +24,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-#: kernel name → CUDA source under csrc/
-SOURCES = {"qgemm": "qgemm.cu"}
+#: library name → CUDA source under csrc/: the int8 GEMM kernel, and the
+#: engines' streams and page-locked memory (no kernel:
+#: ``engine/streams.py``)
+SOURCES = {"qgemm": "qgemm.cu", "engine_cuda": "engine_cuda.cu"}
 
 #: no --use_fast_math, and IEEE arithmetic spelled out: the int8 codes
 #: match the plain version only with IEEE division and denormals kept,

@@ -7,4 +7,3 @@ silent fallback.
 """
 
 ENGINE_DEPTH = "port slice 7 (the AOT cache)"
-PARALLEL = "port slice 9 (frozen parallel and training code)"

@@ -24,8 +24,9 @@ in different orders; measured differences are ~1e-6).
   (the same tolerance) and INT8 (the encoder runs bfloat16 in both, so
   argmax equal where the reference's top-2 margin exceeds the bfloat16
   tolerance 1e-3 below, probabilities within it; measured ~1e-8).
-* The parallel hooks (``moe_experts``, ``attention_fn``,
-  ``mlp_constraint``) raise naming slice 9.
+* The parallel hooks (``attention_fn``, tensor parallelism,
+  ``moe_experts``) at one rank against the reference's at mesh 1×1×1
+  (``tests/test_torch_parallel.py`` holds them at 2×2×2).
 """
 
 from __future__ import annotations
@@ -163,15 +164,72 @@ def test_recognizer_matches_the_reference():
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("hook", ["moe_experts", "attention_fn",
-                                  "mlp_constraint"])
-def test_parallel_hooks_raise_naming_their_slice(hook):
-    value = 2 if hook == "moe_experts" else (lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="slice 9") as info:
-        taction.TransformerBlock(64, 4, **{hook: value})
-    assert hook in str(info.value)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        taction.ActionDecoder(400, 64, heads=4, **{hook: value})
+def _hooks(hook: str):
+    """The same parallel hook for the reference (at its 1×1×1 training
+    mesh) and for the port (at world 1): the ring ``attention_fn``, tensor
+    parallelism (the reference's ``mlp_constraint``, the port's model
+    axis group) or a 4-expert MoE MLP (with its ``moe_constraint``)."""
+    import functools
+
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from evam_tpu.parallel.ring import make_flax_attention_fn
+    from evam_tpu.parallel.train import build_train_mesh as jbuild
+    from evam_tpu_torch.parallel.mesh import build_train_mesh
+    from evam_tpu_torch.parallel.ring import make_attention_fn
+
+    jmesh = jbuild(devices=jax.devices()[:1], shape=(1, 1, 1))
+    mesh = build_train_mesh((1, 1, 1))
+
+    def constraint(*spec):
+        return functools.partial(jax.lax.with_sharding_constraint,
+                                 shardings=NamedSharding(jmesh, P(*spec)))
+
+    if hook == "attention_fn":
+        return ({"attention_fn": make_flax_attention_fn(jmesh)},
+                {"attention_fn": make_attention_fn(mesh)})
+    if hook == "tensor_parallel":
+        return ({"mlp_constraint": constraint("data", "seq", "model")},
+                {"tensor_parallel": mesh.axis("model")})
+    return ({"moe_experts": 4,
+             "moe_constraint": constraint("data", "seq", "model", None)},
+            {"moe_experts": 4})
+
+
+@pytest.mark.parametrize("hook", ["attention_fn", "tensor_parallel",
+                                  "moe_experts"])
+def test_parallel_hooks_match_the_reference_at_one_rank(hook):
+    """Each hook at world 1 against the reference's block and decoder
+    with the same hook at mesh 1×1×1 (the weights bridged, MoE experts
+    included): outputs within ATOL, the same ``state_dict`` names as the
+    hook-free module's but for the MoE MLP."""
+    jhooks, thooks = _hooks(hook)
+    x = np.random.default_rng(4).standard_normal((2, 8, 64)).astype(
+        np.float32)
+    jblock = jaction.TransformerBlock(64, 4, **jhooks)
+    params = _init_flax(jblock, x, seed=4)
+    tblock = taction.TransformerBlock(64, 4, **thooks)
+    tblock.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    ref = np.asarray(jblock.apply({"params": params}, jnp.asarray(x)))
+    np.testing.assert_allclose(_port(tblock, x), ref, rtol=0, atol=ATOL)
+    names = set(tblock.state_dict())
+    plain = set(taction.TransformerBlock(64, 4).state_dict())
+    if hook == "moe_experts":
+        assert {n for n in names if n.startswith("MoeMlp_0.")} == {
+            "MoeMlp_0.router.weight", "MoeMlp_0.router.bias",
+            "MoeMlp_0.experts_up", "MoeMlp_0.experts_up_bias",
+            "MoeMlp_0.experts_down", "MoeMlp_0.experts_down_bias"}
+    else:
+        assert names == plain
+
+    jdec = jaction.ActionDecoder(16, 64, depth=2, heads=4, **jhooks)
+    dparams = _init_flax(jdec, x, seed=5)
+    tdec = taction.ActionDecoder(16, 64, depth=2, heads=4, in_dim=64,
+                                 clip_len=8, **thooks)
+    tdec.load_state_dict(params_from_jax(jax.tree.map(np.asarray, dparams)))
+    ref = np.asarray(jdec.apply({"params": dparams}, jnp.asarray(x)))
+    assert ref.shape == (2, 16)
+    np.testing.assert_allclose(_port(tdec, x), ref, rtol=0, atol=ATOL)
 
 
 # ---------------------------------------------------------------- steps

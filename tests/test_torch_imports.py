@@ -9,11 +9,14 @@ and the CLI's parser build there); an AST scan finds no import of
 ``jax``, ``flax`` or ``evam_tpu`` anywhere (``evam_tpu_torch`` itself
 starts with ``evam_tpu``, so names are matched exactly, not by prefix)
 and no import of the machine's missing packages at a module's top level
+(nor of the reference's training stack, ``optax`` and ``orbax``, at all;
+the parallel package is scanned on its own for them too)
 (``cv2`` is imported inside the function that uses it), nor of
 ``msgpack`` anywhere: the port reads and writes weights files with the
 standard library; and the WebRTC egress (``publish/webrtc.py``,
 ``publish/rtc/``) imports none of ``cv2``, ``cryptography`` and
-``websockets`` anywhere, not even inside a function.
+``websockets`` anywhere, not even inside a function. No module calls
+``torch.cuda.Stream()``: every engine owns its streams.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "evam_tpu_torch"
 BLOCKED = ("jax", "flax", "evam_tpu")
+#: the reference's training stack: the port's trainer uses torch's own
+#: optimizer and checkpoint file, and the card's machine has neither
+TRAINING = ("optax", "orbax")
 #: not installed on the card's machine
 ABSENT = ("aiohttp", "pydantic", "msgpack", "cv2", "zmq", "cryptography",
           "websockets")
@@ -54,7 +60,7 @@ def test_every_module_imports_with_jax_blocked():
     modules = [_module_name(p) for p in _port_files()]
     code = "\n".join([
         "import sys",
-        *[f"sys.modules[{b!r}] = None" for b in BLOCKED + ABSENT],
+        *[f"sys.modules[{b!r}] = None" for b in BLOCKED + ABSENT + TRAINING],
         "import importlib",
         f"for name in {modules!r}:",
         "    importlib.import_module(name)",
@@ -75,7 +81,7 @@ def test_every_module_imports_with_jax_blocked():
         "assert app.handle('GET', '/pipelines', b'').status == 200",
         "hub.stop()",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{BLOCKED + ABSENT!r} and sys.modules[m] is not None)",
+        f"{BLOCKED + ABSENT + TRAINING!r} and sys.modules[m] is not None)",
         "assert not bad, bad",
         "print('ok', len(sys.modules))",
     ])
@@ -97,8 +103,60 @@ def test_no_module_names_jax_flax_or_the_reference():
             else:
                 continue
             offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
-                          for n in names if _blocked(n)]
+                          for n in names if _blocked(n, BLOCKED + TRAINING)]
     assert not offenders, offenders
+
+
+def test_the_parallel_package_imports_no_optax_or_orbax_anywhere():
+    files = sorted((PKG / "parallel").rglob("*.py"))
+    assert {p.stem for p in files} >= {"mesh", "ring", "ulysses", "moe",
+                                       "train", "pipeline", "dryrun"}
+    offenders = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                          for n in names
+                          if _blocked(n, BLOCKED + TRAINING)]
+    assert not offenders, offenders
+
+
+def _calls(tree, dotted: str):
+    """Line numbers of calls to ``dotted`` (written out in full)."""
+    def name(node):
+        if isinstance(node, ast.Name):
+            return node.id
+        if isinstance(node, ast.Attribute):
+            inner = name(node.value)
+            return inner and f"{inner}.{node.attr}"
+        return None
+
+    return [n.lineno for n in ast.walk(tree)
+            if isinstance(n, ast.Call) and name(n.func) == dotted]
+
+
+def test_no_module_of_the_port_takes_a_pooled_cuda_stream():
+    """``torch.cuda.Stream()`` hands out 32 streams a device round robin,
+    so two engines could share one; every engine creates and destroys
+    its own (``engine/streams.py``)."""
+    offenders = []
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        offenders += [f"{path.relative_to(ROOT)}:{line}"
+                      for line in _calls(tree, "torch.cuda.Stream")]
+        offenders += [f"{path.relative_to(ROOT)}:{n.lineno} import Stream"
+                      for n in ast.walk(tree)
+                      if isinstance(n, ast.ImportFrom)
+                      and n.module == "torch.cuda"
+                      and any(a.name == "Stream" for a in n.names)]
+    assert not offenders, offenders
+    code = "import torch\ns = torch.cuda.Stream(device)\n"
+    assert _calls(ast.parse(code), "torch.cuda.Stream") == [2]
 
 
 def test_no_module_imports_a_missing_package_at_top_level():
@@ -202,4 +260,12 @@ def test_the_scan_covers_every_module_of_the_port():
             "evam_tpu_torch.publish.rtc.session",
             "evam_tpu_torch.publish.rtc.ws",
             "evam_tpu_torch.publish.rtc.signaling",
-            "evam_tpu_torch.publish.rtc.viewer"} <= names
+            "evam_tpu_torch.publish.rtc.viewer",
+            # slice 9's parallel training path
+            "evam_tpu_torch.parallel", "evam_tpu_torch.parallel.comm",
+            "evam_tpu_torch.parallel.mesh", "evam_tpu_torch.parallel.ring",
+            "evam_tpu_torch.parallel.ulysses", "evam_tpu_torch.parallel.moe",
+            "evam_tpu_torch.parallel.train",
+            "evam_tpu_torch.parallel.pipeline",
+            "evam_tpu_torch.parallel.dryrun",
+            "evam_tpu_torch.engine.streams"} <= names
