@@ -1,0 +1,514 @@
+"""Offline ground-truth accuracy harness, the detector's half
+(counterpart of ``evam_tpu/models/accuracy.py``).
+
+Random weights cannot show a wrong anchor decode, a flipped colour
+order or broken NMS geometry: every path still gives finite rows of the
+right shape. This module closes that gap without downloaded weights:
+
+* :func:`render_scene` draws deterministic synthetic scenes — three
+  visually distinct object classes on a textured background — with
+  exact normalized ground-truth boxes;
+* :func:`fit_detector` fits the zoo SSD to those scenes (numpy anchor
+  matching, regression targets through
+  :func:`~evam_tpu_torch.ops.boxes.encode_boxes`, the exact inverse of
+  the serving decode, so a decode bug breaks the fit and the final
+  check alike);
+* :func:`evaluate_packed` scores packed NMS rows against ground truth
+  (recall and precision at IoU ≥ 0.5 with label agreement).
+
+The renderers, the matching and the scoring are numpy, copied from the
+reference, so one seed gives the same scenes, targets and scores in both
+packages bit for bit. The fit is torch: it draws its data and minibatch
+order from the same generator in the reference's order, takes the same
+loss, and steps optax's ``adam(cosine_decay_schedule(lr, steps,
+alpha=0.05))`` written out, in float32 (on the card TF32 off, and
+cuDNN's deterministic algorithms, so a fit repeats). Where
+the reference shrinks its 1080p scenes with ``cv2.resize(INTER_AREA)``,
+the port calls ``ops/color.py::resize_area_host``, its bytes; where it
+writes weights with flax, :func:`save_fitted` writes flax's bytes with
+the port's codec (``models/convert.py``), so both registries load the
+file.
+
+The port runs a fit to convergence only on the card: ``chip_smoke.py``'s
+``accuracy`` phase asserts the reference test's recall and precision
+there, served at float32 and at INT8 through the qgemm kernel. Tier-1
+holds the port to the reference step by step on the CPU (scenes,
+targets, data order, loss, first updates, served detections) and runs no
+full fit there.
+
+Not ported yet (a later slice, in this order): ``_fit_loop``,
+``render_vehicle_crop``, ``fit_classifier``, ``evaluate_attrs``,
+``render_temporal_clip`` / ``fit_action`` and ``render_tone_window`` /
+``fit_audio``. A fit of an IR-backed model (its weights are not module
+parameters here) is not ported either.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import dataclasses
+import logging
+import math
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from evam_tpu_torch.device import resolve_device
+from evam_tpu_torch.models.convert import params_to_msgpack
+from evam_tpu_torch.ops.boxes import encode_boxes
+from evam_tpu_torch.ops.color import resize_area_host
+from evam_tpu_torch.ops.preprocess import preprocess_bgr
+
+log = logging.getLogger("evam_tpu_torch.models.accuracy")
+
+#: class id → (BGR color, aspect w/h): visually separable by a tiny
+#: conv net. Labels follow labels.PERSON_VEHICLE_BIKE (background=0).
+CLASS_STYLES = {
+    1: ((40, 200, 40), 0.45),   # person: tall, green
+    2: ((200, 90, 30), 2.2),    # vehicle: wide, blue
+    3: ((30, 30, 210), 1.0),    # bike: square, red
+}
+
+#: BGR value per labels.VEHICLE_COLORS entry — the classifier ground
+#: truth for ``color_attr`` scenes (vehicle inner region is painted
+#: with one of these; the border keeps the vehicle class color).
+ATTR_COLORS_BGR = (
+    (245, 245, 245),  # white
+    (130, 130, 130),  # gray
+    (40, 230, 230),   # yellow
+    (40, 40, 230),    # red
+    (40, 200, 40),    # green
+    (230, 130, 40),   # blue
+    (25, 25, 25),     # black
+)
+
+
+@dataclass
+class Scene:
+    frame: np.ndarray          # uint8 BGR [H, W, 3]
+    boxes: np.ndarray          # float32 [N, 4] normalized x0 y0 x1 y1
+    labels: np.ndarray         # int32 [N] (1..3)
+    attrs: np.ndarray | None = None  # int32 [N] color idx; -1 = n/a
+
+
+def _textured_bg(rng: np.random.Generator, h: int, w: int,
+                 base: int | None = None) -> np.ndarray:
+    """Mildly textured background (8×8 noise tiles) so nets cannot key
+    on a flat value — shared by every renderer in this module."""
+    if base is None:
+        base = int(rng.integers(96, 160))
+    noise = rng.integers(0, 24, (h // 8 + 1, w // 8 + 1, 3), np.uint8)
+    return np.clip(
+        np.full((h, w, 3), base, np.int16)
+        + np.kron(noise, np.ones((8, 8, 1), np.int16))[:h, :w] - 12,
+        0, 255).astype(np.uint8)
+
+
+def _draw_object(frame: np.ndarray, xi: int, yi: int, xe: int, ye: int,
+                 color: tuple, inner: tuple | None = None) -> None:
+    """The harness's object idiom: solid fill + quarter-inset interior
+    (``inner``; default half-brightness). One definition so every
+    renderer draws the same distribution the detector was fitted on."""
+    frame[yi:ye, xi:xe] = color
+    iy, ix = max((ye - yi) // 4, 1), max((xe - xi) // 4, 1)
+    frame[yi + iy:ye - iy, xi + ix:xe - ix] = (
+        tuple(c // 2 for c in color) if inner is None else inner)
+
+
+def render_scene(
+    rng: np.random.Generator,
+    hw: tuple[int, int] = (1080, 1920),
+    max_objects: int = 3,
+    color_attr: bool = False,
+) -> Scene:
+    """One scene: textured background + 1..max_objects solid shapes.
+
+    Geometry lives in NORMALIZED coordinates (heights 18–38% of frame
+    height, widths = height × class aspect) so the post-stretch object
+    distribution is identical whether the scene is rendered at the
+    model input size or at 1080p — the serving path stretch-resizes
+    full frames to the square model input, and the anchors must see
+    the same normalized aspects either way. Placements are rejected on
+    overlap (IoU > 0.1) so ground truth is unambiguous for NMS.
+    """
+    h, w = hw
+    frame = _textured_bg(rng, h, w)
+
+    n = int(rng.integers(1, max_objects + 1))
+    boxes, labels, attrs = [], [], []
+    for _ in range(n):
+        for _attempt in range(20):
+            cls = int(rng.integers(1, 4))
+            color, aspect = CLASS_STYLES[cls]
+            bh_n = rng.uniform(0.18, 0.38)       # normalized height
+            bw_n = min(bh_n * aspect, 0.9)       # normalized width
+            x0_n = rng.uniform(0.02, 0.98 - bw_n)
+            y0_n = rng.uniform(0.02, 0.98 - bh_n)
+            cand = np.asarray(
+                [x0_n, y0_n, x0_n + bw_n, y0_n + bh_n], np.float32)
+            bw, bh = bw_n * w, bh_n * h
+            x0, y0 = x0_n * w, y0_n * h
+            if boxes and _max_iou(cand, np.stack(boxes)) > 0.1:
+                continue
+            xi, yi, xe, ye = (int(x0), int(y0), int(x0 + bw), int(y0 + bh))
+            attr = -1
+            inner = None  # default: darker band for internal structure
+            if color_attr and cls == 2:
+                # classification ground truth: vehicle interior takes
+                # one of the 7 VEHICLE_COLORS; the border keeps the
+                # class color so detection stays learnable
+                attr = int(rng.integers(0, len(ATTR_COLORS_BGR)))
+                inner = ATTR_COLORS_BGR[attr]
+            _draw_object(frame, xi, yi, xe, ye, color, inner)
+            boxes.append(cand)
+            labels.append(cls)
+            attrs.append(attr)
+            break
+    return Scene(frame=frame,
+                 boxes=np.stack(boxes).astype(np.float32),
+                 labels=np.asarray(labels, np.int32),
+                 attrs=np.asarray(attrs, np.int32))
+
+
+def _max_iou(box: np.ndarray, others: np.ndarray) -> float:
+    lt = np.maximum(box[:2], others[:, :2])
+    rb = np.minimum(box[2:], others[:, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[:, 0] * wh[:, 1]
+    a = (box[2] - box[0]) * (box[3] - box[1])
+    b = (others[:, 2] - others[:, 0]) * (others[:, 3] - others[:, 1])
+    return float((inter / np.maximum(a + b - inter, 1e-9)).max())
+
+
+def match_anchors(
+    anchors_corner: np.ndarray,
+    scene: Scene,
+    pos_iou: float = 0.5,
+) -> tuple[np.ndarray, np.ndarray]:
+    """SSD target assignment → (cls_target [A], box_target [A, 4]).
+
+    Anchors with IoU ≥ pos_iou match their best GT; the best anchor of
+    every GT is force-matched so no object is unlearnable.
+    """
+    A = anchors_corner.shape[0]
+    cls_t = np.zeros((A,), np.int32)
+    box_t = np.zeros((A, 4), np.float32)
+    ious = _pairwise_iou(anchors_corner, scene.boxes)  # [A, N]
+    best_gt = ious.argmax(axis=1)
+    best_iou = ious.max(axis=1)
+    pos = best_iou >= pos_iou
+    pos[ious.argmax(axis=0)] = True            # force best anchor per GT
+    best_gt[ious.argmax(axis=0)] = np.arange(scene.boxes.shape[0])
+    cls_t[pos] = scene.labels[best_gt[pos]]
+    box_t[pos] = scene.boxes[best_gt[pos]]
+    return cls_t, box_t
+
+
+def _pairwise_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / np.maximum(area_a[:, None] + area_b[None] - inter, 1e-9)
+
+
+def anchors_to_corner(anchors_cxcywh: np.ndarray) -> np.ndarray:
+    cx, cy, w, h = np.split(anchors_cxcywh, 4, axis=-1)
+    return np.concatenate(
+        [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], axis=-1)
+
+
+def _fit_data(model, rng: np.random.Generator, n_scenes: int,
+              source_hw: tuple[int, int] = (1080, 1920),
+              color_attr: bool = False
+              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The fit's training arrays, drawn from ``rng`` as the reference
+    draws them: scene ``i`` rendered at the model's input size when
+    ``i`` is even, else at ``source_hw`` and area-downscaled, then
+    matched at IoU 0.4. Returns (images uint8 BGR [N, h, w, 3], class
+    targets int32 [N, A], box targets float32 [N, A, 4])."""
+    h, w = model.spec.input_size
+    anchors_c = anchors_to_corner(np.asarray(model.anchors, np.float32))
+    imgs, cls_ts, box_ts = [], [], []
+    for i in range(n_scenes):
+        if i % 2 == 0:
+            scene = render_scene(rng, hw=(h, w), color_attr=color_attr)
+            img = scene.frame
+        else:
+            scene = render_scene(rng, hw=source_hw, color_attr=color_attr)
+            img = resize_area_host(scene.frame, h, w)
+        cls_t, box_t = match_anchors(anchors_c, scene, pos_iou=0.4)
+        imgs.append(img)
+        cls_ts.append(cls_t)
+        box_ts.append(box_t)
+    return np.stack(imgs), np.stack(cls_ts), np.stack(box_ts)
+
+
+def _minibatches(rng: np.random.Generator, n_scenes: int, steps: int,
+                 batch: int) -> np.ndarray:
+    """Scene indices of every step [steps, ≤ batch]: one permutation per
+    epoch of ``n_scenes // batch`` steps, drawn from ``rng`` (after the
+    data) as the reference's loop draws them."""
+    per_epoch = max(n_scenes // batch, 1)
+    order = rng.permutation(n_scenes)
+    out = []
+    for step in range(steps):
+        if step % per_epoch == 0 and step:
+            order = rng.permutation(n_scenes)  # reshuffle every epoch
+        start = (step % per_epoch) * batch
+        out.append(order[start:start + batch])
+    return np.stack(out) if out else np.zeros((0, batch), np.int64)
+
+
+def _detector_loss(out: dict, cls_t: torch.Tensor, box_t: torch.Tensor,
+                   anchors: torch.Tensor,
+                   variances: tuple[float, float, float, float],
+                   conf_is_prob: bool = False) -> torch.Tensor:
+    """The reference's fit loss on one batch: smooth-L1 (optax's Huber,
+    delta 1) on the encoded offsets of positive anchors, weighted 2×,
+    plus softmax cross-entropy on positives and on the hardest
+    negatives, 3 per positive and at least 8 per image (a descending
+    sort). ``out`` is the forward's ``{"loc", "conf"}``; ``cls_t``
+    int64 [B, A], ``box_t`` float32 [B, A, 4]."""
+    conf = out["conf"].float()                          # [B, A, C]
+    if conf_is_prob:
+        # IR graphs may softmax in-graph: recover logits for CE
+        conf = torch.log(conf + 1e-9)
+    loc = out["loc"].float()                            # [B, A, 4]
+    pos = cls_t > 0
+    posf = pos.float()
+    n_pos = torch.clamp(pos.sum(), min=1)
+    # localization: smooth-L1 on encoded offsets, positives only
+    err = (loc - encode_boxes(box_t, anchors, variances)).abs()
+    quadratic = torch.clamp(err, max=1.0)
+    l1 = (0.5 * quadratic ** 2 + (err - quadratic)).sum(-1)
+    # 2× weight: matched-IoU quality is the assertion target
+    loc_loss = 2.0 * (l1 * posf).sum() / n_pos
+    # softmax cross-entropy, optax's way: the max held constant, the
+    # normalizer subtracted at the label only
+    z = conf - conf.max(-1, keepdim=True).values.detach()
+    ce = (torch.log(torch.exp(z).sum(-1))
+          - z.gather(-1, cls_t[..., None])[..., 0])
+    pos_ce = (ce * posf).sum() / n_pos
+    # 3:1 online hard-negative mining
+    neg_ce = torch.where(pos, float("-inf"), ce)
+    k = torch.clamp(3 * pos.sum(dim=1), min=8)          # per-image cap
+    neg_sorted = torch.sort(neg_ce, dim=1, descending=True).values
+    take = (torch.arange(neg_sorted.shape[1], device=neg_sorted.device)[None]
+            < k[:, None])
+    hard_neg = torch.where(take & torch.isfinite(neg_sorted), neg_sorted,
+                           torch.zeros_like(neg_sorted))
+    neg_loss = hard_neg.sum() / torch.clamp(take.sum(), min=1)
+    return loc_loss + pos_ce + neg_loss
+
+
+class _Adam:
+    """optax's ``adam(cosine_decay_schedule(lr, steps, alpha))`` written
+    out: b1 0.9, b2 0.999, eps 1e-8, no weight decay; moments ``(1 - b)
+    · g + b · m``, bias-corrected by ``1 - b ** count``, the update
+    ``-lr(t) · m̂ / (√v̂ + eps)`` with the schedule at the count before
+    the step. Every tensor of a step in one ``torch._foreach_*`` call."""
+
+    def __init__(self, params: list[torch.Tensor], lr: float, steps: int,
+                 alpha: float = 0.05, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.params = params
+        self.lr, self.steps, self.alpha = lr, steps, alpha
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = 0
+
+    def learning_rate(self, count: int) -> float:
+        """optax's ``cosine_decay_schedule(lr, steps, alpha)`` at ``count``."""
+        c = min(count, self.steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * c / self.steps))
+        return self.lr * ((1 - self.alpha) * cosine + self.alpha)
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor]) -> None:
+        lr = self.learning_rate(self.count)
+        self.count += 1
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.b1))
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - self.b2))
+        # the bias corrections in float32, as optax computes them
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** self.count)
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** self.count)
+        denom = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(self.mu, bc1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(self.params, upd)
+
+
+@contextlib.contextmanager
+def _fit_math(device: torch.device):
+    """On the card, while the block runs: TF32 off for the matmuls and
+    convolutions (the reference fits in float32), and cuDNN held to its
+    deterministic algorithms, so a fit gives the same weights run after
+    run (the backward's other scatters write each element once). The
+    caller's settings come back after."""
+    if device.type != "cuda":
+        yield
+        return
+    flags = ((torch.backends.cuda.matmul, "allow_tf32", False),
+             (torch.backends.cudnn, "allow_tf32", False),
+             (torch.backends.cudnn, "deterministic", True),
+             (torch.backends.cudnn, "benchmark", False))
+    saved = [getattr(obj, name) for obj, name, _ in flags]
+    for obj, name, value in flags:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for (obj, name, _), value in zip(flags, saved):
+            setattr(obj, name, value)
+
+
+def fit_detector(
+    model,
+    seed: int = 0,
+    n_scenes: int = 128,
+    steps: int = 800,
+    batch: int = 8,
+    lr: float = 3e-3,
+    source_hw: tuple[int, int] = (1080, 1920),
+    color_attr: bool = False,
+    device: str | torch.device | None = None,
+    timings: dict | None = None,
+):
+    """Fit the zoo SSD to the synthetic scenes on ``device`` (None → the
+    card, which must exist).
+
+    ``model`` is a LoadedModel of a zoo ``ssd`` spec; a float32 copy of
+    its module is fitted, the model itself is left as it was. Half the
+    training scenes are rendered at the model's input size, half at
+    ``source_hw`` and downscaled — the serving path resizes full frames
+    on the device, so the net must be robust to both texture scales.
+    Images go through the serving normalization
+    (``ops/preprocess.py::preprocess_bgr`` with the model's spec) into
+    the model's serving forward, so the fitted weights are valid under
+    ``preprocess_wire``. Returns ``(state_dict, history)``: the fitted
+    float32 weights on the CPU, and the loss at every 50th step and at
+    the last. A ``timings`` dict, when given, gets the seconds spent
+    making the data (``data_s``) and fitting (``steps_s``: the copy to
+    the device and the steps, synchronized at the end).
+    """
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    imgs, cls_ts, box_ts = _fit_data(model, rng, n_scenes, source_hw,
+                                     color_attr)
+    log.info("fit: %d scenes, %d anchors, %d positives", n_scenes,
+             cls_ts.shape[1], int((cls_ts > 0).sum()))
+    order = _minibatches(rng, n_scenes, steps, batch)
+    t1 = time.perf_counter()
+
+    net = copy.deepcopy(model.module).to(device=dev, dtype=torch.float32)
+    net.requires_grad_(True)
+    params = list(net.parameters())
+    if not params:
+        raise ValueError(f"{model.spec.key}: the model has no parameters "
+                         "to fit (an IR-backed model's fit is not ported)")
+    # the serving forward, over the copy's weights
+    fwd = dataclasses.replace(model, module=net).forward
+    pre = model.preprocess
+    opt = _Adam(params, lr, steps)
+    anchors = torch.from_numpy(np.asarray(model.anchors, np.float32)).to(dev)
+    imgs_d = torch.from_numpy(imgs).to(dev)
+    cls_d = torch.from_numpy(cls_ts).to(dev, torch.int64)
+    box_d = torch.from_numpy(box_ts).to(dev)
+    order_d = torch.from_numpy(order).to(dev)
+
+    history = []
+    with _fit_math(dev):
+        for step in range(steps):
+            idx = order_d[step]
+            # flax promotes a bfloat16 input against float32 params
+            x = preprocess_bgr(imgs_d[idx].float(), pre).float()
+            loss = _detector_loss(fwd(x), cls_d[idx], box_d[idx], anchors,
+                                  model.variances, model.conf_is_prob)
+            grads = torch.autograd.grad(loss, params)
+            opt.step(list(grads))
+            if step % 50 == 0 or step == steps - 1:
+                history.append(float(loss.detach()))
+                log.info("fit step %d loss %.4f", step, history[-1])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if timings is not None:
+        timings.update(data_s=t1 - t0, steps_s=time.perf_counter() - t1)
+    state = {k: v.detach().to("cpu").contiguous()
+             for k, v in net.state_dict().items()}
+    return state, history
+
+
+def save_fitted(params: dict[str, torch.Tensor], key: str,
+                models_dir: str | Path, precision: str = "FP32") -> Path:
+    """Write fitted weights (a ``state_dict``) into the registry layout,
+    ``<models_dir>/<key>/<precision>/weights.msgpack``, as the bytes
+    flax's ``to_bytes`` writes for the same params tree."""
+    path = Path(models_dir) / key / precision / "weights.msgpack"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(params_to_msgpack(params))
+    return path
+
+
+def unpack_rows(packed: np.ndarray) -> list[dict]:
+    """Packed NMS rows [K, 7(+)] → [{box, score, label_id}] (valid only)."""
+    out = []
+    for row in np.asarray(packed):
+        if row[6] <= 0.5:
+            continue
+        out.append({"box": row[:4].astype(np.float32),
+                    "score": float(row[4]), "label_id": int(row[5])})
+    return out
+
+
+def evaluate_packed(
+    packed: np.ndarray,
+    scenes: list[Scene],
+    iou_thresh: float = 0.5,
+) -> dict:
+    """Score packed detections [B, K, 7+] against scene ground truth.
+
+    A GT box counts recovered iff some valid detection has IoU ≥
+    iou_thresh AND the right label. Returns recall / precision /
+    per-miss detail.
+    """
+    tp, n_gt, n_det = 0, 0, 0
+    misses = []
+    for scene, rows in zip(scenes, packed):
+        dets = unpack_rows(rows)
+        n_det += len(dets)
+        n_gt += len(scene.boxes)
+        used = set()
+        for gt_box, gt_label in zip(scene.boxes, scene.labels):
+            hit = None
+            for i, d in enumerate(dets):
+                if i in used or d["label_id"] != int(gt_label):
+                    continue
+                if _pairwise_iou(d["box"][None], gt_box[None])[0, 0] >= iou_thresh:
+                    hit = i
+                    break
+            if hit is None:
+                misses.append({"label": int(gt_label),
+                               "box": gt_box.tolist()})
+            else:
+                used.add(hit)
+                tp += 1
+    return {
+        "recall": tp / max(n_gt, 1),
+        "precision": tp / max(n_det, 1),
+        "gt": n_gt, "detections": n_det, "misses": misses,
+    }

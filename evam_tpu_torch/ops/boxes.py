@@ -2,7 +2,8 @@
 
 Anchors are numpy, computed once per model build (copied from the
 reference). Decode (SSD and YOLO) and IoU are elementwise torch ops
-that run on the device inside the detect step.
+that run on the device inside the detect step; ``encode_boxes``, the
+SSD decode's inverse, makes the accuracy harness's training targets.
 """
 
 from __future__ import annotations
@@ -62,6 +63,27 @@ def decode_boxes(
         [cx - w / 2.0, cy - h / 2.0, cx + w / 2.0, cy + h / 2.0], dim=-1
     )
     return torch.clamp(boxes, 0.0, 1.0)
+
+
+def encode_boxes(
+    boxes: torch.Tensor,
+    anchors: torch.Tensor,
+    variances: tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2),
+) -> torch.Tensor:
+    """Inverse of :func:`decode_boxes` (training targets): corner boxes
+    [..., A, 4] + anchors [A, 4] (cxcywh) → offsets [..., A, 4]. Widths
+    and heights are floored at 1e-6, so an empty box (an unmatched
+    anchor's zero target) encodes to finite offsets."""
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    acx, acy, aw, ah = anchors.unbind(-1)
+    cx, cy = (x0 + x1) / 2.0, (y0 + y1) / 2.0
+    w = torch.clamp(x1 - x0, min=1e-6)
+    h = torch.clamp(y1 - y0, min=1e-6)
+    dx = (cx - acx) / (aw * variances[0])
+    dy = (cy - acy) / (ah * variances[1])
+    dw = torch.log(w / aw) / variances[2]
+    dh = torch.log(h / ah) / variances[3]
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,14 @@ arithmetic (``csrc/evam_media.cpp``, a copy of the reference's
 block. They give its bytes exactly, so the port needs no cv2; they are
 ``native.py``'s path when its policy turns the library off, and the
 plain reference the tests and ``chip_smoke.py`` hold the library to.
+``resize_area_host`` is OpenCV's ``INTER_AREA`` downscale in numpy,
+byte for byte: the accuracy harness shrinks its 1080p training scenes
+with it, where the reference calls ``cv2.resize``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -89,6 +94,82 @@ def resize_bgr_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:
            + wy * (one - wx) * r1[:, x0].astype(f32)
            + wy * wx * r1[:, x1].astype(f32) + f32(0.5))
     return out.astype(np.uint8)
+
+
+def _area_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """OpenCV's ``computeResizeAreaTab`` for one axis, as dense tables
+    (source index [L, n_out], float32 weight [L, n_out]): column ``d``
+    lists the source pixels that cover output pixel ``d`` in the order
+    OpenCV adds them (a partial pixel first, the whole ones, a partial
+    one last); shorter runs pad with weight 0, which adds an exact 0."""
+    scale = 1.0 / (n_out / n_in)  # OpenCV's scale, as it computes it
+    runs = []
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s2 = min(math.floor(f2), n_in - 1)
+        s1 = min(math.ceil(f1), s2)
+        run = []
+        if s1 - f1 > 1e-3:
+            run.append((s1 - 1, (s1 - f1) / cell))
+        run += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            run.append((s2, min(f2 - s2, 1.0, cell) / cell))
+        runs.append(run)
+    src = np.zeros((max(map(len, runs)), n_out), np.int64)
+    wt = np.zeros(src.shape, np.float32)  # each weight rounded once
+    for d, run in enumerate(runs):
+        for j, (s, a) in enumerate(run):
+            src[j, d], wt[j, d] = s, a
+    return src, wt
+
+
+def resize_area_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Area-average uint8 downscale on the host: ``cv2.resize(frame,
+    (w, h), interpolation=cv2.INTER_AREA)``, byte for byte, for
+    ``frame`` [H, W] or [H, W, C] with h ≤ H and w ≤ W.
+
+    Integer ratios take OpenCV's fast path: block sums, then ``(sum +
+    2) >> 2`` for 2×2 blocks of 1, 3 or 4 channels, else the sum times
+    the float32 reciprocal of the block's area, rounded half to even.
+    Other ratios take its general path in its float32 arithmetic: each
+    source row's weighted sum over the columns (one rounding per
+    product and per add, in OpenCV's order), then each output row's
+    weighted sum of those rows, rounded half to even and clipped."""
+    frame = np.asarray(frame)
+    if frame.dtype != np.uint8 or frame.ndim not in (2, 3):
+        raise ValueError(f"resize_area_host takes uint8 [H, W(, C)], got "
+                         f"{frame.dtype} {frame.shape}")
+    sh, sw = frame.shape[:2]
+    if not (0 < h <= sh and 0 < w <= sw):
+        raise ValueError(f"resize_area_host only shrinks: {sh}x{sw} → {h}x{w}")
+    if (sh, sw) == (h, w):
+        return frame.copy()
+    x = frame if frame.ndim == 3 else frame[..., None]
+    sx, sy = 1.0 / (w / sw), 1.0 / (h / sh)
+    if sx == round(sx) and sy == round(sy):
+        ky, kx = int(sy), int(sx)
+        sums = x.reshape(h, ky, w, kx, -1).sum((1, 3), dtype=np.int32)
+        if ky == kx == 2 and x.shape[2] in (1, 3, 4):
+            out = (sums + 2) >> 2
+        else:
+            out = np.rint(sums.astype(np.float32)
+                          * np.float32(1.0 / (ky * kx)))
+    else:
+        src, wt = _area_taps(sw, w)
+        cols = np.ascontiguousarray(x.swapaxes(0, 1))  # [W, H, C]
+        rows = np.zeros((w,) + cols.shape[1:], np.float32)
+        for s, a in zip(src, wt):
+            rows += cols[s] * a[:, None, None]
+        rows = np.ascontiguousarray(rows.swapaxes(0, 1))  # [H, w, C]
+        src, wt = _area_taps(sh, h)
+        out = np.zeros((h,) + rows.shape[1:], np.float32)
+        for s, a in zip(src, wt):
+            out += rows[s] * a[:, None, None]
+        out = np.rint(out)
+    out = np.clip(out, 0, 255).astype(np.uint8)
+    return out if frame.ndim == 3 else out[..., 0]
 
 
 def resize_bgr_to_i420_host(frame: np.ndarray, h: int, w: int) -> np.ndarray:

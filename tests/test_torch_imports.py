@@ -214,6 +214,29 @@ def test_webrtc_modules_import_no_cv2_cryptography_or_websockets():
     assert not offenders, offenders
 
 
+#: the accuracy harness: the reference fits with optax and flax and
+#: shrinks scenes with cv2; the port's copy uses none of them, not even
+#: inside a function (its fit runs on the card's machine)
+ACCURACY_ABSENT = ("cv2", "optax", "flax", "jax", "evam_tpu")
+
+
+def test_the_accuracy_harness_imports_no_cv2_optax_or_flax_anywhere():
+    path = PKG / "models" / "accuracy.py"
+    offenders, imported = [], set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        imported.update(names)
+        offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                      for n in names if _blocked(n, ACCURACY_ABSENT)]
+    assert not offenders, offenders
+    assert {"numpy", "torch"} <= imported
+
+
 def test_scan_matches_names_exactly():
     assert _blocked("evam_tpu.ops") and _blocked("jax.numpy")
     assert not _blocked("evam_tpu_torch.ops") and not _blocked("jaxlib_free")
@@ -224,7 +247,8 @@ def test_the_scan_covers_every_module_of_the_port():
     being in it: the slice modules among them (slice 8's EII modules
     and its ZeroMQ wire too, so none imports ``zmq`` or ``cv2`` at its
     top level, slice 11a's codec, sources, pool, demux, re-stream and
-    painter, and slice 11b's WebRTC modules)."""
+    painter, slice 11b's WebRTC modules, and slice 12a's accuracy
+    harness, imported where ``cv2`` and ``optax`` are blocked)."""
     names = {_module_name(p) for p in _port_files()}
     assert {"evam_tpu_torch.modelproc", "evam_tpu_torch.modelproc.proc",
             "evam_tpu_torch.stages.track",
@@ -268,4 +292,6 @@ def test_the_scan_covers_every_module_of_the_port():
             "evam_tpu_torch.parallel.train",
             "evam_tpu_torch.parallel.pipeline",
             "evam_tpu_torch.parallel.dryrun",
-            "evam_tpu_torch.engine.streams"} <= names
+            "evam_tpu_torch.engine.streams",
+            # slice 12a's accuracy harness (cv2 and optax blocked above)
+            "evam_tpu_torch.models.accuracy"} <= names

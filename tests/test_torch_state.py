@@ -336,7 +336,9 @@ def _wait_lines(path: Path, n: int, timeout: float = 120.0) -> list:
     deadline = time.time() + timeout
     while time.time() < deadline:
         if path.exists():
-            lines = path.read_text().splitlines()
+            text = path.read_text()
+            # only whole lines: the publisher may be writing the last one
+            lines = text[:text.rfind("\n") + 1].splitlines()
             if len(lines) >= n:
                 return [json.loads(x) for x in lines]
         time.sleep(0.05)
