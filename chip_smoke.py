@@ -449,6 +449,33 @@ memory the allocator holds once it has stopped its engines.
               through K1 on the held-out scenes: INT8 recall at least
               float32's less 0.05. Prints each fit's ms a step, seconds,
               loss history and peak memory, and the phase's seconds.
+29. attrs   — the classifier's ground truth on the card (the reference's
+              TestFusedClassifyAccuracy, tests/test_accuracy.py:213):
+              (a) the SSD at 96², width 16 fitted on ``color_attr``
+              scenes (1200 steps, 128 scenes) to a last loss below 0.6
+              and the classifier at 48², width 16 (``fit_classifier``:
+              900 steps, 768 crops) below 0.2, both written by
+              ``save_fitted`` and loaded by fresh registries; 16 held-out
+              1080p ``color_attr`` scenes (seed 123; 10 more when they
+              hold fewer than 4 vehicles) as i420 wire frames through
+              ``build_detect_classify_step`` (16 detections, ROI budget
+              8, score 0.3, vehicles only): attribute recall ≥ 0.6 over
+              ≥ 4 vehicles at float32 and at INT8 through K1 (13
+              launches a forward), each beside the largest difference
+              from the plain CPU path's rows on the same weights; (b) the
+              negative control: 8 scenes (seed 321), the ground-truth
+              vehicle boxes through ``build_classify_step`` at INT8 (3
+              launches a forward): ≥ 0.7 of the colours unshifted,
+              ≤ 0.5 with every box shifted by 0.6 of its width, over ≥ 3
+              vehicles; (c) (a)'s held-out scenes in an ``.mjpeg`` file
+              served at INT8 as object_classification/vehicle_attributes
+              (the fused engine, detection-threshold 0.3): one line a
+              frame, a vehicle recovered when a published vehicle object
+              matches it at IoU ≥ 0.5 with its colour, recall ≥ 0.5, 13
+              launches a forward; (d) both fits at the served
+              configuration (SSD 512², classifier 72², width 32), the
+              crops of (b) and the fused step of (a) at float32 and at
+              INT8: INT8 at most one vehicle below float32 in each.
 
 The engine phase also checks ``own_streams``: OWN_STREAM_ENGINES CUDA
 engines alive at once (3 streams each, past torch's pool of 32 a
@@ -471,8 +498,9 @@ ragged, sched, tune, native, fleet, rest, serve, eii, trace, chaos,
 ingest and webrtc phases' served runs (ingest: the demux run, its
 AppSource replay and the serve child's streams and files; webrtc: the
 key and delta streams and the serve child's stream) and their engines'
-warm runs, and the accuracy phase's INT8 forwards ((a) and (c) one each,
-(b) its served file), split by
+warm runs, the accuracy phase's INT8 forwards ((a) and (c) one each,
+(b) its served file) and the attrs phase's (13 a fused forward in (a),
+(c) and (d), 3 a classify forward in (b) and (d)), split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action,
@@ -511,7 +539,7 @@ PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
           "eii", "trace", "chaos", "ingest", "webrtc", "train", "dryrun",
-          "accuracy")
+          "accuracy", "attrs")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -601,6 +629,7 @@ def _import_port():
         build_audio_step,
         build_classify_step,
         build_classify_step_ragged,
+        build_detect_classify_step,
         build_detect_step,
     )
     from evam_tpu_torch.sched import SchedConfig
@@ -661,6 +690,7 @@ def _import_port():
         build_detect_step=build_detect_step,
         build_classify_step=build_classify_step,
         build_classify_step_ragged=build_classify_step_ragged,
+        build_detect_classify_step=build_detect_classify_step,
         SchedConfig=SchedConfig,
         SyntheticSource=SyntheticSource, ModelRegistry=ModelRegistry,
         SyntheticAudioSource=SyntheticAudioSource,
@@ -6327,19 +6357,27 @@ def _acc_vs_cpu(port, packed_card, packed_cpu) -> dict:
                                   for i in range(len(packed_cpu)))}
 
 
-def _acc_fit(torch, port, registry, steps: int, where: str):
-    """fit_detector on the card: the fitted state, and its row (ms a
-    step, seconds, the loss history, peak memory)."""
+def _acc_fit(torch, port, registry, steps: int, where: str, key: str = KEY,
+             **fit_kw):
+    """fit_detector on the card (fit_classifier for CLS_KEY), with
+    ``fit_kw`` (the detector's ``n_scenes`` ACC_SCENES unless given):
+    the fitted state, and its row (ms a step, seconds, the loss history,
+    peak memory)."""
     acc = port["accuracy"]
-    model = registry.get(KEY)
+    model = registry.get(key)
+    if key == CLS_KEY:
+        fit = acc.fit_classifier
+    else:
+        fit = acc.fit_detector
+        fit_kw.setdefault("n_scenes", ACC_SCENES)
     torch.cuda.reset_peak_memory_stats()
     t = {}
     t0 = time.perf_counter()
-    state, history = acc.fit_detector(model, steps=steps,
-                                      n_scenes=ACC_SCENES, device="cuda",
-                                      timings=t)
+    state, history = fit(model, steps=steps, device="cuda", timings=t,
+                         **fit_kw)
     row = {"input_hw": model.spec.input_size, "width": model.spec.width,
-           "steps": steps, "scenes": ACC_SCENES,
+           "steps": steps,
+           **{k.removeprefix("n_"): v for k, v in fit_kw.items()},
            "fit_s": time.perf_counter() - t0, "data_s": t["data_s"],
            "steps_s": t["steps_s"], "ms_per_step": 1e3 * t["steps_s"] / steps,
            "loss_history": history,
@@ -6430,20 +6468,24 @@ def _acc_recipe(torch, port, root: Path) -> dict:
     return row
 
 
+def _bb(obj: dict):
+    """A published object's box [1, 4] (normalized corners)."""
+    import numpy as np
+
+    bb = obj["detection"]["bounding_box"]
+    return np.asarray([[bb["x_min"], bb["y_min"], bb["x_max"], bb["y_max"]]],
+                      np.float32)
+
+
 def _acc_recovered(port, lines: list[dict], scenes) -> tuple[int, int]:
     """(hits, ground-truth boxes) of published lines, by the reference
     test's ``_recovered`` rule: a box is recovered by an object of its
     label at IoU ≥ 0.5 (greedy per ground-truth box)."""
-    import numpy as np
-
     iou = port["accuracy"]._pairwise_iou
     hits = total = 0
     for scene, msg in zip(scenes, lines):
-        dets = [(np.asarray([[bb["x_min"], bb["y_min"], bb["x_max"],
-                              bb["y_max"]]], np.float32),
-                 ACC_LABEL_IDS.get(obj["detection"]["label"], -1))
-                for obj in msg["objects"]
-                for bb in [obj["detection"]["bounding_box"]]]
+        dets = [(_bb(obj), ACC_LABEL_IDS.get(obj["detection"]["label"], -1))
+                for obj in msg["objects"]]
         for gt_box, gt_label in zip(scene.boxes, scene.labels):
             total += 1
             for det, lid in dets:
@@ -6453,20 +6495,17 @@ def _acc_recovered(port, lines: list[dict], scenes) -> tuple[int, int]:
     return hits, total
 
 
-def _acc_served(torch, port, root: Path, tmp: Path) -> dict:
-    """(b): ACC_SERVED held-out scenes in an ``.mjpeg`` file (the port's
-    JPEG codec), served at INT8 through ``PipelineRegistry.start_instance``
-    into a file, as the reference test serves them."""
-    scenes, _ = _acc_holdout(port, ACC_SERVED)
+def _acc_serve_file(port, registry, root: Path, tmp: Path, scenes,
+                    pipeline: tuple[str, str], parameters: dict,
+                    where: str) -> tuple[list[dict], dict, dict, float]:
+    """``scenes`` in an ``.mjpeg`` file (the port's JPEG codec), served
+    through ``PipelineRegistry.start_instance`` on an EngineHub of
+    ``registry`` (max_batch 8, eager) into a file, as the reference test
+    serves them, the qgemm counts set to 0 just before → (published
+    lines, the hub's engine rows, qgemm launches by variant, wall s)."""
     video = tmp / "gt.mjpeg"
     video.write_bytes(b"".join(port["jpeg"].encode(s.frame)
                                for s in scenes))
-    registry = port["ModelRegistry"](
-        models_dir=root, dtype="int8", device="cuda",
-        allow_random_weights=False, input_overrides={KEY: ACC_INPUT},
-        width_overrides={KEY: ACC_WIDTH})
-    if registry.get(KEY).weight_source != "msgpack":
-        raise AssertionError("accuracy (b): not the fitted weights")
     hub = port["EngineHub"](registry, device="cuda", max_batch=8,
                             deadline_ms=4.0)
     settings = port["Settings"](pipelines_dir=str(ROOT / "pipelines"),
@@ -6474,33 +6513,52 @@ def _acc_served(torch, port, root: Path, tmp: Path) -> dict:
                                 models_dir=str(root), device="cuda")
     preg = port["PipelineRegistry"](settings, hub=hub)
     out = tmp / "meta.jsonl"
+    out.unlink(missing_ok=True)
     qg = port["qgemm"]
     _reset_launches(qg)
     t0 = time.perf_counter()
     try:
-        inst = preg.start_instance(*DETECT_PIPELINE, {
+        inst = preg.start_instance(*pipeline, {
             "source": {"uri": str(video), "type": "uri"},
             "destination": {"metadata": {"type": "file", "path": str(out)}},
-            "parameters": {"threshold": 0.3}})
+            "parameters": parameters})
         deadline = time.perf_counter() + 120
         while (time.perf_counter() < deadline
                and inst.state.value not in ("COMPLETED", "ERROR")):
             time.sleep(0.1)
         if inst.state.value != "COMPLETED":
-            raise AssertionError(f"accuracy (b): the instance ended "
+            raise AssertionError(f"{where}: the instance ended "
                                  f"{inst.state.value}: {inst.error}")
-        engine = hub.engine("detect", KEY)
-        forwards = _fwd(engine.stats_row())
+        rows = hub.stats()
     finally:
         preg.stop_all()
         hub.stop()
     variants = dict(qg.variant_launches)
     lines = [json.loads(ln) for ln in out.read_text().splitlines()]
+    return lines, rows, variants, time.perf_counter() - t0
+
+
+def _acc_served(torch, port, root: Path, tmp: Path) -> dict:
+    """(b): ACC_SERVED held-out scenes in an ``.mjpeg`` file, served at
+    INT8 through ``PipelineRegistry.start_instance`` into a file, as the
+    reference test serves them."""
+    scenes, _ = _acc_holdout(port, ACC_SERVED)
+    registry = port["ModelRegistry"](
+        models_dir=root, dtype="int8", device="cuda",
+        allow_random_weights=False, input_overrides={KEY: ACC_INPUT},
+        width_overrides={KEY: ACC_WIDTH})
+    if registry.get(KEY).weight_source != "msgpack":
+        raise AssertionError("accuracy (b): not the fitted weights")
+    lines, rows, variants, wall = _acc_serve_file(
+        port, registry, root, tmp, scenes, DETECT_PIPELINE,
+        {"threshold": 0.3}, "accuracy (b)")
+    forwards = sum(_fwd(r) for k, r in rows.items()
+                   if k.startswith("detect:"))
     hits, total = _acc_recovered(port, lines, scenes)
     row = {"frames": len(scenes), "lines": len(lines), "recovered": hits,
            "gt": total, "recall": hits / max(total, 1), "forwards": forwards,
            "qgemm_launches": sum(variants.values()), "variants": variants,
-           "wall_s": time.perf_counter() - t0}
+           "wall_s": wall}
     if len(lines) != len(scenes):
         raise AssertionError(f"accuracy (b): {len(lines)} lines for "
                              f"{len(scenes)} frames")
@@ -6558,6 +6616,380 @@ def phase_accuracy(torch, port, smi: str) -> dict:
     variants = {v: sum(r["variants"][v] for r in rows.values())
                 for v in ("aligned", "masked")}
     _print({"phase": "accuracy", "card": smi,
+            "seconds": time.perf_counter() - t0,
+            "qgemm_launches": sum(variants.values()), "variants": variants})
+    return variants
+
+
+# ---------------------------------------------------------------- attrs
+
+#: the attrs phase: the reference's TestFusedClassifyAccuracy recipe
+#: (tests/test_accuracy.py:220-238): the SSD as in the accuracy phase
+#: (ACC_INPUT, ACC_WIDTH, ACC_STEPS over ACC_SCENES) but on ``color_attr``
+#: scenes, and the classifier at 48², width 16, 900 steps over 768 crops;
+#: the full-width fits (the ZOO_SPECS sizes: SSD 512², classifier 72²,
+#: width 32) take ATTR_FULL_STEPS
+ATTR_CLS_INPUT = (48, 48)
+ATTR_CLS_WIDTH = 16
+ATTR_CLS_STEPS = 900
+ATTR_CROPS = 768
+ATTR_FULL_STEPS = (ACC_STEPS, ATTR_CLS_STEPS)
+#: the reference test's limits: the fits' last losses (:228, :239), the
+#: fused attribute recall over at least ATTR_MIN_GT vehicles (:277-278)
+ATTR_LOSS_MAX = (0.6, 0.2)
+ATTR_RECALL_MIN = 0.6
+ATTR_MIN_GT = 4
+#: held-out scenes (:249-276): 16 from seed 123, 10 more when they hold
+#: fewer than ATTR_MIN_GT vehicles
+ATTR_SEED = 123
+ATTR_HOLDOUT = 16
+ATTR_MORE = 10
+#: the negative control (:280-332): 8 scenes from seed 321, every
+#: ground-truth vehicle box unshifted and shifted right by 0.6 of its
+#: width; colours kept unshifted ≥ 0.7, shifted ≤ 0.5, over ≥ 3 vehicles
+ATTR_SHIFT_SEED = 321
+ATTR_SHIFT_SCENES = 8
+ATTR_SHIFT = 0.6
+ATTR_SHIFT_LIMITS = (0.7, 0.5)
+ATTR_SHIFT_MIN_GT = 3
+#: the served file's attribute recall: 0.1 under the wire path's, as the
+#: reference's served detect limit sits under its wire limit (:145, :100)
+ATTR_SERVED_MIN = 0.5
+#: the label id the fused step classifies (labels.PERSON_VEHICLE_BIKE)
+VEHICLE = 2
+#: both fitted models' sizes at (a)'s configuration
+ATTR_SMALL = dict(input_overrides={KEY: ACC_INPUT, CLS_KEY: ATTR_CLS_INPUT},
+                  width_overrides={KEY: ACC_WIDTH, CLS_KEY: ATTR_CLS_WIDTH})
+
+
+def _attr_holdout(port) -> list[tuple[list, object]]:
+    """(a)'s held-out ``color_attr`` scenes and their i420 wire, in
+    groups as the reference test runs them: ATTR_HOLDOUT scenes, and
+    ATTR_MORE more from the same generator when the first hold fewer
+    than ATTR_MIN_GT vehicles."""
+    import numpy as np
+
+    acc, color = port["accuracy"], port["color"]
+    rng = np.random.default_rng(ATTR_SEED)
+
+    def group(n):
+        scenes = [acc.render_scene(rng, hw=(1080, 1920), color_attr=True)
+                  for _ in range(n)]
+        return scenes, np.stack([color.bgr_to_i420_host(s.frame)
+                                 for s in scenes])
+
+    groups = [group(ATTR_HOLDOUT)]
+    if _vehicles(groups[0][0]) < ATTR_MIN_GT:
+        groups.append(group(ATTR_MORE))
+    return groups
+
+
+def _vehicles(scenes) -> int:
+    return sum(int(lbl) == VEHICLE for s in scenes for lbl in s.labels)
+
+
+def _attr_load(port, root: Path, dtype: str, device: str, small: bool):
+    """The fitted (detector, classifier) from ``root`` in a fresh
+    registry (no random weights)."""
+    reg = port["ModelRegistry"](models_dir=root, dtype=dtype, device=device,
+                                allow_random_weights=False,
+                                **(ATTR_SMALL if small else {}))
+    det, cls = reg.get(KEY), reg.get(CLS_KEY)
+    if {det.weight_source, cls.weight_source} != {"msgpack"}:
+        raise AssertionError(f"attrs: {dtype} on {device} loaded "
+                             f"{det.weight_source} / {cls.weight_source}")
+    return det, cls
+
+
+def _attr_fused(torch, port, det, cls, groups) -> list:
+    """The reference test's fused step (16 detections, ROI budget 8,
+    score 0.3, i420, vehicles only) on each group's wire → packed rows
+    [B, 16, 7 + 11] per group."""
+    step = port["build_detect_classify_step"](
+        det, cls, max_detections=16, roi_budget=ROI_BUDGET,
+        score_threshold=0.3, wire_format="i420", allowed_label_ids=(VEHICLE,))
+    with torch.inference_mode():
+        return [step(torch.from_numpy(wire).to(det.device)).cpu().numpy()
+                for _, wire in groups]
+
+
+def _attr_report(port, groups, packed) -> dict:
+    """``evaluate_attrs`` over every group, summed as the reference
+    test sums its two reports."""
+    hits = gt = 0
+    for (scenes, _), rows in zip(groups, packed):
+        rep = port["accuracy"].evaluate_attrs(rows, scenes)
+        hits += round(rep["attr_recall"] * rep["gt"])
+        gt += rep["gt"]
+    return {"attr_recall": hits / max(gt, 1), "hits": hits, "gt": gt}
+
+
+def _attr_vs_cpu(packed_card: list, packed_cpu: list) -> dict:
+    """The card's fused rows against the plain CPU path's: the detection
+    fields as ``_acc_vs_cpu``, and the probability blocks' largest
+    difference over the rows both sides agree on (valid flag and label
+    equal, box within 1e-3)."""
+    import numpy as np
+
+    card, cpu = np.concatenate(packed_card), np.concatenate(packed_cpu)
+    row = _acc_vs_cpu(None, card, cpu)
+    same = ((card[..., 6] == cpu[..., 6]) & (card[..., 5] == cpu[..., 5])
+            & (np.abs(card[..., :4] - cpu[..., :4]).max(-1) <= 1e-3))
+    row["matched_vs_cpu_mean"] = float(np.mean(
+        [_match_rate(cpu[i], card[i]) for i in range(len(cpu))]))
+    row["rows_same"] = float(same.mean())
+    row["prob_max_abs_diff_vs_cpu"] = (
+        float(np.abs(card[..., 7:] - cpu[..., 7:])[same].max())
+        if same.any() else None)
+    return row
+
+
+def _attr_launched(qg, forwards: int, per: int, where: str) -> dict:
+    """The qgemm launches by variant since the counts were set to 0,
+    asserted ``per`` a forward."""
+    variants = dict(qg.variant_launches)
+    if qg.launches != per * forwards or sum(variants.values()) != qg.launches:
+        raise AssertionError(f"attrs {where}: {qg.launches} qgemm launches "
+                             f"for {forwards} forwards, expected {per} each")
+    return variants
+
+
+def _attr_int8_fused(torch, port, det, cls, groups, where: str):
+    """The fused step at INT8 through K1, the counts set to 0 just before
+    it: packed rows and its launches by variant (13 a forward)."""
+    qg = port["qgemm"]
+    if (port["qlinear"].QGEMM_BACKEND != "pallas" or not det.module.quant
+            or not cls.module.quant):
+        raise AssertionError(f"attrs {where}: INT8 is not on the kernel")
+    _reset_launches(qg)
+    packed = _attr_fused(torch, port, det, cls, groups)
+    return packed, _attr_launched(qg, len(groups), 13, where)
+
+
+def _attr_boxes(scenes, shift: float):
+    """Every scene's ground-truth vehicle boxes, shifted right by
+    ``shift`` of their width (clamped at 1, as the reference's control),
+    padded to the ROI budget → (boxes [B, ROI_BUDGET, 4], [(scene, row,
+    colour), ...])."""
+    import numpy as np
+
+    boxes = np.zeros((len(scenes), ROI_BUDGET, 4), np.float32)
+    where = []
+    for i, s in enumerate(scenes):
+        r = 0
+        for box, label, attr in zip(s.boxes, s.labels, s.attrs):
+            if int(label) != VEHICLE:
+                continue
+            dx = shift * (box[2] - box[0])
+            boxes[i, r] = (min(box[0] + dx, 1.0), box[1],
+                           min(box[2] + dx, 1.0), box[3])
+            where.append((i, r, int(attr)))
+            r += 1
+    return boxes, where
+
+
+def _attr_gt_crops(torch, port, cls, wire, scenes, shifts) -> list[int]:
+    """Colours the classifier recovers from the ground-truth vehicle
+    boxes through ``build_classify_step`` (i420), one forward per shift
+    → hits per shift."""
+    step = port["build_classify_step"](cls, roi_budget=ROI_BUDGET,
+                                       wire_format="i420")
+    n_colors = dict(cls.spec.heads)["color"]
+    frames = torch.from_numpy(wire).to(cls.device)
+    hits = []
+    for shift in shifts:
+        boxes, where = _attr_boxes(scenes, shift)
+        with torch.inference_mode():
+            probs = step(frames, torch.from_numpy(boxes).to(cls.device))
+        probs = probs.cpu().numpy()
+        hits.append(sum(int(probs[i, r, :n_colors].argmax()) == a
+                        for i, r, a in where))
+    return hits
+
+
+def _attr_control_scenes(port):
+    """(b)'s scenes and their i420 wire."""
+    import numpy as np
+
+    rng = np.random.default_rng(ATTR_SHIFT_SEED)
+    scenes = [port["accuracy"].render_scene(rng, hw=(1080, 1920),
+                                            color_attr=True)
+              for _ in range(ATTR_SHIFT_SCENES)]
+    return scenes, np.stack([port["color"].bgr_to_i420_host(s.frame)
+                             for s in scenes])
+
+
+def _attr_fit_pair(torch, port, root: Path, small: bool, steps, where: str):
+    """Both fits on the card (``color_attr`` scenes for the SSD), written
+    by ``save_fitted`` into ``root`` → their rows."""
+    reg = port["ModelRegistry"](dtype="float32", device="cuda",
+                                allow_random_weights=True,
+                                **(ATTR_SMALL if small else {}))
+    det_state, det = _acc_fit(torch, port, reg, steps[0], where,
+                              color_attr=True)
+    cls_state, cls = _acc_fit(torch, port, reg, steps[1], where, CLS_KEY,
+                              n_crops=ATTR_CROPS)
+    port["accuracy"].save_fitted(det_state, KEY, root)
+    port["accuracy"].save_fitted(cls_state, CLS_KEY, root)
+    return det, cls
+
+
+def _attr_recipe(torch, port, root: Path, groups) -> dict:
+    """(a): the reference's recipe at 96² / 48², width 16 on the card."""
+    det_fit, cls_fit = _attr_fit_pair(torch, port, root, True,
+                                      (ACC_STEPS, ATTR_CLS_STEPS), "(a)")
+    row = {"detector_fit": det_fit, "classifier_fit": cls_fit,
+           "frames": sum(len(sc) for sc, _ in groups)}
+    for fit, limit in zip((det_fit, cls_fit), ATTR_LOSS_MAX):
+        if fit["loss_history"][-1] >= limit:
+            raise AssertionError(f"attrs (a): a fit did not converge below "
+                                 f"{limit}: {row}")
+    det, cls = _attr_load(port, root, "float32", "cuda", small=True)
+    packed = _attr_fused(torch, port, det, cls, groups)
+    row["float32"] = _attr_report(port, groups, packed)
+    cpu = _attr_fused(torch, port, *_attr_load(port, root, "float32", "cpu",
+                                               small=True), groups)
+    row["float32"].update(_attr_vs_cpu(packed, cpu))
+    det8, cls8 = _attr_load(port, root, "int8", "cuda", small=True)
+    packed8, row["variants"] = _attr_int8_fused(torch, port, det8, cls8,
+                                                groups, "(a)")
+    row["int8"] = _attr_report(port, groups, packed8)
+    cpu8 = _attr_fused(torch, port, *_attr_load(port, root, "int8", "cpu",
+                                                small=True), groups)
+    row["int8"].update(_attr_vs_cpu(packed8, cpu8))
+    for prec in ("float32", "int8"):
+        rep = row[prec]
+        if rep["gt"] < ATTR_MIN_GT or rep["attr_recall"] < ATTR_RECALL_MIN:
+            raise AssertionError(f"attrs (a): {prec} attribute recall below "
+                                 f"the reference test's limit: {row}")
+    return row
+
+
+def _attr_control(torch, port, root: Path) -> dict:
+    """(b): the negative control at INT8 through K1 (3 a forward)."""
+    scenes, wire = _attr_control_scenes(port)
+    _, cls8 = _attr_load(port, root, "int8", "cuda", small=True)
+    qg = port["qgemm"]
+    _reset_launches(qg)
+    ok, shifted = _attr_gt_crops(torch, port, cls8, wire, scenes,
+                                 (0.0, ATTR_SHIFT))
+    variants = _attr_launched(qg, 2, 3, "(b)")
+    total = _vehicles(scenes)
+    row = {"vehicles": total, "unshifted": ok / max(total, 1),
+           "shifted": shifted / max(total, 1), "variants": variants}
+    if (total < ATTR_SHIFT_MIN_GT or row["unshifted"] < ATTR_SHIFT_LIMITS[0]
+            or row["shifted"] > ATTR_SHIFT_LIMITS[1]):
+        raise AssertionError(f"attrs (b): the shift control failed: {row}")
+    return row
+
+
+def _attr_served(torch, port, root: Path, tmp: Path, groups) -> dict:
+    """(c): (a)'s held-out scenes served at INT8 as vehicle_attributes."""
+    scenes = [s for sc, _ in groups for s in sc]
+    registry = port["ModelRegistry"](models_dir=root, dtype="int8",
+                                     device="cuda", allow_random_weights=False,
+                                     **ATTR_SMALL)
+    lines, rows, variants, wall = _acc_serve_file(
+        port, registry, root, tmp, scenes, CLS_PIPELINE,
+        {"detection-threshold": 0.3}, "attrs (c)")
+    kinds = {k.split(":")[0] for k, r in rows.items() if _fwd(r)}
+    forwards = sum(_fwd(r) for r in rows.values())
+    hits = 0
+    iou = port["accuracy"]._pairwise_iou
+    for scene, msg in zip(scenes, lines):
+        objs = [o for o in msg["objects"]
+                if o["detection"]["label_id"] == VEHICLE and "color" in o]
+        for box, label, attr in zip(scene.boxes, scene.labels, scene.attrs):
+            if int(label) != VEHICLE:
+                continue
+            hits += any(
+                o["color"]["label_id"] == int(attr)
+                and iou(_bb(o), box[None])[0, 0] >= 0.5 for o in objs)
+    total = _vehicles(scenes)
+    row = {"frames": len(scenes), "lines": len(lines), "recovered": hits,
+           "gt": total, "recall": hits / max(total, 1), "forwards": forwards,
+           "engines": sorted(kinds), "qgemm_launches": sum(variants.values()),
+           "variants": variants, "wall_s": wall}
+    if len(lines) != len(scenes):
+        raise AssertionError(f"attrs (c): {len(lines)} lines for "
+                             f"{len(scenes)} frames")
+    if kinds != {"detect_classify"} or row["qgemm_launches"] != 13 * forwards:
+        raise AssertionError(f"attrs (c): engines {kinds}, "
+                             f"{row['qgemm_launches']} qgemm launches for "
+                             f"{forwards} forwards (13 each)")
+    if row["recall"] < ATTR_SERVED_MIN:
+        raise AssertionError(f"attrs (c): served attribute recall below "
+                             f"{ATTR_SERVED_MIN}: {row}")
+    return row
+
+
+def _attr_full_width(torch, port, root: Path, groups) -> dict:
+    """(d): both fits at the served configuration; the ground-truth box
+    crops of (b) and the fused step of (a) at float32 and at INT8."""
+    det_fit, cls_fit = _attr_fit_pair(torch, port, root, False,
+                                      ATTR_FULL_STEPS, "(d)")
+    sizes = (det_fit["input_hw"], det_fit["width"], cls_fit["input_hw"],
+             cls_fit["width"])
+    if sizes != ((512, 512), 32, (72, 72), 32):
+        raise AssertionError(f"attrs (d): fitted {sizes}, not the served "
+                             "configuration")
+    row = {"detector_fit": det_fit, "classifier_fit": cls_fit}
+    scenes, wire = _attr_control_scenes(port)
+    total = _vehicles(scenes)
+    qg = port["qgemm"]
+    det, cls = _attr_load(port, root, "float32", "cuda", small=False)
+    _reset_launches(qg)
+    (gt_hits,) = _attr_gt_crops(torch, port, cls, wire, scenes, (0.0,))
+    row["float32"] = {"gt_box_accuracy": gt_hits / max(total, 1),
+                      "gt_box_hits": gt_hits, "vehicles": total,
+                      **_attr_report(port, groups, _attr_fused(
+                          torch, port, det, cls, groups))}
+    if qg.launches:
+        raise AssertionError(f"attrs (d): {qg.launches} qgemm launches at "
+                             "float32")
+    det8, cls8 = _attr_load(port, root, "int8", "cuda", small=False)
+    _reset_launches(qg)
+    (gt_hits8,) = _attr_gt_crops(torch, port, cls8, wire, scenes, (0.0,))
+    cls_variants = _attr_launched(qg, 1, 3, "(d) classify")
+    packed8, row["variants"] = _attr_int8_fused(torch, port, det8, cls8,
+                                                groups, "(d)")
+    for v, n in cls_variants.items():
+        row["variants"][v] += n
+    row["int8"] = {"gt_box_accuracy": gt_hits8 / max(total, 1),
+                   "gt_box_hits": gt_hits8, "vehicles": total,
+                   **_attr_report(port, groups, packed8)}
+    f32, i8 = row["float32"], row["int8"]
+    if i8["gt_box_hits"] < f32["gt_box_hits"] - 1 or i8["hits"] < f32["hits"] - 1:
+        raise AssertionError(f"attrs (d): INT8 lost more than one vehicle "
+                             f"against float32: {row}")
+    return row
+
+
+def phase_attrs(torch, port, smi: str) -> dict:
+    """The classifier's ground truth on the card: the reference's fused
+    recipe, its shifted-crop control, the served file and the full-width
+    fits (``_attr_recipe``, ``_attr_control``, ``_attr_served``,
+    ``_attr_full_width``; each sets the qgemm counts to 0 before its
+    INT8 runs and reads them after). Returns the qgemm launches by
+    variant."""
+    t0 = time.perf_counter()
+    rows = {}
+    groups = _attr_holdout(port)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        small, full = tmp / "models_small", tmp / "models_full"
+        rows["recipe"] = _attr_recipe(torch, port, small, groups)
+        _print({"phase": "attrs-recipe", "card": smi, **rows["recipe"]})
+        rows["control"] = _attr_control(torch, port, small)
+        _print({"phase": "attrs-control", "card": smi, **rows["control"]})
+        rows["served"] = _attr_served(torch, port, small, tmp, groups)
+        _print({"phase": "attrs-served", "card": smi, **rows["served"]})
+        rows["full-width"] = _attr_full_width(torch, port, full, groups)
+        _print({"phase": "attrs-full-width", "card": smi,
+                **rows["full-width"]})
+    variants = {v: sum(r["variants"][v] for r in rows.values())
+                for v in ("aligned", "masked")}
+    _print({"phase": "attrs", "card": smi,
             "seconds": time.perf_counter() - t0,
             "qgemm_launches": sum(variants.values()), "variants": variants})
     return variants
@@ -6718,6 +7150,9 @@ def main(argv: list[str] | None = None) -> int:
     if "accuracy" in phases:
         served.append(phase_accuracy(torch, port, smi))
         _memory(torch, "accuracy", t_start)
+    if "attrs" in phases:
+        served.append(phase_attrs(torch, port, smi))
+        _memory(torch, "attrs", t_start)
     _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {

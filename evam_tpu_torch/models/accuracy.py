@@ -1,46 +1,56 @@
-"""Offline ground-truth accuracy harness, the detector's half
-(counterpart of ``evam_tpu/models/accuracy.py``).
+"""Offline ground-truth accuracy harness, the detector's and the
+classifier's half (counterpart of ``evam_tpu/models/accuracy.py``).
 
 Random weights cannot show a wrong anchor decode, a flipped colour
-order or broken NMS geometry: every path still gives finite rows of the
-right shape. This module closes that gap without downloaded weights:
+order, broken NMS geometry or a shifted ROI crop: every path still gives
+finite rows of the right shape. This module closes that gap without
+downloaded weights:
 
 * :func:`render_scene` draws deterministic synthetic scenes — three
   visually distinct object classes on a textured background — with
-  exact normalized ground-truth boxes;
+  exact normalized ground-truth boxes (and, with ``color_attr``, each
+  vehicle's colour);
 * :func:`fit_detector` fits the zoo SSD to those scenes (numpy anchor
   matching, regression targets through
   :func:`~evam_tpu_torch.ops.boxes.encode_boxes`, the exact inverse of
   the serving decode, so a decode bug breaks the fit and the final
   check alike);
+* :func:`fit_classifier` fits the attributes classifier's colour head to
+  crops cut by the serving crop path (:func:`render_vehicle_crop`);
 * :func:`evaluate_packed` scores packed NMS rows against ground truth
-  (recall and precision at IoU ≥ 0.5 with label agreement).
+  (recall and precision at IoU ≥ 0.5 with label agreement), and
+  :func:`evaluate_attrs` the fused detect+classify rows (a vehicle
+  found at IoU ≥ 0.5 with its colour).
 
 The renderers, the matching and the scoring are numpy, copied from the
 reference, so one seed gives the same scenes, targets and scores in both
-packages bit for bit. The fit is torch: it draws its data and minibatch
-order from the same generator in the reference's order, takes the same
-loss, and steps optax's ``adam(cosine_decay_schedule(lr, steps,
-alpha=0.05))`` written out, in float32 (on the card TF32 off, and
-cuDNN's deterministic algorithms, so a fit repeats). Where
-the reference shrinks its 1080p scenes with ``cv2.resize(INTER_AREA)``,
-the port calls ``ops/color.py::resize_area_host``, its bytes; where it
-writes weights with flax, :func:`save_fitted` writes flax's bytes with
-the port's codec (``models/convert.py``), so both registries load the
-file.
+packages bit for bit. A classifier crop is cut by the port's
+``crop_rois_i420`` on the CPU from the port's own wire
+(``bgr_to_i420_host``, the native library's arithmetic the port serves
+with); the reference encodes that wire with cv2, whose 20-bit BT.601
+coefficients put a wire byte 1 LSB off on some pixels, so a crop byte
+can differ from the reference's by up to 2 (none once the two encoders
+agree). The fits are torch: they draw their data
+and minibatch order from the same generator in the reference's order,
+take the same loss, and step optax's ``adam(cosine_decay_schedule(lr,
+steps, alpha=0.05))`` written out, in float32 (on the card TF32 off, and
+cuDNN's deterministic algorithms, so a fit repeats). Where the reference
+shrinks its 1080p scenes with ``cv2.resize(INTER_AREA)``, the port calls
+``ops/color.py::resize_area_host``, its bytes; where it writes weights
+with flax, :func:`save_fitted` writes flax's bytes with the port's codec
+(``models/convert.py``), so both registries load the file.
 
 The port runs a fit to convergence only on the card: ``chip_smoke.py``'s
-``accuracy`` phase asserts the reference test's recall and precision
+``accuracy`` and ``attrs`` phases assert the reference test's limits
 there, served at float32 and at INT8 through the qgemm kernel. Tier-1
-holds the port to the reference step by step on the CPU (scenes,
-targets, data order, loss, first updates, served detections) and runs no
+holds the port to the reference step by step on the CPU (scenes, crops,
+targets, data order, losses, first updates, served rows) and runs no
 full fit there.
 
-Not ported yet (a later slice, in this order): ``_fit_loop``,
-``render_vehicle_crop``, ``fit_classifier``, ``evaluate_attrs``,
-``render_temporal_clip`` / ``fit_action`` and ``render_tone_window`` /
-``fit_audio``. A fit of an IR-backed model (its weights are not module
-parameters here) is not ported either.
+Not ported yet (a later slice, in this order): ``render_temporal_clip``
+/ ``fit_action`` and ``render_tone_window`` / ``fit_audio``. A fit of an
+IR-backed model (its weights are not module parameters here) is not
+ported either.
 """
 
 from __future__ import annotations
@@ -60,7 +70,11 @@ import torch
 from evam_tpu_torch.device import resolve_device
 from evam_tpu_torch.models.convert import params_to_msgpack
 from evam_tpu_torch.ops.boxes import encode_boxes
-from evam_tpu_torch.ops.color import resize_area_host
+from evam_tpu_torch.ops.color import (
+    bgr_to_i420_host,
+    crop_rois_i420,
+    resize_area_host,
+)
 from evam_tpu_torch.ops.preprocess import preprocess_bgr
 
 log = logging.getLogger("evam_tpu_torch.models.accuracy")
@@ -266,6 +280,24 @@ def _minibatches(rng: np.random.Generator, n_scenes: int, steps: int,
     return np.stack(out) if out else np.zeros((0, batch), np.int64)
 
 
+def _replacement_batches(rng: np.random.Generator, n: int, steps: int,
+                         batch: int) -> np.ndarray:
+    """Sample indices of every step [steps, batch] of ``_fit_loop``: one
+    ``rng.integers(0, n, size=batch)`` a step, drawn from ``rng`` (after
+    the data) as the reference's loop draws them (with replacement)."""
+    out = [rng.integers(0, n, size=batch) for _ in range(steps)]
+    return np.stack(out) if out else np.zeros((0, batch), np.int64)
+
+
+def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """optax's ``softmax_cross_entropy_with_integer_labels``: the max held
+    constant, the normalizer subtracted at the label only. ``logits``
+    float32 [..., C], ``labels`` int64 [...] → [...]."""
+    z = logits - logits.max(-1, keepdim=True).values.detach()
+    return (torch.log(torch.exp(z).sum(-1))
+            - z.gather(-1, labels[..., None])[..., 0])
+
+
 def _detector_loss(out: dict, cls_t: torch.Tensor, box_t: torch.Tensor,
                    anchors: torch.Tensor,
                    variances: tuple[float, float, float, float],
@@ -290,11 +322,7 @@ def _detector_loss(out: dict, cls_t: torch.Tensor, box_t: torch.Tensor,
     l1 = (0.5 * quadratic ** 2 + (err - quadratic)).sum(-1)
     # 2× weight: matched-IoU quality is the assertion target
     loc_loss = 2.0 * (l1 * posf).sum() / n_pos
-    # softmax cross-entropy, optax's way: the max held constant, the
-    # normalizer subtracted at the label only
-    z = conf - conf.max(-1, keepdim=True).values.detach()
-    ce = (torch.log(torch.exp(z).sum(-1))
-          - z.gather(-1, cls_t[..., None])[..., 0])
+    ce = _softmax_ce(conf, cls_t)
     pos_ce = (ce * posf).sum() / n_pos
     # 3:1 online hard-negative mining
     neg_ce = torch.where(pos, float("-inf"), ce)
@@ -376,6 +404,24 @@ def _fit_math(device: torch.device):
             setattr(obj, name, value)
 
 
+def _trainable_copy(module: torch.nn.Module, dev: torch.device, name: str
+                    ) -> tuple[torch.nn.Module, list[torch.Tensor]]:
+    """A float32 copy of ``module`` on ``dev`` that takes gradients, and
+    its parameters; the module itself is left as it was."""
+    net = copy.deepcopy(module).to(device=dev, dtype=torch.float32)
+    net.requires_grad_(True)
+    params = list(net.parameters())
+    if not params:
+        raise ValueError(f"{name}: the model has no parameters to fit (an "
+                         "IR-backed model's fit is not ported)")
+    return net, params
+
+
+def _cpu_state(net: torch.nn.Module) -> dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu").contiguous()
+            for k, v in net.state_dict().items()}
+
+
 def fit_detector(
     model,
     seed: int = 0,
@@ -415,12 +461,7 @@ def fit_detector(
     order = _minibatches(rng, n_scenes, steps, batch)
     t1 = time.perf_counter()
 
-    net = copy.deepcopy(model.module).to(device=dev, dtype=torch.float32)
-    net.requires_grad_(True)
-    params = list(net.parameters())
-    if not params:
-        raise ValueError(f"{model.spec.key}: the model has no parameters "
-                         "to fit (an IR-backed model's fit is not ported)")
+    net, params = _trainable_copy(model.module, dev, model.spec.key)
     # the serving forward, over the copy's weights
     fwd = dataclasses.replace(model, module=net).forward
     pre = model.preprocess
@@ -448,9 +489,183 @@ def fit_detector(
         torch.cuda.synchronize(dev)
     if timings is not None:
         timings.update(data_s=t1 - t0, steps_s=time.perf_counter() - t1)
-    state = {k: v.detach().to("cpu").contiguous()
-             for k, v in net.state_dict().items()}
+    return _cpu_state(net), history
+
+
+def _fit_loop(loss_fn, arrays, *, init_params, steps, batch, lr, rng, name,
+              device):
+    """The shared harness trainer (the classifier's fit; the action and
+    audio fits are not ported yet): ``_Adam`` with the cosine schedule
+    over a float32 copy of ``init_params`` (an ``nn.Module``), on
+    ``device`` under ``_fit_math``, one step a minibatch drawn with
+    replacement (``_replacement_batches``), eagerly. ``loss_fn(net,
+    *batch_tensors)`` → scalar loss; ``arrays`` numpy [N, ...] each,
+    moved to the device once. ``fit_detector`` keeps its epoch-shuffled
+    loop, as the reference's does. Returns ``(state_dict, history)``:
+    the fitted float32 weights on the CPU, and the loss at every 50th
+    step and at the last."""
+    dev = torch.device(device)
+    net, params = _trainable_copy(init_params, dev, name)
+    opt = _Adam(params, lr, steps)
+    order = torch.from_numpy(_replacement_batches(
+        rng, arrays[0].shape[0], steps, batch)).to(dev)
+    data = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    history = []
+    with _fit_math(dev):
+        for step in range(steps):
+            idx = order[step]
+            loss = loss_fn(net, *(a[idx] for a in data))
+            grads = torch.autograd.grad(loss, params)
+            opt.step(list(grads))
+            if step % 50 == 0 or step == steps - 1:
+                history.append(float(loss.detach()))
+                log.info("%s step %d loss %.4f", name, step, history[-1])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return _cpu_state(net), history
+
+
+def render_vehicle_crop(
+    rng: np.random.Generator, attr: int,
+    out_hw: tuple[int, int],
+) -> np.ndarray:
+    """One classifier training crop produced by the SERVING crop path.
+
+    Domain-matched training is the point (measured in the reference:
+    clean cv2 crops train a net that confuses white/gray once crops
+    arrive through the wire): render the vehicle into a small frame,
+    convert with ``bgr_to_i420_host`` (BT.601 + 2×2 chroma subsampling),
+    then cut the crop with ``crop_rois_i420`` using a box jittered like
+    an IoU≥0.5 detection (shift/scale up to ~30%). The crop is data: it
+    is cut on the CPU whatever device fits, so a fit gets the same bytes
+    on every machine. The returned uint8 crop (truncated, as the
+    reference's ``astype``) has the serving path's resize + colour
+    statistics.
+    """
+    # small host frame (multiple of 2 for i420) with the vehicle
+    # somewhere inside it
+    fh, fw = 96, 128
+    bg = int(rng.integers(96, 160))
+    frame = np.full((fh, fw, 3), bg, np.uint8)
+    bh = int(rng.integers(24, 72))
+    bw = int(rng.integers(40, 110))
+    y0 = int(rng.integers(2, fh - bh - 2))
+    x0 = int(rng.integers(2, fw - bw - 2))
+    frame[y0:y0 + bh, x0:x0 + bw] = CLASS_STYLES[2][0]
+    iy, ix = max(bh // 4, 1), max(bw // 4, 1)
+    frame[y0 + iy:y0 + bh - iy, x0 + ix:x0 + bw - ix] = \
+        ATTR_COLORS_BGR[attr]
+
+    # detection-like jitter on the crop box (±30% shift/scale)
+    jx0 = x0 + rng.uniform(-0.3, 0.3) * bw
+    jy0 = y0 + rng.uniform(-0.3, 0.3) * bh
+    jx1 = x0 + bw + rng.uniform(-0.3, 0.3) * bw
+    jy1 = y0 + bh + rng.uniform(-0.3, 0.3) * bh
+    box = np.asarray([[[
+        max(jx0 / fw, 0.0), max(jy0 / fh, 0.0),
+        min(jx1 / fw, 1.0), min(jy1 / fh, 1.0)]]], np.float32)
+    wire = bgr_to_i420_host(frame)[None]
+    crop = crop_rois_i420(torch.from_numpy(wire), torch.from_numpy(box),
+                          out_hw)
+    return crop[0, 0].numpy().astype(np.uint8)
+
+
+def _classifier_data(model, rng: np.random.Generator, n_crops: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """The classifier fit's training arrays, drawn from ``rng`` as the
+    reference draws them: every crop's colour first, then the crops at
+    the model's input size. Returns (crops uint8 BGR [N, h, w, 3],
+    colours int64 [N])."""
+    h, w = model.spec.input_size
+    attrs = rng.integers(0, len(ATTR_COLORS_BGR), size=n_crops)
+    crops = np.stack([
+        render_vehicle_crop(rng, int(a), (h, w)) for a in attrs
+    ])
+    return crops, attrs
+
+
+def fit_classifier(
+    model,
+    seed: int = 1,
+    n_crops: int = 512,
+    steps: int = 400,
+    batch: int = 32,
+    lr: float = 3e-3,
+    device: str | torch.device | None = None,
+    timings: dict | None = None,
+):
+    """Fit the zoo attributes classifier's color head to the attr
+    palette on ``device`` (None → the card, which must exist).
+    ``model`` is a LoadedModel for the ``classifier`` spec (heads
+    color/type); a float32 copy of its module is fitted, the model
+    itself is left as it was. The type head is trained to a constant
+    ('car') — scenes render one vehicle shape — so only the color head
+    carries ground truth. Crops go through the serving normalization
+    (``preprocess_bgr`` with the model's spec). Returns ``(state_dict,
+    history)`` as ``_fit_loop``; a ``timings`` dict gets ``data_s`` and
+    ``steps_s`` as ``fit_detector`` fills it."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    crops, attrs = _classifier_data(model, rng, n_crops)
+    t1 = time.perf_counter()
+    pre = model.preprocess
+
+    def loss_fn(net, u8, y):
+        # flax promotes a bfloat16 input against float32 params
+        out = net(preprocess_bgr(u8.float(), pre).float())
+        ce = _softmax_ce(out["color"].float(), y).mean()
+        ce_type = _softmax_ce(out["type"].float(), torch.zeros_like(y)).mean()
+        return ce + 0.1 * ce_type
+
+    state, history = _fit_loop(
+        loss_fn, (crops, attrs), init_params=model.module,
+        steps=steps, batch=batch, lr=lr, rng=rng, name="fit_classifier",
+        device=dev)
+    if timings is not None:
+        timings.update(data_s=t1 - t0, steps_s=time.perf_counter() - t1)
     return state, history
+
+
+def evaluate_attrs(
+    packed: np.ndarray,
+    scenes: list[Scene],
+    n_colors: int = 7,
+    iou_thresh: float = 0.5,
+) -> dict:
+    """Score the fused detect+classify output against vehicle color
+    ground truth. Rows are ``[x0 y0 x1 y1 score label valid,
+    color_probs(n_colors), ...]``. A GT vehicle counts recovered iff a
+    valid label-2 detection matches at IoU ≥ iou_thresh AND its color
+    argmax equals the scene attr."""
+    tp, n_gt = 0, 0
+    misses = []
+    for scene, rows in zip(scenes, packed):
+        for gt_box, gt_label, gt_attr in zip(
+                scene.boxes, scene.labels, scene.attrs):
+            if int(gt_label) != 2:
+                continue
+            n_gt += 1
+            hit = False
+            for row in np.asarray(rows):
+                if row[6] <= 0.5 or int(row[5]) != 2:
+                    continue
+                if _pairwise_iou(
+                        row[None, :4].astype(np.float32),
+                        gt_box[None])[0, 0] < iou_thresh:
+                    continue
+                probs = row[7:7 + n_colors]
+                if probs.sum() <= 0:
+                    continue  # ROI budget skipped this detection
+                hit = int(probs.argmax()) == int(gt_attr)
+                break
+            if hit:
+                tp += 1
+            else:
+                misses.append({"attr": int(gt_attr),
+                               "box": gt_box.tolist()})
+    return {"attr_recall": tp / max(n_gt, 1), "gt": n_gt,
+            "misses": misses}
 
 
 def save_fitted(params: dict[str, torch.Tensor], key: str,
