@@ -476,6 +476,37 @@ memory the allocator holds once it has stopped its engines.
               configuration (SSD 512², classifier 72², width 32), the
               crops of (b) and the fused step of (a) at float32 and at
               INT8: INT8 at most one vehicle below float32 in each.
+30. temporal — the action and audio ground truth on the card (the
+              reference's TestTemporalAccuracy, tests/test_accuracy.py:
+              372): (a) the encoder at 48², width 8 (embed 512), the
+              decoder at width 8 (dim 128, depth 4, 8 heads) and AclNet
+              at width 8, float32, fitted on the card (``fit_action``:
+              600 steps over 128 clips, half rendered at 64×96 and
+              shrunk; ``fit_audio``: 400 steps over 512 tone windows) to
+              last losses below 0.6 and 0.3, written by ``save_fitted``
+              and loaded by fresh registries; then on hubs of max_batch
+              16 and a 4 ms deadline: one 16-frame 64×96 clip of each of
+              the 4 TEMPORAL_CLASSES (seed 42) through
+              action_recognition/general, exactly its 16th frame
+              carrying a 400-long tensor whose argmax is the class for
+              ≥ 3 of 4, and 2 s of each of the 4 tones in 100 ms chunks
+              through audio_detection/environment (threshold 0,
+              sliding-window 0.5), the windows' majority label the
+              class for ≥ 3 of 4; both at float32 and at INT8 (bfloat16
+              weights, float32 arithmetic), INT8 at most one class below
+              float32; the order control: a class-0 clip's 16 embeddings
+              (seed 11, 48², the BGR encode step) into the decoder, as
+              they come and in 8 seeded permutations, at least one
+              answer changed; the same files on the CPU, the card's
+              embeddings, decoder and AclNet probabilities within
+              FP32_RTOL of its; (b) both fits at the registry's own
+              sizes (encoder 224², width 32; decoder dim 512; AclNet
+              width 32; the action clips' odd half rendered at 256×384),
+              their losses falling, the clip and window paths at
+              float32 and INT8: INT8 at most one class below float32.
+              Prints each fit's ms a step, seconds, data seconds, loss
+              history and peak memory, the classes recovered, and the
+              phase's seconds. 0 qgemm launches in the phase, asserted.
 
 The engine phase also checks ``own_streams``: OWN_STREAM_ENGINES CUDA
 engines alive at once (3 streams each, past torch's pool of 32 a
@@ -504,7 +535,7 @@ warm runs, the accuracy phase's INT8 forwards ((a) and (c) one each,
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action,
-audio, ir and train phases launch it zero times), the nvidia-smi line, and last
+audio, ir, train and temporal phases launch it zero times), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for a quick first check of a new kernel);
@@ -539,7 +570,7 @@ PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
           "eii", "trace", "chaos", "ingest", "webrtc", "train", "dryrun",
-          "accuracy", "attrs")
+          "accuracy", "attrs", "temporal")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -674,7 +705,7 @@ def _import_port():
     from evam_tpu_torch.obs import faults, trace
     from evam_tpu_torch.media import h264, jpeg
     from evam_tpu_torch.media.demux import RtspDemux
-    from evam_tpu_torch.media.source import AppSource
+    from evam_tpu_torch.media.source import AppSource, FrameEvent
     from evam_tpu_torch.publish.annotate import annotate_frame
     from evam_tpu_torch.publish.rtsp import FrameRelay, RtspServer
     from evam_tpu_torch.stages.context import FrameContext, Region
@@ -712,7 +743,7 @@ def _import_port():
         MsgBusSubscriber=MsgBusSubscriber, eii_gva_meta=_gva_meta,
         metrics=metrics, decode_frame=decode_frame, trace=trace,
         faults=faults, state=state, h264=h264, jpeg=jpeg,
-        RtspDemux=RtspDemux, AppSource=AppSource,
+        RtspDemux=RtspDemux, AppSource=AppSource, FrameEvent=FrameEvent,
         annotate_frame=annotate_frame, FrameRelay=FrameRelay,
         RtspServer=RtspServer, FrameContext=FrameContext, Region=Region,
         streams=streams, train=train, dryrun=dryrun,
@@ -1537,6 +1568,11 @@ def _replay_vs_eager(torch, port, engine, per_forward: int) -> dict:
             "k1_device_ms_per_forward": k1_ms, "profiler_counts": seen}
 
 
+#: seconds the quarantined engine may take to destroy its streams once
+#: its wedged launcher is released
+WEDGE_FREE_S = 30.0
+
+
 def _wedge_and_recover(torch, port, hub, engine) -> dict:
     """A stub wedge on a supervised engine of ``hub``: its launches
     block on a host event; the watchdog fails the stranded frame and
@@ -1588,10 +1624,22 @@ def _wedge_and_recover(torch, port, hub, engine) -> dict:
     if not np.array_equal(before, after):
         raise AssertionError("engine: the rebuilt engine answers the same "
                              "frame differently")
+    # the quarantined engine's free thread destroys its streams once its
+    # woken threads have exited: wait for that, so no later check sees
+    # them go
+    released = time.perf_counter()
+    stale = set(old.owned_streams())
+    while stale & port["streams"].live_handles("cuda"):
+        if time.perf_counter() - released > WEDGE_FREE_S:
+            raise AssertionError(
+                f"engine: the quarantined engine's streams still alive "
+                f"{WEDGE_FREE_S} s after its launcher was released")
+        time.sleep(0.05)
     return {"stall_s": stall_s, "recovered_s": recovered_s,
             "ladder": ladder, "restarts": engine.restarts,
             "recaptured_graphs": new.graphs_captured(),
-            "same_result": True}
+            "same_result": True,
+            "quarantined_streams_freed_s": time.perf_counter() - released}
 
 
 def _graph_workspaces(torch, port) -> dict:
@@ -1655,7 +1703,10 @@ def _own_streams(torch, port) -> dict:
     import numpy as np
 
     streams = port["streams"]
-    before = streams.live("cuda")
+    # sets, not counts: a stream of an earlier engine destroyed meanwhile
+    # (a quarantined engine frees its own from a thread of its own)
+    # leaves these comparisons as they are
+    before = streams.live_handles("cuda")
     gen = torch.Generator().manual_seed(11)
 
     def make_step(w):
@@ -1678,8 +1729,10 @@ def _own_streams(torch, port) -> dict:
                 len(handles) != 3 * OWN_STREAM_ENGINES:
             raise AssertionError(f"own_streams: {len(set(handles))} distinct "
                                  f"of {len(handles)} stream handles")
-        if streams.live("cuda") - before != len(handles):
-            raise AssertionError("own_streams: streams not all alive")
+        if streams.live_handles("cuda") - before != set(handles):
+            raise AssertionError("own_streams: the streams made since the "
+                                 "engines were built are not their own "
+                                 "streams, all alive")
         example = np.zeros(OWN_STREAM_WIDTH, np.float32)
         for e in engines[:2]:
             e.set_example(frames=example)
@@ -1719,7 +1772,7 @@ def _own_streams(torch, port) -> dict:
     finally:
         for e in engines:
             e.stop()
-    alive = streams.live("cuda") - before
+    alive = len(streams.live_handles("cuda") - before)
     if alive:
         raise AssertionError(f"own_streams: {alive} streams alive after "
                              "stop()")
@@ -6995,6 +7048,320 @@ def phase_attrs(torch, port, smi: str) -> dict:
     return variants
 
 
+# ------------------------------------------------------------- temporal
+
+#: the temporal phase: the reference's TestTemporalAccuracy recipe
+#: (tests/test_accuracy.py:387-412): the encoder at 48², width 8 (embed
+#: 512), the decoder at width 8 (dim 128, depth 4, 8 heads) and AclNet at
+#: width 8, float32, fitted with fit_action's and fit_audio's own
+#: defaults (600 and 400 steps); the full-width fits (the ZOO_SPECS
+#: sizes) take the same steps, the action fit's odd clips rendered at
+#: TEMP_FULL_SOURCE_HW (the reference's 2:3 source shape, a shrink to
+#: 224²)
+TEMP_SMALL = dict(input_overrides={ENC_KEY: (48, 48)},
+                  width_overrides={ENC_KEY: 8, DEC_KEY: 8, AUDIO_KEY: 8})
+TEMP_STEPS = (600, 400)
+TEMP_FULL_SOURCE_HW = (256, 384)
+#: (encoder input, encoder width, embed, decoder dim, AclNet width) of
+#: the two configurations
+TEMP_SIZES = {True: ((48, 48), 8, 512, 128, 8),
+              False: ((224, 224), 32, 512, 512, 32)}
+#: the reference test's limits: the fits' last losses (:394, :397), and
+#: the classes of 4 recovered through the clip path (:457) and the
+#: window path (:533)
+TEMP_LOSS_MAX = (0.6, 0.3)
+TEMP_MIN_RECOVERED = 3
+#: the clip path's clips (:432-435): seed 42, 16 frames at 64×96; the
+#: order control's clip (:479-480): seed 11, class 0 at 48², and its
+#: seeded permutations (:485-491)
+TEMP_CLIP_SEED, TEMP_CLIP_HW = 42, (64, 96)
+TEMP_ORDER_SEED, TEMP_PERMS = 11, 8
+#: the window path (:507-523): 2 s of each tone at amplitude 0.5 in
+#: CHUNK_SAMPLES chunks, windows every half second
+TEMP_TONE_S = 2
+TEMP_AUDIO_PARAMS = {"threshold": 0.0, "sliding-window": 0.5}
+
+
+def _temp_registry(port, device: str, dtype: str, small: bool,
+                   models_dir=None):
+    """A registry at the small or the full-width configuration: seeded
+    random weights without ``models_dir``, else its fitted files only."""
+    return port["ModelRegistry"](
+        models_dir=models_dir, dtype=dtype, device=device,
+        allow_random_weights=models_dir is None,
+        **(TEMP_SMALL if small else {}))
+
+
+def _temp_models(where: str, registry, small: bool, fitted: bool):
+    """The encoder, decoder and AclNet of ``registry``, their sizes
+    checked against the configuration (and their weights the fitted
+    files when ``fitted``)."""
+    enc, dec, aud = (registry.get(k) for k in (ENC_KEY, DEC_KEY, AUDIO_KEY))
+    sizes = (enc.spec.input_size, enc.spec.width, enc.module.embed_dim,
+             dec.module.pos_embed.shape[-1], aud.spec.width)
+    if sizes != TEMP_SIZES[small]:
+        raise AssertionError(f"temporal {where}: models of {sizes}, not "
+                             f"{TEMP_SIZES[small]}")
+    if fitted and {m.weight_source for m in (enc, dec, aud)} != {"msgpack"}:
+        raise AssertionError(f"temporal {where}: not the fitted weights")
+    return enc, dec, aud
+
+
+def _temp_fits(torch, port, root: Path, small: bool, where: str) -> dict:
+    """fit_action and fit_audio on the card, written by ``save_fitted``
+    into ``root`` → their rows (ms a step, seconds, the loss history,
+    peak memory)."""
+    acc = port["accuracy"]
+    enc, dec, aud = _temp_models(
+        where, _temp_registry(port, "cuda", "float32", small), small, False)
+    action_kw = {} if small else {"source_hw": TEMP_FULL_SOURCE_HW}
+    rows = {}
+    for name, fit, args, n, kw in (
+            ("action", acc.fit_action, (enc, dec), TEMP_STEPS[0], action_kw),
+            ("audio", acc.fit_audio, (aud,), TEMP_STEPS[1], {})):
+        torch.cuda.reset_peak_memory_stats()
+        t = {}
+        t0 = time.perf_counter()
+        state, history = fit(*args, steps=n, device="cuda", timings=t, **kw)
+        rows[name] = {
+            "steps": n, **kw, "fit_s": time.perf_counter() - t0,
+            "data_s": t["data_s"], "steps_s": t["steps_s"],
+            "ms_per_step": 1e3 * t["steps_s"] / n, "loss_history": history,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if not all(math.isfinite(x) for x in history):
+            raise AssertionError(f"temporal {where}: the {name} fit "
+                                 f"diverged: {history}")
+        if name == "action":
+            for key, part in zip((ENC_KEY, DEC_KEY), state):
+                acc.save_fitted(part, key, root)
+        else:
+            acc.save_fitted(state, AUDIO_KEY, root)
+    return rows
+
+
+def _temp_run(port, hub, pipeline: tuple[str, str], params: dict,
+              events) -> list[dict]:
+    """``events`` through a pipeline of ``pipelines/`` on ``hub``, its
+    stages built as the server builds them, driven by a StreamRunner →
+    the published metadata, in order."""
+    outputs: list[dict] = []
+    stages = _pipeline_stages(port, hub, params, pipeline)(
+        "synthetic://acc", lambda ctx: outputs.append(ctx.metadata))
+    runner = port["StreamRunner"]("acc", stages, "synthetic://acc")
+    runner.run(iter(events))
+    if runner.errors:
+        raise AssertionError(f"{pipeline}: {runner.errors} frame errors")
+    return outputs
+
+
+def _temp_hub(port, root: Path, dtype: str, small: bool, where: str):
+    """An eager EngineHub of max_batch 16 and a 4 ms deadline (the
+    reference test's) over the fitted files at ``dtype``."""
+    registry = _temp_registry(port, "cuda", dtype, small, root)
+    _temp_models(where, registry, small, True)
+    return port["EngineHub"](registry, device="cuda", max_batch=16,
+                             deadline_ms=4.0)
+
+
+def _temp_clips(port, root: Path, dtype: str, small: bool) -> dict:
+    """The clip path (:426-457): one 16-frame TEMP_CLIP_HW clip of each
+    class through action_recognition/general: exactly the 16th frame
+    carries a 400-long tensor, whose argmax is the class recovered."""
+    import numpy as np
+
+    where = f"clips {dtype}"
+    hub = _temp_hub(port, root, dtype, small, where)
+    rng = np.random.default_rng(TEMP_CLIP_SEED)
+    argmax = []
+    t0 = time.perf_counter()
+    try:
+        for cls in range(len(port["accuracy"].TEMPORAL_CLASSES)):
+            clip = port["accuracy"].render_temporal_clip(rng, cls,
+                                                         TEMP_CLIP_HW, 16)
+            out = _temp_run(port, hub, ACTION_PIPELINE, {}, (
+                port["FrameEvent"](frame=f, pts_ns=i * 33, seq=i)
+                for i, f in enumerate(clip)))
+            acted = [i for i, m in enumerate(out) if m.get("tensors")]
+            if len(out) != 16 or acted != [15]:
+                raise AssertionError(f"temporal {where}: {len(out)} lines, "
+                                     f"tensors on frames {acted}")
+            data = out[15]["tensors"][0]["data"]
+            if len(data) != 400 or not all(map(math.isfinite, data)):
+                raise AssertionError(f"temporal {where}: a tensor of "
+                                     f"{len(data)} values")
+            argmax.append(int(np.argmax(data)))
+    finally:
+        hub.stop()
+    return {"precision": dtype, "argmax": argmax,
+            "recovered": sum(g == c for c, g in enumerate(argmax)),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _tone(port, cls: int):
+    """TEMP_TONE_S seconds of the class's tone at amplitude 0.5 (int16)."""
+    import numpy as np
+
+    t = np.arange(TEMP_TONE_S * 16000, dtype=np.float64) / 16000.0
+    return np.clip(0.5 * np.sin(2 * np.pi * port["accuracy"].TONE_FREQS[cls]
+                                * t) * 32767, -32768, 32767).astype(np.int16)
+
+
+def _temp_windows(port, root: Path, dtype: str, small: bool) -> dict:
+    """The window path (:498-533): each tone in CHUNK_SAMPLES chunks
+    through audio_detection/environment (TEMP_AUDIO_PARAMS); the majority
+    label id of its windows is the class recovered."""
+    where = f"windows {dtype}"
+    hub = _temp_hub(port, root, dtype, small, where)
+    labels = []
+    t0 = time.perf_counter()
+    try:
+        for cls in range(len(port["accuracy"].TONE_FREQS)):
+            wave = _tone(port, cls)
+            out = _temp_run(port, hub, AUDIO_PIPELINE, TEMP_AUDIO_PARAMS, (
+                port["FrameEvent"](frame=None, audio=wave[i:i + CHUNK_SAMPLES],
+                                   pts_ns=i, seq=i // CHUNK_SAMPLES)
+                for i in range(0, len(wave), CHUNK_SAMPLES)))
+            ids = [m["tensors"][0]["label_id"] for m in out
+                   if m.get("tensors")]
+            if not ids:
+                raise AssertionError(f"temporal {where}: no window "
+                                     "classified")
+            labels.append(ids)
+    finally:
+        hub.stop()
+    majority = [max(set(ids), key=ids.count) for ids in labels]
+    return {"precision": dtype, "window_labels": labels, "majority": majority,
+            "recovered": sum(g == c for c, g in enumerate(majority)),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _temp_order(torch, port, root: Path) -> dict:
+    """The order control (:461-496) at float32: a class-0 clip's 16
+    embeddings (the encode step on BGR frames) into the decoder, as they
+    come and in TEMP_PERMS seeded permutations; a decoder that ignores
+    its positional embedding answers them all alike."""
+    import numpy as np
+
+    enc, dec, _ = _temp_models("order", _temp_registry(
+        port, "cuda", "float32", True, root), True, True)
+    enc_step = port["build_action_encode_step"](enc, "bgr")
+    dec_step = port["build_action_decode_step"](dec)
+    clip = port["accuracy"].render_temporal_clip(
+        np.random.default_rng(TEMP_ORDER_SEED), 0, (48, 48), 16)
+    emb = enc_step(torch.from_numpy(clip).cuda())               # [16, D]
+    ordered = int(dec_step(emb[None])[0].argmax())
+    permuted = []
+    for seed in range(TEMP_PERMS):
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(16))
+        permuted.append(int(dec_step(emb[perm.cuda()][None])[0].argmax()))
+    row = {"ordered": ordered, "permuted": permuted,
+           "changed": sum(p != ordered for p in permuted)}
+    if not row["changed"]:
+        raise AssertionError(f"temporal (a): the decoder's answer is "
+                             f"permutation-invariant: {row}")
+    return row
+
+
+def _temp_vs_cpu(torch, port, root: Path) -> dict:
+    """The fitted float32 models on the card against the same files on
+    the CPU: the encode step's embeddings of one clip of each class at
+    48², the decoder's probabilities on the CPU's embeddings, and
+    AclNet's on the first second of each tone (``_card_vs_cpu``)."""
+    import numpy as np
+
+    models = {dev: _temp_models(f"{dev} models", _temp_registry(
+        port, dev, "float32", True, root), True, True)
+        for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(TEMP_CLIP_SEED)
+    clips = torch.from_numpy(np.stack([
+        port["accuracy"].render_temporal_clip(rng, c, (48, 48), 16)
+        for c in range(4)]))
+    emb = {dev: torch.stack([port["build_action_encode_step"](
+        m[0], "bgr")(c.to(dev)) for c in clips]) for dev, m in models.items()}
+    windows = torch.from_numpy(np.stack([_tone(port, c)[:WINDOW_SAMPLES]
+                                         for c in range(4)]))
+    out = {}
+    for dev, (_, dec, aud) in models.items():
+        out[dev] = (port["build_action_decode_step"](dec)(emb["cpu"].to(dev)),
+                    port["build_audio_step"](aud)(windows.to(dev)))
+    rows = [_card_vs_cpu(torch, "temporal-check", "embeddings", emb["cpu"],
+                         emb["cuda"], top1=False),
+            _card_vs_cpu(torch, "temporal-check", "decoder probabilities",
+                         out["cpu"][0], out["cuda"][0]),
+            _card_vs_cpu(torch, "temporal-check", "aclnet probabilities",
+                         out["cpu"][1], out["cuda"][1])]
+    return {r["output"]: r["max_abs_diff"] for r in rows}
+
+
+def _temp_recipe(torch, port, root: Path) -> dict:
+    """(a): the reference's recipe and limits on the card."""
+    row = {"fits": _temp_fits(torch, port, root, True, "(a)")}
+    for (name, fit), limit in zip(row["fits"].items(), TEMP_LOSS_MAX):
+        if fit["loss_history"][-1] >= limit:
+            raise AssertionError(f"temporal (a): the {name} fit did not "
+                                 f"converge below {limit}: {row}")
+    for dtype in ("float32", "int8"):
+        row[f"clips_{dtype}"] = _temp_clips(port, root, dtype, True)
+        row[f"windows_{dtype}"] = _temp_windows(port, root, dtype, True)
+    row["order"] = _temp_order(torch, port, root)
+    row["card_vs_cpu_max_abs_diff"] = _temp_vs_cpu(torch, port, root)
+    for path in ("clips", "windows"):
+        f32, i8 = (row[f"{path}_{d}"]["recovered"] for d in ("float32", "int8"))
+        if f32 < TEMP_MIN_RECOVERED:
+            raise AssertionError(f"temporal (a): {f32} of 4 classes through "
+                                 f"the {path} path at float32: {row}")
+        if i8 < f32 - 1:
+            raise AssertionError(f"temporal (a): INT8 recovered {i8} "
+                                 f"{path} classes against float32's {f32}")
+    return row
+
+
+def _temp_full_width(torch, port, root: Path) -> dict:
+    """(b): both fits at the registry's own sizes, the clip and window
+    paths at float32 and at INT8 (no limit of the reference at this
+    size: the losses must fall, INT8 within one class of float32)."""
+    row = {"fits": _temp_fits(torch, port, root, False, "(b)")}
+    for name, fit in row["fits"].items():
+        if not fit["loss_history"][-1] < fit["loss_history"][0]:
+            raise AssertionError(f"temporal (b): the {name} fit's loss did "
+                                 f"not fall: {fit['loss_history']}")
+    for dtype in ("float32", "int8"):
+        row[f"clips_{dtype}"] = _temp_clips(port, root, dtype, False)
+        row[f"windows_{dtype}"] = _temp_windows(port, root, dtype, False)
+    for path in ("clips", "windows"):
+        f32, i8 = (row[f"{path}_{d}"]["recovered"] for d in ("float32", "int8"))
+        if i8 < f32 - 1:
+            raise AssertionError(f"temporal (b): INT8 recovered {i8} "
+                                 f"{path} classes against float32's {f32}")
+    return row
+
+
+def phase_temporal(torch, port, smi: str) -> dict:
+    """The action and audio ground truth on the card: the reference's
+    recipe with its limits, its order control and the card against the
+    CPU (``_temp_recipe``), then the full-width fits
+    (``_temp_full_width``). K1 is not on this path: the qgemm counts are
+    set to 0 before the phase and must read 0 after it."""
+    t0 = time.perf_counter()
+    qg = port["qgemm"]
+    _reset_launches(qg)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rows["recipe"] = _temp_recipe(torch, port, tmp / "models_small")
+        _print({"phase": "temporal-recipe", "card": smi, **rows["recipe"]})
+        rows["full-width"] = _temp_full_width(torch, port,
+                                              tmp / "models_full")
+        _print({"phase": "temporal-full-width", "card": smi,
+                **rows["full-width"]})
+    if qg.launches:
+        raise AssertionError(f"temporal: {qg.launches} qgemm launches")
+    row = {"phase": "temporal", "card": smi,
+           "seconds": time.perf_counter() - t0, "qgemm_launches": qg.launches}
+    _print(row)
+    return row
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -7153,6 +7520,10 @@ def main(argv: list[str] | None = None) -> int:
     if "attrs" in phases:
         served.append(phase_attrs(torch, port, smi))
         _memory(torch, "attrs", t_start)
+    # the action and audio fits launch K1 zero times (asserted inside)
+    if "temporal" in phases:
+        phase_temporal(torch, port, smi)
+        _memory(torch, "temporal", t_start)
     _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {

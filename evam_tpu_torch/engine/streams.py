@@ -15,7 +15,7 @@ pool's flags) and wraps the handle as ``torch.cuda.ExternalStream``.
 :func:`destroy` is called once nothing of the engine can touch the
 stream any more (its threads have exited, its graphs are freed and the
 stream has drained); :func:`live` counts the streams created and not
-yet destroyed, per device.
+yet destroyed, per device, and :func:`live_handles` names them.
 
 A destroyed stream must never be named again, and torch's caching host
 allocator names, when it frees a pinned block, every stream the block
@@ -88,12 +88,18 @@ def destroy(stream: torch.cuda.ExternalStream) -> None:
                   "cudaStreamDestroy")
 
 
-def live(device: str | torch.device = "cuda") -> int:
-    """Streams :func:`create` made on ``device`` and not yet destroyed."""
+def live_handles(device: str | torch.device = "cuda") -> frozenset[int]:
+    """The handles of the streams :func:`create` made on ``device`` and
+    not yet destroyed."""
     dev = torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     with _lock:
-        return len(_live.get(index, ()))
+        return frozenset(_live.get(index, ()))
+
+
+def live(device: str | torch.device = "cuda") -> int:
+    """Streams :func:`create` made on ``device`` and not yet destroyed."""
+    return len(live_handles(device))
 
 
 def is_live(stream: torch.cuda.ExternalStream) -> bool:

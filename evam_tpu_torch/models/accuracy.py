@@ -1,10 +1,12 @@
-"""Offline ground-truth accuracy harness, the detector's and the
-classifier's half (counterpart of ``evam_tpu/models/accuracy.py``).
+"""Offline ground-truth accuracy harness (counterpart of
+``evam_tpu/models/accuracy.py``): the detector's, the classifier's and
+the temporal families' halves.
 
 Random weights cannot show a wrong anchor decode, a flipped colour
-order, broken NMS geometry or a shifted ROI crop: every path still gives
-finite rows of the right shape. This module closes that gap without
-downloaded weights:
+order, broken NMS geometry, a shifted ROI crop, a decoder blind to its
+clip order or a broken audio window: every path still gives finite rows
+of the right shape. This module closes that gap without downloaded
+weights:
 
 * :func:`render_scene` draws deterministic synthetic scenes — three
   visually distinct object classes on a textured background — with
@@ -20,7 +22,11 @@ downloaded weights:
 * :func:`evaluate_packed` scores packed NMS rows against ground truth
   (recall and precision at IoU ≥ 0.5 with label agreement), and
   :func:`evaluate_attrs` the fused detect+classify rows (a vehicle
-  found at IoU ≥ 0.5 with its colour).
+  found at IoU ≥ 0.5 with its colour);
+* :func:`fit_action` fits the action encoder and decoder together to
+  :data:`TEMPORAL_CLASSES`, order-dependent ramps drawn by
+  :func:`render_temporal_clip`, and :func:`fit_audio` fits AclNet to
+  the :data:`TONE_FREQS` tones of :func:`render_tone_window`.
 
 The renderers, the matching and the scoring are numpy, copied from the
 reference, so one seed gives the same scenes, targets and scores in both
@@ -42,15 +48,15 @@ with flax, :func:`save_fitted` writes flax's bytes with the port's codec
 
 The port runs a fit to convergence only on the card: ``chip_smoke.py``'s
 ``accuracy`` and ``attrs`` phases assert the reference test's limits
-there, served at float32 and at INT8 through the qgemm kernel. Tier-1
-holds the port to the reference step by step on the CPU (scenes, crops,
-targets, data order, losses, first updates, served rows) and runs no
-full fit there.
+there, served at float32 and at INT8 through the qgemm kernel, and its
+``temporal`` phase the action and audio limits, served at float32 and at
+INT8 (bfloat16 weights, no qgemm). Tier-1 holds the port to the
+reference step by step on the CPU (scenes, crops, clips, tones, targets,
+data order, losses, first updates, served rows) and runs no full fit
+there.
 
-Not ported yet (a later slice, in this order): ``render_temporal_clip``
-/ ``fit_action`` and ``render_tone_window`` / ``fit_audio``. A fit of an
-IR-backed model (its weights are not module parameters here) is not
-ported either.
+Not ported: a fit of an IR-backed model (its weights are not module
+parameters here).
 """
 
 from __future__ import annotations
@@ -494,9 +500,10 @@ def fit_detector(
 
 def _fit_loop(loss_fn, arrays, *, init_params, steps, batch, lr, rng, name,
               device):
-    """The shared harness trainer (the classifier's fit; the action and
-    audio fits are not ported yet): ``_Adam`` with the cosine schedule
-    over a float32 copy of ``init_params`` (an ``nn.Module``), on
+    """The shared harness trainer (the classifier's, the action and the
+    audio fits): ``_Adam`` with the cosine schedule over a float32 copy
+    of ``init_params`` (an ``nn.Module``; the action fit's encoder and
+    decoder as one ``ModuleDict``), on
     ``device`` under ``_fit_math``, one step a minibatch drawn with
     replacement (``_replacement_batches``), eagerly. ``loss_fn(net,
     *batch_tensors)`` → scalar loss; ``arrays`` numpy [N, ...] each,
@@ -666,6 +673,198 @@ def evaluate_attrs(
                                "box": gt_box.tolist()})
     return {"attr_recall": tp / max(n_gt, 1), "gt": n_gt,
             "misses": misses}
+
+
+# ------------------------------------------------- temporal families
+
+#: The 4 temporal ground-truth classes, mapped onto action class
+#: slots 0..3: grow / shrink (object area ramps up or down across the
+#: clip) and brighten / darken (object intensity ramps). The encoder
+#: ends in global average pooling, so per-frame features are
+#: translation-invariant scalars like covered area and intensity (a
+#: motion direction is invisible to it); and each pair holds the same
+#: frame SET in reverse order, so the decoder must use its positional
+#: embedding. A single frame is ambiguous between each pair.
+TEMPORAL_CLASSES = ("grow", "shrink", "brighten", "darken")
+
+
+def render_temporal_clip(
+    rng: np.random.Generator,
+    cls: int,
+    hw: tuple[int, int],
+    clip_len: int = 16,
+) -> np.ndarray:
+    """[T, H, W, 3] uint8 BGR clip for one TEMPORAL_CLASSES entry.
+    Center, base size and background are randomized so the temporal
+    ramp is the only class cue."""
+    h, w = hw
+    bg = _textured_bg(rng, h, w, base=int(rng.integers(96, 150)))
+    cy = rng.uniform(0.35, 0.65) * h
+    cx = rng.uniform(0.35, 0.65) * w
+    frames = []
+    for t in range(clip_len):
+        frac = t / (clip_len - 1)
+        if cls == 0:      # grow
+            scale, value = 0.14 + 0.26 * frac, 235
+        elif cls == 1:    # shrink
+            scale, value = 0.40 - 0.26 * frac, 235
+        elif cls == 2:    # brighten
+            scale, value = 0.28, int(40 + 195 * frac)
+        else:             # darken
+            scale, value = 0.28, int(235 - 195 * frac)
+        bh = max(int(scale * h), 2)
+        bw = max(int(scale * w), 2)
+        y0 = int(np.clip(cy - bh / 2, 0, h - bh))
+        x0 = int(np.clip(cx - bw / 2, 0, w - bw))
+        f = bg.copy()
+        f[y0:y0 + bh, x0:x0 + bw] = (value, value, max(value - 30, 0))
+        frames.append(f)
+    return np.stack(frames)
+
+
+def _temporal_data(enc_model, rng: np.random.Generator, n_clips: int,
+                   source_hw: tuple[int, int] | None,
+                   clip_len: int = 16) -> tuple[np.ndarray, np.ndarray]:
+    """The action fit's training arrays, drawn from ``rng`` as the
+    reference draws them: per clip its class, then the clip, at the
+    encoder's input size when the clip's index is even (or
+    ``source_hw`` is None), else at ``source_hw`` and area-downscaled
+    frame by frame. Returns (clips uint8 BGR [N, T, h, w, 3], classes
+    int32 [N])."""
+    h, w = enc_model.spec.input_size
+    clips, ys = [], []
+    for i in range(n_clips):
+        d = int(rng.integers(0, 4))
+        if i % 2 == 0 or source_hw is None:
+            clip = render_temporal_clip(rng, d, (h, w), clip_len)
+        else:
+            big = render_temporal_clip(rng, d, source_hw, clip_len)
+            clip = np.stack([resize_area_host(f, h, w) for f in big])
+        clips.append(clip)
+        ys.append(d)
+    return np.stack(clips), np.asarray(ys, np.int32)
+
+
+def fit_action(
+    enc_model, dec_model,
+    seed: int = 2,
+    n_clips: int = 128,
+    steps: int = 600,
+    batch: int = 8,
+    lr: float = 5e-4,   # depth-4 transformer oscillates at 2e-3
+    source_hw: tuple[int, int] | None = (64, 96),
+    device: str | torch.device | None = None,
+    timings: dict | None = None,
+):
+    """Jointly fit the action encoder+decoder to the 4
+    TEMPORAL_CLASSES (class ids 0..3 of the 400-way decoder) on
+    ``device`` (None → the card, which must exist). Half the clips
+    render at the encoder input size, half at ``source_hw`` and are
+    shrunk — the serving path stretches source frames on the device.
+    ``source_hw`` must be at least the encoder's input size on both
+    axes (the area resize only shrinks). Float32 copies of both modules
+    are fitted, the models themselves are left as they were. Frames go
+    through the serving normalization (``preprocess_bgr`` with the
+    encoder's spec), the encoder's embeddings [B, T, D] into the
+    decoder. Returns ``((enc_state, dec_state), history)``, each state
+    loadable by ``save_fitted`` under its model's key; ``timings`` gets
+    ``data_s`` and ``steps_s`` as ``fit_detector`` fills it."""
+    dev = resolve_device(device)
+    h, w = enc_model.spec.input_size
+    if source_hw is not None and not (source_hw[0] >= h and source_hw[1] >= w):
+        raise ValueError(f"fit_action: source_hw {tuple(source_hw)} would "
+                         f"enlarge to the encoder's {h}x{w}; the area "
+                         "resize only shrinks")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    clips, ys = _temporal_data(enc_model, rng, n_clips, source_hw)
+    t1 = time.perf_counter()
+    pre = enc_model.preprocess
+
+    def loss_fn(net, clip_u8, y):
+        b, t = clip_u8.shape[:2]
+        # flax promotes a bfloat16 input against float32 params
+        x = preprocess_bgr(clip_u8.reshape((b * t,) + clip_u8.shape[2:])
+                           .float(), pre).float()
+        emb = net["enc"](x).reshape(b, t, -1).float()
+        return _softmax_ce(net["dec"](emb).float(), y.long()).mean()
+
+    # the reference's {"enc", "dec"} tree, as one module
+    pair = torch.nn.ModuleDict({"enc": enc_model.module,
+                                "dec": dec_model.module})
+    state, history = _fit_loop(
+        loss_fn, (clips, ys), init_params=pair, steps=steps, batch=batch,
+        lr=lr, rng=rng, name="fit_action", device=dev)
+    if timings is not None:
+        timings.update(data_s=t1 - t0, steps_s=time.perf_counter() - t1)
+    enc_state, dec_state = ({k.removeprefix(p): v for k, v in state.items()
+                             if k.startswith(p)} for p in ("enc.", "dec."))
+    return (enc_state, dec_state), history
+
+
+#: audio class → tone frequency (Hz); well separated under the 8 kHz
+#: Nyquist of the 16 kHz serving rate, mapped onto class slots 0..3
+TONE_FREQS = (400.0, 1000.0, 2500.0, 5000.0)
+
+
+def render_tone_window(
+    rng: np.random.Generator, cls: int, n_samples: int,
+    sample_rate: float = 16000.0,
+) -> np.ndarray:
+    """One S16LE window: a sine at the class frequency with random
+    phase/amplitude plus noise — amplitude and phase vary so
+    FREQUENCY is the only class cue."""
+    t = np.arange(n_samples, dtype=np.float64) / sample_rate
+    amp = rng.uniform(0.25, 0.8)
+    phase = rng.uniform(0, 2 * np.pi)
+    x = amp * np.sin(2 * np.pi * TONE_FREQS[cls] * t + phase)
+    x = x + rng.normal(0, 0.02, n_samples)
+    return np.clip(x * 32767, -32768, 32767).astype(np.int16)
+
+
+def _audio_data(model, rng: np.random.Generator, n_windows: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The audio fit's training arrays, drawn from ``rng`` as the
+    reference draws them: every window's class first, then the windows
+    of the model's sample count. Returns (windows int16 [N, S], classes
+    int64 [N])."""
+    n_samples = model.spec.input_size[1]
+    ys = rng.integers(0, len(TONE_FREQS), size=n_windows)
+    xs = np.stack([render_tone_window(rng, int(c), n_samples) for c in ys])
+    return xs, ys
+
+
+def fit_audio(
+    model,
+    seed: int = 3,
+    n_windows: int = 512,
+    steps: int = 400,
+    batch: int = 32,
+    lr: float = 3e-3,
+    device: str | torch.device | None = None,
+    timings: dict | None = None,
+):
+    """Fit AclNet to the 4 tone classes on ``device`` (None → the card,
+    which must exist) through the serving normalization (int16 /
+    32768, as ``engine/steps.py::build_audio_step``). A float32 copy of
+    the module is fitted, the model itself is left as it was. Returns
+    ``(state_dict, history)`` as ``_fit_loop``; ``timings`` gets
+    ``data_s`` and ``steps_s`` as ``fit_detector`` fills it."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    xs, ys = _audio_data(model, rng, n_windows)
+    t1 = time.perf_counter()
+
+    def loss_fn(net, win_i16, y):
+        return _softmax_ce(net(win_i16.float() / 32768.0).float(), y).mean()
+
+    state, history = _fit_loop(
+        loss_fn, (xs, ys), init_params=model.module, steps=steps,
+        batch=batch, lr=lr, rng=rng, name="fit_audio", device=dev)
+    if timings is not None:
+        timings.update(data_s=t1 - t0, steps_s=time.perf_counter() - t1)
+    return state, history
 
 
 def save_fitted(params: dict[str, torch.Tensor], key: str,

@@ -362,11 +362,11 @@ def first_steps(models):
     return out
 
 
-def _adam_travel(steps: int) -> float:
+def _adam_travel(steps: int, lr: float = LR) -> float:
     """Adam's bound on how far one entry moves in ``steps`` steps of the
     fit's schedule (its bias-corrected step is at most 1.0014·lr_t in
     the first two; 1.01 leaves margin)."""
-    sched = acc._Adam([], LR, steps)
+    sched = acc._Adam([], lr, steps)
     return 1.01 * sum(sched.learning_rate(t) for t in range(steps))
 
 
@@ -376,10 +376,11 @@ def test_fit_loss_and_first_updates_match_reference(models, first_steps,
     _assert_first_updates(*models, first_steps, steps)
 
 
-def _assert_first_updates(jm, tm, first_steps, steps):
+def _assert_first_updates(jm, tm, first_steps, steps, lr=LR):
     """The port's loss history and parameters after ``steps`` Adam steps
-    against the reference's, from the reference's initial weights (the
-    module docstring's tolerances); the port's model left as it was."""
+    of learning rate ``lr`` against the reference's, from the
+    reference's initial weights (the module docstring's tolerances); the
+    port's model left as it was."""
     init = _state(jm.params)
     want, got, rh, th = first_steps[steps]
     assert len(th) == len(rh) == steps
@@ -395,12 +396,12 @@ def _assert_first_updates(jm, tm, first_steps, steps):
         diff = (got[k] - want[k]).abs()
         # |g| >= 99·eps on the reference's side: its first step moved the
         # entry by lr·|g| / (|g| + eps) >= 0.99·lr
-        well = moved1[k] >= 0.99 * LR
+        well = moved1[k] >= 0.99 * lr
         tight += int(well.sum())
         total += well.numel()
         if well.any():
             assert float(diff[well].max()) <= 1e-6, k
-        assert float(diff.max()) <= 2 * _adam_travel(steps), k
+        assert float(diff.max()) <= 2 * _adam_travel(steps, lr), k
     assert tight >= 0.05 * total, (tight, total)
 
 
