@@ -507,6 +507,33 @@ memory the allocator holds once it has stopped its engines.
               Prints each fit's ms a step, seconds, data seconds, loss
               history and peak memory, the classes recovered, and the
               phase's seconds. 0 qgemm launches in the phase, asserted.
+31. aot     — the AOT cache (``evam_tpu_torch/aot/``): the hand kernels'
+              libraries from a CRC-guarded, version-checked store. (a)
+              a ``serve`` child (person_vehicle_bike preloaded, INT8,
+              K1) with EVAM_AOT off and an empty EVAM_COMPILE_CACHE_DIR,
+              its nvcc behind a recorder: seconds to /healthz 200 and to
+              the first published line of an 8-frame stream, nvcc
+              seconds per library, each engine's eager and capture
+              seconds per bucket; (b) the same with EVAM_AOT=1 and a
+              fresh shared EVAM_AOT_DIR: one ``absent`` miss per
+              library, the entries the libraries it built, nvcc ran;
+              (c) a second child on the same store with another empty
+              compile directory: a hit per library, no miss, no nvcc run
+              and no library built, /engines ``aot.hits`` ==
+              ``compiled_programs``, the objects (b) published bit for
+              bit; /healthz in the golden's shape in each. Then a fresh
+              process on the same store: (f) K1 from the stored library
+              at the ten SSD shapes, codes and outputs equal to the
+              plain version's; (g) a supervisor rebuild (the engine
+              phase's stub wedge) and a fleet ``scale_up`` on this card,
+              every bucket a hit; (d) the fallback ladder on the
+              engines' library: a flipped payload byte (``crc``), a
+              header from another driver (``version``, kept), a payload
+              that will not load (``deserialize``) and a library whose
+              self-test fails (``execute``), each counted in
+              ``summary()`` and the metric, rebuilt by nvcc and served;
+              (e) eviction under a small EVAM_AOT_MAX_BYTES: the oldest
+              entry goes, the newest survives.
 
 The engine phase also checks ``own_streams``: OWN_STREAM_ENGINES CUDA
 engines alive at once (3 streams each, past torch's pool of 32 a
@@ -526,10 +553,11 @@ off for its second run only).
 Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
 calls; ``launches`` sums the slice, classify, engine, track, gate,
 ragged, sched, tune, native, fleet, rest, serve, eii, trace, chaos,
-ingest and webrtc phases' served runs (ingest: the demux run, its
+ingest, webrtc and aot phases' served runs (ingest: the demux run, its
 AppSource replay and the serve child's streams and files; webrtc: the
-key and delta streams and the serve child's stream) and their engines'
-warm runs, the accuracy phase's INT8 forwards ((a) and (c) one each,
+key and delta streams and the serve child's stream; aot: its three
+serve children and (g)'s engines, (f)'s comparison launches left out)
+and their engines' warm runs, the accuracy phase's INT8 forwards ((a) and (c) one each,
 (b) its served file) and the attrs phase's (13 a fused forward in (a),
 (c) and (d), 3 a classify forward in (b) and (d)), split by
 variant in ``launches_by_variant``; the track phase's
@@ -570,7 +598,7 @@ PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
           "eii", "trace", "chaos", "ingest", "webrtc", "train", "dryrun",
-          "accuracy", "attrs", "temporal")
+          "accuracy", "attrs", "temporal", "aot")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -7362,6 +7390,430 @@ def phase_temporal(torch, port, smi: str) -> dict:
     return row
 
 
+# ------------------------------------------------------------------ aot
+
+#: the aot phase: frames of its one served stream, its in-process
+#: child's ladder top, and the rungs of the fallback ladder the child
+#: walks on the engines' library, in order
+AOT_FRAMES = 8
+AOT_MAX_BATCH = 8
+AOT_RUNGS = ("crc", "version", "deserialize", "execute")
+#: the batcher's warmup log line: eager and capture seconds by bucket
+_WARM_LOG_RE = re.compile(r"engine (\S+) warmed \d+ buckets .*eager and "
+                          r"capture seconds by bucket (\{.*\})")
+
+
+def _nvcc_recorder(home: Path, log: Path, real: str) -> Path:
+    """A CUDA_HOME whose ``bin/nvcc`` runs the real compiler and appends
+    one JSON line per call to ``log`` (start, seconds, exit code, the
+    source it compiled). ``ops/kernels.py`` takes nvcc from CUDA_HOME
+    first, so the line count is the child's nvcc runs."""
+    script = home / "bin" / "nvcc"
+    script.parent.mkdir(parents=True)
+    script.write_text(
+        f"#!{sys.executable}\n"
+        "import json, subprocess, sys, time\n"
+        "t0 = time.time()\n"
+        f"rc = subprocess.call([{real!r}] + sys.argv[1:])\n"
+        f"with open({str(log)!r}, 'a') as fh:\n"
+        "    fh.write(json.dumps({'t0': t0, 's': time.time() - t0, 'rc': rc,\n"
+        "        'src': [a for a in sys.argv[1:] if a.endswith('.cu')]})\n"
+        "        + '\\n')\n"
+        "sys.exit(rc)\n")
+    script.chmod(0o755)
+    return home
+
+
+def _nvcc_builds(port, log: Path) -> dict[str, list[float]]:
+    """Library → the seconds of each nvcc build the recorder saw
+    (``--version`` calls, which compile nothing, are left out)."""
+    lib_of = {src: name for name, src in port["kernels"].SOURCES.items()}
+    out: dict[str, list[float]] = {}
+    if log.exists():
+        for line in log.read_text().splitlines():
+            call = json.loads(line)
+            for src in call["src"]:
+                out.setdefault(lib_of[Path(src).name], []).append(call["s"])
+    return out
+
+
+def _aot_serve(port, tmp: Path, label: str, env_extra: dict) -> dict:
+    """One ``python3 -m evam_tpu_torch.cli.main serve`` child with its
+    own empty compile directory (``EVAM_COMPILE_CACHE_DIR``) and nvcc
+    recorder, person_vehicle_bike preloaded (INT8, K1): seconds from
+    spawn to /healthz 200 and to the first published line of one
+    8-frame stream, nvcc seconds per library, each engine's eager and
+    capture seconds per bucket (its warmup log line), /engines and the
+    /healthz ``aot`` block (the golden's shape), the published objects
+    and the K1 launches from /metrics."""
+    rest_port = _free_port()
+    base = f"http://127.0.0.1:{rest_port}"
+    cc = tmp / f"cc-{label}"
+    nvcc_log = tmp / f"nvcc-{label}.jsonl"
+    home = _nvcc_recorder(tmp / f"cuda-{label}", nvcc_log,
+                          port["kernels"]._nvcc())
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("EVAM_AOT")}
+    env.update(REST_PORT=str(rest_port), EVAM_PRECISION="int8",
+               EVAM_QGEMM="pallas", EVAM_ALLOW_RANDOM_WEIGHTS="1",
+               EVAM_PRELOAD="/".join(DETECT_PIPELINE),
+               MODELS_DIR=str(tmp / "models"), EVAM_COMPILE_CACHE_DIR=str(cc),
+               CUDA_HOME=str(home), **env_extra)
+    log_path = tmp / f"serve-{label}.log"
+    golden = json.loads((ROOT / "tests" / "golden"
+                         / "route_healthz.json").read_text())
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "evam_tpu_torch.cli.main", "serve"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        _await_health(base, proc, log_path, t0)
+        up_s = time.perf_counter() - t0
+        out = tmp / f"aot-{label}.jsonl"
+        status, iid = _http(base, "POST", PIPELINE,
+                            _stream_body(out, AOT_FRAMES, 0))
+        if status != 200:
+            raise AssertionError(f"aot ({label}): POST gave {status} {iid}")
+        while not (out.exists() and out.read_text().strip()):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError(f"aot ({label}): no line published: "
+                                     f"{log_path.read_text()[-2000:]}")
+            time.sleep(0.005)
+        first_line_s = time.perf_counter() - t0
+        state = _wait_states(base, [iid], ("COMPLETED", "ERROR", "ABORTED"),
+                             300)[iid]
+        lines = [json.loads(ln) for ln in out.read_text().splitlines()]
+        if state["state"] != "COMPLETED" or len(lines) != AOT_FRAMES:
+            raise AssertionError(f"aot ({label}): {state}, {len(lines)} lines")
+        _, engines = _http(base, "GET", "/engines")
+        status, health = _http(base, "GET", "/healthz")
+        if status != 200 or canonical(health) != golden:
+            raise AssertionError(f"aot ({label}): /healthz {status} is not "
+                                 f"the golden's shape: {health}")
+        launches = _kernel_launches(base)
+        forwards = sum(_fwd(v) for v in engines.values())
+        if launches != {"aligned": 10 * forwards, "masked": 0}:
+            raise AssertionError(f"aot ({label}): qgemm launches {launches} "
+                                 f"for {forwards} forwards")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=30)
+        if code != 0:
+            raise AssertionError(f"aot ({label}): exit {code} on SIGTERM: "
+                                 f"{log_path.read_text()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log_path.read_text()
+    return {"healthz_s": up_s, "first_line_s": first_line_s,
+            "nvcc_s": _nvcc_builds(port, nvcc_log),
+            "warm_s": {m.group(1): json.loads(m.group(2))
+                       for m in _WARM_LOG_RE.finditer(text)},
+            "engines": {k: {"buckets": v["buckets"],
+                            "compiled_programs": v["compiled_programs"],
+                            "compile_s": v["compile_s"], "aot": v["aot"]}
+                        for k, v in engines.items()},
+            "aot": health["aot"], "launches": launches,
+            "built": sorted(p.name for p in cc.glob("lib*.so")),
+            "objects": [ln["objects"] for ln in lines],
+            "compile_dir": cc}
+
+
+def _aot_k1(torch, port) -> dict:
+    """(f) K1 from the store-loaded library at the ten shapes of one
+    SSD forward (8 images, bf16): codes, row scales and outputs equal
+    to the plain version's."""
+    qg, ql = port["qgemm"], port["qlinear"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for m, k, n in MAIN_SHAPES:
+        m *= IMAGES
+        x = torch.randn((m, k), generator=gen, device="cuda").mul_(2.0)
+        x = x.to(torch.bfloat16)
+        wq, w_scale = ql.quantize_weight(
+            torch.randn((k, n), generator=gen, device="cuda") * 0.2)
+        wq = wq.T.contiguous()
+        bias = torch.randn((n,), generator=gen, device="cuda") * 0.1
+        out, codes, scales = qg.qgemm(x, wq, w_scale, bias, return_codes=True)
+        ref = qg.qgemm_reference(x, wq, w_scale, bias)
+        ref_codes, ref_scales = qg.quantize_rows(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(codes, ref_codes)
+                and torch.equal(scales, ref_scales)):
+            raise AssertionError(
+                f"aot (f): K1 from the stored library differs at "
+                f"{m}x{k}x{n}: max abs err {(out - ref).abs().max().item()}")
+    return {"shapes": len(MAIN_SHAPES), "max_abs_err": 0.0}
+
+
+def _aot_spin_up(torch, port) -> dict:
+    """(g) A supervisor rebuild (the engine phase's stub wedge) and a
+    fleet ``scale_up`` on this card: every bucket of the rebuilt engine
+    and of the new shard a hit (aot.hits == compiled_programs)."""
+    import numpy as np
+
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    wire = port["wire_frame"](next(port["SyntheticSource"](
+        512, 512, count=1, seed=5).frames()).frame, (512, 512), "i420")
+    hub = _default_hub(port, registry, max_batch=AOT_MAX_BATCH,
+                       stall_timeout_s=ENGINE_STALL_S, first_batch_grace=2.0,
+                       restart_backoff_s=0.05)
+    fleet_hub = port["EngineHub"](
+        registry, device="cuda", devices=["cuda:0", "cuda:0"],
+        fleet="sharded", fleet_max_shards=2, fleet_initial_shards=1,
+        max_batch=2 * AOT_MAX_BATCH, stall_timeout_s=ENGINE_STALL_S,
+        first_batch_grace=2.0, warmup=True)
+    out: dict = {}
+    try:
+        eng = hub.engine("detect", KEY)
+        eng.warm_async(frames=np.zeros_like(wire))
+        _await_warm("aot (g)", [eng])
+        out["rebuild"] = _wedge_and_recover(torch, port, hub, eng)
+        row = eng.stats_row()
+        live = eng._engine.stats_row()
+        if not (live["aot"]["hits"] == live["compiled_programs"]
+                == len(eng.buckets) and row["aot"]["hits"]
+                == row["compiled_programs"] == 2 * len(eng.buckets)
+                and row["compile_s"] == 0.0):
+            raise AssertionError(f"aot (g): supervisor rebuild row {row}")
+        out["rebuild"].update(buckets=eng.buckets, row_aot=row["aot"],
+                              rebuilt_aot=live["aot"])
+        fleet = fleet_hub.engine("detect", KEY)
+        fleet.warm_async(frames=np.zeros_like(wire))
+        _await_warm("aot (g) fleet", [e for _, _, e in fleet.shard_rows()])
+        t0 = time.perf_counter()
+        label = fleet.scale_up()
+        spin_s = time.perf_counter() - t0
+        rows = {lb: e.stats_row() for lb, _, e in fleet.shard_rows()}
+        new = rows.get(label or "")
+        if label is None or new is None or not (
+                new["aot"]["hits"] == new["compiled_programs"]
+                == len(new["buckets"]) > 0 and new["compile_s"] == 0.0):
+            raise AssertionError(f"aot (g): scale_up gave {label}: {rows}")
+        for s in range(4):
+            fleet.submit(frames=wire, stream=f"aot{s}").result(timeout=60)
+        out["scale_up"] = {"shard": label, "spin_up_s": spin_s,
+                           "rows": {lb: {"aot": r["aot"],
+                                         "compiled_programs":
+                                             r["compiled_programs"],
+                                         "batches": r["batches"]}
+                                    for lb, r in rows.items()}}
+    finally:
+        hub.stop()
+        fleet_hub.stop()
+    return out
+
+
+def _aot_ladder(port, cache, nvcc_log: Path) -> dict:
+    """(d) The fallback ladder on the engines' library (the small one:
+    each rebuild is short): each rung mangles its entry, then
+    ``kernels.open_library`` walks the ladder. The rung is counted in
+    ``summary()`` and in the metric; crc, deserialize and execute
+    discard the entry, version keeps it; nvcc rebuilds the library
+    (its compile-directory copy removed first), the store takes it
+    back, and it serves (its self-test)."""
+    from evam_tpu_torch.aot import cache as aot_cache
+    from evam_tpu_torch.engine import streams
+
+    kernels, metrics = port["kernels"], port["metrics"]
+    name = "engine_cuda"
+    key = kernels.aot_key(name)
+    entry = cache._path(key)
+    qgemm_payload = aot_cache._unpack_entry(
+        cache._path(kernels.aot_key("qgemm")).read_bytes())[1]
+    rows = {}
+    for rung in AOT_RUNGS:
+        if rung == "crc":
+            blob = entry.read_bytes()
+            entry.write_bytes(blob[:-1] + bytes([blob[-1] ^ 0xFF]))
+        elif rung == "version":
+            header, payload = aot_cache._unpack_entry(entry.read_bytes())
+            header["driver"] = "0.0.0-another-driver"
+            entry.write_bytes(aot_cache._pack_entry(header, payload))
+        elif rung == "deserialize":
+            cache.store(key, b"not a shared library" * 64, engine=name)
+        else:  # a valid library whose self-test fails: K1's, not ours
+            cache.store(key, qgemm_payload, engine=name)
+        kernels.library_path(name).unlink(missing_ok=True)
+        before = cache.summary()["misses"][rung]
+        metric = metrics.get_counter(
+            "evam_aot_cache_misses", labels={"engine": name, "reason": rung})
+        builds = len(_nvcc_builds(port, nvcc_log).get(name, []))
+        discarded = []
+        cache._discard = lambda path, seen=discarded: (
+            seen.append(path), aot_cache.AotCache._discard(path))
+        try:
+            t0 = time.perf_counter()
+            lib = kernels.open_library(name)
+            seconds = time.perf_counter() - t0
+        finally:
+            del cache._discard
+        streams.self_test(lib)
+        header, payload = aot_cache._unpack_entry(entry.read_bytes())
+        row = {"summary": cache.summary()["misses"][rung] - before,
+               "metric": metrics.get_counter(
+                   "evam_aot_cache_misses",
+                   labels={"engine": name, "reason": rung}) - metric,
+               "discarded": discarded == [entry],
+               "rebuilds": len(_nvcc_builds(port, nvcc_log).get(name, []))
+               - builds, "seconds": seconds}
+        if (row["summary"], row["metric"], row["discarded"], row["rebuilds"]) \
+                != (1, 1.0, rung != "version", 1) \
+                or payload != kernels.library_path(name).read_bytes() \
+                or {k: header.get(k) for k in aot_cache.env_fingerprint()} \
+                != aot_cache.env_fingerprint():
+            raise AssertionError(f"aot (d): rung {rung}: {row}")
+        rows[rung] = row
+    # and the recovered entry serves: a hit, no nvcc
+    hits = cache.summary()["hits"]
+    builds = len(_nvcc_builds(port, nvcc_log).get(name, []))
+    streams.self_test(kernels.open_library(name))
+    if cache.summary()["hits"] != hits + 1 or len(
+            _nvcc_builds(port, nvcc_log).get(name, [])) != builds:
+        raise AssertionError("aot (d): the recovered entry did not serve")
+    return rows
+
+
+def _aot_evict(port, cache, root: Path) -> dict:
+    """(e) Eviction under a small EVAM_AOT_MAX_BYTES: the two libraries'
+    payloads stored oldest first into a store capped below the newest;
+    the oldest entry goes and the newest survives."""
+    from evam_tpu_torch.aot import cache as aot_cache
+
+    kernels = port["kernels"]
+    payloads = {n: aot_cache._unpack_entry(cache._path(
+        kernels.aot_key(n)).read_bytes())[1] for n in ("engine_cuda", "qgemm")}
+    cap = port["Settings"].from_env(env={"EVAM_AOT_MAX_BYTES": str(
+        len(payloads["engine_cuda"]) + 4096)}).aot.max_bytes
+    small = aot_cache.AotCache(root, cap)
+    keys = {}
+    for i, (n, payload) in enumerate(payloads.items()):
+        keys[n] = kernels.aot_key(n)
+        small.store(keys[n], payload, engine=n)
+        os.utime(small._path(keys[n]), (1e9 + i, 1e9 + i))
+    s = small.summary()
+    if (s["entries"], s["evictions"]) != (1, 1) or small._path(
+            keys["engine_cuda"]).exists() or not small._path(
+            keys["qgemm"]).exists():
+        raise AssertionError(f"aot (e): {s}")
+    return {"max_bytes": cap, "entries": s["entries"], "bytes": s["bytes"],
+            "evictions": s["evictions"], "survivor": "qgemm"}
+
+
+def aot_child(spec: str) -> int:
+    """The aot phase's in-process half, in a fresh process whose
+    EVAM_AOT_DIR already holds both libraries (``spec``: JSON with
+    ``dir``, ``nvcc_log``, ``evict_dir``): (f), (g), (d), (e). Prints
+    one JSON line; K1's served launches of (g) in it."""
+    args = json.loads(spec)
+    faulthandler.dump_traceback_later(args["timeout"], exit=True)
+    import torch
+
+    port = _import_port()
+    from evam_tpu_torch import aot
+
+    cache = aot.active()
+    if cache is None or cache.root != Path(args["dir"]):
+        raise AssertionError(f"aot child: the cache is {cache}")
+    t0 = time.perf_counter()
+    port["qgemm"]._lib()  # K1's library: a hit, self-tested
+    load_s = time.perf_counter() - t0
+    s = cache.summary()
+    if s["hits"] != 1 or any(s["misses"].values()):
+        raise AssertionError(f"aot child: K1's load gave {s}")
+    row = {"phase": "aot-inprocess", "k1_load_s": load_s,
+           "k1": _aot_k1(torch, port)}
+    _reset_launches(port["qgemm"])
+    row["spin_up"] = _aot_spin_up(torch, port)
+    row["variants"] = dict(port["qgemm"].variant_launches)
+    row["ladder"] = _aot_ladder(port, cache, Path(args["nvcc_log"]))
+    row["evict"] = _aot_evict(port, cache, Path(args["evict_dir"]))
+    row["summary"] = cache.summary()
+    _print(row)
+    return 0
+
+
+def phase_aot(torch, port, smi: str) -> dict[str, int]:
+    """The AOT cache (``evam_tpu_torch/aot/``) on the card: (a) the
+    start-up of a ``serve`` child with EVAM_AOT off and an empty compile
+    directory, measured; (b) a cold child with EVAM_AOT=1 and a fresh
+    shared EVAM_AOT_DIR (one ``absent`` miss per library, the entries
+    the libraries it built, nvcc ran); (c) a warm child on the same
+    store and another empty compile directory (a hit per library, no
+    miss, no nvcc run and nothing built, /engines hits ==
+    compiled_programs, the objects (b) published bit for bit); then, in
+    a fresh process on the same store, (f) K1 from the stored library
+    at the ten SSD shapes, (g) a supervisor rebuild and a fleet
+    scale_up all hits, (d) the ladder's four rungs counted and
+    recovered, (e) eviction. Returns the served K1 launches of (a), (b),
+    (c) and (g) by variant."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        shared = tmp / "aot"
+        on = {"EVAM_AOT": "1", "EVAM_AOT_DIR": str(shared)}
+        runs = {"startup": _aot_serve(port, tmp, "a", {}),
+                "cold": _aot_serve(port, tmp, "b", on),
+                "warm": _aot_serve(port, tmp, "c", on)}
+        libs = sorted(port["kernels"].SOURCES)
+        a, b, c = runs["startup"], runs["cold"], runs["warm"]
+        for label, run in runs.items():
+            _print({"phase": f"aot-{label}", "card": smi,
+                    **{k: v for k, v in run.items()
+                       if k not in ("objects", "compile_dir")}})
+        if a["aot"]["enabled"] or sorted(a["nvcc_s"]) != libs:
+            raise AssertionError(f"aot (a): {a['aot']}, nvcc {a['nvcc_s']}")
+        none = dict.fromkeys(("absent", "version", "crc", "deserialize",
+                              "execute"), 0)
+        if (b["aot"]["misses"] != {**none, "absent": len(libs)}
+                or b["aot"]["hits"] or b["aot"]["entries"] != len(libs)
+                or sorted(b["nvcc_s"]) != libs):
+            raise AssertionError(f"aot (b): {b['aot']}, nvcc {b['nvcc_s']}")
+        from evam_tpu_torch.aot.cache import _unpack_entry
+
+        stored = sorted(_unpack_entry(p.read_bytes())[1]
+                        for p in shared.glob("*.aotx"))
+        built = sorted(p.read_bytes()
+                       for p in b["compile_dir"].glob("lib*.so"))
+        if stored != built:
+            raise AssertionError("aot (b): the entries are not the libraries "
+                                 "the child built")
+        if (c["aot"]["hits"] != len(libs) or c["aot"]["misses"] != none
+                or c["nvcc_s"] or c["built"] or not all(
+                    e["aot"]["hits"] == e["compiled_programs"] > 0
+                    and e["compile_s"] == 0.0 for e in c["engines"].values())):
+            raise AssertionError(f"aot (c): {c['aot']}, nvcc {c['nvcc_s']}, "
+                                 f"built {c['built']}, {c['engines']}")
+        if c["objects"] != b["objects"]:
+            raise AssertionError("aot (c): the warm child's objects differ "
+                                 "from the cold child's")
+        nvcc_log = tmp / "nvcc-child.jsonl"
+        home = _nvcc_recorder(tmp / "cuda-child", nvcc_log,
+                              port["kernels"]._nvcc())
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("EVAM_AOT")}
+        env.update(on, EVAM_COMPILE_CACHE_DIR=str(tmp / "cc-child"),
+                   CUDA_HOME=str(home))
+        spec = json.dumps({"dir": str(shared), "nvcc_log": str(nvcc_log),
+                           "evict_dir": str(tmp / "evict"), "timeout": 280})
+        res = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.aot_child(sys.argv[1]))", spec],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"aot child: exit {res.returncode}\n"
+                                 f"{res.stderr[-4000:]}\n{res.stdout[-2000:]}")
+        child = json.loads(res.stdout.strip().splitlines()[-1])
+        _print({**child, "card": smi})
+    row = {"phase": "aot", "card": smi, "seconds": time.perf_counter() - t_phase,
+           "healthz_s": {k: r["healthz_s"] for k, r in runs.items()},
+           "first_line_s": {k: r["first_line_s"] for k, r in runs.items()},
+           "objects_equal": True}
+    _print(row)
+    served = [r["launches"] for r in runs.values()] + [child["variants"]]
+    return {v: sum(d[v] for d in served) for v in ("aligned", "masked")}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -7524,6 +7976,11 @@ def main(argv: list[str] | None = None) -> int:
     if "temporal" in phases:
         phase_temporal(torch, port, smi)
         _memory(torch, "temporal", t_start)
+    # the AOT cache: serve children and an in-process child on the
+    # store (K1's served launches of each count)
+    if "aot" in phases:
+        served.append(phase_aot(torch, port, smi))
+        _memory(torch, "aot", t_start)
     _print({"phase": "total", "seconds": time.perf_counter() - t_start})
     if served:
         kernel["launches_by_variant"] = {

@@ -53,11 +53,16 @@ environment variables set (``fields_set``, the reference's pydantic
 ``model_fields_set``): the control plane keeps its hands off a knob
 the operator set.
 
-Every other knob of the reference's table belongs to a subsystem that
-comes with a later port slice. Set to anything but the value the port
-runs with (the reference's default), it raises ``NotImplementedError``
-at :meth:`Settings.from_env`, naming the slice. None is silently
-ignored.
+The AOT cache's EVAM_AOT (off), EVAM_AOT_DIR (<tmpdir>/evam_aot) and
+EVAM_AOT_MAX_BYTES (1 GiB) (``AotSettings``, the config file's ``aot``
+block) and the compile cache's EVAM_COMPILE_CACHE_DIR (empty: the
+checkout's ``build/kernels``) are the reference's. So is the config
+file's ``tpu.donate_buffers``, parsed and accepted at any value: the
+reference parses it and never reads it, and a CUDA graph replay copies
+each batch into the graph's static inputs, so there is no buffer to
+donate. Every knob and config-file key of the reference's table is
+parsed here with the reference's result; a config-file key outside it
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -67,8 +72,6 @@ import os
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, Mapping
-
-from evam_tpu_torch import slices
 
 
 def _parse_bool(value: str) -> bool:
@@ -134,6 +137,13 @@ class EngineSettings:
     #: is every visible CUDA device
     mesh_shape: list = field(default_factory=lambda: [-1])
     mesh_axes: list = field(default_factory=lambda: ["data"])
+    #: config-file only, as in the reference, which parses it and never
+    #: reads it: a graph replay copies each batch into the graph's
+    #: static inputs, so no input buffer is donated
+    donate_buffers: bool = True
+    #: EVAM_COMPILE_CACHE_DIR: where ``ops/kernels.py`` builds the CUDA
+    #: libraries (empty: the checkout's build/kernels)
+    compile_cache_dir: str = ""
     #: fields the config file or the environment set
     fields_set: set[str] = field(default_factory=set, repr=False,
                                  compare=False)
@@ -235,6 +245,26 @@ class CkptSettings:
 
 
 @dataclass
+class AotSettings:
+    """Persistent AOT cache (``evam_tpu_torch/aot/``): the hand kernels'
+    compiled libraries in a content-addressed, CRC-guarded, size-capped
+    on-disk store shared by restarts, supervisor rebuilds and fleet
+    shard spin-up. ``EVAM_AOT=off`` (default) disables the whole
+    layer."""
+
+    enabled: bool = False
+    #: cache directory; empty = <tmpdir>/evam_aot. Share it across
+    #: processes/containers on one host — entries are atomic and
+    #: content-addressed, concurrent writers converge.
+    dir: str = ""
+    #: size cap in bytes (LRU by mtime past it; the newest entry
+    #: always survives). Default 1 GiB.
+    max_bytes: int = 1073741824
+    fields_set: set[str] = field(default_factory=set, repr=False,
+                                 compare=False)
+
+
+@dataclass
 class Settings:
     """Flat service settings resolved from env + optional config file."""
 
@@ -287,6 +317,7 @@ class Settings:
     tune: TuneSettings = field(default_factory=TuneSettings)
     trace: TraceSettings = field(default_factory=TraceSettings)
     ckpt: CkptSettings = field(default_factory=CkptSettings)
+    aot: AotSettings = field(default_factory=AotSettings)
 
     @classmethod
     def from_env(cls, config_file: str | os.PathLike | None = None,
@@ -295,13 +326,14 @@ class Settings:
         data: dict[str, Any] = {}
         if config_file and Path(config_file).exists():
             data = json.loads(Path(config_file).read_text())
-        _refuse_unported(data, env)
+        _check_keys(data)
 
         settings = cls()
         blocks = {"tpu": (settings.engine, _ENGINE_KEYS),
                   "sched": (settings.sched, _SCHED_KEYS),
                   "trace": (settings.trace, _TRACE_KEYS),
-                  "ckpt": (settings.ckpt, _CKPT_KEYS)}
+                  "ckpt": (settings.ckpt, _CKPT_KEYS),
+                  "aot": (settings.aot, _AOT_KEYS)}
         for key, value in data.items():
             if key in blocks:
                 block, keys = blocks[key]
@@ -316,7 +348,8 @@ class Settings:
                              (_MODULE_ENV, settings.engine),
                              (_SCHED_ENV, settings.sched),
                              (_TRACE_ENV, settings.trace),
-                             (_CKPT_ENV, settings.ckpt)):
+                             (_CKPT_ENV, settings.ckpt),
+                             (_AOT_ENV, settings.aot)):
             for var, (key, conv) in table.items():
                 if var in env:
                     _assign(block, key, conv(env[var]))
@@ -398,6 +431,7 @@ _ENGINE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_MAX_BATCH": ("max_batch", int),
     "EVAM_BATCH_DEADLINE_MS": ("batch_deadline_ms", float),
     "EVAM_PRECISION": ("precision", str),
+    "EVAM_COMPILE_CACHE_DIR": ("compile_cache_dir", str),
     "EVAM_WARMUP": ("warmup", _parse_bool),
     "EVAM_STALL_TIMEOUT_S": ("stall_timeout_s", float),
     "EVAM_ENGINE_SUPERVISE": ("supervise", _parse_bool),
@@ -452,6 +486,11 @@ _CKPT_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
     "EVAM_CKPT_INTERVAL": ("interval", int),
     "EVAM_CKPT_RESTORE_TIMEOUT_S": ("restore_timeout_s", float),
 }
+_AOT_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
+    "EVAM_AOT": ("enabled", _parse_bool),
+    "EVAM_AOT_DIR": ("dir", str),
+    "EVAM_AOT_MAX_BYTES": ("max_bytes", int),
+}
 #: knobs the reference's engine modules read from os.environ (never a
 #: config-file key there, nor here)
 _MODULE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
@@ -464,55 +503,25 @@ _MODULE_ENV: dict[str, tuple[str, Callable[[str], Any]]] = {
 }
 _TOP_KEYS = {key for key, _ in _TOP_ENV.values()} - {"allow_random_weights"}
 _ENGINE_KEYS = {key for key, _ in _ENGINE_ENV.values()} | {
-    "mesh_shape", "mesh_axes"}
+    "mesh_shape", "mesh_axes", "donate_buffers"}
 _SCHED_KEYS = {key for key, _ in _SCHED_ENV.values()}
 _TUNE_KEYS = {key for key, _ in _TUNE_ENV.values()}
 _TRACE_KEYS = {key for key, _ in _TRACE_ENV.values()}
 _CKPT_KEYS = {key for key, _ in _CKPT_ENV.values()}
-
-_S7 = slices.ENGINE_DEPTH
-
-#: unported knobs: (env var, or None for a config-file-only key;
-#: config-file block, "" for top level; key; parser; the value the port
-#: runs with; the slice that brings it)
-_UNPORTED: list[tuple[str | None, str, str, Callable[[str], Any] | None,
-                      Any, str]] = [
-    ("EVAM_COMPILE_CACHE_DIR", "tpu", "compile_cache_dir", str, "", _S7),
-    ("EVAM_AOT", "aot", "enabled", _parse_bool, False, _S7),
-    ("EVAM_AOT_DIR", "aot", "dir", str, "", _S7),
-    ("EVAM_AOT_MAX_BYTES", "aot", "max_bytes", int, 1073741824, _S7),
-    (None, "tpu", "donate_buffers", None, True, _S7),
-]
+_AOT_KEYS = {key for key, _ in _AOT_ENV.values()}
 
 #: reference settings blocks the config file may carry
-_BLOCKS = ("tpu", "sched", "trace", "ckpt", "tune", "aot")
+_BLOCKS = {"tpu": _ENGINE_KEYS, "sched": _SCHED_KEYS, "tune": _TUNE_KEYS,
+           "trace": _TRACE_KEYS, "ckpt": _CKPT_KEYS, "aot": _AOT_KEYS}
 
 
-def _refuse_unported(data: dict[str, Any], env: Mapping[str, str]) -> None:
-    """Raise for the first unported knob — config-file key or env var —
-    whose value is not the one the port runs with."""
-    for var, block, key, conv, port_value, slice_ in _UNPORTED:
-        where = data.get(block, {}) if block else data
-        if key in where and where[key] != port_value:
-            name = f"{block}.{key}" if block else key
-            raise NotImplementedError(
-                f"config {name}={where[key]!r}: comes with {slice_}; the "
-                f"port runs with {port_value!r}")
-        if var is not None and var in env and conv(env[var]) != port_value:
-            raise NotImplementedError(
-                f"{var}={env[var]!r}: comes with {slice_}; the port runs "
-                f"with {port_value!r}")
-    known = _TOP_KEYS | set(_BLOCKS) | {
-        key for _, block, key, *_ in _UNPORTED if not block}
-    unknown = set(data) - known
+def _check_keys(data: dict[str, Any]) -> None:
+    """Raise for a config-file key outside the reference's table."""
+    unknown = set(data) - _TOP_KEYS - set(_BLOCKS)
     if unknown:
         raise ValueError(f"unknown settings keys {sorted(unknown)}")
-    for block in _BLOCKS:
-        keys = set(data.get(block, {}))
-        keys -= {key for _, b, key, *_ in _UNPORTED if b == block}
-        keys -= {"tpu": _ENGINE_KEYS, "sched": _SCHED_KEYS,
-                 "tune": _TUNE_KEYS, "trace": _TRACE_KEYS,
-                 "ckpt": _CKPT_KEYS}.get(block, set())
+    for block, known in _BLOCKS.items():
+        keys = set(data.get(block, {})) - known
         if keys:
             raise ValueError(f"unknown settings keys {block}.{sorted(keys)}")
 

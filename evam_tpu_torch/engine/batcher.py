@@ -59,8 +59,20 @@ batch deadlines and caps the batch in the dispatch loops, and
 ``retune`` resizes the upload queue. The fleet's mesh twin
 (``fleet/engine.py``) is the one BatchEngine with ``data_size`` N > 1:
 its ladder is aligned to N, with the rungs under N in front (the
-reference's ``fleet_local`` bypass). The reference's AOT cache comes
-with a later slice.
+reference's ``fleet_local`` bypass).
+
+The AOT cache (``EVAM_AOT``, ``evam_tpu_torch/aot/``): a CUDA engine
+loads the hand kernels' libraries its step launches (``step.libraries``)
+before its first warm run, outside the device lock, so a cold library's
+``nvcc`` never runs under it. With the cache on and the hub's program
+fingerprint (``aot_key``), a bucket whose warm run compiled nothing,
+every library it uses held by the store (loaded from it, in this
+process or by an earlier one's entry, or stored after its build), is a
+hit: its eager and capture seconds go to ``aot_load_seconds``, a
+miss's to ``compile_seconds``. The graph is the per-bucket object, and a
+CUDA graph cannot be stored, so the port keeps no per-bucket executable
+(the reference's ``_aot_exec``). On the CPU nothing is compiled: no
+hit, no miss.
 
 Tracing (``obs/trace.py``): every item carries its frame's trace; the
 dispatcher registers each batch (``batch_begin``) before the launcher
@@ -78,6 +90,7 @@ stages and the step run inside named ranges (``trace.prof_range``).
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import queue
@@ -89,6 +102,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from evam_tpu_torch import aot
 from evam_tpu_torch.control.state import current_op
 from evam_tpu_torch.engine import devlock, streams
 from evam_tpu_torch.engine.ragged import (
@@ -107,6 +121,7 @@ from evam_tpu_torch.obs import trace
 from evam_tpu_torch.obs.faults import current as active_faults
 from evam_tpu_torch.obs.metrics import metrics
 from evam_tpu_torch.obs.trace import prof_range
+from evam_tpu_torch.ops import kernels
 from evam_tpu_torch.sched.classes import (
     DEFAULT_PRIORITY,
     PRIORITIES,
@@ -170,9 +185,17 @@ class EngineStats:
     #: per-bucket dispatched-batch counts
     bucket_batches: dict[int, int] = dataclasses.field(default_factory=dict)
     #: buckets captured into CUDA graphs, and the wall seconds their
-    #: warm run and capture took
+    #: warm run and capture took (a miss's: those of a hit go to
+    #: aot_load_seconds)
     compiled_programs: int = 0
     compile_seconds: float = 0.0
+    #: AOT-cache attribution (``evam_tpu_torch/aot/``): buckets whose
+    #: warm run compiled nothing, every library from the store, and the
+    #: wall seconds they took — /engines shows cold against warm
+    #: spin-up (a hit shard: aot_hits == compiled_programs,
+    #: compile_seconds 0)
+    aot_hits: int = 0
+    aot_load_seconds: float = 0.0
     #: captures that failed (each leaves its bucket eager, loudly)
     capture_failures: int = 0
     #: warm runs of the step (one per bucket warmed): real forwards
@@ -202,6 +225,7 @@ class EngineStats:
         supervisor's rebuild carry)."""
         for f in ("batches", "items", "occupancy_sum", "units",
                   "unit_slots", "compiled_programs", "compile_seconds",
+                  "aot_hits", "aot_load_seconds",
                   "capture_failures", "warm_forwards",
                   "oversize_splits"):
             setattr(self, f, getattr(self, f) + getattr(other, f))
@@ -242,6 +266,10 @@ def stats_row(e, st: EngineStats) -> dict:
         "buckets": list(e.buckets),
         "compiled_programs": st.compiled_programs,
         "compile_s": round(st.compile_seconds, 3),
+        # cold-against-warm spin-up: buckets warmed from the AOT store's
+        # libraries and what their warm runs cost
+        "aot": {"hits": st.aot_hits,
+                "load_s": round(st.aot_load_seconds, 3)},
         "graphs": e.graphs_captured(),
         "graph_pool_bytes": st.graph_pool_bytes,
         "capture_failures": st.capture_failures,
@@ -300,6 +328,7 @@ class BatchEngine:
         ragged: str | None = None,
         ragged_spec: RaggedSpec | None = None,
         data_size: int = 1,
+        aot_key: str | None = None,
     ):
         self.name = name
         self.step_fn = step_fn
@@ -384,6 +413,10 @@ class BatchEngine:
         self._trace_device = str(self.device)
         if self.device.type == "cuda" and self.device.index is None:
             self._trace_device = f"cuda:{torch.cuda.current_device()}"
+        #: the hub's program fingerprint (the AOT cache's): with the
+        #: cache on, warmup attributes each bucket to a hit or a miss;
+        #: None never consults the cache
+        self._aot_key = aot_key
         #: test seam: called on the launching thread before each
         #: batch's device work (outside the device lock) — a stub
         #: wedge blocks here
@@ -614,13 +647,26 @@ class BatchEngine:
         and capture its CUDA graph; on the CPU, run its warm batch once
         (as the reference's CPU jit warms). A failed capture is logged
         and counted (``capture_failures``) and leaves its bucket on the
-        eager step."""
+        eager step. On the card the step's libraries are loaded first,
+        outside the device lock; with the AOT cache on and an
+        ``aot_key``, each bucket is a hit or a miss (``EngineStats``)."""
         example = self._example_item()
+        cache = (aot.active() if self._aot_key is not None and self._cuda
+                 else None)
+        # the first bucket's clock includes the library loads
+        t_load = time.perf_counter()
+        builds = kernels.builds()
+        libraries = ("engine_cuda",) + tuple(
+            getattr(self.step_fn, "libraries", ()))
+        if self._cuda:
+            for name in libraries:
+                kernels.load(name)
         for b in self.buckets:
             if self._stop.is_set():
                 return
             batch = self._warm_batch(example, b)
-            t0 = time.perf_counter()
+            t0 = time.perf_counter() if t_load is None else t_load
+            t_load = None
             with devlock.device_call(f"{self.name}:warmup"):
                 try:
                     if self._capturable:
@@ -640,20 +686,35 @@ class BatchEngine:
                     if self._capturable:
                         with self._exec_lock:
                             self.stats.capture_failures += 1
+                    builds = kernels.builds()
                     continue
+            # a hit: the warm run (the first one's library loads
+            # included) compiled nothing, every library from the store
+            hit = (cache is not None and kernels.builds() == builds
+                   and kernels.from_store(libraries))
+            builds = kernels.builds()
+            dt = time.perf_counter() - t0
             with self._exec_lock:
                 self.stats.warm_forwards += 1
                 if self._capturable:
                     self.stats.compiled_programs += 1
-                    self.stats.compile_seconds += time.perf_counter() - t0
+                    if hit:
+                        self.stats.aot_hits += 1
+                        self.stats.aot_load_seconds += dt
+                    else:
+                        self.stats.compile_seconds += dt
                 # a warmed bucket gets the plain watchdog budget
                 self._buckets_done.add(b)
         if self._cuda:
             pool = self._graphs.pool_bytes()
             with self._exec_lock:
                 self.stats.graph_pool_bytes = pool
-        log.info("engine %s warmed %d buckets %s (%d graphs)", self.name,
-                 len(self.buckets), self.buckets, self.graphs_captured())
+        log.info("engine %s warmed %d buckets %s (%d graphs); eager and "
+                 "capture seconds by bucket %s", self.name, len(self.buckets),
+                 self.buckets, self.graphs_captured(),
+                 json.dumps({str(b): [round(e, 4), round(c, 4)] for b, (e, c)
+                             in sorted(self._graphs.timings.items())}
+                            if self._graphs is not None else {}))
 
     def _warm_batch(self, example: dict[str, np.ndarray],
                     b: int) -> dict[str, np.ndarray]:

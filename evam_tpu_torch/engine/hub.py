@@ -266,6 +266,15 @@ class EngineHub:
         plus the mesh twin at ``max_batch`` over every device — each
         shard supervised on its own, so a wedge on one device is that
         shard's quarantine, not the fleet's."""
+        # the AOT cache's program fingerprint (the reference's): what at
+        # the hub level changes what the step computes — key, wire
+        # format, device synth (the port has none: 0), ragged mode, unit
+        # budget, scheduler. Every factory of the key (the engine, its
+        # supervisor's rebuilds, each fleet shard and the twin) carries
+        # it, so their warm runs attribute hits and misses alike
+        aot_key = (f"{key}|wire={self.wire_format}|synth=0"
+                   f"|ragged={self.ragged}|ub={self.ragged_unit_budget}"
+                   f"|sched={int(self.sched is not None)}")
         steps: list[tuple[torch.device, object]] = [(self.device, step_fn)]
 
         def step_on(device):
@@ -295,6 +304,7 @@ class EngineHub:
                     ragged=self.ragged,
                     ragged_spec=ragged_spec,
                     data_size=data_size,
+                    aot_key=aot_key,
                 )
 
             if not self.supervise:

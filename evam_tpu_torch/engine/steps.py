@@ -16,7 +16,9 @@ and its packed-ragged form (``EVAM_RAGGED=packed``), the fused
 detect+classify step, the action encode and decode steps and the audio
 step. A model that already emits probabilities (an IR's in-graph
 SoftMax: ``conf_is_prob``, ``head_is_prob``, ``out_is_prob``) is not
-softmaxed again.
+softmaxed again. Each step names the hand kernels' libraries it
+launches (``step.libraries``), so an engine loads them before its
+first warm run.
 """
 
 from __future__ import annotations
@@ -40,6 +42,28 @@ from evam_tpu_torch.ops.preprocess import (
 
 #: Packed detection row layout: [x0, y0, x1, y1, score, label, valid]
 DETECT_FIELDS = 7
+
+
+def step_libraries(*models: LoadedModel) -> tuple[str, ...]:
+    """The hand kernels' libraries (``ops/kernels.py``) a step over
+    ``models`` launches on the card: the int8 GEMM's where a model has
+    int8 convolutions and ``EVAM_QGEMM=pallas`` sends its pointwise
+    convolutions to the kernel; none otherwise."""
+    from evam_tpu_torch.models.zoo.layers import QuantConv
+    from evam_tpu_torch.ops import qlinear
+
+    if qlinear.QGEMM_BACKEND == "pallas" and any(
+            isinstance(m, QuantConv) for model in models
+            for m in model.module.modules()):
+        return ("qgemm",)
+    return ()
+
+
+def _declare_libraries(step: Callable, *models: LoadedModel) -> Callable:
+    """``step.libraries``: what the engine loads before its first warm
+    run, outside the device lock (``engine/batcher.py`` ``warmup``)."""
+    step.libraries = step_libraries(*models)
+    return step
 
 
 def _head_probs(model: LoadedModel, name: str, out) -> torch.Tensor:
@@ -149,7 +173,7 @@ def build_detect_step(
                                        iou_threshold, score_threshold)
             return packed
 
-    return step
+    return _declare_libraries(step, model)
 
 
 def build_classify_step(
@@ -168,7 +192,7 @@ def build_classify_step(
         with torch.inference_mode():
             return _classify_crops(model, frames, boxes, wire_format)
 
-    return step
+    return _declare_libraries(step, model)
 
 
 def build_classify_step_ragged(
@@ -198,7 +222,7 @@ def build_classify_step_ragged(
             valid = (seg >= 0).to(probs.dtype)
             return probs * valid[:, None]
 
-    return step
+    return _declare_libraries(step, model)
 
 
 def build_detect_classify_step(
@@ -252,7 +276,7 @@ def build_detect_classify_step(
             full.scatter_(1, roi_idx[..., None].expand_as(probs), probs)
             return torch.cat([packed, full], dim=-1)
 
-    return step
+    return _declare_libraries(step, det_model, cls_model)
 
 
 def build_action_encode_step(
@@ -265,7 +289,7 @@ def build_action_encode_step(
         with torch.inference_mode():
             return model.forward(preprocess_wire(frames, spec)).float()
 
-    return step
+    return _declare_libraries(step, model)
 
 
 def build_action_decode_step(
@@ -280,7 +304,7 @@ def build_action_decode_step(
             out = model.forward(clips.float()).float()
             return out if is_prob else torch.softmax(out, dim=-1)
 
-    return step
+    return _declare_libraries(step, model)
 
 
 def build_audio_step(
@@ -299,4 +323,4 @@ def build_audio_step(
             out = model.forward(x).float()
             return out if is_prob else torch.softmax(out, dim=-1)
 
-    return step
+    return _declare_libraries(step, model)

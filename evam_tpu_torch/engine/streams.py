@@ -48,14 +48,34 @@ _live: dict[int, set[int]] = {}
 _PAGE = 4096
 
 
-def _lib() -> ctypes.CDLL:
-    lib = kernels.load("engine_cuda")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.evam_stream_create.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint64)]
     lib.evam_stream_destroy.argtypes = [ctypes.c_int, ctypes.c_uint64]
     lib.evam_host_register.argtypes = [ctypes.c_uint64, ctypes.c_uint64]
     lib.evam_host_unregister.argtypes = [ctypes.c_uint64]
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _bind(kernels.load("engine_cuda"))
+
+
+def self_test(lib: ctypes.CDLL) -> None:
+    """The entry points of ``lib`` (a library the AOT store served) on
+    the current CUDA device: create and destroy one stream, page-lock
+    and release one block; raises on any CUDA error."""
+    _bind(lib)
+    index = torch.cuda.current_device()
+    handle = ctypes.c_uint64()
+    kernels.check(lib, lib.evam_stream_create(index, 0, ctypes.byref(handle)),
+                  "cudaStreamCreateWithPriority")
+    kernels.check(lib, lib.evam_stream_destroy(index, handle.value),
+                  "cudaStreamDestroy")
+    raw = np.zeros(2 * _PAGE, np.uint8)
+    ptr = raw.ctypes.data + (-raw.ctypes.data) % _PAGE
+    kernels.check(lib, lib.evam_host_register(ptr, _PAGE), "cudaHostRegister")
+    kernels.check(lib, lib.evam_host_unregister(ptr), "cudaHostUnregister")
 
 
 def create(device: str | torch.device) -> torch.cuda.ExternalStream:

@@ -18,7 +18,11 @@ then recovers in process:
   failable, never join the wedged threads; its graphs and staging
   buffers are freed), waits an exponential backoff, **rebuilds** it with
   the factory — fresh CUDA graphs and a fresh staging ring — re-warms
-  it from the captured example, and swaps it in;
+  it from the captured example (the same warmup as the first engine's,
+  through the AOT cache's attribution: with ``EVAM_AOT`` on, a rebuild
+  whose libraries the store holds compiles nothing, and its buckets
+  count as hits), and swaps it in; the counters carry over
+  (``EngineStats.absorb``, ``aot`` included);
 * a **restart budget**: at most ``max_restarts`` rebuilds within a
   sliding ``restart_window_s``. Exhausting it is the terminal
   ``degraded`` state (a second flight dump): /healthz answers 503

@@ -90,6 +90,9 @@ class MeshStep:
         self.steps = steps
         self.devices = [torch.device(d) for d in devices]
         self.capturable = len(set(self.devices)) == 1
+        #: the hand kernels' libraries its steps launch
+        self.libraries = tuple(sorted({name for step in steps for name in
+                                       getattr(step, "libraries", ())}))
 
     def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
         n = len(self.steps)
@@ -338,11 +341,14 @@ class FleetEngine:
 
     def scale_up(self, warm_timeout_s: float = 120.0) -> str | None:
         """Grow the fleet by one shard (the eighth control law's up
-        action). The shard is built from the factory and **warmed before
-        it joins placement** (on the card: every bucket captured): no
-        stream is ever pinned to a cold shard. Once warm the label
-        enters the shard map and the ring; the streams whose arcs its
-        vnodes own are re-pinned, each move counted.
+        action, and the counterpart to :meth:`scale_down`). The shard is
+        built from the factory — whose warmup path goes through the
+        persistent AOT cache (``evam_tpu_torch/aot/``), so a cache-hit
+        spin-up compiles nothing and its buckets count as hits — and is
+        **warmed before it joins placement** (on the card: every bucket
+        captured): no stream is ever pinned to a cold shard. Once warm
+        the label enters the shard map and the ring; the streams whose
+        arcs its vnodes own are re-pinned, each move counted.
 
         Returns the new label, or None (at capacity, already scaling, or
         the warm gate timed out — the half-built shard is stopped and

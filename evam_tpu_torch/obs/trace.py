@@ -608,7 +608,18 @@ def profiler_running() -> bool:
 
 def init_observability(settings) -> None:
     """One-call runtime bootstrap of both serve entry points: the
-    profiler ranges when PROFILING_MODE is on. (The reference also
-    configures its compilation cache here; that knob comes with the
-    AOT cache's slice.)"""
+    compile cache, and the profiler ranges when PROFILING_MODE is on."""
+    configure_compilation_cache(settings.engine.compile_cache_dir)
     maybe_start_profiler(settings.profiling_mode)
+
+
+def configure_compilation_cache(cache_dir: str) -> None:
+    """Persist the hand kernels' compiled libraries across restarts in
+    ``cache_dir`` (EVAM_COMPILE_CACHE_DIR; the reference's analogue is
+    the OpenCL cl_cache): ``ops/kernels.py`` builds into it and loads
+    from it. Made here, so a directory that cannot be made fails at
+    start, not at the first build. Empty: the checkout's build/kernels."""
+    if not cache_dir:
+        return
+    os.makedirs(cache_dir, exist_ok=True)
+    log.info("CUDA kernel compile cache at %s", cache_dir)

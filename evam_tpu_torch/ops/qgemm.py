@@ -208,8 +208,8 @@ def plan(m: int, n: int, k: int, x_dtype: torch.dtype,
                 smem=smem2, nsub=nsub)
 
 
-def _lib():
-    lib = kernels.load("qgemm")
+def _bind(lib):
+    """Declare the kernel's C entry point on ``lib`` (once)."""
     if lib.evam_qgemm.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
@@ -217,6 +217,10 @@ def _lib():
                                    i, i, i, i, i, i, i, p]
         lib.evam_qgemm.restype = ctypes.c_int
     return lib
+
+
+def _lib():
+    return _bind(kernels.load("qgemm"))
 
 
 def div_rn(a: torch.Tensor, b) -> torch.Tensor:
@@ -316,6 +320,20 @@ def qgemm(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
             return (out, torch.zeros((0, k), dtype=torch.int8, device=x.device),
                     torch.zeros((0,), dtype=torch.float32, device=x.device))
         return out
+    out, codes, scales, p = _launch(_lib(), x, wq, w_scale, bias,
+                                    return_codes)
+    _count(p.variant)
+    if return_codes:
+        return out, codes, scales
+    return out
+
+
+def _launch(lib, x, wq, w_scale, bias, return_codes: bool):
+    """One launch of the kernel of ``lib`` (checked CUDA tensors, M ≥
+    1) on the current stream: (out, codes, scales, plan); codes and
+    scales are None without ``return_codes``. Counts nothing."""
+    m, k = x.shape
+    n = wq.shape[0]
     bias_f = bias.float().contiguous() if bias is not None else None
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     codes = scales = None
@@ -325,7 +343,6 @@ def qgemm(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     ptrs = [t.data_ptr() for t in (x, wq, w_scale, bias_f, out, codes)
             if t is not None]
     p = plan(m, n, k, x.dtype, all(q % 16 == 0 for q in ptrs))
-    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.evam_qgemm(
@@ -338,7 +355,37 @@ def qgemm(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
             m, n, k, p.bm, p.bn, p.kc, p.grid[0], p.nsub, int(p.masked),
             p.smem, stream)
     kernels.check(lib, rc, "qgemm")
-    _count(p.variant)
-    if return_codes:
-        return out, codes, scales
-    return out
+    return out, codes, scales, p
+
+
+#: (M, K, N) of the self-test's two launches: one aligned (every
+#: pointer and row 16-byte aligned), one masked (ragged edges)
+SELF_TEST_SHAPES = ((64, 32, 64), (77, 40, 3))
+
+
+def self_test(lib) -> None:
+    """The kernel of ``lib`` (a library the AOT store served) at one
+    aligned and one masked shape on the current CUDA device, equal to
+    :func:`qgemm_reference` in codes, row scales and outputs; raises
+    otherwise. Its launches are comparisons: they do not count."""
+    _bind(lib)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(0)
+    for (m, k, n), variant in zip(SELF_TEST_SHAPES, ("aligned", "masked")):
+        x = torch.randn((m, k), generator=gen).to(torch.bfloat16).to(dev)
+        wq = torch.randint(-127, 128, (n, k), generator=gen,
+                           dtype=torch.int8).to(dev)
+        w_scale = (torch.rand((n,), generator=gen) * 0.01 + 1e-3).to(dev)
+        bias = torch.randn((n,), generator=gen).to(dev)
+        out, codes, scales, p = _launch(lib, x, wq, w_scale, bias, True)
+        want = qgemm_reference(x, wq, w_scale, bias)
+        want_codes, want_scales = quantize_rows(x)
+        # this stream only: another engine may be capturing a graph
+        torch.cuda.current_stream(dev).synchronize()
+        if p.variant != variant or not (
+                torch.equal(out, want) and torch.equal(codes, want_codes)
+                and torch.equal(scales, want_scales)):
+            raise RuntimeError(
+                f"qgemm self-test failed at {(m, k, n)} ({p.variant}): "
+                f"max |out - plain| "
+                f"{(out - want).abs().max().item():.3g}")

@@ -39,6 +39,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable
 from urllib.parse import unquote, urlsplit
 
+from evam_tpu_torch import aot
 from evam_tpu_torch.config.settings import Settings
 from evam_tpu_torch.models.registry import MissingWeightsError
 from evam_tpu_torch.obs import trace
@@ -50,11 +51,6 @@ from evam_tpu_torch.server.registry import PipelineRegistry, RequestError
 from evam_tpu_torch.stages.gate import registry as gate_registry
 
 log = logging.getLogger("evam_tpu_torch.server.app")
-
-#: the reference's persistent AOT cache miss reasons (the /healthz
-#: ``aot`` block's keys; the cache comes with a later slice)
-_AOT_MISS_REASONS = ("absent", "version", "crc", "deserialize", "execute")
-
 
 class Response:
     """Status, body bytes and content type of one answer."""
@@ -245,13 +241,12 @@ class App:
             "shed": hub.shed_totals(),
         }
         # the motion gates' run/skip totals and live skipped-frames/s
-        # (fixed keys, all zero while nothing gates); the AOT cache's
-        # block reads zeros until its slice
+        # (fixed keys, all zero while nothing gates)
         ready["gate"] = gate_registry.summary()
-        ready["aot"] = {"enabled": False, "entries": 0, "bytes": 0,
-                        "max_bytes": 0, "hits": 0,
-                        "misses": dict.fromkeys(_AOT_MISS_REASONS, 0),
-                        "evictions": 0}
+        # the persistent AOT cache: entry/byte counts, hits and the
+        # per-reason miss ladder (aot.MISS_REASONS); fixed keys from
+        # boot, zeros with EVAM_AOT=off — golden shape
+        ready["aot"] = aot.summary()
         # the shared ingest serves every live stream: its frame
         # counters beside the engines' readiness
         if self.registry.rtsp_demux is not None:

@@ -16,9 +16,9 @@
   the stream checkpoints', PROFILING_MODE and EVAM_STATE_DIR from the
   environment and the config file, with the same defaults (trace on,
   ckpt off); the fault injector's EVAM_FAULT_INJECT / EVAM_FAULT_SEED
-  into the same injector — and raises ``NotImplementedError`` naming a
-  slice for each unported knob set to a value the port does not run
-  with (the rest of the table).
+  into the same injector; the AOT cache's and the compile cache's
+  knobs and the config file's ``tpu.donate_buffers`` and ``aot`` block
+  — every knob of the reference's table.
 
 Exact equality throughout: these layers are copies.
 """
@@ -424,25 +424,40 @@ def _other_value(var: str, conv, port_value) -> str:
     return "/srv/elsewhere"
 
 
-_ENV_UNPORTED = [u for u in port_settings._UNPORTED if u[0] is not None]
+#: the AOT cache's and the compile cache's knobs (slice 7e): (env var,
+#: values to parse, config-file block, key)
+_AOT_KNOBS = [
+    ("EVAM_COMPILE_CACHE_DIR", ["/srv/evam-cc", ""], "tpu",
+     "compile_cache_dir"),
+    ("EVAM_AOT", ["1", "true", "on", "0", "off", "no"], "aot", "enabled"),
+    ("EVAM_AOT_DIR", ["/srv/evam-aot", ""], "aot", "dir"),
+    ("EVAM_AOT_MAX_BYTES", ["1", "65536", "1073741824"], "aot", "max_bytes"),
+]
 
 
-@pytest.mark.parametrize("knob", _ENV_UNPORTED, ids=[u[0] for u in _ENV_UNPORTED])
-def test_unported_knob_raises_naming_its_slice(knob, monkeypatch):
-    var, block, key, conv, port_value, slice_ = knob
-    # the port's own value is accepted, and it is what the reference
-    # runs with
-    port_settings.Settings.from_env(env={var: str(port_value)})
-    ref_default = getattr(getattr(ref_settings.Settings(), block)
-                          if block else ref_settings.Settings(), key)
-    assert ref_default == port_value
-    value = _other_value(var, conv, port_value)
-    monkeypatch.setenv(var, value)
-    ref_settings.Settings.from_env()  # a value the reference accepts
-    with pytest.raises(NotImplementedError, match=r"port slice \d+") as info:
-        port_settings.Settings.from_env()
-    assert var in str(info.value)
-    assert slice_ in str(info.value)
+def _port_block(settings, block: str):
+    return settings.engine if block == "tpu" else getattr(settings, block)
+
+
+@pytest.mark.parametrize("knob", _AOT_KNOBS, ids=[k[0] for k in _AOT_KNOBS])
+def test_aot_knobs_parse_as_the_reference(knob, monkeypatch):
+    """EVAM_AOT, EVAM_AOT_DIR, EVAM_AOT_MAX_BYTES and
+    EVAM_COMPILE_CACHE_DIR are honoured: the defaults and each value's
+    parse are the reference's."""
+    var, values, block, key = knob
+    for v in ("EVAM_AOT", "EVAM_AOT_DIR", "EVAM_AOT_MAX_BYTES",
+              "EVAM_COMPILE_CACHE_DIR"):
+        monkeypatch.delenv(v, raising=False)
+    assert getattr(_port_block(port_settings.Settings.from_env(env={}),
+                               block), key) == \
+        getattr(getattr(ref_settings.Settings(), block), key)
+    for value in values:
+        monkeypatch.setenv(var, value)
+        got = port_settings.Settings.from_env()
+        want = ref_settings.Settings.from_env()
+        assert getattr(_port_block(got, block), key) == \
+            getattr(getattr(want, block), key), value
+        assert key in _port_block(got, block).fields_set
 
 
 @pytest.mark.parametrize("var,values", [
@@ -470,15 +485,40 @@ def test_webrtc_video_mode_refuses_what_the_reference_refuses(monkeypatch):
         port_settings.Settings.from_env()
 
 
-def test_unported_config_file_keys_raise(tmp_path):
+@pytest.mark.parametrize("doc", [
+    {"tpu": {"donate_buffers": False}},
+    {"tpu": {"donate_buffers": True, "compile_cache_dir": "/srv/cc"}},
+    {"aot": {"enabled": True}},
+    {"aot": {"enabled": True, "dir": "/srv/aot", "max_bytes": 4096}},
+], ids=["donate-off", "donate-on-cc", "aot-on", "aot-all"])
+def test_aot_config_file_keys_parse_as_the_reference(doc, tmp_path,
+                                                      monkeypatch):
+    """The config file's ``tpu.donate_buffers`` (accepted at any value:
+    the reference parses it and never reads it) and ``aot`` block give
+    the reference's settings."""
+    for v in ("EVAM_AOT", "EVAM_AOT_DIR", "EVAM_AOT_MAX_BYTES",
+              "EVAM_COMPILE_CACHE_DIR"):
+        monkeypatch.delenv(v, raising=False)
     path = tmp_path / "evam.json"
-    path.write_text(json.dumps({"tpu": {"donate_buffers": False}}))
-    with pytest.raises(NotImplementedError, match="tpu.donate_buffers"):
-        port_settings.Settings.from_env(path, env={})
-    path.write_text(json.dumps({"aot": {"enabled": True}}))
-    with pytest.raises(NotImplementedError, match="aot.enabled"):
-        port_settings.Settings.from_env(path, env={})
+    path.write_text(json.dumps(doc))
+    got = port_settings.Settings.from_env(path, env={})
+    want = ref_settings.Settings.from_env(path)
+    for block, keys in doc.items():
+        for key in keys:
+            assert getattr(_port_block(got, block), key) == \
+                getattr(getattr(want, block), key) == doc[block][key]
+    for key in ("donate_buffers", "compile_cache_dir"):
+        assert getattr(got.engine, key) == getattr(want.tpu, key)
+    for key in ("enabled", "dir", "max_bytes"):
+        assert getattr(got.aot, key) == getattr(want.aot, key)
+
+
+def test_unknown_config_file_keys_raise(tmp_path):
+    path = tmp_path / "evam.json"
     path.write_text(json.dumps({"no_such_key": 1}))
+    with pytest.raises(ValueError, match="no_such_key"):
+        port_settings.Settings.from_env(path, env={})
+    path.write_text(json.dumps({"aot": {"no_such_key": 1}}))
     with pytest.raises(ValueError, match="no_such_key"):
         port_settings.Settings.from_env(path, env={})
 
