@@ -13,7 +13,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
               nvcc (one process per source, in parallel) into
               ``build/kernels/``, and the host library
               (``csrc/evam_media.cpp``) with g++ into ``build/native/``,
-              and prints the seconds it took.
+              and prints the seconds it took; then settles the start-up
+              heap as ``serve`` does (``server.app.settle_heap``) and
+              records every full collection from there on (the total
+              line's ``gc_gen2``). Each later phase starts on a settled
+              heap too: it stands up its own registries and hubs, as a
+              serving process does at start-up.
 3. qgemm    — the int8 GEMM kernel against its plain version at the ten
               shapes one SSD-512 forward gives it (8 images, bf16), the
               three of one classifier forward on 8 × 8 and on 8 crops
@@ -161,7 +166,8 @@ memory the allocator holds once it has stopped its engines.
               the per-class sheds of /healthz and /scheduler equal to
               the streams'; then the scheduler off on the same traffic.
               No engine stalled or restarted. Prints per-class p50/p99,
-              the stage clock and admission's capacity for each run.
+              the stage clock, admission's capacity and the ms of each
+              full collection for each run.
 13. tune    — EVAM_TUNE=1 (EVAM_TUNE_INTERVAL_S=0.25,
               EVAM_TRANSFER_DEPTH pinned) over the packed unfused
               vehicle_attributes path: at least 3 ticks, every applied
@@ -447,9 +453,42 @@ memory the allocator holds once it has stopped its engines.
               fit at the served configuration (512², width 32,
               ACC_FULL_STEPS steps), served at float32 and at INT8
               through K1 on the held-out scenes: INT8 recall at least
-              float32's less 0.05. Prints each fit's ms a step, seconds,
-              loss history and peak memory, and the phase's seconds.
-29. attrs   — the classifier's ground truth on the card (the reference's
+              float32's less 0.05; then the serving chain on the fits
+              of (a) at float32 and at INT8 and of (c) at INT8, each run
+              on a hub with the serving defaults (every bucket captured),
+              the reference test's max_batch and a 4 ms deadline, 10
+              launches a forward at INT8 (warm runs and replays
+              included) and none at float32: ``accuracy-track`` (14
+              crossing 1080p frames through object_tracking/
+              object_line_crossing, threshold 0.3, a midline at x = 0.5:
+              tracked in ≥ 0.7 of the frames, one id in ≥ 0.9 of those,
+              an odd number of crossings, all that id's, the first within
+              a frame of the truth), ``accuracy-zone`` (8 scenes, seed
+              321, through object_detection/object_zone_count with a
+              left-half zone: the count right in ≥ 0.6 of them) and
+              ``accuracy-eii`` (``EiiManager`` publishing
+              person_vehicle_bike over ``zmq_ipc`` from 6 scenes, seed
+              123, in a looped ``.mjpeg`` file to a ``MsgBusSubscriber``:
+              12 messages of frames 0–11, each 1920×1080, ≥ 0.6 of the
+              truth recovered from the ``gva_meta`` rects by the
+              reference test's best-scene rule); the reference test's
+              limits at 96², the full-width numbers printed. Prints each
+              fit's ms a step, seconds, loss history and peak memory,
+              and the phase's seconds.
+29. irfit   — the reference's TestIrImporterAccuracy
+              (tests/test_accuracy.py:654) on the card: the
+              crossroad-like IR (``models/ir_build.py``; 96², width 8, 4
+              classes) loaded as ``ir-bin``, each IR plan (nhwc, nchw,
+              nchw with shift depthwise) timed (a 40-step fit less a
+              10-step one), then
+              ``fit_detector`` through the imported graph (900 steps, 96
+              scenes, float32) to a last loss below 0.8; the 8 held-out
+              scenes through ``build_detect_step`` with the fitted
+              weights: recall ≥ 0.6, precision ≥ 0.5; ``save_fitted``
+              beside the IR, a fresh registry loads ``ir-bin+override``
+              with recall at least the first, beside the plain CPU
+              path's rows on the same file. 0 qgemm launches, asserted.
+30. attrs   — the classifier's ground truth on the card (the reference's
               TestFusedClassifyAccuracy, tests/test_accuracy.py:213):
               (a) the SSD at 96², width 16 fitted on ``color_attr``
               scenes (1200 steps, 128 scenes) to a last loss below 0.6
@@ -476,7 +515,7 @@ memory the allocator holds once it has stopped its engines.
               configuration (SSD 512², classifier 72², width 32), the
               crops of (b) and the fused step of (a) at float32 and at
               INT8: INT8 at most one vehicle below float32 in each.
-30. temporal — the action and audio ground truth on the card (the
+31. temporal — the action and audio ground truth on the card (the
               reference's TestTemporalAccuracy, tests/test_accuracy.py:
               372): (a) the encoder at 48², width 8 (embed 512), the
               decoder at width 8 (dim 128, depth 4, 8 heads) and AclNet
@@ -507,7 +546,7 @@ memory the allocator holds once it has stopped its engines.
               Prints each fit's ms a step, seconds, data seconds, loss
               history and peak memory, the classes recovered, and the
               phase's seconds. 0 qgemm launches in the phase, asserted.
-31. aot     — the AOT cache (``evam_tpu_torch/aot/``): the hand kernels'
+32. aot     — the AOT cache (``evam_tpu_torch/aot/``): the hand kernels'
               libraries from a CRC-guarded, version-checked store. (a)
               a ``serve`` child (person_vehicle_bike preloaded, INT8,
               K1) with EVAM_AOT off and an empty EVAM_COMPILE_CACHE_DIR,
@@ -558,12 +597,13 @@ AppSource replay and the serve child's streams and files; webrtc: the
 key and delta streams and the serve child's stream; aot: its three
 serve children and (g)'s engines, (f)'s comparison launches left out)
 and their engines' warm runs, the accuracy phase's INT8 forwards ((a) and (c) one each,
-(b) its served file) and the attrs phase's (13 a fused forward in (a),
+(b) its served file, the chain rows' INT8 runs and their warm runs) and
+the attrs phase's (13 a fused forward in (a),
 (c) and (d), 3 a classify forward in (b) and (d)), split by
 variant in ``launches_by_variant``; the track phase's
 kernel-against-plain runs (on an engine without warmup: a replay would
 run the kernel whichever qgemm is bound) are not counted; the action,
-audio, ir, train and temporal phases launch it zero times), the nvidia-smi line, and last
+audio, ir, train, irfit and temporal phases launch it zero times), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (for a quick first check of a new kernel);
@@ -576,6 +616,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import faulthandler
+import gc
 import itertools
 import json
 import math
@@ -598,7 +639,7 @@ PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
           "eii", "trace", "chaos", "ingest", "webrtc", "train", "dryrun",
-          "accuracy", "attrs", "temporal", "aot")
+          "accuracy", "irfit", "attrs", "temporal", "aot")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -664,6 +705,39 @@ def _print(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+class _Gen2Pauses:
+    """Every full (generation 2) collection of the script's process: its
+    start on the perf_counter clock and its seconds (a ``gc.callbacks``
+    hook). The collector holds the interpreter lock throughout, so each
+    one stalls every stream and engine thread."""
+
+    def __init__(self):
+        self.pauses: list[tuple[float, float]] = []
+        self._start: dict[int, float] = {}
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if info["generation"] != 2:
+            return
+        me = threading.get_ident()
+        if phase == "start":
+            self._start[me] = time.perf_counter()
+        elif me in self._start:
+            t0 = self._start.pop(me)
+            self.pauses.append((t0, time.perf_counter() - t0))
+
+    def ms_between(self, t0: float, t1: float) -> list[float]:
+        """The ms of each full collection that started in [t0, t1)."""
+        return [1e3 * d for t, d in self.pauses if t0 <= t < t1]
+
+    def summary(self) -> dict:
+        ms = sorted(1e3 * d for _, d in self.pauses)
+        return {"count": len(ms), "max_ms": ms[-1] if ms else None,
+                "median_ms": statistics.median(ms) if ms else None}
+
+
+GEN2 = _Gen2Pauses()
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -705,7 +779,7 @@ def _import_port():
     from evam_tpu_torch.config.settings import Settings, reset_settings
     from evam_tpu_torch.control import state as control_state
     from evam_tpu_torch.graph import PipelineLoader, resolve_parameters
-    from evam_tpu_torch.server.app import App, make_server
+    from evam_tpu_torch.server.app import App, make_server, settle_heap
     from evam_tpu_torch.server.registry import PipelineRegistry
     from evam_tpu_torch.stages.build import build_stages
     from evam_tpu_torch.stages import gate
@@ -718,7 +792,11 @@ def _import_port():
     from evam_tpu_torch.fleet import ConsistentHashPlacer, FleetEngine
     from evam_tpu_torch.media.luma import luma_grid
     from evam_tpu_torch.models.ir import load_ir
-    from evam_tpu_torch.models.ir_build import IRBuilder, conv_bias_relu
+    from evam_tpu_torch.models.ir_build import (
+        IRBuilder,
+        build_crossroad_like_ir,
+        conv_bias_relu,
+    )
     from evam_tpu_torch.ops import color
     from evam_tpu_torch.eii import (
         ConfigMgr,
@@ -740,7 +818,8 @@ def _import_port():
     from evam_tpu_torch.models import accuracy
 
     return dict(
-        Settings=Settings, App=App, make_server=make_server,
+        Settings=Settings, App=App, settle_heap=settle_heap,
+        make_server=make_server,
         reset_settings=reset_settings, control_state=control_state,
         PipelineRegistry=PipelineRegistry, PipelineLoader=PipelineLoader,
         resolve_parameters=resolve_parameters, build_stages=build_stages,
@@ -766,7 +845,8 @@ def _import_port():
         ConsistentHashPlacer=ConsistentHashPlacer, FleetEngine=FleetEngine,
         TuneController=TuneController, TuneState=TuneState,
         TuneSettings=TuneSettings, load_ir=load_ir, IRBuilder=IRBuilder,
-        conv_bias_relu=conv_bias_relu, ConfigMgr=ConfigMgr,
+        conv_bias_relu=conv_bias_relu,
+        build_crossroad_like_ir=build_crossroad_like_ir, ConfigMgr=ConfigMgr,
         EiiManager=EiiManager, MsgBusPublisher=MsgBusPublisher,
         MsgBusSubscriber=MsgBusSubscriber, eii_gva_meta=_gva_meta,
         metrics=metrics, decode_frame=decode_frame, trace=trace,
@@ -2544,14 +2624,20 @@ def phase_sched(torch, port) -> dict:
             _await_warm(f"sched {run}", [engine])
             row0 = engine.stats_row()
             _reset_launches(qg)
+            t_run = time.perf_counter()
             runners, published, wall, threads = _serve(
                 port, make, STREAMS, FRAMES, 512, 512, priorities=priorities)
+            gen2_ms = GEN2.ms_between(t_run, time.perf_counter())
             where = f"sched {run}"
-            if run == "shed":
-                sheds = _check_shed(where, runners, published, threads)
-            else:
-                _check_served(where, runners, published, threads)
-                sheds = {}
+            try:
+                if run == "shed":
+                    sheds = _check_shed(where, runners, published, threads)
+                else:
+                    _check_served(where, runners, published, threads)
+                    sheds = {}
+            except AssertionError as exc:
+                raise AssertionError(f"{exc} (full collections in the run: "
+                                     f"{gen2_ms} ms)") from None
             row = engine.stats_row()
             fwd = _fwd(row) - _fwd(row0)
             if fwd == 0 or qg.launches != 10 * fwd \
@@ -2582,7 +2668,7 @@ def phase_sched(torch, port) -> dict:
                         "capacity_fps": sched_view["capacity_fps"],
                         "by_class": _class_latency(runners, priorities),
                         "shed": seen, "shed_per_stream": sheds,
-                        "forwards": fwd,
+                        "gc_gen2_ms": gen2_ms, "forwards": fwd,
                         "sched_enabled": health["scheduler"]["enabled"],
                         "bucket_batches": _bucket_delta(row0, row),
                         "stage_ms": _stage_delta(port["STAGES"], row0, row)}
@@ -6387,8 +6473,6 @@ ACC_SWAP_MAX = 0.5
 ACC_SERVED_MIN = 0.65
 ACC_INT8 = (0.7, 0.6)
 ACC_FULL_INT8_LOSS = 0.05
-#: the published labels' ids (labels.PERSON_VEHICLE_BIKE)
-ACC_LABEL_IDS = {"person": 1, "vehicle": 2, "bike": 3}
 #: the classes whose colour a U/V swap changes: vehicle (blue → red) and
 #: bike (red → blue). A person's green keeps its chroma nearly (U 82 → 70,
 #: V 70 → 82), and 12 of the 21 held-out boxes are persons, so the
@@ -6404,9 +6488,7 @@ def _acc_holdout(port, n: int):
     """The reference test's held-out 1080p scenes and their i420 wire."""
     import numpy as np
 
-    rng = np.random.default_rng(ACC_SEED)
-    scenes = [port["accuracy"].render_scene(rng, hw=(1080, 1920))
-              for _ in range(n)]
+    scenes = port["accuracy"].holdout_scenes(n, seed=ACC_SEED)
     return scenes, np.stack([port["color"].bgr_to_i420_host(s.frame)
                              for s in scenes])
 
@@ -6456,7 +6538,8 @@ def _acc_fit(torch, port, registry, steps: int, where: str, key: str = KEY,
     t0 = time.perf_counter()
     state, history = fit(model, steps=steps, device="cuda", timings=t,
                          **fit_kw)
-    row = {"input_hw": model.spec.input_size, "width": model.spec.width,
+    row = {"input_hw": model.spec.input_size,
+           "width": None if model.ir is not None else model.spec.width,
            "steps": steps,
            **{k.removeprefix("n_"): v for k, v in fit_kw.items()},
            "fit_s": time.perf_counter() - t0, "data_s": t["data_s"],
@@ -6468,17 +6551,24 @@ def _acc_fit(torch, port, registry, steps: int, where: str, key: str = KEY,
     return state, row
 
 
-def _acc_load(port, models_dir, dtype: str, device: str, small: bool):
-    """The fitted detector from ``models_dir`` (no random weights)."""
+def _acc_registry(port, models_dir, dtype: str, device: str, small: bool):
+    """A registry of the fitted detector in ``models_dir`` (no random
+    weights), at the cut size or the full width."""
     over = (dict(input_overrides={KEY: ACC_INPUT},
                  width_overrides={KEY: ACC_WIDTH}) if small else {})
-    model = port["ModelRegistry"](
+    registry = port["ModelRegistry"](
         models_dir=models_dir, dtype=dtype, device=device,
-        allow_random_weights=False, **over).get(KEY)
+        allow_random_weights=False, **over)
+    model = registry.get(KEY)
     if model.weight_source != "msgpack":
         raise AssertionError(f"accuracy: {dtype} on {device} loaded "
                              f"{model.weight_source} weights")
-    return model
+    return registry
+
+
+def _acc_load(port, models_dir, dtype: str, device: str, small: bool):
+    """The fitted detector from ``models_dir``."""
+    return _acc_registry(port, models_dir, dtype, device, small).get(KEY)
 
 
 def _acc_int8(torch, port, model, wire, where: str) -> tuple[object, dict]:
@@ -6558,21 +6648,23 @@ def _bb(obj: dict):
                       np.float32)
 
 
+def _acc_dets(port, objects: list[dict]) -> list[tuple]:
+    """Published objects → (x0, y0, x1, y1, label id), as the reference
+    test reads them."""
+    ids = port["accuracy"].LABEL_IDS
+    return [(*_bb(obj)[0].tolist(), ids.get(obj["detection"]["label"], -1))
+            for obj in objects]
+
+
 def _acc_recovered(port, lines: list[dict], scenes) -> tuple[int, int]:
     """(hits, ground-truth boxes) of published lines, by the reference
-    test's ``_recovered`` rule: a box is recovered by an object of its
-    label at IoU ≥ 0.5 (greedy per ground-truth box)."""
-    iou = port["accuracy"]._pairwise_iou
+    test's ``_recovered`` rule (``accuracy.recovered``)."""
     hits = total = 0
     for scene, msg in zip(scenes, lines):
-        dets = [(_bb(obj), ACC_LABEL_IDS.get(obj["detection"]["label"], -1))
-                for obj in msg["objects"]]
-        for gt_box, gt_label in zip(scene.boxes, scene.labels):
-            total += 1
-            for det, lid in dets:
-                if lid == int(gt_label) and iou(det, gt_box[None])[0, 0] >= 0.5:
-                    hits += 1
-                    break
+        h, n = port["accuracy"].recovered(_acc_dets(port, msg["objects"]),
+                                          scene)
+        hits += h
+        total += n
     return hits, total
 
 
@@ -6677,29 +6769,405 @@ def _acc_full_width(torch, port, root: Path) -> dict:
     return row
 
 
+#: the serving chain's rows (tests/test_accuracy.py:538-865) on the
+#: fitted SSD: at the cut size at float32 and at INT8 through K1, where
+#: the reference test's limits hold, then at full width at INT8 (the
+#: ``_acc_full_width`` fit; numbers printed, no limit: the limits belong
+#: to the cut-size recipe). Each run on a hub with the serving defaults
+#: (every bucket captured, K1 counted through the replays), the
+#: reference test's max_batch and a 4 ms deadline
+ACC_CHAIN_RUNS = (("small", "float32"), ("small", "int8"), ("full", "int8"))
+ACC_DEADLINE_MS = 4.0
+#: (B) object_line_crossing on the 14 crossing frames (:598-605): the
+#: tracked share, the dominant id's share of it (:624-626), and how far
+#: the first crossing may fall from the truth (:648)
+ACC_LINE = {"threshold": 0.3, "object-line-crossing-config": {"lines": [{
+    "name": "midline", "line": [[0.5, 0.0], [0.5, 1.0]]}]}}
+ACC_TRACK_LIMITS = (0.7, 0.9)
+ACC_CROSS_OFF = 1
+#: (C) object_zone_count on seed 321's 8 scenes, a left-half zone
+#: (:834-849); agreement share (:862)
+ACC_ZONE = {"threshold": 0.3, "object-zone-count-config": {"zones": [{
+    "name": "left-half",
+    "polygon": [[0.0, 0.0], [0.5, 0.0], [0.5, 1.0], [0.0, 1.0]]}]}}
+ACC_ZONE_SEED, ACC_ZONE_SCENES, ACC_ZONE_MIN = 321, 8, 0.6
+#: (D) EII: seed 123's 6 scenes looped from a file to a zmq_ipc
+#: subscriber (:728-787); messages, seconds, recovered share (:808)
+ACC_EII_SEED, ACC_EII_SCENES = 123, 6
+ACC_EII_MESSAGES, ACC_EII_TIMEOUT_S, ACC_EII_MIN = 12, 180, 0.6
+ACC_EII_TOPIC = "gt"
+#: the chain's max_batch: (B) and (C) 16 (:586, :829), (D) 8 (:768)
+ACC_CHAIN_BATCH = {"track": 16, "zone": 16, "eii": 8}
+
+
+def _acc_chain_check(port, engine, where: str, dtype: str) -> dict:
+    """Once a chain run has ended and its hub stopped (its detect engine
+    warmed before, every bucket captured: ``_await_warm``): K1 launched
+    10 times a forward (batches and warm runs; every replay counted) at
+    INT8 and never at float32, the counts set to 0 before the run → the
+    engine's numbers."""
+    row = engine.stats_row()
+    variants = dict(port["qgemm"].variant_launches)
+    forwards = _fwd(row)
+    per = 10 if dtype == "int8" else 0
+    if row["batches"] == 0 or sum(variants.values()) != per * forwards:
+        raise AssertionError(f"{where}: {sum(variants.values())} qgemm "
+                             f"launches for {forwards} forwards "
+                             f"({row['batches']} batches), expected {per} "
+                             "a forward")
+    return {"batches": row["batches"], "warm_forwards": row["warm_forwards"],
+            "forwards": forwards, "qgemm_launches": sum(variants.values()),
+            "variants": variants}
+
+
+def _acc_chain_run(port, root: Path, size: str, dtype: str, kind: str,
+                   pipeline: tuple[str, str], params: dict, frames: list,
+                   where: str) -> tuple[list[dict], dict]:
+    """``frames`` through ``pipeline`` on a hub over the fitted detector
+    in ``root`` (StreamRunner, stages built as the server builds them),
+    the K1 counts set to 0 just before → (published lines, one each,
+    and the run's numbers)."""
+    registry = _acc_registry(port, root, dtype, "cuda", size == "small")
+    hub = _default_hub(port, registry, max_batch=ACC_CHAIN_BATCH[kind],
+                       deadline_ms=ACC_DEADLINE_MS)
+    _reset_launches(port["qgemm"])
+    try:
+        t0 = time.perf_counter()
+        lines = _temp_run(port, hub, pipeline, params, (
+            port["FrameEvent"](frame=f, pts_ns=i * 33_000_000, seq=i)
+            for i, f in enumerate(frames)))
+        wall = time.perf_counter() - t0
+        engine = hub.engine("detect", KEY,
+                            score_threshold=port["ENGINE_SCORE_FLOOR"])
+        _await_warm(where, [engine])
+    finally:
+        hub.stop()
+    run = _acc_chain_check(port, engine, where, dtype)
+    if len(lines) != len(frames):
+        raise AssertionError(f"{where}: {len(lines)} lines for "
+                             f"{len(frames)} frames")
+    return lines, {"frames": len(frames), "lines": len(lines),
+                   "wall_s": wall, **run}
+
+
+def _acc_track(port, root: Path, size: str, dtype: str) -> dict:
+    """(B): the crossing frames through object_tracking/
+    object_line_crossing, read as the reference test reads them
+    (:608-648): the vehicle's id frame by frame (an object at IoU ≥ 0.5
+    with its box), the dominant id, and the midline crossings."""
+    import numpy as np
+
+    where = f"accuracy-track {size} {dtype}"
+    frames, gt_boxes = port["accuracy"].render_crossing_frames()
+    lines, row = _acc_chain_run(
+        port, root, size, dtype, "track",
+        ("object_tracking", "object_line_crossing"), ACC_LINE, frames, where)
+    iou = port["accuracy"]._pairwise_iou
+    ids = []
+    for msg, gt in zip(lines, gt_boxes):
+        ids.append(next((obj["id"] for obj in msg.get("objects", [])
+                         if iou(_bb(obj), np.asarray([gt], np.float32))[0, 0]
+                         >= 0.5 and "id" in obj), None))
+    tracked = [i for i in ids if i is not None]
+    dominant = max(set(tracked), key=tracked.count) if tracked else None
+    crossings = [(i, e["line-name"], e["related-objects"][0]["id"])
+                 for i, m in enumerate(lines) for e in m.get("events", [])
+                 if e["event-type"] == "object-line-crossing"]
+    anchors = [(b[0] + b[2]) / 2.0 for b in gt_boxes]
+    gt_cross = next(i for i in range(1, len(anchors))
+                    if anchors[i - 1] < 0.5 <= anchors[i])
+    row.update(ids=ids, tracked=len(tracked), dominant_id=dominant,
+               dominant=tracked.count(dominant), crossings=crossings,
+               gt_cross=gt_cross)
+    faults = []
+    if len(tracked) < ACC_TRACK_LIMITS[0] * len(frames):
+        faults.append(f"tracked in {len(tracked)} of {len(frames)} frames")
+    if tracked.count(dominant) < ACC_TRACK_LIMITS[1] * len(tracked):
+        faults.append(f"one id in {tracked.count(dominant)} of "
+                      f"{len(tracked)} tracked frames")
+    if len(crossings) % 2 != 1:
+        faults.append(f"{len(crossings)} crossings, not an odd number")
+    if any(name != "midline" or oid != dominant
+           for _, name, oid in crossings):
+        faults.append("a crossing of another line or object")
+    if crossings and abs(crossings[0][0] - gt_cross) > ACC_CROSS_OFF:
+        faults.append(f"first crossing at frame {crossings[0][0]}, the "
+                      f"truth at {gt_cross}")
+    row["faults"] = faults
+    return row
+
+
+def _acc_zone(port, root: Path, size: str, dtype: str) -> dict:
+    """(C): seed 321's scenes through object_detection/object_zone_count
+    with a left-half zone: the published count against the objects
+    whose box starts left of x = 0.5 (:852-859)."""
+    where = f"accuracy-zone {size} {dtype}"
+    scenes = port["accuracy"].holdout_scenes(ACC_ZONE_SCENES,
+                                             seed=ACC_ZONE_SEED)
+    lines, row = _acc_chain_run(
+        port, root, size, dtype, "zone",
+        ("object_detection", "object_zone_count"), ACC_ZONE,
+        [s.frame for s in scenes], where)
+    got, want = [], []
+    for scene, msg in zip(scenes, lines):
+        evs = [e for e in msg.get("events", [])
+               if e["event-type"] == "zone-count"]
+        got.append(evs[0]["zone-count"] if evs else 0)
+        want.append(int(sum(b[0] < 0.5 for b in scene.boxes)))
+    agree = sum(g == w for g, w in zip(got, want))
+    row.update(counts=got, truth=want, agree=agree,
+               agree_share=agree / len(scenes))
+    row["faults"] = ([f"zone counts agreed on {agree} of {len(scenes)}"]
+                     if agree < ACC_ZONE_MIN * len(scenes) else [])
+    return row
+
+
+def _acc_eii(port, root: Path, size: str, dtype: str) -> dict:
+    """(D): ``EiiManager`` publishes object_detection/person_vehicle_bike
+    over ``zmq_ipc``, its source seed 123's scenes in an ``.mjpeg`` file
+    (the port's JPEG codec; the reference writes an ``.avi`` with cv2)
+    looped; a ``MsgBusSubscriber`` takes ACC_EII_MESSAGES messages. The
+    pipeline starts once the subscriber has joined, so the bus drops
+    none: the messages are frames 0, 1, ... in order (their
+    ``timestamp``s a frame apart, from 0). Each message matched to its best
+    scene by the reference test's rule (:789-808), and to its own."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _acc_eii_run(port, root, Path(tmp), size, dtype)
+
+
+def _acc_eii_run(port, root: Path, run_dir: Path, size: str,
+                 dtype: str) -> dict:
+    where = f"accuracy-eii {size} {dtype}"
+    scenes = port["accuracy"].holdout_scenes(ACC_EII_SCENES,
+                                             seed=ACC_EII_SEED)
+    video = run_dir / "gt.mjpeg"
+    video.write_bytes(b"".join(port["jpeg"].encode(s.frame) for s in scenes))
+    ipc = {"Type": "zmq_ipc", "EndPoint": _sock_dir(run_dir)}
+    cfg = run_dir / "eii.json"
+    cfg.write_text(json.dumps({"config": {
+        "source": "gstreamer", "pipeline": "/".join(DETECT_PIPELINE),
+        "source_parameters": {"type": "uri", "uri": str(video),
+                              "loop": True},
+        "model_parameters": {"threshold": 0.3}, "publish_frame": False},
+        "interfaces": {"Publishers": [{
+            "Name": "default", **ipc, "Topics": [ACC_EII_TOPIC],
+            "AllowedClients": ["*"]}], "Subscribers": []}}))
+    registry = _acc_registry(port, root, dtype, "cuda", size == "small")
+    hub = _default_hub(port, registry, max_batch=ACC_CHAIN_BATCH["eii"],
+                       deadline_ms=ACC_DEADLINE_MS)
+    settings = port["Settings"](pipelines_dir=str(ROOT / "pipelines"),
+                                state_dir=str(run_dir / "state"),
+                                models_dir=str(root), device="cuda")
+    preg = port["PipelineRegistry"](settings, hub=hub)
+    sub = port["MsgBusSubscriber"](ipc, ACC_EII_TOPIC, recv_timeout_ms=500)
+    _hold_until_joined(preg, sub)
+    _reset_launches(port["qgemm"])
+    metas = []
+    mgr = None
+    try:
+        t0 = time.perf_counter()
+        mgr = port["EiiManager"](settings, cfg_mgr=port["ConfigMgr"](cfg),
+                                 registry=preg)
+        while (len(metas) < ACC_EII_MESSAGES
+               and time.perf_counter() - t0 < ACC_EII_TIMEOUT_S):
+            got = sub.recv()
+            if got is not None and "probe" not in got[0]:
+                metas.append(got[0])
+        wall = time.perf_counter() - t0
+        engine = hub.engine("detect", KEY,
+                            score_threshold=port["ENGINE_SCORE_FLOOR"])
+        _await_warm(where, [engine])
+    finally:
+        if mgr is not None:
+            mgr.stop()  # the instance, the registry and the bus
+        hub.stop()
+        sub.close()
+    row = {"messages": len(metas), "wall_s": wall,
+           **_acc_chain_check(port, engine, where, dtype)}
+    if len(metas) < ACC_EII_MESSAGES:
+        raise AssertionError(f"{where}: only {len(metas)} messages in "
+                             f"{ACC_EII_TIMEOUT_S} s")
+    stamps = [m["timestamp"] for m in metas]
+    if stamps[1] <= 0 or stamps != [k * stamps[1] for k in range(len(metas))]:
+        raise AssertionError(f"{where}: messages at {stamps}, not every "
+                             "frame in order")
+    best_sum = own_sum = 0.0
+    for k, meta in enumerate(metas):
+        if meta["width"] != 1920 or meta["height"] != 1080:
+            raise AssertionError(f"{where}: a {meta['width']}x"
+                                 f"{meta['height']} message")
+        dets = [(g["x"] / 1920.0, g["y"] / 1080.0,
+                 (g["x"] + g["width"]) / 1920.0,
+                 (g["y"] + g["height"]) / 1080.0,
+                 port["accuracy"].LABEL_IDS.get(g["tensor"][0]["label"], -1))
+                for g in meta["gva_meta"]]
+        shares = [h / max(n, 1) for h, n in (
+            port["accuracy"].recovered(dets, sc) for sc in scenes)]
+        best_sum += max(shares)
+        own_sum += shares[k % len(scenes)]
+    row.update(recovered=best_sum, total=len(metas),
+               recovered_share=best_sum / len(metas),
+               own_scene_share=own_sum / len(metas))
+    row["faults"] = ([f"recovered {best_sum:.3f} of {len(metas)}"]
+                     if best_sum / len(metas) < ACC_EII_MIN else [])
+    return row
+
+
+def _acc_chain(port, roots: dict, smi: str) -> list[dict]:
+    """(B)–(D) in ACC_CHAIN_RUNS each, a row printed a check; a fault
+    against the reference test's limits fails the phase at the cut size
+    and is printed at full width. Returns each run's K1 launches by
+    variant."""
+    checks = (("accuracy-track", _acc_track), ("accuracy-zone", _acc_zone),
+              ("accuracy-eii", _acc_eii))
+    variants = []
+    for name, check in checks:
+        out = {"phase": name, "card": smi}
+        for size, dtype in ACC_CHAIN_RUNS:
+            row = check(port, roots[size], size, dtype)
+            out[f"{size}-{dtype}"] = row
+            variants.append(row["variants"])
+        _print(out)
+        failed = {k: v["faults"] for k, v in out.items()
+                  if k.startswith("small-") and v["faults"]}
+        if failed:
+            raise AssertionError(f"{name}: below the reference test's "
+                                 f"limits: {failed}")
+    return variants
+
+
 def phase_accuracy(torch, port, smi: str) -> dict:
     """Ground truth on the card: the reference's detector fit, the
-    served file, and the full-width fit (``_acc_recipe``, ``_acc_served``,
-    ``_acc_full_width``; each sets the qgemm counts to 0 before its INT8
-    run and reads them after). Returns the qgemm launches by variant."""
+    served file, the full-width fit (``_acc_recipe``, ``_acc_served``,
+    ``_acc_full_width``), then the serving chain on both fits
+    (``_acc_chain``: tracking and line crossing, zone count, EII; each
+    run sets the qgemm counts to 0 before it and reads them after).
+    Returns the qgemm launches by variant."""
     t0 = time.perf_counter()
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        small, full = tmp / "models_96", tmp / "models_512"
-        rows["recipe"] = _acc_recipe(torch, port, small)
+        roots = {"small": tmp / "models_96", "full": tmp / "models_512"}
+        rows["recipe"] = _acc_recipe(torch, port, roots["small"])
         _print({"phase": "accuracy-recipe", "card": smi, **rows["recipe"]})
-        rows["served"] = _acc_served(torch, port, small, tmp)
+        rows["served"] = _acc_served(torch, port, roots["small"], tmp)
         _print({"phase": "accuracy-served", "card": smi, **rows["served"]})
-        rows["full-width"] = _acc_full_width(torch, port, full)
+        rows["full-width"] = _acc_full_width(torch, port, roots["full"])
         _print({"phase": "accuracy-full-width", "card": smi,
                 **rows["full-width"]})
+        chain = _acc_chain(port, roots, smi)
     variants = {v: sum(r["variants"][v] for r in rows.values())
-                for v in ("aligned", "masked")}
+                + sum(c[v] for c in chain) for v in ("aligned", "masked")}
     _print({"phase": "accuracy", "card": smi,
             "seconds": time.perf_counter() - t0,
             "qgemm_launches": sum(variants.values()), "variants": variants})
     return variants
+
+
+# ---------------------------------------------------------------- irfit
+
+#: the irfit phase: the reference's TestIrImporterAccuracy
+#: (tests/test_accuracy.py:654-708): the crossroad-like IR at 96², width
+#: 8, 4 classes, fitted 900 steps over 96 scenes through the imported
+#: graph at float32; its last loss (:683), hold-out recall and precision
+#: (:692-693) through the detect step the reference test builds
+IRFIT_IR = dict(input_size=96, width=8, num_classes=4)
+IRFIT_STEPS, IRFIT_SCENES = 900, 96
+IRFIT_LOSS_MAX = 0.8
+IRFIT_LIMITS = (0.6, 0.5)
+#: the IR plans timed before the fit: (EVAM_IR_LAYOUT, EVAM_DWCONV) by
+#: name; each plan's ms a step is the difference of two short fits'
+#: step seconds (IRFIT_PROBE_STEPS), so a fit's fixed cost (the copy of
+#: the model and the data to the card) drops out. The fit runs the
+#: serving default's plan
+IRFIT_PLANS = {"nhwc": ("nhwc", "lax"), "nchw": ("nchw", "lax"),
+               "nchw-shift": ("nchw", "shift")}
+IRFIT_PROBE_STEPS = (10, 40)
+IRFIT_PLAN = "nhwc"
+
+
+def _irfit_registry(port, root: Path, device: str, plan: str):
+    """A float32 registry of the IR in ``root``, its model built (and
+    cached) in ``plan``: the knobs are read when the IR is built."""
+    _set_env(port, EVAM_IR_LAYOUT=IRFIT_PLANS[plan][0],
+             EVAM_DWCONV=IRFIT_PLANS[plan][1])
+    try:
+        registry = port["ModelRegistry"](models_dir=root, dtype="float32",
+                                         device=device,
+                                         allow_random_weights=False)
+        registry.get(KEY)
+        return registry
+    finally:
+        _set_env(port, EVAM_IR_LAYOUT=None, EVAM_DWCONV=None)
+
+
+def phase_irfit(torch, port, smi: str) -> None:
+    """(E): fit_detector through the imported crossroad-like IR on the
+    card (each plan's ms a step on a short fit first), the hold-out's
+    recall and precision with the fitted weights, the card's rows
+    against the plain CPU path's on them, then ``save_fitted`` beside
+    the IR and a fresh registry's ``ir-bin+override`` at least as good.
+    K1 is launched 0 times (asserted)."""
+    t0 = time.perf_counter()
+    acc = port["accuracy"]
+    qg = port["qgemm"]
+    _reset_launches(qg)
+    out = {"phase": "irfit", "card": smi, "ir": IRFIT_IR}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "models"
+        ir_dir = root / KEY / "FP32"
+        ir_dir.mkdir(parents=True)
+        port["build_crossroad_like_ir"](ir_dir, **IRFIT_IR)
+        probes = {}
+        for plan in IRFIT_PLANS:
+            model = _irfit_registry(port, root, "cuda", plan).get(KEY)
+            secs = []
+            for steps in IRFIT_PROBE_STEPS:
+                t = {}
+                acc.fit_detector(model, steps=steps, n_scenes=16,
+                                 device="cuda", timings=t)
+                secs.append(t["steps_s"])
+            probes[plan] = 1e3 * (secs[1] - secs[0]) / (
+                IRFIT_PROBE_STEPS[1] - IRFIT_PROBE_STEPS[0])
+        out["probe_ms_per_step"] = probes
+        reg = _irfit_registry(port, root, "cuda", IRFIT_PLAN)
+        model = reg.get(KEY)
+        if model.ir is None or model.weight_source != "ir-bin":
+            raise AssertionError(f"irfit: loaded {model.weight_source}, "
+                                 "not the IR's .bin")
+        state, fit = _acc_fit(torch, port, reg, IRFIT_STEPS, "irfit",
+                              n_scenes=IRFIT_SCENES)
+        out["fit"] = {"plan": IRFIT_PLAN, **fit}
+        if fit["loss_history"][-1] >= IRFIT_LOSS_MAX:
+            raise AssertionError(f"irfit: the IR fit did not converge: "
+                                 f"{fit}")
+        scenes, wire = _acc_holdout(port, ACC_HOLDOUT)
+        model.ir.load_params(state)
+        packed = _acc_detect(torch, port, model, wire)
+        out["fitted"] = _acc_report(port, packed, scenes)
+        acc.save_fitted(state, KEY, root)
+        reloaded = _irfit_registry(port, root, "cuda", IRFIT_PLAN).get(KEY)
+        cpu = _irfit_registry(port, root, "cpu", IRFIT_PLAN).get(KEY)
+        for m in (reloaded, cpu):
+            if m.weight_source != "ir-bin+override":
+                raise AssertionError(f"irfit: reloaded {m.weight_source}")
+        packed2 = _acc_detect(torch, port, reloaded, wire)
+        out["reloaded"] = _acc_report(port, packed2, scenes)
+        out["reloaded"].update(_acc_vs_cpu(
+            port, packed2, _acc_detect(torch, port, cpu, wire)))
+    out["qgemm_launches"] = qg.launches
+    out["seconds"] = time.perf_counter() - t0
+    _print(out)
+    first, again = out["fitted"], out["reloaded"]
+    if first["recall"] < IRFIT_LIMITS[0] or first["precision"] < IRFIT_LIMITS[1]:
+        raise AssertionError(f"irfit: below the reference test's limits: "
+                             f"{first}")
+    if again["recall"] < first["recall"] - 1e-6:
+        raise AssertionError(f"irfit: the reloaded weights lost recall: "
+                             f"{again} against {first}")
+    if qg.launches:
+        raise AssertionError(f"irfit: {qg.launches} qgemm launches, "
+                             "expected none")
 
 
 # ---------------------------------------------------------------- attrs
@@ -7862,9 +8330,25 @@ def main(argv: list[str] | None = None) -> int:
     built = port["kernels"].build()
     # the host encode's library too: every serving phase calls it
     native = port["native"].build()
+    # the start-up is done: its heap leaves the collector's scans, as
+    # `serve` settles its own before it opens the port
+    gc.callbacks.append(GEN2)
+    frozen = port["settle_heap"]()
     _print({"phase": "build", "seconds": time.perf_counter() - t0,
             "kernels": {k: v["seconds"] for k, v in built.items()},
-            "native_s": native["seconds"], "native": native["path"]})
+            "native_s": native["seconds"], "native": native["path"],
+            "settled_objects": frozen})
+
+    def run(phase: str) -> bool:
+        """Whether ``phase`` runs. Each phase stands up its own registries,
+        hubs and engines, as a serving process does at start-up, so what
+        the phases before it left alive is settled first, as that
+        process's start-up heap is (a full collection frees their
+        engines; what survives it is frozen)."""
+        if phase not in phases:
+            return False
+        port["settle_heap"]()
+        return True
 
     kernel = {"name": "qgemm", "route": "cuda",
               "source": "evam_tpu_torch/csrc/qgemm.cu",
@@ -7873,7 +8357,7 @@ def main(argv: list[str] | None = None) -> int:
               "plain_ms": None, "bound_ms": None, "bound_by": None,
               "library_ms": None, "device_ms": None, "bound_share": None,
               "launches_by_variant": None, "forward": None}
-    if "qgemm" in phases:
+    if run("qgemm"):
         fused = phase_qgemm(torch, port)["fused"]
         kernel.update({k: fused[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -7883,18 +8367,18 @@ def main(argv: list[str] | None = None) -> int:
                              f"{len(CLS_SHAPES)} classifier calls on "
                              f"{IMAGES * ROI_BUDGET} crops")
     served = []  # qgemm launches by variant, one entry per serving phase
-    if "reference" in phases:
+    if run("reference"):
         phase_reference(torch, port)
-    if "weights" in phases:
+    if run("weights"):
         phase_weights(torch, port)
-    if "slice" in phases:
+    if run("slice"):
         res = phase_slice(torch, port, profile=args.profile)
         if res["input_hw"] != (512, 512) or res["width"] != 32:
             raise AssertionError(f"slice ran {res['input_hw']} width "
                                  f"{res['width']}, not the full-width model")
         served.append({"aligned": res["launches"], "masked": 0})
         _memory(torch, "slice", t_start)
-    if "classify" in phases:
+    if run("classify"):
         res_cls = phase_classify(torch, port)
         if res_cls["models"] != (512, 512, 32, 72, 72, 32,
                                  (("color", 7), ("type", 4))):
@@ -7902,86 +8386,91 @@ def main(argv: list[str] | None = None) -> int:
                                  "full-width models")
         served.append(res_cls["variants"])
         _memory(torch, "classify", t_start)
-    if "engine" in phases:
+    if run("engine"):
         served.append(phase_engine(torch, port)["variants"])
         _memory(torch, "engine", t_start)
-    if "track" in phases:
+    if run("track"):
         served.append(phase_track(torch, port))
         _memory(torch, "track", t_start)
-    if "gate" in phases:
+    if run("gate"):
         served.append(phase_gate(torch, port, res["fps"] if "slice" in phases
                                  else None))
         _memory(torch, "gate", t_start)
-    if "ragged" in phases:
+    if run("ragged"):
         served.append(phase_ragged(torch, port)["variants"])
         _memory(torch, "ragged", t_start)
-    if "sched" in phases:
+    if run("sched"):
         served.append(phase_sched(torch, port))
         _memory(torch, "sched", t_start)
-    if "tune" in phases:
+    if run("tune"):
         served.append(phase_tune(torch, port))
         _memory(torch, "tune", t_start)
-    if "native" in phases:
+    if run("native"):
         served.append(phase_native(torch, port, native)["variants"])
         _memory(torch, "native", t_start)
-    if "fleet" in phases:
+    if run("fleet"):
         served.append(phase_fleet(torch, port)["variants"])
         _memory(torch, "fleet", t_start)
     # the action and audio pipelines launch no kernel of this repo
     # (asserted inside): they add nothing to the kernels line
-    if "action" in phases:
+    if run("action"):
         phase_action(torch, port)
         _memory(torch, "action", t_start)
-    if "audio" in phases:
+    if run("audio"):
         phase_audio(torch, port)
         _memory(torch, "audio", t_start)
     # the IR engines launch it zero times (asserted inside)
-    if "ir" in phases:
+    if run("ir"):
         phase_ir(torch, port)
         _memory(torch, "ir", t_start)
-    if "rest" in phases:
+    if run("rest"):
         served.append(phase_rest(torch, port, res["s0_objects"]))
         _memory(torch, "rest", t_start)
-    if "serve" in phases:
+    if run("serve"):
         served.append(phase_serve())
-    if "eii" in phases:
+    if run("eii"):
         served.append(phase_eii(torch, port))
         _memory(torch, "eii", t_start)
-    if "trace" in phases:
+    if run("trace"):
         served.append(phase_trace(torch, port))
         _memory(torch, "trace", t_start)
-    if "chaos" in phases:
+    if run("chaos"):
         served.append(phase_chaos(torch, port))
         _memory(torch, "chaos", t_start)
-    if "ingest" in phases:
+    if run("ingest"):
         served.append(phase_ingest(torch, port, profile=args.profile))
         _memory(torch, "ingest", t_start)
-    if "webrtc" in phases:
+    if run("webrtc"):
         served.append(phase_webrtc(torch, port))
         _memory(torch, "webrtc", t_start)
     # the training path launches K1 zero times (asserted inside)
-    if "train" in phases:
+    if run("train"):
         phase_train(torch, port, smi)
         _memory(torch, "train", t_start)
-    if "dryrun" in phases:
+    if run("dryrun"):
         phase_dryrun()
     # ground truth at float32 and at INT8 through K1 (its launches count)
-    if "accuracy" in phases:
+    if run("accuracy"):
         served.append(phase_accuracy(torch, port, smi))
         _memory(torch, "accuracy", t_start)
-    if "attrs" in phases:
+    # the fit through the imported IR launches K1 zero times (asserted)
+    if run("irfit"):
+        phase_irfit(torch, port, smi)
+        _memory(torch, "irfit", t_start)
+    if run("attrs"):
         served.append(phase_attrs(torch, port, smi))
         _memory(torch, "attrs", t_start)
     # the action and audio fits launch K1 zero times (asserted inside)
-    if "temporal" in phases:
+    if run("temporal"):
         phase_temporal(torch, port, smi)
         _memory(torch, "temporal", t_start)
     # the AOT cache: serve children and an in-process child on the
     # store (K1's served launches of each count)
-    if "aot" in phases:
+    if run("aot"):
         served.append(phase_aot(torch, port, smi))
         _memory(torch, "aot", t_start)
-    _print({"phase": "total", "seconds": time.perf_counter() - t_start})
+    _print({"phase": "total", "seconds": time.perf_counter() - t_start,
+            "gc_gen2": GEN2.summary()})
     if served:
         kernel["launches_by_variant"] = {
             v: sum(d[v] for d in served) for v in ("aligned", "masked")}

@@ -306,11 +306,13 @@ def run_eii_service(settings: Settings) -> int:
     raising without one, as ``serve`` in EVA mode does, after
     ``init_observability`` (PROFILING_MODE's ranges). SIGTERM (a
     container stop) drains the pipeline and closes the bus sockets; the
-    process then returns 0.
+    process then returns 0. The start-up heap is settled
+    (``server.app.settle_heap``) once the pipeline is up.
     """
     import signal
 
     from evam_tpu_torch.obs.trace import init_observability
+    from evam_tpu_torch.server.app import settle_heap
 
     init_observability(settings)
     manager = EiiManager(settings)
@@ -320,6 +322,7 @@ def run_eii_service(settings: Settings) -> int:
         manager._stop.set()
 
     signal.signal(signal.SIGTERM, _on_term)
+    log.info("start-up heap settled: %d objects frozen", settle_heap())
     log.info("EII service running (device %s)", settings.device)
     manager.run_forever()
     return 0

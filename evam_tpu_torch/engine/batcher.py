@@ -661,6 +661,10 @@ class BatchEngine:
         if self._cuda:
             for name in libraries:
                 kernels.load(name)
+            if self._ring is not None:
+                # the slots' page-locking is paid here, not by the
+                # frames of the first batch
+                self._ring.prepare(example)
         for b in self.buckets:
             if self._stop.is_set():
                 return

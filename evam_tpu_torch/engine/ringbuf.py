@@ -154,9 +154,9 @@ class SealedBatch:
 class SlotRing:
     """Ring of ``depth`` pre-allocated staging slots for one engine.
 
-    Blocks are allocated on the first ``write()`` (item shapes are not
-    known at engine construction) and never reallocated —
-    ``blocks_allocated`` pins that invariant.
+    Blocks are allocated by ``prepare()`` or else on the first write
+    (item shapes are not known at engine construction) and never
+    reallocated — ``blocks_allocated`` pins that invariant.
 
     ``ragged`` (a RaggedSpec) switches the declared input to packed
     unit rows; the bucket callback then takes ``(n, units)`` instead of
@@ -183,6 +183,16 @@ class SlotRing:
         #: staging-block allocations ever made (one per input name per
         #: slot; constant after the first write)
         self.blocks_allocated = 0
+
+    def prepare(self, example: dict[str, np.ndarray]) -> None:
+        """Allocate the slots for items shaped like ``example`` ahead of
+        the first write (the engine's warmup on the card: page-locking
+        the slots there is not paid by the first batch). A no-op once
+        the ring has its shapes."""
+        arrays = {k: np.asarray(v) for k, v in example.items()}
+        with self._cv:
+            if self._shapes is None:
+                self._allocate(arrays)
 
     # ------------------------------------------------------- submit side
 

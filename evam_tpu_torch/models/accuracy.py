@@ -1,6 +1,7 @@
 """Offline ground-truth accuracy harness (counterpart of
 ``evam_tpu/models/accuracy.py``): the detector's, the classifier's and
-the temporal families' halves.
+the temporal families' halves, and the helpers of the reference's
+serving-chain checks (``tests/test_accuracy.py``).
 
 Random weights cannot show a wrong anchor decode, a flipped colour
 order, broken NMS geometry, a shifted ROI crop, a decoder blind to its
@@ -12,11 +13,16 @@ weights:
   visually distinct object classes on a textured background — with
   exact normalized ground-truth boxes (and, with ``color_attr``, each
   vehicle's colour);
-* :func:`fit_detector` fits the zoo SSD to those scenes (numpy anchor
-  matching, regression targets through
-  :func:`~evam_tpu_torch.ops.boxes.encode_boxes`, the exact inverse of
-  the serving decode, so a decode bug breaks the fit and the final
-  check alike);
+* :func:`fit_detector` fits the zoo SSD, or an imported OpenVINO IR
+  detector, to those scenes (numpy anchor matching, regression targets
+  through :func:`~evam_tpu_torch.ops.boxes.encode_boxes`, the exact
+  inverse of the serving decode, so a decode bug breaks the fit and the
+  final check alike). An IR's weights are its graph's buffers, made
+  leaves that take gradients on a float32 copy
+  (``ImportedIRModel.trainable_params``); its in-graph SoftMax is
+  undone in the loss (``conf_is_prob``), and the fit returns the IR's
+  flat ``{layer name: tensor}`` dict, which :func:`save_fitted` writes
+  beside the IR for the registries to load as ``ir-bin+override``;
 * :func:`fit_classifier` fits the attributes classifier's colour head to
   crops cut by the serving crop path (:func:`render_vehicle_crop`);
 * :func:`evaluate_packed` scores packed NMS rows against ground truth
@@ -26,7 +32,13 @@ weights:
 * :func:`fit_action` fits the action encoder and decoder together to
   :data:`TEMPORAL_CLASSES`, order-dependent ramps drawn by
   :func:`render_temporal_clip`, and :func:`fit_audio` fits AclNet to
-  the :data:`TONE_FREQS` tones of :func:`render_tone_window`.
+  the :data:`TONE_FREQS` tones of :func:`render_tone_window`;
+* :func:`holdout_scenes`, :func:`render_crossing_frames` (a vehicle
+  whose footfall anchor crosses x = 0.5), :data:`LABEL_IDS` and
+  :func:`recovered` (a published box matched to ground truth) are the
+  reference test's helpers, so the chain's checks — tracking and line
+  crossing, zone count, the EII bus's ``gva_meta`` rects — read the
+  same frames and the same rule in both packages.
 
 The renderers, the matching and the scoring are numpy, copied from the
 reference, so one seed gives the same scenes, targets and scores in both
@@ -48,15 +60,15 @@ with flax, :func:`save_fitted` writes flax's bytes with the port's codec
 
 The port runs a fit to convergence only on the card: ``chip_smoke.py``'s
 ``accuracy`` and ``attrs`` phases assert the reference test's limits
-there, served at float32 and at INT8 through the qgemm kernel, and its
-``temporal`` phase the action and audio limits, served at float32 and at
-INT8 (bfloat16 weights, no qgemm). Tier-1 holds the port to the
-reference step by step on the CPU (scenes, crops, clips, tones, targets,
-data order, losses, first updates, served rows) and runs no full fit
-there.
-
-Not ported: a fit of an IR-backed model (its weights are not module
-parameters here).
+there, served at float32 and at INT8 through the qgemm kernel (the
+``accuracy`` phase also through the tracker and line crossing, the zone
+count and the EII bus), its ``temporal`` phase the action and audio
+limits, served at float32 and at INT8 (bfloat16 weights, no qgemm), and
+its ``irfit`` phase the fit through the imported IR (float32; an IR
+engine launches no qgemm). Tier-1 holds the port to the reference step
+by step on the CPU (scenes, crops, clips, tones, targets, data order,
+losses, first updates, served rows and the chain's published ids,
+events and counts) and runs no full fit there.
 """
 
 from __future__ import annotations
@@ -74,7 +86,8 @@ import numpy as np
 import torch
 
 from evam_tpu_torch.device import resolve_device
-from evam_tpu_torch.models.convert import params_to_msgpack
+from evam_tpu_torch.models.convert import flat_to_msgpack, params_to_msgpack
+from evam_tpu_torch.models.ir import ImportedIRModel
 from evam_tpu_torch.ops.boxes import encode_boxes
 from evam_tpu_torch.ops.color import (
     bgr_to_i420_host,
@@ -413,17 +426,47 @@ def _fit_math(device: torch.device):
 def _trainable_copy(module: torch.nn.Module, dev: torch.device, name: str
                     ) -> tuple[torch.nn.Module, list[torch.Tensor]]:
     """A float32 copy of ``module`` on ``dev`` that takes gradients, and
-    its parameters; the module itself is left as it was."""
+    the tensors a fit updates: a zoo module's parameters, or an imported
+    IR's float weights (its graph's buffers, made leaves after the copy
+    is cast: a non-leaf buffer would not copy). The module itself is
+    left as it was."""
     net = copy.deepcopy(module).to(device=dev, dtype=torch.float32)
-    net.requires_grad_(True)
-    params = list(net.parameters())
+    ir = _imported_ir(net)
+    if ir is not None:
+        params = list(ir.trainable_params().values())
+    else:
+        net.requires_grad_(True)
+        params = list(net.parameters())
     if not params:
-        raise ValueError(f"{name}: the model has no parameters to fit (an "
-                         "IR-backed model's fit is not ported)")
+        raise ValueError(f"{name}: the model has no weights to fit")
     return net, params
 
 
+def _imported_ir(net: torch.nn.Module) -> ImportedIRModel | None:
+    """The imported IR graph an IR-backed model's module (``IRForward``)
+    runs, or None for a zoo module."""
+    return next((m for m in net.modules() if isinstance(m, ImportedIRModel)),
+                None)
+
+
+def _grads(loss: torch.Tensor, params: list[torch.Tensor]
+           ) -> list[torch.Tensor]:
+    """The loss's gradient for each of ``params``; zeros for one the loss
+    never reads (an IR's folded priors), which Adam then leaves as it
+    was, as optax does."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
 def _cpu_state(net: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The fitted weights on the CPU: a zoo module's ``state_dict``, or an
+    imported IR's flat ``{layer name: tensor}`` dict sorted by name (the
+    order ``jax.tree.map`` leaves the reference's fitted dict in)."""
+    ir = _imported_ir(net)
+    if ir is not None:
+        return {k: v.detach().to("cpu").contiguous()
+                for k, v in sorted(ir.params.items())}
     return {k: v.detach().to("cpu").contiguous()
             for k, v in net.state_dict().items()}
 
@@ -440,19 +483,23 @@ def fit_detector(
     device: str | torch.device | None = None,
     timings: dict | None = None,
 ):
-    """Fit the zoo SSD to the synthetic scenes on ``device`` (None → the
-    card, which must exist).
+    """Fit the zoo SSD, or an IR-backed detector, to the synthetic scenes
+    on ``device`` (None → the card, which must exist).
 
-    ``model`` is a LoadedModel of a zoo ``ssd`` spec; a float32 copy of
-    its module is fitted, the model itself is left as it was. Half the
+    ``model`` is a LoadedModel of a zoo ``ssd`` spec or of an imported
+    OpenVINO IR SSD (``model.ir``); a float32 copy of its module is
+    fitted, the model itself is left as it was. Half the
     training scenes are rendered at the model's input size, half at
     ``source_hw`` and downscaled — the serving path resizes full frames
     on the device, so the net must be robust to both texture scales.
     Images go through the serving normalization
     (``ops/preprocess.py::preprocess_bgr`` with the model's spec) into
     the model's serving forward, so the fitted weights are valid under
-    ``preprocess_wire``. Returns ``(state_dict, history)``: the fitted
-    float32 weights on the CPU, and the loss at every 50th step and at
+    ``preprocess_wire``; an IR that softmaxes in the graph
+    (``conf_is_prob``) has its logits recovered for the loss. Returns
+    ``(weights, history)``: the fitted float32 weights on the CPU (a
+    zoo module's ``state_dict``; an IR's flat dict, as the reference's
+    ``params`` is for an IR), and the loss at every 50th step and at
     the last. A ``timings`` dict, when given, gets the seconds spent
     making the data (``data_s``) and fitting (``steps_s``: the copy to
     the device and the steps, synchronized at the end).
@@ -486,8 +533,7 @@ def fit_detector(
             x = preprocess_bgr(imgs_d[idx].float(), pre).float()
             loss = _detector_loss(fwd(x), cls_d[idx], box_d[idx], anchors,
                                   model.variances, model.conf_is_prob)
-            grads = torch.autograd.grad(loss, params)
-            opt.step(list(grads))
+            opt.step(_grads(loss, params))
             if step % 50 == 0 or step == steps - 1:
                 history.append(float(loss.detach()))
                 log.info("fit step %d loss %.4f", step, history[-1])
@@ -522,8 +568,7 @@ def _fit_loop(loss_fn, arrays, *, init_params, steps, batch, lr, rng, name,
         for step in range(steps):
             idx = order[step]
             loss = loss_fn(net, *(a[idx] for a in data))
-            grads = torch.autograd.grad(loss, params)
-            opt.step(list(grads))
+            opt.step(_grads(loss, params))
             if step % 50 == 0 or step == steps - 1:
                 history.append(float(loss.detach()))
                 log.info("%s step %d loss %.4f", name, step, history[-1])
@@ -869,12 +914,19 @@ def fit_audio(
 
 def save_fitted(params: dict[str, torch.Tensor], key: str,
                 models_dir: str | Path, precision: str = "FP32") -> Path:
-    """Write fitted weights (a ``state_dict``) into the registry layout,
+    """Write fitted weights into the registry layout,
     ``<models_dir>/<key>/<precision>/weights.msgpack``, as the bytes
-    flax's ``to_bytes`` writes for the same params tree."""
+    flax's ``to_bytes`` writes for the same params: a zoo ``state_dict``
+    as its nested flax tree (``params_to_msgpack``), an IR's flat dict
+    as it is (``flat_to_msgpack``; an IR's names are sanitized, so none
+    holds a dot, where every zoo module's ``state_dict`` has dotted
+    names). Beside an IR's ``.xml`` the file overrides its ``.bin``
+    weights."""
     path = Path(models_dir) / key / precision / "weights.msgpack"
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(params_to_msgpack(params))
+    flat = not any("." in k for k in params)
+    path.write_bytes(flat_to_msgpack(params) if flat
+                     else params_to_msgpack(params))
     return path
 
 
@@ -926,3 +978,64 @@ def evaluate_packed(
         "precision": tp / max(n_det, 1),
         "gt": n_gt, "detections": n_det, "misses": misses,
     }
+
+
+# ------------------------------------------------- the serving chain
+
+#: published label → id (labels.PERSON_VEHICLE_BIKE, background 0): how
+#: a published object's ``detection.label`` is read back as a class
+LABEL_IDS = {"person": 1, "vehicle": 2, "bike": 3}
+
+
+def holdout_scenes(n: int = 8, hw: tuple[int, int] = (1080, 1920),
+                   seed: int = 99) -> list[Scene]:
+    """``n`` scenes at ``hw`` from ``default_rng(seed)``: the reference
+    test's held-out scenes (seed 99 for the wire and served checks, 123
+    for EII, 321 for the zone count)."""
+    rng = np.random.default_rng(seed)
+    return [render_scene(rng, hw=hw) for _ in range(n)]
+
+
+def recovered(dets, scene: Scene, iou: float = 0.5) -> tuple[int, int]:
+    """(hits, ground-truth boxes) of ``scene`` matched by ``dets`` =
+    [(x0, y0, x1, y1, label_id), ...] normalized corners: a box counts
+    once some detection of its label overlaps it at IoU ≥ ``iou``
+    (greedy per ground-truth box) — the rule every published-metadata
+    check shares."""
+    hits = 0
+    for gt_box, gt_label in zip(scene.boxes, scene.labels):
+        for x0, y0, x1, y1, lid in dets:
+            det = np.asarray([[x0, y0, x1, y1]], np.float32)
+            if (lid == int(gt_label)
+                    and _pairwise_iou(det, gt_box[None])[0, 0] >= iou):
+                hits += 1
+                break
+    return hits, len(scene.boxes)
+
+
+def render_crossing_frames(n: int = 14, hw: tuple[int, int] = (1080, 1920)
+                           ) -> tuple[list[np.ndarray], list[tuple]]:
+    """A vehicle translating left → right over one textured background:
+    its box (height 0.30 at y 0.45, the vehicle's class aspect) moves
+    from x0 = 0.02 to 0.33 in ``n`` even steps, so its bottom-centre
+    anchor sweeps 0.35 → 0.66 and crosses x = 0.5 mid-sequence. Returns
+    (``n`` BGR frames, their normalized ground-truth boxes)."""
+    h, w = hw
+    rng = np.random.default_rng(5)
+    color, aspect = CLASS_STYLES[2]
+    bh_n = 0.30
+    bw_n = min(bh_n * aspect, 0.9)  # the aspect the detector was fit on
+    y0_n = 0.45
+    frames, boxes = [], []
+    bg = _textured_bg(rng, h, w)
+    for t in range(n):
+        # ~46 px a frame at 1920: far more than a box's jitter, so a
+        # re-crossing is rare; x0 stops at 0.33 so the box stays whole
+        x0_n = 0.02 + (0.33 - 0.02) * t / (n - 1)
+        f = bg.copy()
+        xi, yi = int(x0_n * w), int(y0_n * h)
+        xe, ye = int((x0_n + bw_n) * w), int((y0_n + bh_n) * h)
+        _draw_object(f, xi, yi, xe, ye, color)
+        frames.append(f)
+        boxes.append((x0_n, y0_n, x0_n + bw_n, y0_n + bh_n))
+    return frames, boxes

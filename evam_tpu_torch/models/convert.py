@@ -25,8 +25,10 @@ kernels).
 
 An imported OpenVINO IR keeps the reference's flat ``{layer name:
 array}`` dict instead (``models/ir.py``): :func:`flat_from_msgpack`
-reads it and :func:`packb` writes it as is, no renaming, no
-transposes.
+reads it and :func:`flat_to_msgpack` writes it, as is, no renaming, no
+transposes, in the dict's order (a fit's weights come sorted by name,
+as ``jax.tree.map`` leaves the reference's dict), so the bytes are the
+ones flax's ``to_bytes`` writes for the same dict.
 
 ``weights.msgpack`` is flax's ``serialization.to_bytes`` of that tree.
 :func:`unpackb` and :func:`packb` read and write the subset of msgpack
@@ -358,3 +360,17 @@ def flat_from_msgpack(data: bytes) -> dict[str, torch.Tensor]:
                              f"{type(leaf).__name__}")
         out[key] = _to_tensor(leaf).contiguous()
     return out
+
+
+def flat_to_msgpack(flat: dict[str, torch.Tensor]) -> bytes:
+    """A flat ``{name: tensor}`` weight dict (an IR model's) → the bytes
+    flax's ``to_bytes`` writes for the same dict: one map, the entries in
+    the dict's order, each an ndarray ext of its C-order bytes. A key
+    that is not a string or a leaf that is not an array raises
+    ValueError."""
+    for key, leaf in flat.items():
+        if not isinstance(key, str) or not isinstance(
+                leaf, (np.ndarray, torch.Tensor)):
+            raise ValueError(f"not a flat weight dict: {key!r} holds a "
+                             f"{type(leaf).__name__}")
+    return packb(dict(flat))

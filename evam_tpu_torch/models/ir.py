@@ -1623,6 +1623,19 @@ class ImportedIRModel(nn.Module):
         # those families never apply — report the trailing dims
         return (1, int(self.input_shape[-1]))
 
+    def trainable_params(self) -> dict[str, torch.Tensor]:
+        """Make every floating weight a leaf that takes gradients, in
+        place, and return them by name in :attr:`params`' order. They
+        stay buffers of the same names, shapes, dtypes and memory
+        formats, so the forward, :meth:`load_params` and
+        :meth:`cast_params` see them as before. A weight the forward
+        never reads (a folded PriorBox) gets no gradient."""
+        for name, value in self.weights.items():
+            if value.is_floating_point():
+                self.weights._buffers[name] = value.detach().requires_grad_()
+        return {name: value for name, value in self.weights.items()
+                if value.requires_grad}
+
     @torch.no_grad()
     def load_params(self, flat: dict[str, torch.Tensor]) -> None:
         """Replace every weight with ``flat``'s (the same names and

@@ -30,6 +30,7 @@ checkpoint store's ``checkpoint`` block with EVAM_CKPT on.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import re
@@ -297,13 +298,32 @@ def make_server(app: App, host: str = "0.0.0.0",
     return server
 
 
+def settle_heap() -> int:
+    """Take the start-up heap out of the cyclic collector's scans; returns
+    the objects frozen.
+
+    A full collection walks every tracked object with the interpreter
+    lock held, so every stream, dispatcher, launcher and completer
+    thread waits for it, and a realtime frame can outlive its staleness
+    budget in the queue meanwhile. Most of those objects (torch, the
+    port's modules, the preloaded models and engines) live as long as
+    the process: after a full collection, ``gc.freeze`` moves them to
+    the permanent generation, and every later collection walks only
+    what came after. Called once, when a serving process's start-up is
+    done."""
+    gc.collect()
+    gc.freeze()
+    return gc.get_freeze_count()
+
+
 def run_server(settings: Settings) -> int:
     """Blocking entry point of ``serve``: answers until SIGINT or
     SIGTERM, then stops every instance and the engines, and returns 0.
     With ENABLE_RTSP the RTSP re-stream server listens on RTSP_PORT
     first; then the streams a previous run left in ``EVAM_STATE_DIR``
-    are resumed (a resumed ``destination.frame`` mounts again), before
-    the port opens."""
+    are resumed (a resumed ``destination.frame`` mounts again), and the
+    start-up heap is settled (``settle_heap``), before the port
+    opens."""
     trace.init_observability(settings)
     registry = PipelineRegistry(settings)
     extras = []
@@ -316,6 +336,7 @@ def run_server(settings: Settings) -> int:
     if settings.preload:
         n = registry.preload(settings.preload)
         log.info("preloaded %d pipeline(s) before opening the port", n)
+    log.info("start-up heap settled: %d objects frozen", settle_heap())
     server = make_server(App(registry), port=settings.rest_port)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

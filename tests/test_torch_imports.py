@@ -1,8 +1,8 @@
 """The port imports nothing of JAX, flax or the reference package,
 and needs none of the packages the card's machine lacks.
 
-``evam_tpu_torch``, ``chip_smoke.py`` and ``tools/cuda_qgemm_bench.py``
-must run on a machine that has neither JAX nor flax, nor aiohttp,
+``evam_tpu_torch``, ``chip_smoke.py``, ``tools/cuda_qgemm_bench.py`` and
+``tools/cuda_host_stalls.py`` must run on a machine that has neither JAX nor flax, nor aiohttp,
 pydantic, msgpack, cv2, zmq, cryptography or websockets. Checks: every module imports in a
 subprocess where all of those are blocked (and the server's route table
 and the CLI's parser build there); an AST scan finds no import of
@@ -40,8 +40,9 @@ WEBRTC_ABSENT = ("cv2", "cryptography", "websockets")
 
 
 def _port_files() -> list[Path]:
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "tools" / "cuda_qgemm_bench.py"]
+    return sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "cuda_qgemm_bench.py",
+        ROOT / "tools" / "cuda_host_stalls.py"]
 
 
 def _module_name(path: Path) -> str:

@@ -175,3 +175,51 @@ def test_alloc_hook_backs_every_block():
     assert sorted(calls, key=str) == sorted(
         [((4, 2, 2), np.dtype(np.float32))] * 3
         + [((4, 5), np.dtype(np.uint8))] * 3, key=str)
+
+
+def test_prepare_allocates_ahead_of_the_first_write():
+    """``prepare`` allocates every block from an example; the writes
+    after it allocate nothing and seal what the reference's ring seals
+    from the same writes."""
+    calls = []
+
+    def alloc(shape, dtype):
+        calls.append((shape, np.dtype(dtype)))
+        return numpy_alloc(shape, dtype)
+
+    rng = np.random.default_rng(5)
+    port, ref = SlotRing(8, depth=3, alloc=alloc), RefRing(8, depth=3)
+    port.prepare({k: np.zeros_like(v) for k, v in _item(rng, 0).items()})
+    assert port.blocks_allocated == 6 and len(calls) == 6
+    for i in range(5):
+        inputs = _item(rng, i)
+        port.write(inputs, i)
+        ref.write(inputs, i)
+    got, want = port.next_batch(0.0, _bucket), ref.next_batch(0.0, _bucket)
+    assert _sealed_bytes(got) == _sealed_bytes(want)
+    assert port.blocks_allocated == ref.blocks_allocated == 6
+    assert len(calls) == 6
+
+
+def test_prepare_after_the_first_write_changes_nothing():
+    ring = SlotRing(4, depth=2)
+    ring.write({"x": np.zeros((3,), np.int32)}, 0)
+    ring.prepare({"x": np.zeros((7,), np.float32)})
+    assert ring.blocks_allocated == 2
+    ring.write({"x": np.ones((3,), np.int32)}, 1)
+    sealed = ring.next_batch(0.0, _bucket)
+    assert sealed.items == [0, 1]
+    assert sealed.arrays["x"].shape == (2, 3)
+
+
+def test_prepared_ring_refuses_other_shapes_as_in_the_reference():
+    port, ref = SlotRing(4), RefRing(4)
+    ok = {"frames": np.zeros((6, 4), np.uint8)}
+    bad = {"frames": np.zeros((6, 5), np.uint8)}
+    port.prepare(ok)
+    ref.write(ok, 0)
+    with pytest.raises(ValueError) as p_exc:
+        port.write(bad, 1)
+    with pytest.raises(ValueError) as r_exc:
+        ref.write(bad, 1)
+    assert str(p_exc.value) == str(r_exc.value)

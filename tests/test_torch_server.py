@@ -79,7 +79,8 @@ from evam_tpu_torch.models.registry import ModelRegistry
 from evam_tpu_torch.ops import qgemm as tqg
 from evam_tpu_torch.ops import qlinear as tql
 from evam_tpu_torch.sched import SchedConfig
-from evam_tpu_torch.server.app import App, make_server
+from evam_tpu_torch.server import app as app_module
+from evam_tpu_torch.server.app import App, make_server, settle_heap
 from evam_tpu_torch.server.instance import StreamInstance, _retry_delay
 from evam_tpu_torch.server.registry import PipelineRegistry
 from evam_tpu_torch.stages.infer import DetectStage
@@ -902,6 +903,54 @@ def test_cli_serve_answers_on_the_cpu_and_stops_on_sigterm():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_settle_heap_freezes_what_is_alive_and_collects_what_comes_after():
+    """``settle_heap`` moves every object alive now out of the
+    collector's scans: a cycle that was alive then and dropped later
+    stays until ``gc.unfreeze``; a cycle made afterwards is collected."""
+    import gc
+    import weakref
+
+    class Node:
+        pass
+
+    old = Node()
+    old.self = old
+    kept = weakref.ref(old)
+    try:
+        frozen = settle_heap()
+        assert frozen == gc.get_freeze_count() > 0
+        del old
+        new = Node()
+        new.self = new
+        gone = weakref.ref(new)
+        del new
+        gc.collect()
+        assert gone() is None
+        assert kept() is not None
+    finally:
+        gc.unfreeze()
+    gc.collect()
+    assert kept() is None
+
+
+def test_run_server_settles_the_heap_before_the_port_opens(monkeypatch):
+    calls = []
+
+    class Opened(Exception):
+        pass
+
+    def opened(app, port):
+        calls.append("open")
+        raise Opened
+
+    monkeypatch.setattr(app_module, "settle_heap",
+                        lambda: calls.append("settle") or 0)
+    monkeypatch.setattr(app_module, "make_server", opened)
+    with pytest.raises(Opened):
+        app_module.run_server(Settings(device="cpu"))
+    assert calls == ["settle", "open"]
 
 
 def test_cli_serve_without_a_card_refuses_to_start():
