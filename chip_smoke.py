@@ -572,7 +572,29 @@ memory the allocator holds once it has stopped its engines.
               self-test fails (``execute``), each counted in
               ``summary()`` and the metric, rebuilt by nvcc and served;
               (e) eviction under a small EVAM_AOT_MAX_BYTES: the oldest
-              entry goes, the newest survives.
+              entry goes, the newest survives. Its serve children take
+              host wire frames, so their libraries are all but synth's.
+33. synth   — device-synth serving (``EngineHub(device_synth=True)``:
+              stages submit one uint32 seed a frame, the engine's step
+              makes the wire batch with ``csrc/synth.cu``): (a) the
+              kernel byte-equal to its plain version at the detect and
+              fused wire (512² i420, 768×512), the classify wire (432×768
+              i420, 648×768) and (7, 13), at buckets 1, 8 and 128, over
+              seeds 0, 1, 2³¹, 2³²−1 and 8 seeded randoms; the library's
+              self-test; its times at buckets 8 and 128 (wall, device,
+              device with the L2 flushed, plain, the bytes bound and
+              ``bound_share``); (b) a synth hub with the serving defaults
+              serving STREAMS × SYNTH_FRAMES frames of
+              object_tracking/person_vehicle_bike (fused) and of
+              object_detection/person_vehicle_bike: every frame published
+              in order, more than 2 items a batch, 13 and 10 K1 launches
+              and 1 synth launch a forward (warm runs and replays
+              counted); (c) IMAGES frames made by the plain version from
+              IMAGES seeds, as host wire frames to a host-wire hub's fused
+              engine and as seeds to the synth hub's, one bucket-IMAGES
+              batch each: equal to the bit; (d) the tracking traffic on
+              the host-wire hub, and a profiled run of each hub: fps,
+              p50/p99, the eight stage ms and the device busy share.
 
 The engine phase also checks ``own_streams``: OWN_STREAM_ENGINES CUDA
 engines alive at once (3 streams each, past torch's pool of 32 a
@@ -589,13 +611,16 @@ scheduler, as before it was ported.
 Tracing is on in every phase, as by default (the trace phase turns it
 off for its second run only).
 
-Then the ``{"kernels": [...]}`` line (times: one fused forward's 13
-calls; ``launches`` sums the slice, classify, engine, track, gate,
+Then the ``{"kernels": [...]}`` line: K1 and synth. Synth's times are
+one wire batch of IMAGES 512² i420 frames, its launches the synth
+phase's two served synth runs and their warm runs. K1's (times: one
+fused forward's 13 calls; ``launches`` sums the slice, classify, engine, track, gate,
 ragged, sched, tune, native, fleet, rest, serve, eii, trace, chaos,
-ingest, webrtc and aot phases' served runs (ingest: the demux run, its
+ingest, webrtc, aot and synth phases' served runs (ingest: the demux run, its
 AppSource replay and the serve child's streams and files; webrtc: the
 key and delta streams and the serve child's stream; aot: its three
-serve children and (g)'s engines, (f)'s comparison launches left out)
+serve children and (g)'s engines, (f)'s comparison launches left out;
+synth: its three served runs, (c) and the profiled runs left out)
 and their engines' warm runs, the accuracy phase's INT8 forwards ((a) and (c) one each,
 (b) its served file, the chain rows' INT8 runs and their warm runs) and
 the attrs phase's (13 a fused forward in (a),
@@ -639,7 +664,7 @@ PHASES = ("device", "build", "qgemm", "reference", "weights", "slice",
           "classify", "engine", "track", "gate", "ragged", "sched", "tune",
           "native", "fleet", "action", "audio", "ir", "rest", "serve",
           "eii", "trace", "chaos", "ingest", "webrtc", "train", "dryrun",
-          "accuracy", "irfit", "attrs", "temporal", "aot")
+          "accuracy", "irfit", "attrs", "temporal", "aot", "synth")
 KEY = "object_detection/person_vehicle_bike"
 CLS_KEY = "object_classification/vehicle_attributes"
 #: the detect+classify pipeline (pipelines/<name>/<version>)
@@ -769,7 +794,7 @@ def _import_port():
     from evam_tpu_torch.media.audio import SyntheticAudioSource
     from evam_tpu_torch.media.source import SyntheticSource
     from evam_tpu_torch.models.registry import ModelRegistry
-    from evam_tpu_torch.ops import kernels, qgemm, qlinear
+    from evam_tpu_torch.ops import kernels, qgemm, qlinear, synth
     from evam_tpu_torch.ops.preprocess import preprocess_wire
     from evam_tpu_torch.stages.infer import (
         ENGINE_SCORE_FLOOR,
@@ -835,7 +860,7 @@ def _import_port():
         build_action_encode_step=build_action_encode_step,
         build_action_decode_step=build_action_decode_step,
         build_audio_step=build_audio_step,
-        kernels=kernels, qgemm=qgemm, qlinear=qlinear,
+        kernels=kernels, qgemm=qgemm, qlinear=qlinear, synth=synth,
         DetectStage=DetectStage, wire_frame=_wire_frame,
         ENGINE_SCORE_FLOOR=ENGINE_SCORE_FLOOR,
         MetaconvertStage=MetaconvertStage, PublishStage=PublishStage,
@@ -905,10 +930,11 @@ def _time_ms(torch, fn, calls: int = 20, rounds: int = 7) -> tuple[float, float]
     return statistics.median(times), device_us / 1e3 / calls
 
 
-def _flushed_device_ms(torch, fn, flush, calls: int = 20) -> float:
-    """Device time per call of the qgemm kernel alone when every call
+def _flushed_device_ms(torch, fn, flush, calls: int = 20,
+                       name: str = "qgemm") -> float:
+    """Device time per call of one hand kernel alone when every call
     finds the L2 cache cold: ``flush`` reads FLUSH_BYTES before each
-    call, and only kernels named ``qgemm`` are summed."""
+    call, and only kernels whose name holds ``name`` are summed."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -922,10 +948,10 @@ def _flushed_device_ms(torch, fn, flush, calls: int = 20) -> float:
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "qgemm" in e.key]
+                  and name in e.key]
         if sum(e.count for e in events) == calls:
             return sum(e.self_device_time_total for e in events) / 1e3 / calls
-    raise RuntimeError("torch.profiler did not record every qgemm launch")
+    raise RuntimeError(f"torch.profiler did not record every {name} launch")
 
 
 def phase_qgemm(torch, port) -> dict:
@@ -8223,7 +8249,10 @@ def phase_aot(torch, port, smi: str) -> dict[str, int]:
         runs = {"startup": _aot_serve(port, tmp, "a", {}),
                 "cold": _aot_serve(port, tmp, "b", on),
                 "warm": _aot_serve(port, tmp, "c", on)}
-        libs = sorted(port["kernels"].SOURCES)
+        # a serve child takes host wire frames: it never loads the
+        # device-synth generator's library (the synth phase runs its
+        # self-test, what a store hit of it runs)
+        libs = sorted(set(port["kernels"].SOURCES) - {"synth"})
         a, b, c = runs["startup"], runs["cold"], runs["warm"]
         for label, run in runs.items():
             _print({"phase": f"aot-{label}", "card": smi,
@@ -8280,6 +8309,261 @@ def phase_aot(torch, port, smi: str) -> dict[str, int]:
     _print(row)
     served = [r["launches"] for r in runs.values()] + [child["variants"]]
     return {v: sum(d[v] for d in served) for v in ("aligned", "masked")}
+
+
+#: the synth phase (device-synth serving, ``EngineHub(device_synth=True)``):
+#: the seeds the kernel is held to its plain version on, beside 8 seeded
+#: randoms (the wraparound's edges)
+SYNTH_EDGE_SEEDS = (0, 1, 2**31, 2**32 - 1)
+SYNTH_SEED = 24
+#: wire shapes: the detect and fused engines' (512² i420: a fused engine
+#: takes the detector's ingest size), an unfused classify engine's
+#: (432×768 i420), and an odd one (a row ends inside a 16-byte store)
+SYNTH_SHAPES = {"detect": (768, 512), "classify": (648, 768), "odd": (7, 13)}
+SYNTH_BUCKETS = (1, 8, 128)
+#: the buckets the kernel is timed at
+SYNTH_TIMED = (8, 128)
+#: integer operations the kernel does a byte it writes (the Weyl step's
+#: add, the shift, the mask, the shift-or into its word), set against
+#: the H100's peak outside the tensor cores (NVIDIA's data sheet: 67
+#: TFLOP/s float32; it gives no int32 rate)
+SYNTH_OPS_PER_BYTE = 4
+NON_TENSOR_OPS_S = 67e12
+#: frames per stream of the served runs, and of the profiled ones
+SYNTH_FRAMES = 128
+SYNTH_PROFILE_FRAMES = 16
+
+
+def _u32(rng, n: int):
+    import numpy as np
+
+    return rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+
+
+def _synth_kernel(torch, port) -> dict:
+    """(a) The kernel against its plain version at every SYNTH_SHAPES
+    shape and SYNTH_BUCKETS bucket, over batches that hold each of the
+    SYNTH_EDGE_SEEDS and 8 seeded randoms (the rest of a bucket seeded
+    randoms): equal byte for byte; the library's self-test (what an AOT
+    store hit runs); then its times at SYNTH_TIMED: wall and device back
+    to back, device with the L2 flushed, the plain version's, the bound
+    (bytes: B seeds read, B × n bytes written) and ``bound_share``."""
+    import numpy as np
+
+    sy = port["synth"]
+    rng = np.random.default_rng(SYNTH_SEED)
+    seeds = np.concatenate([np.array(SYNTH_EDGE_SEEDS, np.uint32),
+                            _u32(rng, 8)])
+    launches, max_err = 0, 0
+    for name, shape in SYNTH_SHAPES.items():
+        for b in SYNTH_BUCKETS:
+            for start in range(0, len(seeds), b):
+                chunk = seeds[start:start + b]
+                s = torch.from_numpy(np.concatenate(
+                    [chunk, _u32(rng, b - len(chunk))])).cuda()
+                out = sy.synth_wire(s, shape)
+                want = sy.synth_wire_reference(s, shape)
+                torch.cuda.synchronize()
+                launches += 1
+                if out.shape == want.shape:
+                    max_err = max(max_err, int(
+                        (out.int() - want.int()).abs().max()))
+                if out.shape != want.shape or not torch.equal(out, want):
+                    raise AssertionError(
+                        f"synth {name} {shape} bucket {b}: "
+                        f"{int((out != want).sum())} bytes differ from the "
+                        "plain version")
+    sy.self_test(port["kernels"].load("synth"))
+    scratch = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    flush = lambda: scratch.sum()
+    rows = {}
+    for name in ("detect", "classify"):
+        shape = SYNTH_SHAPES[name]
+        n = math.prod(shape)
+        for b in SYNTH_TIMED:
+            s = torch.from_numpy(_u32(rng, b)).cuda()
+            row = {"phase": "synth-kernel", "wire": name,
+                   "shape": list(shape), "bucket": b}
+            row["ms"], row["device_ms"] = _time_ms(
+                torch, lambda: sy.synth_wire(s, shape))
+            row["device_ms_flushed"] = _flushed_device_ms(
+                torch, lambda: sy.synth_wire(s, shape), flush, name="synth")
+            row["plain_ms"], row["plain_device_ms"] = _time_ms(
+                torch, lambda: sy.synth_wire_reference(s, shape))
+            nbytes = b * n + 4 * b
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_S
+            ops_ms = 1e3 * SYNTH_OPS_PER_BYTE * b * n / NON_TENSOR_OPS_S
+            row.update(bytes=nbytes, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations", library_ms=None)
+            row["bound_share"] = row["bound_ms"] / row["device_ms_flushed"]
+            row["bound_share_warm"] = row["bound_ms"] / row["device_ms"]
+            _print(row)
+            rows[name, b] = row
+    del scratch
+    return {"compared_launches": launches, "max_abs_err": max_err,
+            "rows": rows}
+
+
+def _synth_serve(port, hub, where: str, pipeline, params: dict,
+                 per: int, synth_per: int, frames: int) -> tuple[dict, object]:
+    """(b) STREAMS synthetic 512² streams × ``frames`` through the
+    ``pipeline``'s stages on ``hub``, its engine warmed first (every
+    bucket captured): every frame published once, in order, more than 2
+    items a batch, K1 ``per`` and synth ``synth_per`` launches a forward
+    (warm runs and replays counted). The row carries the objects a
+    frame published: a synth frame is noise, a host one a flat frame
+    with one square, so the host work after the engine differs. Returns
+    (row, engine)."""
+    qg, sy = port["qgemm"], port["synth"]
+    make = _pipeline_stages(port, hub, params, pipeline)
+    engine = make("warm", None)[0].engine
+    (warm,) = _await_warm(where, [engine])
+    row0 = engine.stats_row()
+    _reset_launches(qg)
+    sy.launches = 0
+    objects: dict = {}
+    runners, published, wall, threads = _serve(
+        port, make, STREAMS, frames, 512, 512, objects)
+    k1 = dict(qg.variant_launches)
+    k1_total, synth_total = qg.launches, sy.launches
+    row1 = engine.stats_row()
+    _check_served(where, runners, published, threads, frames=frames)
+    if any(r.frames_out != frames for r in runners):
+        raise AssertionError(f"{where}: frames_out "
+                             f"{[r.frames_out for r in runners]}")
+    fwd = _fwd(row1) - _fwd(row0)
+    batches = row1["batches"] - row0["batches"]
+    items = row1["items"] - row0["items"]
+    if (fwd == 0 or k1_total != per * fwd or synth_total != synth_per * fwd
+            or items != STREAMS * frames):
+        raise AssertionError(
+            f"{where}: {k1_total} K1 and {synth_total} synth launches for "
+            f"{fwd} forwards ({items} items), expected {per} and "
+            f"{synth_per} a forward")
+    if items / batches <= 2.0:
+        raise AssertionError(f"{where}: {items} items in {batches} batches: "
+                             "no cross-stream batching")
+    row = {"phase": "synth-serve", "run": where, "streams": STREAMS,
+           "frames_per_stream": frames, **_latency_row(runners, wall),
+           "forwards": fwd, "items_per_batch": items / batches,
+           "objects_per_frame": sum(len(o) for per in objects.values()
+                                    for o in per.values()) / items,
+           "k1_launches": k1_total, "k1_variants": k1,
+           "synth_launches": synth_total,
+           "bucket_batches": _bucket_delta(row0, row1),
+           "stage_ms": _stage_delta(port["STAGES"], row0, row1),
+           "graphs": warm["graphs"], "capture_s": warm["compile_s"],
+           "graph_pool_bytes": warm["graph_pool_bytes"]}
+    _print(row)
+    return row, engine
+
+
+def _synth_vs_host(torch, port, synth_engine, host_engine) -> dict:
+    """(c) IMAGES frames made by the plain version from IMAGES seeds:
+    the seeds to the synth hub's fused engine and the frames, as host
+    wire frames, to the host hub's fused engine of the same models, each
+    batch submitted at once so that both run bucket IMAGES (retried
+    where a batch split): the packed results equal to the bit."""
+    import numpy as np
+
+    sy = port["synth"]
+    seeds = _u32(np.random.default_rng(SYNTH_SEED + 1), IMAGES)
+    frames = sy.synth_wire_reference(torch.from_numpy(seeds).cuda(),
+                                     SYNTH_SHAPES["detect"]).cpu().numpy()
+    tries = []
+    for _ in range(3):
+        rows0 = [e.stats_row() for e in (synth_engine, host_engine)]
+        got = [synth_engine.submit(stream="c", frames=x) for x in seeds]
+        want = [host_engine.submit(stream="c", frames=f) for f in frames]
+        got = np.stack([f.result(timeout=120) for f in got])
+        want = np.stack([f.result(timeout=120) for f in want])
+        buckets = [_bucket_delta(r0, e.stats_row()) for r0, e in
+                   zip(rows0, (synth_engine, host_engine))]
+        tries.append(buckets)
+        if buckets == [{str(IMAGES): 1}] * 2:
+            break
+    else:
+        raise AssertionError(f"synth vs host: no try ran one bucket-{IMAGES} "
+                             f"batch on both engines: {tries}")
+    if not np.array_equal(got, want):
+        raise AssertionError(
+            f"synth vs host: packed results differ, max "
+            f"{float(np.abs(got - want).max())}")
+    return {"bucket": IMAGES, "tries": len(tries), "equal": True,
+            "valid_rows": int((got[..., 6] > 0.5).sum()),
+            "classified_rows": int((got[..., 7:].sum(-1) > 0.5).sum())}
+
+
+def phase_synth(torch, port, smi: str) -> dict:
+    """Device-synth serving (``EngineHub(device_synth=True)``): (a) the
+    kernel against its plain version and its times; (b) a synth hub with
+    the serving defaults (warmup on, INT8, K1) serving STREAMS ×
+    SYNTH_FRAMES frames of object_tracking/person_vehicle_bike (fused:
+    13 K1 launches a forward) and of object_detection/person_vehicle_bike
+    (10), one synth launch a forward; (c) its fused engine against a
+    host-wire hub's on the same bytes; (d) the same tracking traffic on
+    the host-wire hub, and a profiled run of each (device busy share).
+    Returns K1's served launches by variant and the kernels-line entry."""
+    t_phase = time.perf_counter()
+    kernel = _synth_kernel(torch, port)
+    registry = port["ModelRegistry"](device="cuda", allow_random_weights=True)
+    hubs = {"host": _default_hub(port, registry),
+            "synth": _default_hub(port, registry, device_synth=True)}
+    variants = {"aligned": 0, "masked": 0}
+    track = {"detection-threshold": 0.2}
+    try:
+        # the host-wire run first: the first served run of the phase
+        # pays what is left of the process's warm-up, not the synth one
+        host, host_fused = _synth_serve(
+            port, hubs["host"], "host fused", TRACK_PIPELINE, track, 13, 0,
+            SYNTH_FRAMES)
+        fused, synth_fused = _synth_serve(
+            port, hubs["synth"], "synth fused", TRACK_PIPELINE, track, 13, 1,
+            SYNTH_FRAMES)
+        detect, _ = _synth_serve(
+            port, hubs["synth"], "synth detect", DETECT_PIPELINE,
+            {"threshold": 0.2}, 10, 1, SYNTH_FRAMES)
+        for row in (fused, detect, host):
+            for v in variants:
+                variants[v] += row["k1_variants"][v]
+        same = _synth_vs_host(torch, port, synth_fused, host_fused)
+        profiled = {
+            name: _profile_serve(torch, port, hub, STREAMS,
+                                 SYNTH_PROFILE_FRAMES, 512, 512,
+                                 make=_pipeline_stages(port, hub, track,
+                                                       TRACK_PIPELINE))
+            for name, hub in hubs.items()}
+    finally:
+        for hub in hubs.values():
+            hub.stop()
+    line = kernel["rows"]["detect", IMAGES]
+    row = {"phase": "synth", "card": smi,
+           "seconds": time.perf_counter() - t_phase,
+           "compared_launches": kernel["compared_launches"],
+           "synth_vs_host": same,
+           "fused": {k: fused[k] for k in (
+               "fps", "p50_ms", "p99_ms", "stage_ms", "items_per_batch",
+               "objects_per_frame")},
+           "host_fused": {k: host[k] for k in (
+               "fps", "p50_ms", "p99_ms", "stage_ms", "items_per_batch",
+               "objects_per_frame")},
+           "detect": {k: detect[k] for k in (
+               "fps", "p50_ms", "p99_ms", "items_per_batch",
+               "objects_per_frame")},
+           "profiled": {name: {k: p[k] for k in (
+               "wall_s", "device_busy_ms", "device_busy_share",
+               "kernel_launches")} for name, p in profiled.items()}}
+    _print(row)
+    return {"variants": variants, "kernel": {
+        "launches": fused["synth_launches"] + detect["synth_launches"],
+        "max_abs_err": kernel["max_abs_err"],
+        **{k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_ms", "bound_share")},
+        "forward": (f"one wire batch of {IMAGES} 512² i420 frames "
+                    f"({SYNTH_SHAPES['detect'][0]}×"
+                    f"{SYNTH_SHAPES['detect'][1]} bytes each)")}}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -8366,6 +8650,13 @@ def main(argv: list[str] | None = None) -> int:
                              f"frames: {len(MAIN_SHAPES)} SSD calls and "
                              f"{len(CLS_SHAPES)} classifier calls on "
                              f"{IMAGES * ROI_BUDGET} crops")
+    synth_kernel = {"name": "synth", "route": "cuda",
+                    "source": "evam_tpu_torch/csrc/synth.cu",
+                    "replaces": "evam_tpu/engine/steps.py:62",
+                    "launches": None, "max_abs_err": None, "ms": None,
+                    "plain_ms": None, "bound_ms": None, "bound_by": None,
+                    "library_ms": None, "device_ms": None,
+                    "bound_share": None, "forward": None}
     served = []  # qgemm launches by variant, one entry per serving phase
     if run("reference"):
         phase_reference(torch, port)
@@ -8469,6 +8760,12 @@ def main(argv: list[str] | None = None) -> int:
     if run("aot"):
         served.append(phase_aot(torch, port, smi))
         _memory(torch, "aot", t_start)
+    # device-synth serving: the synth kernel's launches, and K1's
+    if run("synth"):
+        res_synth = phase_synth(torch, port, smi)
+        served.append(res_synth["variants"])
+        synth_kernel.update(res_synth["kernel"])
+        _memory(torch, "synth", t_start)
     _print({"phase": "total", "seconds": time.perf_counter() - t_start,
             "gc_gen2": GEN2.summary()})
     if served:
@@ -8476,7 +8773,7 @@ def main(argv: list[str] | None = None) -> int:
             v: sum(d[v] for d in served) for v in ("aligned", "masked")}
         kernel["launches"] = sum(kernel["launches_by_variant"].values())
     torch.cuda.synchronize()
-    _print({"kernels": [kernel]})
+    _print({"kernels": [kernel, synth_kernel]})
     print(smi, flush=True)
     _print({"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),

@@ -36,9 +36,11 @@ per batch bucket of one engine:
   its workspaces on the capturing stream, hence in the graph's private
   pool) and just after ``capture_end`` (no eager call reuses them).
 
-The int8 GEMM wrapper launches nothing while a graph is captured: the
-capture records its calls by variant (``ops/qgemm.py``
-``recording``) and each replay adds them to the launch counts.
+The hand kernels' wrappers launch nothing while a graph is captured:
+the capture records their calls (the int8 GEMM's by variant,
+``ops/qgemm.py`` ``recording``; the device-synth generator's,
+``ops/synth.py`` ``recording``) and each replay adds them to the launch
+counts.
 
 No ``torch.compile``: it would change the arithmetic by fusing ops. The
 graph replays exactly the kernels the eager step runs, so a replay and
@@ -55,7 +57,7 @@ import numpy as np
 import torch
 
 from evam_tpu_torch.engine import streams
-from evam_tpu_torch.ops import qgemm
+from evam_tpu_torch.ops import qgemm, synth
 
 #: one capture at a time in the process (captures happen at warmup only)
 _capture_lock = threading.Lock()
@@ -68,6 +70,8 @@ class BucketGraph:
     output: torch.Tensor
     #: qgemm launches by variant that one replay makes
     launches: dict[str, int]
+    #: synth launches that one replay makes
+    synth_launches: int = 0
 
 
 class StepGraphs:
@@ -118,7 +122,8 @@ class StepGraphs:
                 if self.freed:
                     raise RuntimeError("graphs were freed")
                 t1 = time.perf_counter()
-                with qgemm.recording() as launches:
+                with qgemm.recording() as launches, \
+                        synth.recording() as synth_launches:
                     torch._C._cuda_clearCublasWorkspaces()
                     graph.capture_begin(pool=self.pool,
                                         capture_error_mode="thread_local")
@@ -127,7 +132,8 @@ class StepGraphs:
                     finally:
                         graph.capture_end()
                         torch._C._cuda_clearCublasWorkspaces()
-                bg = BucketGraph(graph, inputs, output, dict(launches))
+                bg = BucketGraph(graph, inputs, output, dict(launches),
+                                 synth_launches["launches"])
                 self._graphs[b] = bg
                 self.timings[b] = (eager_s, time.perf_counter() - t1)
         return bg
@@ -140,6 +146,7 @@ class StepGraphs:
             static.copy_(x, non_blocking=True)
         bg.graph.replay()
         qgemm.count_replay(bg.launches)
+        synth.count_replay(bg.synth_launches)
         return bg.output
 
     def pool_bytes(self) -> int | None:

@@ -26,6 +26,14 @@ stream placer, and a mesh twin for the batch class. With one entry
 ``sharded`` degrades to off, and says so in the log, as the
 reference's does. A shard on another device gets its own copy of the
 model's weights; shards on one device share them.
+
+``device_synth=True`` is the reference's device-synth serving mode:
+video stages submit one uint32 seed a frame, and every wired engine
+(detect, classify, action encode, fused) wraps its step in
+``steps.wrap_device_synth``, so the wire batch is made on the device at
+the ingest size the stage passes as ``synth_wire_hw``. The wrap is part
+of the step a device's factory builds, so fleet shards, the mesh twin
+and supervisor rebuilds serve it too.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from evam_tpu_torch.engine.supervisor import SupervisedEngine
 from evam_tpu_torch.fleet.engine import FleetEngine, MeshStep, fleet_mode
 from evam_tpu_torch.models.registry import LoadedModel, ModelRegistry
 from evam_tpu_torch.obs.metrics import metrics
+from evam_tpu_torch.ops.color import wire_shape
 from evam_tpu_torch.sched.classes import PRIORITIES, SchedConfig
 
 log = logging.getLogger("evam_tpu_torch.engine.hub")
@@ -75,6 +84,7 @@ class EngineHub:
         wire_format: str = "i420",
         warmup: bool = False,
         stall_timeout_s: float = 120.0,
+        device_synth: bool = False,
         supervise: bool = True,
         max_restarts: int = 3,
         restart_window_s: float = 300.0,
@@ -116,6 +126,10 @@ class EngineHub:
         #: host→device frame encoding for video engines
         self.wire_format = wire_format
         self.stall_timeout_s = stall_timeout_s
+        #: video stages submit uint32 seeds and each wired engine's step
+        #: makes its wire batch on the device (steps.wrap_device_synth):
+        #: the serving path without the host→device pixel copy
+        self.device_synth = device_synth
         #: wedged engines are quarantined and rebuilt in place, at most
         #: max_restarts times within restart_window_s
         self.supervise = supervise
@@ -156,6 +170,9 @@ class EngineHub:
         self.fleet_initial_shards = fleet_initial_shards
         self._engines: dict[str, BatchEngine | SupervisedEngine
                             | FleetEngine] = {}
+        #: device_synth only: engine key → the (H, W) its generator makes
+        #: wire frames of (a cache hit at another size is refused)
+        self._synth_hw: dict[str, tuple[int, int]] = {}
         self._models: dict[str, LoadedModel] = {}
         #: per-device copies of the models, for shards on other devices
         self._device_models: dict[tuple[str, str], LoadedModel] = {}
@@ -189,6 +206,7 @@ class EngineHub:
         """Get or create the shared engine for (kind, model, instance)."""
         if kind not in _BUILDERS:
             raise ValueError(f"no step builder for stage kind '{kind}'")
+        synth_hw = builder_kwargs.pop("synth_wire_hw", None)
         key = f"{kind}:{instance_id or model_key}"
         with self._lock:
             if key not in self._engines:
@@ -200,15 +218,22 @@ class EngineHub:
                     # masked region packing: one fixed-shape step over
                     # the packed unit block (engine/ragged.py)
                     builder = step_builders.build_classify_step_ragged
+                synth = self.device_synth and wired
 
                 def make_step(dev):
-                    return builder(self._model_on(model_key, dev),
+                    step = builder(self._model_on(model_key, dev),
                                    **builder_kwargs)
+                    return (self._synth_wrap(step, synth_hw, key) if synth
+                            else step)
 
                 self._engines[key] = self._build(
                     key, make_step(self.device), input_names,
                     ragged_spec=spec, make_step=make_step)
+                if synth:
+                    self._synth_hw[key] = tuple(synth_hw)
                 log.info("created engine %s (model %s)", key, model_key)
+            elif self.device_synth and synth_hw is not None:
+                self._check_synth_hw(key, synth_hw)
             return self._engines[key]
 
     def fused_engine(self, det_key: str, cls_key: str,
@@ -219,6 +244,7 @@ class EngineHub:
         arguments (the object-class filter among them) are part of the
         key: pipelines share a fused engine only where it computes the
         same thing."""
+        synth_hw = builder_kwargs.pop("synth_wire_hw", None)
         kw_sig = ",".join(f"{k}={v}" for k, v in sorted(builder_kwargs.items()))
         key = f"detect_classify:{instance_id or det_key + '+' + cls_key}:{kw_sig}"
         with self._lock:
@@ -226,15 +252,46 @@ class EngineHub:
                 builder_kwargs.setdefault("wire_format", self.wire_format)
 
                 def make_step(dev):
-                    return step_builders.build_detect_classify_step(
+                    step = step_builders.build_detect_classify_step(
                         self._model_on(det_key, dev),
                         self._model_on(cls_key, dev), **builder_kwargs)
+                    return (self._synth_wrap(step, synth_hw, key)
+                            if self.device_synth else step)
 
                 self._engines[key] = self._build(
                     key, make_step(self.device), ("frames",),
                     make_step=make_step)
+                if self.device_synth:
+                    self._synth_hw[key] = tuple(synth_hw)
                 log.info("created fused engine %s", key)
+            elif self.device_synth and synth_hw is not None:
+                self._check_synth_hw(key, synth_hw)
             return self._engines[key]
+
+    def _check_synth_hw(self, key: str, synth_hw) -> None:
+        """A device-synth cache hit must ask for the wire size the
+        engine makes: seeds carry no shape, so nothing downstream would
+        catch a mismatch (it would serve the wrong wire size)."""
+        have = self._synth_hw.get(key)
+        if have is not None and tuple(synth_hw) != have:
+            raise ValueError(
+                f"engine {key}: device_synth makes wire frames for {have} "
+                f"but a stage requested {tuple(synth_hw)} — give the "
+                "stages matching ingest sizes or distinct "
+                "model-instance-ids")
+
+    def _synth_wrap(self, step_fn, synth_hw: tuple[int, int] | None,
+                    key: str):
+        """Wrap a wire-frame step for device_synth (the stage passes its
+        ingest (H, W) as ``synth_wire_hw``, so the generator makes wire
+        batches of the exact serving shape)."""
+        if synth_hw is None:
+            raise ValueError(
+                f"engine {key}: EngineHub(device_synth=True) requires the "
+                "stage to pass synth_wire_hw=(H, W)")
+        h, w = synth_hw
+        return step_builders.wrap_device_synth(
+            step_fn, wire_shape(self.wire_format, h, w))
 
     def _ragged_spec(self, kind: str, builder_kwargs: dict
                      ) -> RaggedSpec | None:
@@ -268,11 +325,12 @@ class EngineHub:
         shard's quarantine, not the fleet's."""
         # the AOT cache's program fingerprint (the reference's): what at
         # the hub level changes what the step computes — key, wire
-        # format, device synth (the port has none: 0), ragged mode, unit
-        # budget, scheduler. Every factory of the key (the engine, its
-        # supervisor's rebuilds, each fleet shard and the twin) carries
-        # it, so their warm runs attribute hits and misses alike
-        aot_key = (f"{key}|wire={self.wire_format}|synth=0"
+        # format, device synth, ragged mode, unit budget, scheduler.
+        # Every factory of the key (the engine, its supervisor's
+        # rebuilds, each fleet shard and the twin) carries it, so their
+        # warm runs attribute hits and misses alike
+        aot_key = (f"{key}|wire={self.wire_format}"
+                   f"|synth={int(self.device_synth)}"
                    f"|ragged={self.ragged}|ub={self.ragged_unit_budget}"
                    f"|sched={int(self.sched is not None)}")
         steps: list[tuple[torch.device, object]] = [(self.device, step_fn)]

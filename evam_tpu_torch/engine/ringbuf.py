@@ -38,7 +38,10 @@ numpy by default, page-locked host memory on a ``cuda`` engine
 (:func:`pinned_alloc`), so the block's host→device copy is a true
 asynchronous DMA; the unit block and ``seg`` are staged the same way.
 Each slot also carries ``device``, a dict the engine keeps its per-slot
-device buffers in.
+device buffers in. A 0-d item (a device-synth seed, ``np.uint32``) takes
+one element of a ``(capacity,)`` uint32 block, copied to the device as
+B × 4 bytes; its pad tail is zeroed like any block's, so pad rows carry
+seed 0.
 """
 
 from __future__ import annotations

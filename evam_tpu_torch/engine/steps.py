@@ -13,10 +13,11 @@ the device when the step is built.
 
 Ported: the detect step (SSD and YOLO detectors), the classify step
 and its packed-ragged form (``EVAM_RAGGED=packed``), the fused
-detect+classify step, the action encode and decode steps and the audio
-step. A model that already emits probabilities (an IR's in-graph
-SoftMax: ``conf_is_prob``, ``head_is_prob``, ``out_is_prob``) is not
-softmaxed again. Each step names the hand kernels' libraries it
+detect+classify step, the action encode and decode steps, the audio
+step, and :func:`wrap_device_synth` with the generator's recipe
+:func:`weyl_bits` (``ops/synth.py``). A model that already emits
+probabilities (an IR's in-graph SoftMax: ``conf_is_prob``,
+``head_is_prob``, ``out_is_prob``) is not softmaxed again. Each step names the hand kernels' libraries it
 launches (``step.libraries``), so an engine loads them before its
 first warm run.
 """
@@ -38,6 +39,10 @@ from evam_tpu_torch.ops.preprocess import (
     prepare_constants,
     preprocess_bgr,
     preprocess_wire,
+)
+from evam_tpu_torch.ops.synth import (  # noqa: F401 — weyl_bits re-exported
+    synth_wire,
+    weyl_bits,
 )
 
 #: Packed detection row layout: [x0, y0, x1, y1, score, label, valid]
@@ -64,6 +69,31 @@ def _declare_libraries(step: Callable, *models: LoadedModel) -> Callable:
     run, outside the device lock (``engine/batcher.py`` ``warmup``)."""
     step.libraries = step_libraries(*models)
     return step
+
+
+def wrap_device_synth(step_fn: Callable, wire_shape: tuple[int, ...]
+                      ) -> Callable:
+    """Device-synth serving ingest (``EngineHub(device_synth=True)``):
+    the step takes one uint32 seed an item in place of its wire frame,
+    and the uint8 wire batch ``[B, *wire_shape]`` is made on the device
+    (``ops/synth.py``: the hand kernel on the card, its plain version on
+    the CPU) before the wrapped step runs. ``synth_step(seeds, *rest)``:
+    ``rest`` is the classify step's boxes (and ``seg`` on a packed
+    engine). The serving path is the host one without the per-frame
+    host→device pixel copy: every thread, queue, batch, pad row and
+    readback runs as before, on B × 4 bytes of seeds.
+
+    ``synth_step.libraries`` is the inner step's and ``"synth"``; an
+    engine loads them only on the card."""
+    shape = tuple(int(d) for d in wire_shape)
+
+    def synth_step(seeds: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return step_fn(synth_wire(seeds, shape), *rest)
+
+    synth_step.libraries = tuple(getattr(step_fn, "libraries", ())) + (
+        "synth",)
+    return synth_step
 
 
 def _head_probs(model: LoadedModel, name: str, out) -> torch.Tensor:

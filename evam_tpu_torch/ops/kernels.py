@@ -17,10 +17,11 @@ name, the sha256 of its source and the flags, the device's name and
 arch; the header holds the versions it is valid under. A hit writes
 the payload to a path of its own named by the key and the payload's
 digest (``dlopen`` caches by path, and a mapped file must never be
-rewritten), loads it, and runs the library's self-test (one launch of
-K1 against its plain version; one stream and one page-locked block of
-the engines' library): a self-test that fails is an ``execute`` miss,
-and the library is discarded, rebuilt and never served. A miss runs
+rewritten), loads it, and runs the library's self-test (launches of
+K1 and of the synth kernel against their plain versions; one stream and
+one page-locked block of the engines' library): a self-test that fails
+is an ``execute`` miss, and the library is discarded, rebuilt and never
+served. A miss runs
 ``nvcc`` as without the cache, then stores the library. A failed
 ``nvcc`` raises: there is no plain fallback.
 """
@@ -46,14 +47,16 @@ log = logging.getLogger("evam_tpu_torch.ops.kernels")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-#: library name → CUDA source under csrc/: the int8 GEMM kernel, and the
-#: engines' streams and page-locked memory (no kernel:
-#: ``engine/streams.py``)
-SOURCES = {"qgemm": "qgemm.cu", "engine_cuda": "engine_cuda.cu"}
+#: library name → CUDA source under csrc/: the int8 GEMM kernel, the
+#: device-synth wire generator (``ops/synth.py``), and the engines'
+#: streams and page-locked memory (no kernel: ``engine/streams.py``)
+SOURCES = {"qgemm": "qgemm.cu", "synth": "synth.cu",
+           "engine_cuda": "engine_cuda.cu"}
 
 #: library name → "module:function" of its self-test, run on a library
 #: the AOT store served before it is used
 SELF_TESTS = {"qgemm": "evam_tpu_torch.ops.qgemm:self_test",
+              "synth": "evam_tpu_torch.ops.synth:self_test",
               "engine_cuda": "evam_tpu_torch.engine.streams:self_test"}
 
 #: no --use_fast_math, and IEEE arithmetic spelled out: the int8 codes

@@ -31,10 +31,16 @@ frame's trace handle (the batch it lands in links back to it). With
 EVAM_CKPT on, the detect-class stages' ``snapshot``/``restore`` carry
 the interval counter, the coaster's regions and velocities and the
 gate's state through a stream checkpoint.
+
+On a hub with ``device_synth`` the video stages submit wire ``"seed"``:
+one distinct uint32 a frame (``_SYNTH_SEQ``), from which the engine
+makes the wire frame on the device; the gate still reads the host
+frame.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from collections import deque
@@ -67,11 +73,21 @@ def _wire_safe_size(size: tuple[int, int]) -> tuple[int, int]:
     return (-(-h // 4) * 4, -(-w // 2) * 2)
 
 
+#: the process's frame-seed sequence for device_synth (the interpreter
+#: lock makes itertools.count().__next__ atomic: every seed distinct
+#: until it wraps at 2³²)
+_SYNTH_SEQ = itertools.count()
+
+
 def _wire_frame(frame: np.ndarray, size: tuple[int, int],
                 wire_format: str) -> np.ndarray:
     """Resize to the engine's ingest size and encode to its wire format:
     one fused pass in the native library, or the numpy copies of its
-    arithmetic, as ``native.py``'s policy says (the same bytes)."""
+    arithmetic, as ``native.py``'s policy says (the same bytes). Wire
+    ``"seed"`` (``EngineHub.device_synth``): the engine makes the pixels
+    on the device, so the stage submits only the frame's uint32 seed."""
+    if wire_format == "seed":
+        return np.uint32(next(_SYNTH_SEQ) & 0xFFFFFFFF)
     if wire_format == "i420":
         return native.resize_bgr_to_i420(frame, size[0], size[1])
     if frame.shape[:2] != tuple(size):
@@ -91,8 +107,12 @@ def _warm(hub: EngineHub, engine, **example: np.ndarray) -> None:
 
 def _warm_engine(hub: EngineHub, engine, ingest_size, wire_format,
                  **extra_example) -> None:
-    """``_warm`` with a zero frame of the engine's wire shape."""
-    frame = np.zeros(wire_shape(wire_format, *ingest_size), np.uint8)
+    """``_warm`` with a zero frame of the engine's wire shape (seed 0
+    for wire ``"seed"``)."""
+    if wire_format == "seed":
+        frame = np.uint32(0)
+    else:
+        frame = np.zeros(wire_shape(wire_format, *ingest_size), np.uint8)
     _warm(hub, engine, frames=frame, **extra_example)
 
 
@@ -190,12 +210,13 @@ class DetectStage(AsyncStage):
                 name, self.threshold, ENGINE_SCORE_FLOOR, ENGINE_SCORE_FLOOR)
         self.interval = _parse_interval(properties)
         self.model = hub.model(model_key)
-        self.wire = hub.wire_format
+        self.wire = "seed" if hub.device_synth else hub.wire_format
         self.ingest_size = _wire_safe_size(
             (self.model.preprocess.height, self.model.preprocess.width))
         self.engine = hub.engine(
             "detect", model_key, properties.get("model-instance-id"),
-            score_threshold=ENGINE_SCORE_FLOOR)
+            score_threshold=ENGINE_SCORE_FLOOR,
+            synth_wire_hw=self.ingest_size)
         _warm_engine(hub, self.engine, self.ingest_size, self.wire)
         #: None unless inference-interval=adaptive or EVAM_GATE=on
         self.gate = maybe_gate(properties, engine_name=self.engine.name)
@@ -283,7 +304,7 @@ class ClassifyStage(AsyncStage):
         self.object_class = properties.get("object-class")
         self.interval = max(1, int(properties.get("reclassify-interval", 1)))
         self.threshold = float(properties.get("threshold", 0.0))
-        self.wire = hub.wire_format
+        self.wire = "seed" if hub.device_synth else hub.wire_format
         self.model = hub.model(model_key)
         # crops are taken on the device from the submitted frame: one
         # ingest size keeps cross-stream batches stackable while
@@ -292,7 +313,7 @@ class ClassifyStage(AsyncStage):
             tuple(properties.get("ingest-size", (432, 768))))
         self.engine = hub.engine(
             "classify", model_key, properties.get("model-instance-id"),
-            roi_budget=self.ROI_BUDGET)
+            roi_budget=self.ROI_BUDGET, synth_wire_hw=self.ingest_size)
         #: a packed engine takes each frame's real region rows, shape
         #: (k, 4), and packs them across the batch
         self._packed = self.engine.ragged == "packed"
@@ -360,14 +381,15 @@ class FusedDetectClassifyStage(AsyncStage):
         if self.object_class:
             allowed = tuple(i for i, lbl in enumerate(self.det_model.labels)
                             if lbl == self.object_class)
-        self.wire = hub.wire_format
+        self.wire = "seed" if hub.device_synth else hub.wire_format
         self.ingest_size = _wire_safe_size(
             (self.det_model.preprocess.height, self.det_model.preprocess.width))
         self.engine = hub.fused_engine(
             det_key, cls_key, det_props.get("model-instance-id"),
             roi_budget=self.ROI_BUDGET,
             score_threshold=ENGINE_SCORE_FLOOR,
-            allowed_label_ids=allowed)
+            allowed_label_ids=allowed,
+            synth_wire_hw=self.ingest_size)
         _warm_engine(hub, self.engine, self.ingest_size, self.wire)
         self.cls_model = hub.model(cls_key)
         self._heads = _head_slices(self.cls_model, offset=7)
@@ -442,11 +464,12 @@ class ActionStage(AsyncStage):
         # two engines: the decoder submit runs on the encoder engine's
         # completer thread, never on the engine it waits for
         self.enc_engine = hub.engine("action_encode", enc_key,
-                                     properties.get("model-instance-id"))
+                                     properties.get("model-instance-id"),
+                                     synth_wire_hw=self.ingest_size)
         self.dec_engine = hub.engine("action_decode", dec_key)
         self.clip: deque[np.ndarray] = deque(maxlen=CLIP_LEN)
         self.threshold = float(properties.get("threshold", 0.0))
-        self.wire = hub.wire_format
+        self.wire = "seed" if hub.device_synth else hub.wire_format
         _warm_engine(hub, self.enc_engine, self.ingest_size, self.wire)
         embed_dim = getattr(self.enc_model.module, "embed_dim", 512)
         _warm(hub, self.dec_engine,

@@ -214,9 +214,15 @@ def test_unsubscribe_stops_delivery():
         pub.send_multipart([b"t", b"kept"])
         assert _drain(sub.recv_multipart) == [[b"t", b"kept"]]
         sub.unsubscribe(b"t")
-        time.sleep(0.2)  # the cancel crosses the wire
+        # an in-band barrier: the publisher applies one connection's
+        # subscription commands in order, so once a message on a topic
+        # subscribed after the cancel arrives, the cancel is in force
+        sub.subscribe(b"m")
+        _until(lambda: pub.send_multipart([b"m", b"probe"])
+               or sub.recv_multipart())
         pub.send_multipart([b"t", b"gone"])
-        assert sub.recv_multipart() is None
+        pub.send_multipart([b"m", b"marker"])
+        assert _drain(sub.recv_multipart) == [[b"m", b"marker"]]
     finally:
         sub.close()
         pub.close()

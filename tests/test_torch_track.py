@@ -212,10 +212,13 @@ def test_region_coaster_state_equals_the_references():
 # ------------------------------------------------- both REST servers
 
 
-def _reference_serve(jreg, path: str, body: dict) -> tuple[dict, dict]:
+def _reference_serve(jreg, path: str, body: dict,
+                     **hub_kw) -> tuple[dict, dict]:
     """The request through the reference's server (aiohttp TestClient);
-    returns its engine rows and the instance's final status."""
-    hub = JaxHub(jreg, plan=build_mesh(), max_batch=4, deadline_ms=500.0)
+    returns its engine rows and the instance's final status.
+    ``hub_kw``: more arguments of its EngineHub."""
+    hub = JaxHub(jreg, plan=build_mesh(), max_batch=4, deadline_ms=500.0,
+                 **hub_kw)
     registry = JaxPipelineRegistry(
         ref_settings.Settings(pipelines_dir=str(REPO / "pipelines")), hub=hub)
 
@@ -239,15 +242,17 @@ def _reference_serve(jreg, path: str, body: dict) -> tuple[dict, dict]:
         registry.stop_all()
 
 
-def _port_serve(models, dtype: str, path: str, body: dict) -> tuple[dict, dict]:
-    """The same request through the port's server."""
+def _port_serve(models, dtype: str, path: str, body: dict,
+                **hub_kw) -> tuple[dict, dict]:
+    """The same request through the port's server (``hub_kw`` as for
+    :func:`_reference_serve`)."""
     registry = ModelRegistry(models_dir=models, dtype=dtype, device="cpu",
                              allow_random_weights=True, **SMALL)
     srv = PortServer(PipelineRegistry(
         Settings(pipelines_dir=str(REPO / "pipelines"), device="cpu",
                  drain_timeout_s=10.0),
         hub=EngineHub(registry, device="cpu", max_batch=16,
-                      deadline_ms=100.0)))
+                      deadline_ms=100.0, **hub_kw)))
     try:
         status, iid = srv.request("POST", path, body)
         assert status == 200, iid
